@@ -5,7 +5,7 @@
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
-  1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the same bf16
      tensors at the main path's shapes, each error beside its tolerance;
   3. main path, staged route: qwen3-4b at full width (random weights from a
@@ -22,7 +22,28 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      their bound, the plain version and, for flash attention, one
      ``scaled_dot_product_attention`` call;
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
-     decode steps: device busy time by kernel and the device idle share.
+     decode steps: device busy time by kernel and the device idle share;
+  8. continuous batching at full width: qwen3-4b on the fused route serves
+     a trace of three requests (8192, 3000 and 1024 prompt tokens) through
+     ``Engine.serve`` over the paged pool, then a second trace on the same
+     state whose prompt shares 4096 tokens with the first request (a
+     prefix hit of exactly 4096 tokens); launch counts must be exactly one
+     score and one selected-attention launch per layer per step, no flash
+     launch and no paged launch (the serve step gathers a linear view, as
+     the reference's does); a third trace (a 4096-token hit beside fresh
+     prompts, ragged tails, an idle row) holds every score and
+     selected-attention call of the run to its plain version at the
+     geometry the step gives it; a profiled fourth trace gives the gather
+     and scatter device time and the idle share of the serve path;
+  9. the paged kernel on that pool: layer 0's pool leaves, the first
+     trace's block tables plus a row with a -1 hole and a mapped recycled
+     block of stale positions (a plan id forced into each) and an idle
+     row, per-row starts, plan ids built on the gathered view (prefill
+     chunk, decode; g = 16 and g = 1), held to its plain version and, bit
+     for bit, to the linear kernel on the gathered view;
+ 10. small-input agreement of the serve path: a smoke-size fp32 model
+     serves the same trace on the card and on the CPU, and the tokens
+     equal each other and each request's own ``generate``.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -44,6 +65,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 PROMPT, MAX_NEW = 8192, 32
+SERVE_NEW = 16                     # new tokens per request in phase 8
 
 
 def log(msg=""):
@@ -189,12 +211,14 @@ def phase_parity(torch, np, dev, K):
 def reset_counts(K):
     for m in (K["score"], K["flash"], K["selected"]):
         m.LAUNCHES = 0
+    K["selected"].PAGED_LAUNCHES = 0
 
 
 def read_counts(K):
     return {"quoka_score": K["score"].LAUNCHES,
             "flash_attention": K["flash"].LAUNCHES,
-            "selected_attention": K["selected"].LAUNCHES}
+            "selected_attention": K["selected"].LAUNCHES,
+            "selected_attention_paged": K["selected"].PAGED_LAUNCHES}
 
 
 def phase_main(torch, np, K, model, label):
@@ -252,6 +276,447 @@ def phase_small_agreement(torch, np):
             raise AssertionError(f"smoke greedy tokens differ, {label}: "
                                  f"{tc} vs {tg}")
         log(f"  smoke greedy tokens equal, {label}")
+
+
+POOL_RANGES = ("pool_gather", "pool_scatter")
+
+
+def range_device_ms(prof, names):
+    """{name: (device ms, calls)} of the ``record_function`` ranges
+    ``names``: the summed durations of the kernels launched inside each
+    range (its CPU-side event counts its children's kernels; the
+    GPU-side annotation of the same name spans the gaps between them
+    too, so it is not used)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.name in names and e.device_type == DeviceType.CPU:
+            ms, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    return out
+
+
+class ServeKernelCheck:
+    """For the length of one ``with`` block, every call of the facade's
+    score and linear selected-attention entries (``kernels/ops.py``)
+    launches its kernel as usual and is then held to its plain version on
+    the same inputs (the plain runs launch nothing).  The serve state's
+    step functions are wrapped too, so each kernel call knows its step's
+    block table.  Records, per call: the rows, whether the live rows
+    (table not all -1) have distinct starts, whether an idle row (table
+    all -1) is in the step, and whether a live row's chunk has a ragged
+    tail (pos -1 inside it).  An idle prefill row has no valid key at all
+    and must come out as exact zeros."""
+
+    def __init__(self, torch, np, K, state):
+        from repro_torch.kernels import ops
+        self.torch, self.np, self.ops, self.ref = torch, np, ops, K["ref"]
+        self.state = state
+        self.table = None
+        self.calls = {"quoka_score": [], "selected_attention": []}
+
+    def rows(self, b, dev):
+        """(idle, live) bool (b,) of the current step."""
+        tab = self.torch.as_tensor(self.table, device=dev)
+        if tab.shape[0] != b:
+            raise AssertionError(f"kernel batch {b} != step rows "
+                                 f"{tab.shape[0]}")
+        idle = (tab < 0).all(1)
+        return idle, ~idle
+
+    def __enter__(self):
+        ops, ref, torch = self.ops, self.ref, self.torch
+        self.orig = (ops.quoka_score_bhtd, ops.selected_attention_bhtd,
+                     self.state.fns)
+        score_k, sel_k, fns = self.orig
+
+        def step_fn(fn):
+            def run(data, table, *args):
+                self.table = table
+                return fn(data, table, *args)
+            return run
+
+        def score(qbar, k, valid):
+            out = score_k(qbar, k, valid)
+            want = ref.score_ref(qbar, k, valid)
+            idle, live = self.rows(qbar.shape[0], qbar.device)
+            n_valid = valid.sum(1)
+            self.note("quoka_score", qbar.shape[2], out, want, 1e-4,
+                      len(set(n_valid[live].tolist())) > 1,
+                      bool(idle.any()), False, qbar.shape[0])
+            return out
+
+        def selected(q, k, v, key_pos, block_idx, chunk_start, *,
+                     granularity=1, scale=None):
+            out = sel_k(q, k, v, key_pos, block_idx, chunk_start,
+                        granularity=granularity, scale=scale)
+            want = ref.selected_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), key_pos, block_idx,
+                                    chunk_start, granularity,
+                                    scale).transpose(1, 2)
+            b, t = q.shape[0], q.shape[2]
+            idle, live = self.rows(b, q.device)
+            st = torch.as_tensor(chunk_start, device=q.device).reshape(-1)
+            st = st.expand(b).long()
+            chunk = torch.gather(key_pos, 1, (st[:, None] + torch.arange(
+                t, device=q.device)).clamp(max=key_pos.shape[1] - 1))
+            ragged = bool((live & (chunk < 0).any(1)).any())
+            empty = (key_pos < 0).all(1)
+            if bool(empty.any()) and float(out[empty].abs().max()) != 0.0:
+                raise AssertionError("selected_attention: a serve row with "
+                                     "no valid key is not exact zeros")
+            self.note("selected_attention", t, out, want, bf16_ulp(want),
+                      len(set(st[live].tolist())) > 1, bool(idle.any()),
+                      ragged, b)
+            return out
+
+        ops.quoka_score_bhtd, ops.selected_attention_bhtd = score, selected
+        self.state.fns = tuple(step_fn(f) for f in fns)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.quoka_score_bhtd, self.ops.selected_attention_bhtd,
+         self.state.fns) = self.orig
+        return False
+
+    def note(self, name, t, out, want, tol, distinct, idle, ragged, rows):
+        if not bool(self.torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: non-finite output on the serve "
+                                 f"path")
+        err = max_err(out, want)
+        if not err <= tol:
+            raise AssertionError(f"{name} on the serve path (t={t}, {rows} "
+                                 f"rows): error {err} above tolerance {tol}")
+        self.calls[name].append(dict(t=t, rows=rows, err=err, tol=tol,
+                                     distinct=distinct, idle=idle,
+                                     ragged=ragged))
+
+    def report(self):
+        """Logs one line per kernel and query width; fails unless each
+        kernel met, at both widths, a step with distinct per-row starts and
+        an idle row (and, for the prefill width of selected attention, a
+        ragged tail).  Returns {kernel: max error}."""
+        errs = {}
+        for name, calls in self.calls.items():
+            widths = sorted({c["t"] for c in calls})
+            if len(widths) != 2:
+                raise AssertionError(f"{name}: serve widths {widths}, want "
+                                     f"a prefill and a decode width")
+            for t in widths:
+                cs = [c for c in calls if c["t"] == t]
+                worst = max(cs, key=lambda c: c["err"] / max(c["tol"],
+                                                             1e-30))
+                cover = dict(distinct=sum(c["distinct"] and c["idle"]
+                                          for c in cs),
+                             ragged=sum(c["ragged"] for c in cs))
+                check(f"{name} serve t={t} ({len(cs)} calls, "
+                      f"{cs[0]['rows']} rows)", worst["err"], worst["tol"],
+                      "every call of the run; the worst against its own "
+                      "tolerance")
+                log(f"    calls with distinct starts and an idle row: "
+                    f"{cover['distinct']}; with a ragged tail: "
+                    f"{cover['ragged']}")
+                need_ragged = name == "selected_attention" and t > 1
+                if not cover["distinct"] or (need_ragged
+                                             and not cover["ragged"]):
+                    raise AssertionError(f"{name} t={t}: the checked serve "
+                                         f"run missed a geometry {cover}")
+            errs[name] = max(c["err"] for c in calls)
+        return errs
+
+
+def phase_serve(torch, np, K, model):
+    """Phase 8: ``Engine.serve`` at full width on the fused route.  The
+    state is built first (kernel build and an idle warm-up step, off the
+    clocks); the counts are set to 0 just before each trace and read just
+    after it.  Returns (state, layer 0's pool leaves, trace 1's tables,
+    numbers, {kernel: max error of the checked trace})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    log("== phase 8: continuous batching, qwen3-4b full width, fused "
+        "g=16, paged pool (block 128, prefill 512 tokens/step, 4 decode "
+        "rows)")
+    rng = np.random.default_rng(8)
+
+    def toks(n):
+        return rng.integers(3, cfg.vocab, (n,)).astype(np.int32)
+
+    p1, p2, p3 = toks(8192), toks(3000), toks(1024)
+    p4 = np.concatenate([p1[:4096], toks(4096)])
+    trace1 = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
+              for i, p in enumerate((p1, p2, p3))]
+    trace2 = [Request(rid=10, tokens=p4, max_new=SERVE_NEW)]
+    # checked: a 4096-token hit (prefill rows start at 4096 beside rows
+    # at 0), ragged tails (1000 = 7 x 128 + 104, 600, 300), an idle row
+    trace3 = [Request(rid=30, tokens=np.concatenate([p1[:4096], toks(1000)]),
+                      max_new=4),
+              Request(rid=31, tokens=toks(600), max_new=4),
+              Request(rid=32, tokens=toks(300), max_new=4)]
+    # profiled: one untraced run, then one of the same shape (fresh
+    # tokens: no prefix hit) with the profiler on
+    trace4 = [[Request(rid=40 + i, tokens=toks(2048), max_new=8)]
+              for i in range(2)]
+    eng = Engine(model, method="quoka")
+    t0 = time.perf_counter()
+    state = eng.make_serve_state(trace1 + trace2, block_size=128,
+                                 max_prefill_tokens=512, max_decode_batch=4)
+    torch.cuda.synchronize()
+    pool = state.pool
+    kv0 = pool.data[0][0]
+    pool_gib = sum(t.numel() * t.element_size() for st in pool.data
+                   for kv in st for t in kv) / 2 ** 30
+    log(f"  state: {pool.num_blocks} blocks x {pool.block_size} slots "
+        f"({pool_gib:.2f} GiB), {state.max_nb} blocks per request, "
+        f"{state.b_prefill} prefill rows, {state.b_decode} decode rows; "
+        f"built and warmed in {time.perf_counter() - t0:.1f} s")
+
+    def run(label, trace, n_new):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K)
+        r = eng.serve(trace, state=state)
+        counts = read_counts(K)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = r.prefill_steps + r.decode_steps
+        want = {"quoka_score": cfg.n_layers * steps, "flash_attention": 0,
+                "selected_attention": cfg.n_layers * steps,
+                "selected_attention_paged": 0}
+        if counts != want:
+            raise AssertionError(f"{label} launches {counts} != {want}")
+        for q in trace:
+            got = r.tokens[q.rid]
+            if got.shape != (n_new,) or got.min() < 0 or \
+                    got.max() >= cfg.vocab:
+                raise AssertionError(f"{label}: bad tokens {got}")
+        log(f"  {label}: wall {r.wall_s:.2f} s, {r.generated} tokens, "
+            f"{r.tokens_per_s:.2f} tok/s, steps {r.steps} "
+            f"({r.prefill_steps} prefill / {r.decode_steps} decode), "
+            f"occupancy {r.occupancy:.2f}, peak {peak:.2f} GiB, "
+            f"launches {counts}")
+        for rid in sorted(r.ttft_s):
+            log(f"    request {rid}: prompt "
+                f"{len(next(q for q in trace if q.rid == rid).tokens)}, "
+                f"cached {r.cached_len[rid]}, TTFT {r.ttft_s[rid]:.3f} s, "
+                f"latency {r.latency_s[rid]:.3f} s")
+        return r, dict(wall_s=r.wall_s, tokens_per_s=r.tokens_per_s,
+                       ttft_s={str(k): v for k, v in r.ttft_s.items()},
+                       prefill_steps=r.prefill_steps,
+                       decode_steps=r.decode_steps, peak_gib=peak,
+                       cached_len={str(k): v
+                                   for k, v in r.cached_len.items()})
+
+    out = {}
+    for label, trace in (("trace1", trace1), ("trace2", trace2)):
+        _, out[label] = run(label, trace, SERVE_NEW)
+    if out["trace2"]["cached_len"]["10"] != 4096:
+        raise AssertionError(f"trace 2 prefix hit "
+                             f"{out['trace2']['cached_len']} != 4096")
+    # tables of the first trace: its prompt blocks stay registered
+    # (matchable) after the trace, so the prefix index gives them back
+    tables = []
+    for q in trace1:
+        fulls, tail = pool.match_prefix(q.tokens)
+        tables.append(fulls + ([tail[0]] if tail else []))
+    # every score and selected-attention call of a serve run held to its
+    # plain version at the step geometry the serve path gives it (untimed)
+    with ServeKernelCheck(torch, np, K, state) as chk:
+        r3, _ = run("trace3 (checked)", trace3, 4)
+    if r3.cached_len[30] != 4096:
+        raise AssertionError(f"trace 3 prefix hit {r3.cached_len} != 4096")
+    errs = chk.report()
+    # where the serve path's time goes: wall and device busy time both
+    # from the profiled window, the untraced wall of the same shape beside
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r4 = eng.serve(trace4[0], state=state)
+    torch.cuda.synchronize()
+    wall_untraced = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(trace4[1], state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side kernel, copy and memset events; the ranges' GPU-side
+    # annotations would count their kernels twice
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in POOL_RANGES]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    rng_ms = range_device_ms(prof, POOL_RANGES)
+    steps = r4.prefill_steps + r4.decode_steps
+    idle = 1 - busy / (wall * 1e3)
+    log(f"  trace4 (prompt 2048, 8 new, prefix hit {r4.cached_len[40]}, "
+        f"{r4.prefill_steps} prefill / {r4.decode_steps} decode steps): "
+        f"profiled wall {wall * 1e3:.1f} ms over {steps} step-function "
+        f"calls, device busy {busy:.1f} ms in it, idle share {idle:.3f}; "
+        f"untraced wall {wall_untraced * 1e3:.1f} ms")
+    for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d} "
+            f"calls  {e.key[:90]}")
+    for name, (ms, n) in sorted(rng_ms.items()):
+        log(f"    {name}: {ms:.2f} ms device in {n} calls "
+            f"({ms / max(n, 1):.3f} ms per call)")
+    out["trace4"] = dict(wall_ms=wall * 1e3, busy_ms=busy, steps=steps,
+                         idle_share=idle,
+                         wall_untraced_ms=wall_untraced * 1e3,
+                         cached_len=r4.cached_len[40],
+                         **{k: dict(device_ms=v[0], calls=v[1])
+                            for k, v in rng_ms.items()})
+    return state, kv0, tables, out, errs
+
+
+HOLE, STALE = 10, 11        # logical blocks of phase 9's fourth row
+
+
+def paged_inputs(torch, np, state, kv0, tables, t, starts, g):
+    """Phase-9 inputs on the serve pool: layer 0's leaves and five rows —
+    the first trace's three tables (-1 padded); a fourth row, the first
+    row's table with a -1 hole at logical block ``HOLE`` and logical block
+    ``STALE`` mapped to a recycled (free) block holding stale positions
+    >= its start; an idle fifth row (table all -1, start 0).  The other
+    free blocks hold stale positions >= 0 below the start.  Per-row
+    ``starts``; random chunk queries; plan ids built by ``plan.build`` on
+    the gathered view, then one id of the fourth row forced into the hole
+    and one into the stale block (no plan picks them: the view reads the
+    hole as pos -1 and the stale block as not yet prior context)."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.serving import pool as pl
+    pool = state.pool
+    dev = kv0.k.device
+    bs = pool.block_size
+    nb = state.max_nb
+    tab = np.full((5, nb), -1, np.int32)
+    for i, blocks in enumerate(tables):
+        tab[i, :len(blocks)] = blocks
+    tab[3] = tab[0]
+    tab[3, HOLE] = -1
+    free = list(pool._free)
+    tab[3, STALE] = free[0]
+    pos = kv0.pos.clone()
+    gen = torch.Generator(device=dev).manual_seed(90 + t)
+    top = max(starts)
+    pos[torch.as_tensor(free[1:], device=dev)] = torch.randint(
+        0, max(top, 1), (len(free) - 1, bs), generator=gen, device=dev,
+        dtype=torch.int32)
+    pos[free[0]] = torch.randint(starts[3], starts[3] + 4096, (bs,),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+    view = pl.gather([[kv0._replace(pos=pos)]], tab, pool.num_blocks,
+                     bs)[0][0]
+    cfg = pool.model.cfg
+    q = torch.randn((5, t, cfg.n_heads, kv0.k.shape[-1]), generator=gen,
+                    device=dev).to(kv0.k.dtype)
+    qcfg = dataclasses.replace(cfg.quoka, granularity=g,
+                               fused_select_attn=g > 1)
+    st = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    idx = plan_mod.build("quoka", q, view.k, view.pos, st, qcfg,
+                         budget=1024).idx
+    if g > 1:
+        idx[3, 0], idx[3, 1] = HOLE * bs // g, STALE * bs // g
+    else:
+        idx[3, :, 0], idx[3, :, 1] = HOLE * bs + 5, STALE * bs + 7
+    return q, pos, torch.as_tensor(tab, device=dev), idx, st, view
+
+
+def phase_paged(torch, np, K, state, kv0, tables):
+    """Phase 9: the paged kernel on the pool the serve path filled, driven
+    through its entry point ``ops.selected_attention(table=)`` (the counts
+    set to 0 just before and read just after), then held to its plain
+    version and, bit for bit, to the linear kernel on the gathered view.
+    Returns (max error against the plain version, launches, the first
+    case's inputs)."""
+    from repro_torch.kernels import ops
+    sa, ref = K["selected"], K["ref"]
+    log("== phase 9: paged selected attention on the serve pool (layer 0)")
+    prefill = [4096, 2944, 896, 4096, 0]      # 2944: ragged tail at 3016
+    decode = [8200, 2990, 1020, 8200, 0]      # 8200: past row 0's blocks
+    cases = ((16, 128, prefill), (16, 1, decode), (1, 128, prefill),
+             (1, 1, decode))
+    inputs = [paged_inputs(torch, np, state, kv0, tables, t, starts, g)
+              for g, t, starts in cases]
+    for q, pos, tab, idx, st, view in inputs[:1]:
+        p3 = view.pos[3].reshape(-1, state.pool.block_size)
+        if int(p3[HOLE].max()) != -1 or int(p3[STALE].min()) < int(st[3]):
+            raise AssertionError("phase 9: hole / stale block not in place")
+    torch.cuda.synchronize()
+    reset_counts(K)
+    bs = state.pool.block_size
+    outs = [ops.selected_attention(q, kv0.k, kv0.v, pos, idx, st,
+                                   granularity=g, table=tab, block_size=bs)
+            for (g, _, _), (q, pos, tab, idx, st, _) in zip(cases, inputs)]
+    torch.cuda.synchronize()
+    counts = read_counts(K)
+    want = {"quoka_score": 0, "flash_attention": 0, "selected_attention": 0,
+            "selected_attention_paged": len(cases)}
+    if counts != want:
+        raise AssertionError(f"phase 9 launches {counts} != {want}")
+    e = 0.0
+    for (g, t, starts), (q, pos, tab, idx, st, view), out in zip(
+            cases, inputs, outs):
+        got = out.transpose(1, 2)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("selected_attention_paged: non-finite")
+        if float(got[4].abs().max()) != 0.0:
+            raise AssertionError("selected_attention_paged: idle row not "
+                                 "exact zeros")
+        qt = q.transpose(1, 2)
+        want = ref.selected_paged_ref(q, kv0.k, kv0.v, pos, idx, st,
+                                      tab, g).transpose(1, 2)
+        lin = sa.selected_attention_bhtd(qt, view.k.transpose(1, 2),
+                                         view.v.transpose(1, 2), view.pos,
+                                         idx, st, granularity=g)
+        err = max_err(got, want)
+        check(f"paged g={g} t={t} starts {starts[:3]} ids "
+              f"{tuple(idx.shape)}", err, bf16_ulp(want),
+              "1 bf16 ulp of the output: fp32 sums, one rounding each")
+        check(f"paged vs linear kernel on the view, g={g} t={t}",
+              max_err(got, lin), 0.0, "bitwise: the same tile reads the "
+              "same rows in the same order")
+        e = max(e, err)
+    return e, counts["selected_attention_paged"], inputs[0]
+
+
+def phase_small_serve(torch, np):
+    """Phase 10: a smoke-size fp32 model serves one trace on the card and
+    on the CPU (same weights): the greedy tokens equal each other and each
+    request's own ``generate`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    log("== phase 10: small serve, card (kernels) vs CPU (plain versions)")
+    base = get_config("qwen3-4b").smoke()
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(3, base.vocab, (n,)).astype(np.int32)
+               for n in (48, 16, 64, 32)]
+    kw = dict(block_size=16, max_decode_batch=3, max_prefill_tokens=32)
+    for label, method, qover in (
+            ("full", "full", {}), ("staged g=1", "quoka", {}),
+            ("fused g=16", "quoka", {"granularity": 16,
+                                     "fused_select_attn": True})):
+        cfg = dataclasses.replace(base, quoka=dataclasses.replace(
+            base.quoka, **qover))
+        cpu = build_model(cfg, device="cpu", seed=2)
+        gpu = Model(cfg)
+        gpu.load_state_dict(cpu.state_dict())
+        tc = Engine(cpu, method=method, device="cpu").serve(
+            make_requests(prompts, 6), **kw).tokens
+        eg = Engine(gpu, method=method)
+        tg = eg.serve(make_requests(prompts, 6), **kw).tokens
+        for i, pr in enumerate(prompts):
+            one = eg.generate({"tokens": pr[None]}, 6).tokens[0]
+            if not (np.array_equal(tc[i], tg[i])
+                    and np.array_equal(tg[i], one)):
+                raise AssertionError(f"serve tokens differ, {label}, "
+                                     f"request {i}: CPU {tc[i]}, card "
+                                     f"{tg[i]}, generate {one}")
+        log(f"  serve tokens equal on card, CPU and per-request generate, "
+            f"{label}")
 
 
 def phase_trace(torch, np, model, prompt=2048, steps=8):
@@ -391,10 +856,11 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_timing(torch, np, dev, K):
+def phase_timing(torch, np, dev, K, paged):
     """Phase 6: each kernel at its main-path prefill shape (and decode
     shape, printed) against its bound, its plain version and, for flash,
-    SDPA with the same mask."""
+    SDPA with the same mask.  ``paged`` = (q (b, t, h, d), k_pool, v_pool,
+    pos_pool, table, plan ids, starts) from phase 9's serve pool."""
     import torch.nn.functional as F
     fa, qs, sa, ref = K["flash"], K["score"], K["selected"], K["ref"]
     junk = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -490,6 +956,45 @@ def phase_timing(torch, np, dev, K):
                                               plain_ms=p_ms["device"],
                                               bound_ms=b_ms, bound_by=b_by,
                                               library_ms=None)
+    # the paged kernel on the serve pool, one request row (the shape of
+    # the linear kernel's row above) and the whole 4-row step; the pool is
+    # cold in L2 as each layer finds it
+    q4, kp, vp, pos, tab4, idx4, st4 = paged
+    g, t = 16, q4.shape[1]
+    bs, n_kv, d = kp.shape[1:]
+    h = q4.shape[2]
+    for b in (1, 4):
+        q, tab, idx, st = q4[:b], tab4[:b], idx4[:b], st4[:b]
+        _, _, kpos = ref.linearize_pool(kp, vp, pos, tab)
+        n_sel = 0
+        for bi in range(b):
+            blocks = idx[bi][idx[bi] >= 0]
+            rows_sel = (blocks[:, None] * g
+                        + torch.arange(g, device=dev)).reshape(-1)
+            pos_sel = kpos[bi, rows_sel]
+            n_sel += int(((pos_sel >= 0) & (pos_sel < st[bi])).sum())
+        # chunk rows this data needs: the mapped, written ones; chunk key
+        # j is attended by the t - j query rows at or after it
+        j = torch.arange(t, device=dev)
+        c_ok = torch.gather(kpos, 1, st[:, None].long() + j) >= 0
+        n_chunk = int(c_ok.sum())
+        pairs = h * (n_sel * t + int((c_ok * (t - j)).sum()))
+        out = torch.empty_like(q)
+        kv_rows = n_kv * (n_sel + n_chunk) * d * 2 * kp.element_size()
+        b_ms, b_by = bound(nbytes(q, out, idx, tab) + kv_rows
+                           + 4 * (idx.numel() * g + b * t), 4 * d * pairs)
+        qt = q.transpose(1, 2)
+        ms = time_ms(torch, lambda: sa.selected_attention_paged(
+            qt, kp, vp, pos, idx, st, tab, granularity=g, block_size=bs),
+            flush)
+        p_ms = time_ms(torch, lambda: ref.selected_paged_ref(
+            q, kp, vp, pos, idx, st, tab, g), flush)
+        log(f"  selected_attention_paged g={g} t={t} rows={b}: {fmt(ms)}  "
+            f"plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})")
+        if b == 1:
+            rows["selected_attention_paged"] = dict(
+                ms=ms["device"], plain_ms=p_ms["device"], bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
     return rows
 
 
@@ -537,7 +1042,7 @@ def main() -> int:
     per_run = layers * (chunks + MAX_NEW - 1)
     r_st, c_st, peak_st = phase_main(torch, np, K, model, "staged")
     want = {"quoka_score": per_run, "flash_attention": per_run,
-            "selected_attention": 0}
+            "selected_attention": 0, "selected_attention_paged": 0}
     if c_st != want:
         raise AssertionError(f"staged launches {c_st} != {want}")
     with torch.no_grad():
@@ -552,20 +1057,29 @@ def main() -> int:
         cfg.quoka, granularity=16, fused_select_attn=True))
     r_fu, c_fu, peak_fu = phase_main(torch, np, K, model, "fused")
     want = {"quoka_score": per_run, "flash_attention": 0,
-            "selected_attention": per_run}
+            "selected_attention": per_run, "selected_attention_paged": 0}
     if c_fu != want:
         raise AssertionError(f"fused launches {c_fu} != {want}")
+    state, kv0, tables, serve, serve_errs = phase_serve(torch, np, K, model)
+    for name, err in serve_errs.items():
+        errs[name] = max(errs[name], err)
+    errs["selected_attention_paged"], n_paged, (q, pos, tab, idx, st, _) = \
+        phase_paged(torch, np, K, state, kv0, tables)
+    paged = (q, kv0.k, kv0.v, pos, tab, idx, st)
+    del state
     model.cfg = cfg
     trace = phase_trace(torch, np, model)
     del model
     torch.cuda.empty_cache()
 
     phase_small_agreement(torch, np)
-    timing = phase_timing(torch, np, dev, K)
+    phase_small_serve(torch, np)
+    timing = phase_timing(torch, np, dev, K, paged)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
-                "selected_attention": c_fu["selected_attention"]}
+                "selected_attention": c_fu["selected_attention"],
+                "selected_attention_paged": n_paged}
     meta = {
         "quoka_score": ("src/repro_torch/kernels/csrc/quoka_score.cu",
                         "src/repro/kernels/quoka_score.py:45"),
@@ -574,6 +1088,9 @@ def main() -> int:
         "selected_attention": (
             "src/repro_torch/kernels/csrc/selected_attention.cu",
             "src/repro/kernels/selected_attention.py:183"),
+        "selected_attention_paged": (
+            "src/repro_torch/kernels/csrc/selected_attention_paged.cu",
+            "src/repro/kernels/selected_attention.py:304"),
     }
     kernels = []
     for name, (src, repl) in meta.items():
@@ -585,7 +1102,8 @@ def main() -> int:
                        peak_gib=peak_st),
         "fused": dict(ttft_s=r_fu.ttft_s, decode_tok_s=r_fu.decode_tps,
                       peak_gib=peak_fu)}
-    log(json.dumps({"main_path": main_path, "trace": trace}))
+    log(json.dumps({"main_path": main_path, "trace": trace,
+                    "serve": serve}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

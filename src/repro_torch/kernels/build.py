@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("quoka_score.cu", "flash_attention.cu", "selected_attention.cu")
+SOURCES = ("quoka_score.cu", "flash_attention.cu", "selected_attention.cu",
+           "selected_attention_paged.cu")
 HEADERS = ("attn_tile.cuh",)
 LIB_NAME = "libquoka_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,6 +39,8 @@ SIGNATURES = {
     "selected_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I] + [_L] * 14
                                  + [_F, _P],
+    "selected_attention_paged_launch": [_I, _I] + [_P] * 8 + [_I] * 9
+                                       + [_L] * 14 + [_F, _P],
 }
 
 _lib = None

@@ -3,7 +3,7 @@
 //
 // Replaces: src/repro/kernels/selected_attention.py, selected_attention_bhtd
 // (the Pallas TPU kernel: _kernel, _masks, _k_tile), linear cache view only.
-// The paged variant (selected_attention_paged) is not ported yet.
+// The paged variant is selected_attention_paged.cu.
 //
 // The walk has two parts over "logical keys":
 //   selected  nb * g keys: plan id s covers cache rows id*g .. id*g+g-1 (an

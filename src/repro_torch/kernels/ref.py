@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the three hand-written kernels.
+"""Plain PyTorch versions of the four hand-written kernels.
 
 They are the reference package's production oracles written again in
 torch: ``flash_attention_ref`` (``repro/kernels/ref.py``), ``score_ref``
-(``repro/kernels/ops.py::_score_xla``) and ``selected_ref``
-(``repro/kernels/ops.py::_selected_xla``).  The kernel wrappers call them
+(``repro/kernels/ops.py::_score_xla``), ``selected_ref``
+(``repro/kernels/ops.py::_selected_xla``) and ``selected_paged_ref``
+(``_linearize_pool`` + ``_selected_xla``).  The kernel wrappers call them
 for CPU tensors, the CPU tests hold them to the JAX package, and
 ``chip_smoke.py`` holds each CUDA kernel to them on the card.
 
 Layouts follow the reference: the attention and score oracles are BHTD
-(kernel-native), ``selected_ref`` is BTHD like ``_selected_xla``.
+(kernel-native), ``selected_ref`` and ``selected_paged_ref`` are BTHD like
+``_selected_xla``.
 """
 from __future__ import annotations
 
@@ -120,3 +122,35 @@ def selected_ref(q, k, v, key_pos, plan_idx, chunk_start, g: int,
         torch.cat([v_sel, v_chunk], dim=1).transpose(1, 2),
         causal=True, boundary=boundary, k_valid=k_valid, scale=scale)
     return out.transpose(1, 2)
+
+
+def linearize_pool(k_pool, v_pool, pos_pool, table):
+    """Paged pool leaves -> per-request linear view (the reference's
+    ``ops.py::_linearize_pool``).  k_pool, v_pool (N, bs, n_kv, d);
+    pos_pool (N, bs); table (b, nb) physical block ids, -1 = unmapped.
+    Unmapped entries read as an empty block: pos -1 and zero K/V (the
+    reference reads block 0's K/V there; the position mask hides it either
+    way, as it does in ``serving/pool.py::gather``)."""
+    b, nb = table.shape
+    bs, n_kv, d = k_pool.shape[1:]
+    table = table.to(device=k_pool.device, dtype=torch.int64)
+    mapped = table >= 0
+    safe = table.clamp(min=0)
+    hole = ~mapped[:, :, None, None, None]
+    k_lin = k_pool[safe].masked_fill(hole, 0)
+    v_lin = v_pool[safe].masked_fill(hole, 0)
+    pos_lin = pos_pool[safe].to(torch.int32).masked_fill(~mapped[:, :, None],
+                                                         -1)
+    return (k_lin.reshape(b, nb * bs, n_kv, d),
+            v_lin.reshape(b, nb * bs, n_kv, d), pos_lin.reshape(b, nb * bs))
+
+
+def selected_paged_ref(q, k_pool, v_pool, pos_pool, plan_idx, chunk_start,
+                       table, g: int, scale: Optional[float] = None):
+    """``selected_ref`` read through a paged pool's block table, BTHD:
+    q (b, t, h, d); pool leaves as in ``linearize_pool``; plan ids and the
+    chunk start on the LOGICAL grid (the request's blocks in table
+    order).  The pool is linearized with a gather first (this is the
+    oracle; the kernel reads the pool blocks in place)."""
+    k, v, key_pos = linearize_pool(k_pool, v_pool, pos_pool, table)
+    return selected_ref(q, k, v, key_pos, plan_idx, chunk_start, g, scale)

@@ -1,13 +1,25 @@
-"""Serving launcher, one-shot batch mode (counterpart of
-``repro/launch/serve.py``; continuous mode is not ported yet).
+"""Serving launcher (counterpart of ``repro/launch/serve.py``).
 
-Runs on the CUDA card unless ``--device cpu`` is given:
+Runs on the CUDA card unless ``--device cpu`` is given.  One-shot batch
+mode (TTFT / decode throughput):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --prompt-len 8192 --max-new 32 --method quoka
 
+Continuous-batching trace mode (paged KV pool + chunked-prefill/decode
+scheduler + cross-request prefix caching):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
+        --n-requests 16 --rate 8 --max-decode-batch 8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
+        --trace multiturn --turns 4 --turn-gap 0.5 [--no-prefix-cache]
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
+        --trace multi_tenant --policy slo --ttft-deadline 0.5
+
 Weights are random from a seed unless ``--ckpt`` names a reference npz
-checkpoint; latency does not depend on the weights.
+checkpoint; latency does not depend on the weights.  Not ported yet: the
+telemetry flags (``--metrics``, ``--trace-dir``), the host tier flags and
+``--mesh``.
 """
 from __future__ import annotations
 
@@ -19,6 +31,8 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.request import make_requests
+from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.training import checkpoint as ckpt
 
 
@@ -32,13 +46,156 @@ def parse_args(argv=None):
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--granularity", type=int, default=None,
                     help="selection granularity in tokens (default: config)")
     ap.add_argument("--fused", action="store_true",
                     help="fused selected attention (needs --granularity > 1)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    # continuous-batching trace mode
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve a request trace with the paged-pool "
+                         "scheduler instead of one synchronous batch")
+    ap.add_argument("--n-requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=float("inf"),
+                    help="Poisson arrival rate, requests/s (inf = all at 0)")
+    ap.add_argument("--trace", default="poisson",
+                    choices=("poisson", "shared", "multiturn",
+                             "multi_tenant"),
+                    help="trace shape: independent prompts, a shared "
+                         "system prompt, multi-turn conversations (those "
+                         "two exercise the prefix cache), or a background "
+                         "tenant's long prompts vs an interactive tenant's "
+                         "deadline-carrying short prompts (--policy slo)")
+    ap.add_argument("--policy", default="fcfs", choices=("fcfs", "slo"),
+                    help="scheduling policy: FCFS head-of-line (default) "
+                         "or SLO-aware (EDF admission, per-tenant weighted "
+                         "fairness, preemption of running decodes)")
+    ap.add_argument("--ttft-deadline", type=float, default=0.5,
+                    help="TTFT deadline (s) of the interactive tenant's "
+                         "requests (--trace multi_tenant)")
+    ap.add_argument("--shared-len", type=int, default=512,
+                    help="shared system-prompt tokens (--trace shared)")
+    ap.add_argument("--turns", type=int, default=4,
+                    help="turns per conversation (--trace multiturn)")
+    ap.add_argument("--turn-gap", type=float, default=0.5,
+                    help="seconds between a conversation's turns "
+                         "(--trace multiturn)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request KV prefix caching")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="KV pool block size (default: chunk_size)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV pool size (default: fits max-decode-batch)")
+    ap.add_argument("--max-prefill-tokens", type=int, default=None,
+                    help="prompt tokens packed per engine step "
+                         "(default: 4 * chunk_size)")
+    ap.add_argument("--max-decode-batch", type=int, default=8)
     return ap.parse_args(argv)
+
+
+def _build_trace(vocab, args, rng):
+    """(prompts, arrivals, extras) for one of four trace shapes, as the
+    reference builds them from the same numpy seed (extras: per-request
+    ``make_requests`` kwargs, empty for the single-tenant traces)."""
+    if args.trace == "multi_tenant":
+        n_bg = max(1, args.n_requests // 4)
+        n_int = max(1, args.n_requests - n_bg)
+        bg = [rng.integers(3, vocab, (args.prompt_len,)).astype(np.int32)
+              for _ in range(n_bg)]
+        ilen = max(1, args.prompt_len // 8)
+        inter = [rng.integers(3, vocab,
+                              (int(rng.integers(max(1, ilen // 2),
+                                                ilen + 1)),)).astype(np.int32)
+                 for _ in range(n_int)]
+        rate = args.rate if not np.isinf(args.rate) else 1000.0
+        arrivals = np.concatenate(
+            [np.zeros(n_bg), np.cumsum(rng.exponential(1.0 / rate, n_int))])
+        extras = dict(
+            tenants=["background"] * n_bg + ["interactive"] * n_int,
+            priorities=[0] * n_bg + [1] * n_int,
+            ttft_deadlines=[None] * n_bg + [args.ttft_deadline] * n_int)
+        return bg + inter, arrivals, extras
+    if args.trace in ("poisson", "shared"):
+        arrivals = (np.zeros(args.n_requests) if np.isinf(args.rate)
+                    else np.cumsum(rng.exponential(1.0 / args.rate,
+                                                   args.n_requests)))
+        if args.trace == "poisson":
+            lens = rng.integers(max(1, args.prompt_len // 2),
+                                args.prompt_len + 1, args.n_requests)
+            prompts = [rng.integers(3, vocab, (int(n),)).astype(np.int32)
+                       for n in lens]
+        else:
+            sys_tok = rng.integers(3, vocab,
+                                   (args.shared_len,)).astype(np.int32)
+            sfx = max(1, args.prompt_len - args.shared_len)
+            prompts = [np.concatenate(
+                [sys_tok, rng.integers(3, vocab,
+                                       (int(rng.integers(1, sfx + 1)),)
+                                       ).astype(np.int32)])
+                for _ in range(args.n_requests)]
+        return prompts, arrivals, {}
+    n_conv = max(1, args.n_requests // args.turns)
+    ext = max(1, args.prompt_len // (2 * args.turns))
+    prompts, arrivals = [], []
+    for c in range(n_conv):
+        start = (0.0 if np.isinf(args.rate)
+                 else float(rng.exponential(args.turns / args.rate)) * c)
+        cur = rng.integers(3, vocab,
+                           (args.prompt_len // 2,)).astype(np.int32)
+        for t in range(args.turns):
+            if t:
+                cur = np.concatenate(
+                    [cur, rng.integers(3, vocab, (ext,)).astype(np.int32)])
+            prompts.append(cur.copy())
+            arrivals.append(start + t * args.turn_gap)
+    return prompts, np.asarray(arrivals), {}
+
+
+def run_continuous(model, args, device):
+    """Trace-driven continuous batching with prefix caching; a first serve
+    of the longest prompt warms the real step geometry off the clocks."""
+    rng = np.random.default_rng(0)
+    prompts, arrivals, extras = _build_trace(model.cfg.vocab, args, rng)
+    eng = Engine(model, method=args.method, device=device,
+                 sampler=SamplerConfig(temperature=args.temperature))
+    kw = dict(block_size=args.block_size, num_blocks=args.num_blocks,
+              max_prefill_tokens=args.max_prefill_tokens,
+              max_decode_batch=args.max_decode_batch,
+              prefix_cache=not args.no_prefix_cache, policy=args.policy)
+    longest = max(prompts, key=len)
+    eng.serve(make_requests([longest] * 2, args.max_new), **kw)
+    res = eng.serve(make_requests(prompts, args.max_new, arrivals=arrivals,
+                                  **extras), **kw)
+    ttft = np.asarray(sorted(res.ttft_s.values()))
+    print(f"{args.method:10s} {res.generated} tokens / {res.wall_s:.2f} s "
+          f"= {res.tokens_per_s:8.1f} tok/s   "
+          f"TTFT p50 {np.percentile(ttft, 50) * 1e3:7.1f} ms   "
+          f"p99 {np.percentile(ttft, 99) * 1e3:7.1f} ms   "
+          f"occupancy {res.occupancy:.2f}   "
+          f"steps {res.steps} ({res.prefill_steps} prefill / "
+          f"{res.decode_steps} decode)   device {res.device}")
+    print(f"{'policy':10s} {res.policy}: {res.preemptions} preemptions, "
+          f"{res.resumes} resumes, {res.deadline_misses} deadline misses")
+    if extras:
+        by_tenant = {}
+        for r in make_requests(prompts, args.max_new, arrivals=arrivals,
+                               **extras):
+            if r.rid in res.ttft_s:
+                by_tenant.setdefault(r.tenant, []).append(res.ttft_s[r.rid])
+        for t, vals in sorted(by_tenant.items()):
+            v = np.asarray(vals)
+            print(f"{'tenant':10s} {t}: TTFT p50 "
+                  f"{np.percentile(v, 50) * 1e3:7.1f} ms   p99 "
+                  f"{np.percentile(v, 99) * 1e3:7.1f} ms   n {len(v)}")
+    s = res.prefix
+    print(f"{'cache':10s} {s['cache_hits']:.0f}/{s['requests']:.0f} "
+          f"requests hit, {s['hit_tokens']:.0f}/{s['prompt_tokens']:.0f} "
+          f"prompt tokens served from cache ({100 * s['hit_rate']:.1f}%), "
+          f"{s['evictions']:.0f} evictions, "
+          f"{s['cow_copies']:.0f} COW copies")
+    return res
 
 
 def main(argv=None):
@@ -59,10 +216,13 @@ def main(argv=None):
         q, chunk_size=min(q.chunk_size, args.prompt_len)))
     model = ckpt.restore(args.ckpt, cfg, device) if args.ckpt else \
         build_model(cfg, device)
+    if args.continuous:
+        return run_continuous(model, args, device)
     rng = np.random.default_rng(0)
     toks = rng.integers(3, cfg.vocab,
                         (args.batch, args.prompt_len)).astype(np.int32)
-    eng = Engine(model, method=args.method, device=device)
+    eng = Engine(model, method=args.method, device=device,
+                 sampler=SamplerConfig(temperature=args.temperature))
     r = eng.generate({"tokens": toks}, args.max_new)
     print(f"{args.method:10s} TTFT {r.ttft_s * 1e3:9.1f} ms   "
           f"decode {r.decode_tps:8.1f} tok/s   "

@@ -13,8 +13,9 @@ layer's KV cache along one of three routes, as in the reference:
                   over [selected budget | chunk].
 
 ``ctx`` (dict): ``method``, ``qcfg`` (QuokaConfig) and ``slot`` (the
-chunk's cache write slot, an int; distinct from positions, since pad slots
-carry pos == -1).
+chunk's cache write slot: an int, or a per-row (b,) tensor under
+continuous batching; distinct from positions, since pad slots carry
+pos == -1).
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 of ``repro/models/model.py``, dense family only).
 
 Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
-loop over chunks, each selecting from the KV cache per layer) and
-``decode_step``.  Training forward, modality frontends, the MTP head and
-per-chunk continuous-batching dispatch are not ported yet.
+loop over chunks, each selecting from the KV cache per layer),
+``prefill_chunk`` (one chunk with per-row starts and valid lengths: the
+continuous-batching unit) and ``decode_step``.  Training forward, modality
+frontends, the MTP head and the in-step telemetry outputs are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -138,18 +140,62 @@ class Model(nn.Module):
         return self._readout(h[:, -1:])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, tokens, pos: int, cache,
+    def prefill_chunk(self, batch: Dict, pos_start, cache,
+                      method: Optional[str] = None, valid_len=None,
+                      with_obs: bool = False, sel_blocks=None):
+        """One B_CP chunk through all stacks: the unit of per-chunk dispatch
+        under continuous batching.  batch["tokens"]: (b, B_CP) chunk;
+        ``pos_start`` an int or a per-row (b,) tensor (each request's chunk
+        starts at its own offset; it is also the write slot).  ``valid_len``
+        (b,) marks how many leading chunk tokens are real: the rest get
+        pos = -1 and are masked everywhere.  Returns (last VALID hidden
+        state (b, d), cache)."""
+        if with_obs or sel_blocks is not None:
+            raise NotImplementedError("prefill_chunk: with_obs / sel_blocks "
+                                      "are not yet ported")
+        method = method or self.cfg.quoka.method
+        dev = self.device
+        tok = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
+        x = embed(self.embed, tok, self.cfg.compute_dtype)
+        b, t = tok.shape
+        offs = torch.arange(t, dtype=torch.int32, device=dev)
+        if isinstance(pos_start, torch.Tensor) and pos_start.ndim == 1:
+            slot = pos_start.to(device=dev, dtype=torch.int32)
+            pos = slot[:, None] + offs[None]
+        else:
+            slot = int(pos_start)
+            pos = (slot + offs)[None].expand(b, t)
+        if valid_len is not None:
+            vl = torch.as_tensor(np.asarray(valid_len), dtype=torch.int32,
+                                 device=dev)
+            pos = torch.where(offs[None] < vl[:, None], pos,
+                              torch.full_like(pos, -1))
+        x = self._apply_stacks(x, pos, cache,
+                               dict(self._ctx(method), slot=slot))
+        if valid_len is None:
+            return x[:, -1], cache
+        li = (vl.long() - 1).clamp(0, t - 1)
+        return x[torch.arange(b, device=dev), li], cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens, pos, cache,
                     method: Optional[str] = None):
         """One decode step.  tokens (b,) on the model's device; pos an int
-        (the slot and position of the new token).  Returns (logits (b, V),
-        cache)."""
+        or a per-row (b,) tensor (continuous batching): the slot and
+        position of each new token.  Returns (logits (b, V), cache)."""
         cfg = self.cfg
         method = method or cfg.quoka.method
         b = tokens.shape[0]
         x = embed(self.embed, tokens[:, None], cfg.compute_dtype)
-        pos2 = torch.full((b, 1), pos, dtype=torch.int32, device=self.device)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            slot = pos.to(device=self.device, dtype=torch.int32)
+            pos2 = slot[:, None]
+        else:
+            slot = int(pos)
+            pos2 = torch.full((b, 1), slot, dtype=torch.int32,
+                              device=self.device)
         x = self._apply_stacks(x, pos2, cache,
-                               dict(self._ctx(method), slot=pos))
+                               dict(self._ctx(method), slot=slot))
         return self._readout(x)[:, 0], cache
 
 

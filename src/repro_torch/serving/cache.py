@@ -32,15 +32,35 @@ def kv_init(batch: int, cap: int, n_kv: int, hd: int, dtype,
         pos=torch.full((batch, cap), -1, dtype=torch.int32, device=device))
 
 
-def kv_write(cache: KVCache, k_new, v_new, start: int,
-             pos_new=None) -> KVCache:
-    """Write a contiguous chunk at slot ``start`` (an int), in place.
-    ``pos_new`` (b, t) overrides the stored positions (pad slots -1)."""
+def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
+    """Write a contiguous chunk at slot ``start``, in place.  ``start`` is an
+    int, or a per-row ``(b,)`` tensor under continuous batching (every
+    request of a step batch writes at its own offset).  As with
+    ``dynamic_update_slice`` in the reference, a start past ``cap - t`` is
+    clamped so the chunk stays inside the cache (the default positions are
+    still ``start + [0, t)``).  ``pos_new`` (b, t) overrides the stored
+    positions (pad slots -1)."""
     b, t = k_new.shape[:2]
+    cap = cache.capacity
+    dev = cache.pos.device
+    if isinstance(start, torch.Tensor) and start.ndim == 1:
+        s = start.to(device=dev, dtype=torch.int64)
+        offs = torch.arange(t, device=dev)
+        if pos_new is None:
+            pos_new = s[:, None] + offs
+        rows = s.clamp(0, cap - t)[:, None] + offs                # (b, t)
+        bi = torch.arange(b, device=dev)[:, None]
+        # one index_put per leaf: no Python loop over the rows
+        cache.k[bi, rows] = k_new.to(cache.k.dtype)
+        cache.v[bi, rows] = v_new.to(cache.v.dtype)
+        cache.pos[bi, rows] = pos_new.to(torch.int32)
+        return cache
+    start = int(start)
     if pos_new is None:
         pos_new = torch.arange(start, start + t, dtype=torch.int32,
-                               device=cache.pos.device).expand(b, t)
-    cache.k[:, start:start + t] = k_new
-    cache.v[:, start:start + t] = v_new
-    cache.pos[:, start:start + t] = pos_new
+                               device=dev).expand(b, t)
+    s = min(max(start, 0), cap - t)
+    cache.k[:, s:s + t] = k_new
+    cache.v[:, s:s + t] = v_new
+    cache.pos[:, s:s + t] = pos_new
     return cache

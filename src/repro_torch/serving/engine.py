@@ -1,24 +1,39 @@
-"""Serving engine, one-shot batch mode (counterpart of
-``repro/serving/engine.py``: ``Engine.__init__``, ``pad_prompt`` and
-``generate``).  Continuous batching over a paged pool is not ported yet.
+"""Serving engine (counterpart of ``repro/serving/engine.py``).  Two
+serving modes share the model and the kernel facade:
 
-``generate`` runs the chunked prefill, samples the first token, then a
-Python decode loop.  Kernel builds and a warm-up run on a throwaway cache
-stay off the clocks; the clocks are host clocks around
-``torch.cuda.synchronize()``, and tokens accumulate on the device with one
-host copy after the loop.
+  * ``generate`` — one synchronous batch: the chunked prefill, the first
+    sampled token, then a Python decode loop.  Tokens accumulate on the
+    device with one host copy after the loop.
+  * ``step`` / ``serve_stream`` / ``serve`` — continuous batching: a paged
+    KV pool (serving/pool.py) plus a request-lifecycle scheduler
+    (serving/scheduler.py) drive two step functions — a mixed
+    chunk-prefill step and a batched decode step — each of which gathers
+    the step's requests' blocks through their block tables into a linear
+    cache view, runs the model on it, samples, and scatters the touched
+    blocks back, as the reference does.  The model's selecting layers
+    therefore run the linear-view kernels; the paged kernel
+    (``ops.selected_attention(table=)``) is not on this path, in the
+    reference either.
+
+Kernel builds and a warm-up run stay off the clocks in both modes; the
+clocks are host clocks around a device synchronisation.  Not ported yet:
+the telemetry registry, the host-memory tier and its prefetch, and mesh
+serving (each raises).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.serving import pool as pl
+from repro_torch.serving.policy import resolve_policy
 from repro_torch.serving.sampler import SamplerConfig, sample
+from repro_torch.serving.scheduler import Scheduler
 
 
 @dataclass
@@ -31,6 +46,54 @@ class GenerationResult:
     device: str
 
 
+@dataclass
+class ServeState:
+    """Mutable state of one continuous-batching run (pool + scheduler +
+    step functions + sampling generator + counters)."""
+    pool: pl.PagedKVCache
+    sched: Scheduler
+    fns: Tuple
+    generator: torch.Generator
+    chunk: int
+    max_nb: int
+    b_prefill: int
+    b_decode: int
+    t0: float = field(default_factory=time.perf_counter)
+    steps: int = 0
+    prefill_steps: int = 0
+    decode_steps: int = 0
+    occupancy: List[float] = field(default_factory=list)
+    #: (rid, token) pairs emitted by the LAST step() — the streaming feed
+    events: List[Tuple[int, int]] = field(default_factory=list)
+
+    @property
+    def now(self) -> float:
+        return time.perf_counter() - self.t0
+
+
+@dataclass
+class ServeResult:
+    """Outcome of one continuous-batching trace."""
+    tokens: Dict[int, np.ndarray]        # rid -> (n_generated,) int32
+    ttft_s: Dict[int, float]             # rid -> time to first token
+    latency_s: Dict[int, float]          # rid -> arrival -> completion
+    wall_s: float
+    generated: int                       # total tokens across requests
+    tokens_per_s: float                  # generated / wall_s
+    steps: int = 0
+    prefill_steps: int = 0
+    decode_steps: int = 0
+    occupancy: float = 0.0               # mean decode-batch fill [0, 1]
+    method: str = ""
+    device: str = ""
+    cached_len: Dict[int, int] = field(default_factory=dict)  # rid -> hit
+    prefix: Dict[str, float] = field(default_factory=dict)    # cache stats
+    policy: str = ""                     # scheduling policy name
+    preemptions: int = 0                 # suspends during this trace
+    resumes: int = 0                     # re-admissions of suspended requests
+    deadline_misses: int = 0             # TTFT deadlines blown this trace
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -38,9 +101,15 @@ def _sync(device: torch.device) -> None:
 
 class Engine:
     def __init__(self, model: Model, *, method: Optional[str] = None,
-                 sampler: SamplerConfig = SamplerConfig(), device=None):
+                 sampler: SamplerConfig = SamplerConfig(), device=None,
+                 mesh=None, registry=None):
         """Serves ``model`` on ``device`` — the CUDA card unless the caller
         passes another; the model must already live there."""
+        if mesh is not None:
+            raise NotImplementedError("mesh serving is not yet ported")
+        if registry is not None:
+            raise NotImplementedError("the telemetry registry is not yet "
+                                      "ported")
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, engine on {dev}")
@@ -48,7 +117,8 @@ class Engine:
         self.device = dev
         self.method = method or model.cfg.quoka.method
         self.sampler = sampler
-        self._warmed: set = set()
+        self.stats: Dict[str, float] = {}   # prefix-cache stats of last serve
+        self._warmed: set = set()           # warmed generate/serve geometries
 
     def pad_prompt(self, tokens: np.ndarray) -> Dict[str, np.ndarray]:
         """Left-pad to a chunk multiple; the ``pad`` entry turns the pad
@@ -119,3 +189,325 @@ class Engine:
         return GenerationResult(tokens=tokens_out, ttft_s=ttft,
                                 decode_tps=tps, prompt_len=prompt_len,
                                 method=self.method, device=str(dev))
+
+    # ------------------------------------------------------------------
+    # continuous batching
+    # ------------------------------------------------------------------
+    def _continuous_fns(self, block_size: int, max_nb: int,
+                        num_blocks: int):
+        """The two step functions for one geometry: gather blocks -> model
+        step -> sample -> scatter the touched blocks back.  Host arrays
+        (tables, starts, lengths) stay on the host for the index decisions
+        of gather/scatter; the model gets the per-row starts as device
+        tensors."""
+        model, method, sampler = self.model, self.method, self.sampler
+        dev = self.device
+        chunk = model.cfg.quoka.chunk_size
+
+        @torch.no_grad()
+        def prefill_step(data, table, tokens, start, vlen, generator):
+            cache = pl.gather(data, table, num_blocks, block_size)
+            last_h, cache = model.prefill_chunk(
+                {"tokens": tokens}, torch.as_tensor(start, device=dev),
+                cache, method, valid_len=vlen)
+            logits = model._readout(last_h[:, None, :])[:, 0]
+            tok = sample(logits, generator, sampler)
+            # the whole chunk is written (pos -1 past valid_len), so a row
+            # with any valid token touches all of its chunk's blocks
+            wrote = np.where(vlen > 0, chunk, 0)
+            touched = pl.touched_blocks(start, wrote, max_nb, block_size)
+            pl.scatter(data, cache, table, touched, num_blocks, block_size)
+            return tok
+
+        @torch.no_grad()
+        def decode_step(data, table, tokens, pos, live, generator):
+            cache = pl.gather(data, table, num_blocks, block_size)
+            logits, cache = model.decode_step(
+                torch.as_tensor(tokens, device=dev).long(),
+                torch.as_tensor(pos, device=dev), cache, method)
+            tok = sample(logits, generator, sampler)
+            touched = pl.touched_blocks(pos, live, max_nb, block_size)
+            pl.scatter(data, cache, table, touched, num_blocks, block_size)
+            return tok
+
+        return prefill_step, decode_step
+
+    def prefix_align(self) -> int:
+        """Prefix-cache hit granularity: selection methods score per chunk,
+        so hits must land on the B_CP grid to replay the exact computation;
+        dense attention is chunking-invariant and shares at token
+        granularity (COW partial tails)."""
+        chunk = self.model.cfg.quoka.chunk_size
+        return 1 if self.method == "full" else chunk
+
+    def make_serve_state(self, requests: Sequence, *,
+                         block_size: Optional[int] = None,
+                         num_blocks: Optional[int] = None,
+                         max_prefill_tokens: Optional[int] = None,
+                         max_decode_batch: int = 8,
+                         generator: Optional[torch.Generator] = None,
+                         prefix_cache: bool = True,
+                         host_tier_blocks: Optional[int] = None,
+                         prefetch_depth: Optional[int] = None,
+                         policy=None,
+                         max_prefill_rows: Optional[int] = None
+                         ) -> ServeState:
+        """Size the pool and scheduler for a request trace and fix the step
+        geometry (chunk width, prefill rows, decode rows, blocks per
+        request).  The first state of a geometry builds the kernels and
+        runs both step functions once on idle rows (all table entries -1,
+        so nothing reaches the pool), off every clock.
+
+        ``policy`` (None | "fcfs" | "slo" | SchedPolicy) selects the
+        scheduling policy (serving/policy.py); a preempting policy widens
+        the per-request block geometry to the suspend/resume worst case.
+        ``max_prefill_rows`` overrides the prefill-row count (default: the
+        full-chunk capacity ``max_prefill_tokens // chunk``).  The host
+        tier (``host_tier_blocks`` / ``prefetch_depth``) is not ported."""
+        if host_tier_blocks or prefetch_depth:
+            raise NotImplementedError("the host-memory tier and its "
+                                      "prefetch are not yet ported")
+        chunk = self.model.cfg.quoka.chunk_size
+        block_size = block_size or chunk
+        g = self.model.cfg.quoka.granularity
+        if self.method != "full" and g > 1 and block_size % g != 0:
+            raise ValueError(
+                f"block_size={block_size} must be a multiple of the "
+                f"selection granularity {g}: block-granular plans name "
+                f"whole sub-blocks of the paged pool")
+        max_prefill_tokens = max_prefill_tokens or 4 * chunk
+        pol = resolve_policy(policy)
+        align = self.prefix_align() if prefix_cache else chunk
+        max_nb = max(pl.max_blocks_bound(r.prompt_len, r.max_new, chunk,
+                                         block_size, align=align,
+                                         preempt=pol.may_preempt)
+                     for r in requests)
+        if num_blocks is None:
+            num_blocks = max_decode_batch * max_nb    # no contention
+        b_p = (max(1, max_prefill_tokens // chunk)
+               if max_prefill_rows is None else max(1, int(max_prefill_rows)))
+        b_d = max_decode_batch
+        pool = pl.PagedKVCache(self.model, num_blocks, block_size)
+        # selection methods consume prefill in ``granularity``-sized score
+        # units — that is the finest grid a packed chunk can be charged at
+        grid = 1 if self.method == "full" else max(1, g)
+        sched = Scheduler(pool, chunk, max_prefill_tokens, max_decode_batch,
+                          prefix_cache=prefix_cache, prefix_align=align,
+                          policy=pol, max_prefill_rows=b_p, token_grid=grid)
+        fns = self._continuous_fns(block_size, max_nb, num_blocks)
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        state = ServeState(pool=pool, sched=sched, fns=fns,
+                           generator=generator, chunk=chunk, max_nb=max_nb,
+                           b_prefill=b_p, b_decode=b_d)
+        sig = ("serve", block_size, max_nb, b_p, b_d, num_blocks)
+        if sig not in self._warmed:
+            self._warm_steps(state)
+            self._warmed.add(sig)
+        return state
+
+    def _warm_steps(self, state: ServeState) -> None:
+        """Both step functions once on idle rows: tables all -1 and no
+        valid token, so every write is masked out of the pool."""
+        pool = state.pool
+        wgen = torch.Generator(device=self.device)
+        idle_p = np.full((state.b_prefill, state.max_nb), -1, np.int32)
+        zeros_p = np.zeros((state.b_prefill,), np.int32)
+        state.fns[0](pool.data, idle_p,
+                     np.zeros((state.b_prefill, state.chunk), np.int32),
+                     zeros_p, zeros_p, wgen)
+        idle_d = np.full((state.b_decode, state.max_nb), -1, np.int32)
+        zeros_d = np.zeros((state.b_decode,), np.int32)
+        state.fns[1](pool.data, idle_d, zeros_d, zeros_d, zeros_d, wgen)
+        _sync(self.device)
+
+    def step(self, state: ServeState) -> Tuple[int, int]:
+        """One engine step: admit, run a mixed chunk-prefill step over up to
+        ``max_prefill_tokens`` of pending prompt chunks, then a batched
+        decode step over every active decode request.  Returns
+        (prefill rows, decode rows) executed.  ``state.events`` is reset and
+        filled with this step's emitted (rid, token) pairs — the feed
+        ``serve_stream`` yields from."""
+        pool, sched = state.pool, state.sched
+        state.events = []
+        sched.admit(state.now)
+
+        rows = sched.pack_prefill(state.now)
+        if rows:
+            tokens = np.zeros((state.b_prefill, state.chunk), np.int32)
+            start = np.zeros((state.b_prefill,), np.int32)
+            vlen = np.zeros((state.b_prefill,), np.int32)
+            for i, (r, ch, st, vl) in enumerate(rows):
+                tokens[i], start[i], vlen[i] = ch, st, vl
+            table = pool.table_array([r.rid for r, *_ in rows],
+                                     state.b_prefill, state.max_nb)
+            tok = state.fns[0](pool.data, table, tokens, start, vlen,
+                               state.generator)
+            tok_np = tok.cpu().numpy()           # the step's one sync
+            now = state.now
+            for i, (r, ch, st, vl) in enumerate(rows):
+                ev = sched.note_prefilled(r, vl, int(tok_np[i]), now)
+                if ev is not None:
+                    state.events.append((r.rid, ev))
+            state.prefill_steps += 1
+
+        drows = sched.pack_decode()
+        if drows:
+            tokens = np.zeros((state.b_decode,), np.int32)
+            pos = np.zeros((state.b_decode,), np.int32)
+            live = np.zeros((state.b_decode,), np.int32)
+            for i, r in enumerate(drows):
+                tokens[i], pos[i], live[i] = r.out[-1], r.decode_pos, 1
+            table = pool.table_array([r.rid for r in drows],
+                                     state.b_decode, state.max_nb)
+            tok = state.fns[1](pool.data, table, tokens, pos, live,
+                               state.generator)
+            tok_np = tok.cpu().numpy()
+            now = state.now
+            for i, r in enumerate(drows):
+                state.events.append((r.rid,
+                                     sched.note_decoded(r, int(tok_np[i]),
+                                                        now)))
+            state.occupancy.append(len(drows) / sched.max_decode_batch)
+            state.decode_steps += 1
+
+        state.steps += 1
+        return len(rows), len(drows)
+
+    def serve_stream(self, requests: Sequence, *,
+                     block_size: Optional[int] = None,
+                     num_blocks: Optional[int] = None,
+                     max_prefill_tokens: Optional[int] = None,
+                     max_decode_batch: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None,
+                     prefix_cache: Optional[bool] = None,
+                     host_tier_blocks: Optional[int] = None,
+                     prefetch_depth: Optional[int] = None,
+                     policy=None, max_prefill_rows: Optional[int] = None,
+                     state: Optional[ServeState] = None):
+        """Streaming front-end of ``serve``: a generator yielding
+        ``(rid, token)`` the step each token is emitted (the first token of
+        a request right after its prefill completes, then one per decode
+        step).  The generator's return value is the full ``ServeResult`` —
+        ``serve()`` is exactly a drain of this stream.  The idle wait until
+        the next arrival is recomputed from the current clock each time and
+        capped at 0.25 s."""
+        requests = list(requests)
+        if not requests:
+            return ServeResult({}, {}, {}, 0.0, 0, 0.0, method=self.method,
+                               device=str(self.device))
+        if state is None:
+            state = self.make_serve_state(
+                requests, block_size=block_size, num_blocks=num_blocks,
+                max_prefill_tokens=max_prefill_tokens,
+                max_decode_batch=(8 if max_decode_batch is None
+                                  else max_decode_batch),
+                generator=generator,
+                prefix_cache=(True if prefix_cache is None
+                              else prefix_cache),
+                host_tier_blocks=host_tier_blocks,
+                prefetch_depth=prefetch_depth, policy=policy,
+                max_prefill_rows=max_prefill_rows)
+        elif (block_size is not None or num_blocks is not None
+              or max_prefill_tokens is not None or generator is not None
+              or max_decode_batch is not None or prefix_cache is not None
+              or host_tier_blocks is not None or prefetch_depth is not None
+              or policy is not None or max_prefill_rows is not None):
+            # silently ignoring these would e.g. report cache-on numbers
+            # for a prefix_cache=False A/B pass over a warm state
+            raise ValueError(
+                "serve(state=...) reuses the state's geometry, cache "
+                "configuration and policy; pass these options to "
+                "make_serve_state instead")
+        sched = state.sched
+        if sched.pending():
+            raise RuntimeError("serve state is mid-trace; drain it first")
+        need = max(pl.max_blocks_bound(r.prompt_len, r.max_new, state.chunk,
+                                       state.pool.block_size,
+                                       align=sched.prefix_align,
+                                       preempt=sched.policy.may_preempt)
+                   for r in requests)
+        if need > state.max_nb:
+            raise ValueError(
+                f"trace needs {need} blocks/request > state geometry "
+                f"{state.max_nb}; build a fresh state")
+        if len({r.rid for r in requests}) != len(requests):
+            raise ValueError("duplicate request ids in one trace")
+        sched.done = []                     # per-trace completion list
+        state.steps = state.prefill_steps = state.decode_steps = 0
+        state.occupancy = []
+        state.events = []
+        pool = state.pool
+        prefix0 = (pool.lookups, pool.hit_requests, pool.hit_tokens,
+                   pool.prompt_tokens, pool.evictions, pool.cow_copies)
+        sched0 = (sched.preemptions, sched.resumes, sched.deadline_misses)
+        pending = sorted(requests, key=lambda r: r.arrival_s)
+        state.t0 = time.perf_counter()
+        while pending or sched.pending():
+            now = state.now
+            while pending and pending[0].arrival_s <= now:
+                sched.add(pending.pop(0))
+            if not sched.pending():
+                time.sleep(min(0.25, max(0.0, pending[0].arrival_s - now)))
+                continue
+            n_pf, n_dec = self.step(state)
+            if n_pf == 0 and n_dec == 0 and sched.pending():
+                raise RuntimeError(
+                    "scheduler stall: pending requests but nothing packed")
+            for ev in state.events:
+                yield ev
+
+        wall = state.now
+        pool.check_invariants()
+        assert pool.num_free + pool.num_evictable == pool.num_blocks, \
+            "blocks leaked after drain"
+        done = sched.done
+        generated = sum(len(r.out) for r in done)
+        hit_tok = pool.hit_tokens - prefix0[2]
+        all_tok = pool.prompt_tokens - prefix0[3]
+        self.stats = {
+            "requests": float(pool.lookups - prefix0[0]),
+            "cache_hits": float(pool.hit_requests - prefix0[1]),
+            "hit_tokens": float(hit_tok),
+            "prompt_tokens": float(all_tok),
+            "hit_rate": hit_tok / all_tok if all_tok else 0.0,
+            "evictions": float(pool.evictions - prefix0[4]),
+            "cow_copies": float(pool.cow_copies - prefix0[5]),
+            "cached_blocks": float(pool.num_cached)}
+        return ServeResult(
+            tokens={r.rid: np.asarray(r.out, np.int32) for r in done},
+            ttft_s={r.rid: r.ttft_s for r in done},
+            latency_s={r.rid: r.done_s - r.arrival_s for r in done},
+            wall_s=wall, generated=generated,
+            tokens_per_s=generated / wall if wall > 0 else 0.0,
+            steps=state.steps, prefill_steps=state.prefill_steps,
+            decode_steps=state.decode_steps,
+            occupancy=(float(np.mean(state.occupancy))
+                       if state.occupancy else 0.0),
+            method=self.method, device=str(self.device),
+            cached_len={r.rid: r.cached_len for r in done},
+            prefix=dict(self.stats),
+            policy=sched.policy.name,
+            preemptions=sched.preemptions - sched0[0],
+            resumes=sched.resumes - sched0[1],
+            deadline_misses=sched.deadline_misses - sched0[2])
+
+    def serve(self, requests: Sequence, **kwargs) -> ServeResult:
+        """Serve a request trace with continuous batching (a drain of
+        ``serve_stream``; same keyword options).
+
+        ``requests``: serving.request.Request objects (``arrival_s`` offsets
+        are honoured against the wall clock).  Each engine step packs up to
+        ``max_prefill_tokens`` of pending prompt chunks plus every active
+        decode token; admission order, prefill packing and preemption follow
+        ``policy``.  Greedy outputs under the default policy are
+        token-identical to per-request ``generate`` and to the reference's
+        ``Engine.serve``, prefix-cache hits included.  Pass a ``state`` from
+        ``make_serve_state`` to serve several traces over one warm pool."""
+        stream = self.serve_stream(requests, **kwargs)
+        while True:
+            try:
+                next(stream)
+            except StopIteration as stop:
+                return stop.value

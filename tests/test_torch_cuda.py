@@ -148,7 +148,120 @@ def test_selected_kernel_matches_plain(dev, case, dtype):
     assert _err(got, want) <= _tol(want, dtype)
 
 
+def _paged_inputs(dev, dtype, gran, t, start, d, bs=128, nb_logical=16,
+                  n_kv=2, h=8, nsel=16):
+    """A permuted pool holding two requests' linear views, spare blocks
+    with stale positions, a -1 hole in row 1 whose former block keeps
+    stale prior-context positions, and an idle row 2 (table all -1,
+    start 0) like the idle rows of a serve step."""
+    b, T = 3, nb_logical * bs
+    N = 2 * nb_logical + 5
+    rng = np.random.default_rng(3 + gran + t + d)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k_pool = torch.randn((N, bs, n_kv, d), generator=g, device=dev).to(dtype)
+    v_pool = torch.randn((N, bs, n_kv, d), generator=g, device=dev).to(dtype)
+    pos_pool = torch.as_tensor(rng.integers(0, T, (N, bs)), dtype=torch.int32,
+                               device=dev)
+    perm = rng.permutation(N)
+    table = np.full((b, nb_logical), -1, np.int32)
+    for bi in range(2):
+        for lb in range(nb_logical):
+            phys = int(perm[bi * nb_logical + lb])
+            table[bi, lb] = phys
+            p = np.arange(lb * bs, (lb + 1) * bs)
+            pos_pool[phys] = torch.as_tensor(np.where(p < start + t, p, -1),
+                                             device=dev)
+    hole = nb_logical // 4
+    table[1, hole] = -1
+    pos_pool[int(perm[nb_logical + hole])] = torch.as_tensor(
+        rng.integers(0, max(start, 1), bs), device=dev)
+    starts = torch.as_tensor([start, start, 0], dtype=torch.int32,
+                             device=dev)
+    if gran > 1:
+        hi = -(-max(start, 1) // gran)
+        idx = np.full((b, nsel), -1, np.int32)
+        for bi in range(2):
+            n = min(nsel - 1, hi)
+            idx[bi, :n] = rng.choice(hi, size=n, replace=False)
+        idx[1, 0] = hole * bs // gran           # a block of the hole
+    else:
+        idx = np.full((b, n_kv, nsel * 16), -1, np.int32)
+        for bi in range(2):
+            for hh in range(n_kv):
+                n = min(nsel * 16 - 1, max(start, 1))
+                idx[bi, hh, :n] = rng.choice(max(start + 2, 1), size=n,
+                                             replace=False)
+        idx[1, :, 0] = hole * bs                # a slot of the hole
+    return (q, k_pool, v_pool, pos_pool, torch.as_tensor(idx, device=dev),
+            starts, torch.as_tensor(table, device=dev), bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (g, t, start, d)
+    (16, 128, 1024, 128),     # prefill chunk
+    (16, 1, 1037, 128),       # decode, misaligned start
+    (1, 128, 1024, 128),      # per-KV-head token plan
+    (1, 1, 1037, 64),
+    (16, 128, 0, 64),         # first chunk: nothing selectable
+])
+def test_paged_kernel_matches_plain(dev, case, dtype):
+    gran, t, start, d = case
+    q, kp, vp, pp, idx, starts, table, bs = _paged_inputs(dev, dtype, gran,
+                                                          t, start, d)
+    qt = q.transpose(1, 2)
+    n0 = sa_mod.PAGED_LAUNCHES
+    got = sa_mod.selected_attention_paged(qt, kp, vp, pp, idx, starts, table,
+                                          granularity=gran, block_size=bs)
+    torch.cuda.synchronize()
+    assert sa_mod.PAGED_LAUNCHES == n0 + 1
+    want = ref.selected_paged_ref(q, kp, vp, pp, idx, starts, table,
+                                  gran).transpose(1, 2)
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= _tol(want, dtype)
+    assert float(got[2].abs().max()) == 0.0     # idle row: exact zeros
+    # through the table == the linear kernel on the linearized pool
+    k, v, key_pos = ref.linearize_pool(kp, vp, pp, table)
+    lin = sa_mod.selected_attention_bhtd(qt, k.transpose(1, 2),
+                                         v.transpose(1, 2), key_pos, idx,
+                                         starts, granularity=gran)
+    assert _err(got, lin) == 0.0
+
+
+def test_paged_table_entry_outside_pool(dev):
+    """An entry >= N in a table on the card is masked like -1 (no read past
+    the pool); the same table on the host raises before any launch."""
+    q, kp, vp, pp, idx, starts, table, bs = _paged_inputs(
+        dev, torch.float32, 16, 128, 1024, 128)
+    qt = q.transpose(1, 2)
+    hole = int((table[1] < 0).nonzero()[0, 0])
+    want = sa_mod.selected_attention_paged(qt, kp, vp, pp, idx, starts,
+                                           table, granularity=16,
+                                           block_size=bs)
+    bad = table.clone()
+    bad[1, hole] = kp.shape[0] + 3
+    got = sa_mod.selected_attention_paged(qt, kp, vp, pp, idx, starts, bad,
+                                          granularity=16, block_size=bs)
+    torch.cuda.synchronize()
+    assert _err(got, want) == 0.0
+    n0 = sa_mod.PAGED_LAUNCHES
+    with pytest.raises(ValueError, match="outside a pool"):
+        sa_mod.selected_attention_paged(qt, kp, vp, pp, idx, starts,
+                                        bad.cpu(), granularity=16,
+                                        block_size=bs)
+    assert sa_mod.PAGED_LAUNCHES == n0
+
+
 def test_unsupported_head_dim_raises(dev):
     x = torch.zeros((1, 2, 4, 96), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         fa_mod.flash_attention_bhtd(x, x, x)
+    pool = torch.zeros((2, 16, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        sa_mod.selected_attention_paged(
+            x, pool, pool, torch.zeros((2, 16), dtype=torch.int32,
+                                       device=dev),
+            torch.zeros((1, 1), dtype=torch.int32, device=dev), 0,
+            torch.zeros((1, 2), dtype=torch.int32, device=dev),
+            granularity=16, block_size=16)
