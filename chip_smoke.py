@@ -16,11 +16,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      no flash launch;
   5. small-input agreement: a smoke-size fp32 model on the card (kernels)
      and on the CPU (plain versions) gives the same logits and tokens;
-  6. kernel timings at the main-path shapes (CUDA events around a CUDA
-     graph replay of one call, with L2 as the main path leaves it for that
-     kernel; the eager call's event and host times beside them) against
+  6. kernel timings at the main-path shapes, prefill and decode (CUDA
+     events around a CUDA graph replay of one call, with L2 as the main
+     path leaves it for that kernel, and for the attention kernels with L2
+     warm and flushed both; the eager call's event and host times beside
+     them; and 20 attention calls back to back in one graph) against
      their bound, the plain version and, for flash attention, one
-     ``scaled_dot_product_attention`` call;
+     ``scaled_dot_product_attention`` call; for the bf16 attention
+     kernels, the grids of the kernels one call launched and their device
+     time, read from a ``torch.profiler`` trace (the split count S and the
+     blocks per launch);
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -58,6 +63,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -856,13 +862,161 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_timing(torch, np, dev, K, paged):
-    """Phase 6: each kernel at its main-path prefill shape (and decode
-    shape, printed) against its bound, its plain version and, for flash,
-    SDPA with the same mask.  ``paged`` = (q (b, t, h, d), k_pool, v_pool,
-    pos_pool, table, plan ids, starts) from phase 9's serve pool."""
+ATTN_KERNELS = ("attn_mma_kernel", "attn_merge_kernel")
+
+
+def launched(torch, call, reps=10):
+    """The bf16 attention kernels that one ``call`` launches, as a
+    ``torch.profiler`` trace of ``reps`` eager calls records them:
+    ``(n_split, blocks, {kernel: (grid, device ms per launch, launches
+    recorded)})`` with n_split the first grid dimension of
+    ``attn_mma_kernel`` and blocks summed over both kernels' grids.  The
+    trace is the second of two profiler steps (the first warms the
+    profiler up).  Fails unless each kernel ran with one grid, at most
+    once per call, and the merge ran exactly when the walk was split."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    seen = {}
+    for e in events:
+        name = next((k for k in ATTN_KERNELS if k in e.get("name", "")), None)
+        if name is None or e.get("cat") != "kernel":
+            continue
+        grid = tuple(e["args"]["grid"])
+        n, us, grids = seen.get(name, (0, 0.0, set()))
+        seen[name] = (n + 1, us + float(e["dur"]), grids | {grid})
+    if "attn_mma_kernel" not in seen:
+        raise AssertionError(f"no attn_mma_kernel in the trace: {seen}")
+    out = {}
+    for name, (n, us, grids) in seen.items():
+        if n > reps or len(grids) != 1:
+            raise AssertionError(f"{name}: {n} launches in {reps} calls, "
+                                 f"grids {grids}")
+        out[name] = (grids.pop(), us / n / 1e3, n)
+    grid = out["attn_mma_kernel"][0]
+    if (grid[0] > 1) != ("attn_merge_kernel" in out):
+        raise AssertionError(f"S={grid[0]} but kernels {sorted(out)}")
+    return grid[0], sum(math.prod(g) for g, _, _ in out.values()), out
+
+
+def fmt_launched(n_split, blocks, kernels) -> str:
+    parts = [f"{k} grid {g} {ms:.4f} ms ({n} recorded)"
+             for k, (g, ms, n) in kernels.items()]
+    return f"S={n_split}, {blocks} blocks ({'; '.join(parts)})"
+
+
+def attention_times(torch, np, dev, K, flush):
+    """Flash and linear selected attention at the main path's prefill
+    (tq = 128) and decode (tq = 1) shapes: device time with L2 warm, with
+    L2 flushed and back to back, the plain version, SDPA for flash, the
+    bound, and the kernels one call launched (their grids, so the split
+    count and the blocks, and their device times), read from a profiler
+    trace.  Returns {kernel:
+    row}: the prefill numbers at the top level, the decode ones under
+    "decode"; "ms" is the time with L2 as the main path leaves it (flash:
+    warm, the tensors just written; selected: flushed, a cache the other
+    layers have evicted)."""
     import torch.nn.functional as F
-    fa, qs, sa, ref = K["flash"], K["score"], K["selected"], K["ref"]
+    fa, sa, ref = K["flash"], K["selected"], K["ref"]
+    out = {"flash_attention": {}, "selected_attention": {}}
+
+    def row(name, label, call, plain, b_ms, b_by, lib_ms=None,
+            warm_main=True):
+        warm = time_ms(torch, call, None)
+        cold = time_ms(torch, call, flush)
+        # 20 calls back to back in one graph: the per-call device time
+        # without the fixed cost of launching a graph for a single call
+        b2b = time_ms(torch, lambda: [call() for _ in range(20)], None,
+                      iters=5)["device"] / 20
+        p_ms = time_ms(torch, plain, None if warm_main else flush)
+        main = warm if warm_main else cold
+        n_split, blocks, kernels = launched(torch, call)
+        lib = f"  sdpa {fmt(lib_ms)}" if lib_ms else ""
+        log(f"  {name} {label}: {fmt(main)}  L2-warm {warm['device']:.4f}  "
+            f"L2-flushed {cold['device']:.4f}  back-to-back {b2b:.4f}  "
+            f"plain {fmt(p_ms)}{lib}  "
+            f"bound {b_ms:.4f} ({b_by})  "
+            f"{fmt_launched(n_split, blocks, kernels)}")
+        r = dict(ms=main["device"], warm_ms=warm["device"],
+                 cold_ms=cold["device"], b2b_ms=b2b, plain_ms=p_ms["device"],
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib_ms["device"] if lib_ms else None,
+                 n_split=n_split, blocks=blocks,
+                 kernel_ms={k: ms for k, (_, ms, _) in kernels.items()})
+        if label.startswith("prefill"):
+            out[name].update(r)
+        else:
+            out[name]["decode"] = r
+
+    for tq in (128, 1):
+        q, k, v, valid, B = flash_inputs(torch, dev, tq)
+        tk = k.shape[2]
+        i = torch.arange(tq, device=dev)[:, None]
+        j = torch.arange(tk, device=dev)[None, :]
+        mask = ((j < B) | (j - B <= i))[None, None] & \
+            valid.repeat_interleave(4, dim=1)[:, :, None, :]   # (1,32,tq,tk)
+        pairs = int(mask.sum())
+        o = torch.empty_like(q)
+        # K/V rows masked by k_valid are never needed
+        kv_bytes = 2 * int(valid.sum()) * 128 * k.element_size()
+        b_ms, b_by = bound(nbytes(q, valid, o) + kv_bytes, 4 * 128 * pairs)
+        kr = k.repeat_interleave(4, dim=1)
+        vr = v.repeat_interleave(4, dim=1)
+        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask), None)
+        row("flash_attention", f"{'prefill' if tq > 1 else 'decode'} "
+            f"tq={tq} tk={tk}",
+            lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                            boundary=B),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                            boundary=B, k_valid=valid),
+            b_ms, b_by, l_ms)
+    for g, t, start in ((16, 128, 4096), (16, 1, 8197)):
+        q, k, v, key_pos, idx, st = selected_inputs(torch, np, dev, g, t,
+                                                    start)
+        # keys this data needs: valid selected slots and the chunk rows
+        blocks = idx[idx >= 0]
+        rows_sel = (blocks[:, None] * g
+                    + torch.arange(g, device=dev)).reshape(-1)
+        pos_sel = key_pos[0, rows_sel]
+        n_sel = int(((pos_sel >= 0) & (pos_sel < st)).sum())
+        n_chunk_pairs = t * (t + 1) // 2
+        pairs = 32 * (n_sel * t + n_chunk_pairs)
+        o = torch.empty_like(q)
+        kv_rows = 8 * (n_sel + t) * 128 * 2 * 2
+        b_ms, b_by = bound(nbytes(q, o, idx) + kv_rows
+                           + 4 * (len(rows_sel) + t), 4 * 128 * pairs)
+        # the start as a device tensor: a graph cannot capture the
+        # host-to-device copy that a Python int costs the plain version
+        st_dev = torch.full((1,), st, dtype=torch.int32, device=dev)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        row("selected_attention", f"{'prefill' if t > 1 else 'decode'} "
+            f"g={g} t={t}",
+            lambda: sa.selected_attention_bhtd(q, k, v, key_pos, idx, st_dev,
+                                               granularity=g),
+            lambda: ref.selected_ref(qt, kt, vt, key_pos, idx, st_dev, g),
+            b_ms, b_by, warm_main=False)
+    return out
+
+
+def phase_timing(torch, np, dev, K, paged):
+    """Phase 6: each kernel at its main-path prefill and decode shapes
+    against its bound, its plain version and, for flash, SDPA with the same
+    mask.  ``paged`` = (q (b, t, h, d), k_pool, v_pool,
+    pos_pool, table, plan ids, starts) from phase 9's serve pool."""
+    qs, sa, ref = K["score"], K["selected"], K["ref"]
     junk = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -891,71 +1045,7 @@ def phase_timing(torch, np, dev, K, paged):
                                        plain_ms=p_ms["device"],
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=None)
-    for tq in (128, 1):
-        q, k, v, valid, B = flash_inputs(torch, dev, tq)
-        tk = k.shape[2]
-        i = torch.arange(tq, device=dev)[:, None]
-        j = torch.arange(tk, device=dev)[None, :]
-        mask = ((j < B) | (j - B <= i))[None, None] & \
-            valid.repeat_interleave(4, dim=1)[:, :, None, :]   # (1,32,tq,tk)
-        pairs = int(mask.sum())
-        out = torch.empty_like(q)
-        # K/V rows masked by k_valid are never needed
-        kv_bytes = 2 * int(valid.sum()) * 128 * k.element_size()
-        b_ms, b_by = bound(nbytes(q, valid, out) + kv_bytes,
-                           4 * 128 * pairs)
-        # the main path feeds flash the [budget | chunk] tensors that the
-        # concatenation has just written, warm in L2: no flush (the time
-        # with L2 flushed is printed beside it)
-        def call():
-            return fa.flash_attention_bhtd(q, k, v, valid, causal=True,
-                                           boundary=B)
-        ms = time_ms(torch, call, None)
-        cold = time_ms(torch, call, flush)["device"]
-        p_ms = time_ms(torch, lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, boundary=B, k_valid=valid), None)
-        kr = k.repeat_interleave(4, dim=1)
-        vr = v.repeat_interleave(4, dim=1)
-        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mask), None)
-        log(f"  flash_attention tq={tq:3d}: {fmt(ms)} L2-flushed {cold:.4f}  "
-            f"plain {fmt(p_ms)}  sdpa {fmt(l_ms)}  bound {b_ms:.4f} "
-            f"({b_by})")
-        if tq == 128:
-            rows["flash_attention"] = dict(ms=ms["device"],
-                                           plain_ms=p_ms["device"],
-                                           bound_ms=b_ms, bound_by=b_by,
-                                           library_ms=l_ms["device"])
-    for g, t, start in ((16, 128, 4096), (16, 1, 8197)):
-        q, k, v, key_pos, idx, st = selected_inputs(torch, np, dev, g, t,
-                                                    start)
-        # keys this data needs: valid selected slots and the chunk rows
-        blocks = idx[idx >= 0]
-        rows_sel = (blocks[:, None] * g
-                    + torch.arange(g, device=dev)).reshape(-1)
-        pos_sel = key_pos[0, rows_sel]
-        n_sel = int(((pos_sel >= 0) & (pos_sel < st)).sum())
-        n_chunk_pairs = t * (t + 1) // 2
-        pairs = 32 * (n_sel * t + n_chunk_pairs)
-        out = torch.empty_like(q)
-        kv_rows = 8 * (n_sel + t) * 128 * 2 * 2
-        b_ms, b_by = bound(nbytes(q, out, idx) + kv_rows
-                           + 4 * (len(rows_sel) + t), 4 * 128 * pairs)
-        # the start as a device tensor: a graph cannot capture the
-        # host-to-device copy that a Python int costs the plain version
-        st_dev = torch.full((1,), st, dtype=torch.int32, device=dev)
-        ms = time_ms(torch, lambda: sa.selected_attention_bhtd(
-            q, k, v, key_pos, idx, st_dev, granularity=g), flush)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        p_ms = time_ms(torch, lambda: ref.selected_ref(
-            qt, kt, vt, key_pos, idx, st_dev, g), flush)
-        log(f"  selected_attention g={g} t={t:3d}: {fmt(ms)}  plain "
-            f"{fmt(p_ms)}  bound {b_ms:.4f} ({b_by})")
-        if t == 128:
-            rows["selected_attention"] = dict(ms=ms["device"],
-                                              plain_ms=p_ms["device"],
-                                              bound_ms=b_ms, bound_by=b_by,
-                                              library_ms=None)
+    rows.update(attention_times(torch, np, dev, K, flush))
     # the paged kernel on the serve pool, one request row (the shape of
     # the linear kernel's row above) and the whole 4-row step; the pool is
     # cold in L2 as each layer finds it
@@ -984,13 +1074,16 @@ def phase_timing(torch, np, dev, K, paged):
         b_ms, b_by = bound(nbytes(q, out, idx, tab) + kv_rows
                            + 4 * (idx.numel() * g + b * t), 4 * d * pairs)
         qt = q.transpose(1, 2)
-        ms = time_ms(torch, lambda: sa.selected_attention_paged(
-            qt, kp, vp, pos, idx, st, tab, granularity=g, block_size=bs),
-            flush)
+
+        def call():
+            return sa.selected_attention_paged(
+                qt, kp, vp, pos, idx, st, tab, granularity=g, block_size=bs)
+        ms = time_ms(torch, call, flush)
         p_ms = time_ms(torch, lambda: ref.selected_paged_ref(
             q, kp, vp, pos, idx, st, tab, g), flush)
         log(f"  selected_attention_paged g={g} t={t} rows={b}: {fmt(ms)}  "
-            f"plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})")
+            f"plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})  "
+            f"{fmt_launched(*launched(torch, call))}")
         if b == 1:
             rows["selected_attention_paged"] = dict(
                 ms=ms["device"], plain_ms=p_ms["device"], bound_ms=b_ms,

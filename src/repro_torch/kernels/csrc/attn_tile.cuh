@@ -1,5 +1,8 @@
-// Shared online-softmax attention tile for the flash and selected-attention
-// kernels (flash_attention.cu, selected_attention.cu).
+// Shared online-softmax attention tile for the fp32 launches of the flash,
+// selected and paged attention kernels (flash_attention.cu,
+// selected_attention.cu, selected_attention_paged.cu); their bf16 launches
+// run on the tensor-core tile of attn_mma.cuh, which shares AttnIO and the
+// key-map contract below.
 //
 // One thread block computes BQ query rows of one (batch, query head) against
 // a sequence of "logical keys".  The caller's key map turns a logical key
@@ -30,17 +33,10 @@ constexpr float NEG_INF = -1e30f;
 constexpr int NEVER = 0x7fffffff;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T>
 struct AttnIO {

@@ -10,14 +10,17 @@
 // h=32, h_kv=8, tq=128, tk=1152, d=128, bf16): about 2.4 GFLOP against 6.7 MB
 // of inputs and output, so it is bound by operations at tensor-core rates
 // (2.4 us at 989 TFLOP/s; the bytes take 2.0 us at 3.35 TB/s).  Decode
-// (tq=1) is bound by the 4.7 MB of K/V instead.
+// (tq=1) is bound by the 4.2 MB of K/V instead.
 //
-// This first design is the simple one: one block per (b, h, 16-row q tile),
-// K/V tiles of 32 keys staged in shared memory as fp32, and the products on
-// the CUDA cores in fp32 (attn_tile.cuh).  It reads each KV tile once per
-// query head and per q tile, and does not use the tensor cores; wgmma/TMA
-// tiles with a GQA group per block are the later, faster design.
-#include "attn_tile.cuh"
+// bf16 runs on the tensor-core tile of attn_mma.cuh: one block per (b, KV
+// head, 64 of the group's query (head, row) pairs), so each K/V tile is
+// staged once for the whole GQA group; mma.sync bf16 products with fp32
+// accumulation; a cp.async K/V ring fed by a warp that resolves the key
+// offsets ahead; the key walk split across blocks, with a merge kernel,
+// when the (b, KV head, row tile) blocks do not fill the card.  fp32 stays
+// on the simple CUDA-core tile of attn_tile.cuh (tensor cores would round
+// fp32 operands to TF32).
+#include "attn_mma.cuh"
 
 namespace quoka {
 
@@ -40,19 +43,32 @@ struct FlashMap {
   }
 };
 
-template <typename T>
-static cudaError_t run(int d, const AttnIO<T>& io, const FlashMap& map, int b,
-                       int h, cudaStream_t s) {
-  if (d == 64) return launch_attn<T, 64>(io, map, b, h, s);
-  if (d == 128) return launch_attn<T, 128>(io, map, b, h, s);
+static cudaError_t run(int d, const AttnIO<float>& io, const FlashMap& map,
+                       int b, int h, cudaStream_t s) {
+  if (d == 64) return launch_attn<float, 64>(io, map, b, h, s);
+  if (d == 128) return launch_attn<float, 128>(io, map, b, h, s);
+  return cudaErrorInvalidValue;
+}
+
+static cudaError_t run_mma(int d, const AttnIO<__nv_bfloat16>& io,
+                           const FlashMap& map, int b, int h_kv, int n_split,
+                           float* part_o, float* part_ml, cudaStream_t s) {
+  if (d == 64)
+    return launch_attn_mma<64>(io, map, b, h_kv, n_split, part_o,
+                               part_ml, s);
+  if (d == 128)
+    return launch_attn_mma<128>(io, map, b, h_kv, n_split, part_o,
+                                part_ml, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace quoka
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head dim
-// of q, k, v and out is contiguous.  Returns cudaGetLastError() after the
-// launch on `stream`.
+// of q, k, v and out is contiguous.  bf16 only: n_split from
+// tiling.attn_geometry, part_o / part_ml the fp32 scratch of a split walk
+// (null when n_split == 1).  Returns cudaGetLastError() after the launches
+// on `stream`.
 extern "C" int flash_attention_launch(
     int dtype, int d, const void* q, const void* k, const void* v,
     const void* valid, void* out, int b, int h, int h_kv, int tq, int tk,
@@ -60,7 +76,7 @@ extern "C" int flash_attention_launch(
     long long sk_h, long long sk_t, long long sv_b, long long sv_h,
     long long sv_t, long long sva_b, long long sva_h, long long so_b,
     long long so_h, long long so_t, int causal, int boundary, float scale,
-    void* stream) {
+    int n_split, void* part_o, void* part_ml, void* stream) {
   using namespace quoka;
   FlashMap map{sk_b, sk_h, sk_t, sv_b, sv_h, sv_t,
                static_cast<const uint8_t*>(valid), sva_b, sva_h, causal,
@@ -71,7 +87,7 @@ extern "C" int flash_attention_launch(
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, tq, h / h_kv, tk,
                      scale};
-    return static_cast<int>(run<float>(d, io, map, b, h, s));
+    return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
     AttnIO<__nv_bfloat16> io{static_cast<const __nv_bfloat16*>(q),
@@ -80,7 +96,9 @@ extern "C" int flash_attention_launch(
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, tq, h / h_kv,
                              tk, scale};
-    return static_cast<int>(run<__nv_bfloat16>(d, io, map, b, h, s));
+    return static_cast<int>(run_mma(d, io, map, b, h_kv, n_split,
+                                    static_cast<float*>(part_o),
+                                    static_cast<float*>(part_ml), s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,9 +21,16 @@
 // chunk t=128, h=32, n_kv=8, d=128, bf16): 2.4 GFLOP against 6.7 MB (q, the
 // 1152 selected and chunk rows of K and V per KV head, out), so bound by
 // operations at tensor-core rates; decode (t=1) is bound by the bytes.
-// This first design shares the simple fp32 CUDA-core tile of
-// attn_tile.cuh with the flash kernel.
-#include "attn_tile.cuh"
+// bf16 runs on the tensor-core tile of attn_mma.cuh (shared with the
+// flash and paged kernels): one block per (b, KV head, 64 of the group's
+// query (head, row) pairs), so each gathered K/V row is staged once for
+// the whole GQA group; mma.sync bf16 products with fp32 accumulation; a
+// cp.async K/V ring whose row offsets (plan id -> cache row, pos and start
+// checks) a resolver warp computes tiles ahead; keys masked for every row
+// (-1 ids, unwritten or future slots) zero-filled instead of read; the key
+// walk split across blocks with a merge kernel when the blocks do not fill
+// the card (decode).  fp32 stays on attn_tile.cuh.
+#include "attn_mma.cuh"
 
 namespace quoka {
 
@@ -65,11 +72,22 @@ struct SelectedMap {
   }
 };
 
-template <typename T>
-static cudaError_t run(int d, const AttnIO<T>& io, const SelectedMap& map,
+static cudaError_t run(int d, const AttnIO<float>& io, const SelectedMap& map,
                        int b, int h, cudaStream_t s) {
-  if (d == 64) return launch_attn<T, 64>(io, map, b, h, s);
-  if (d == 128) return launch_attn<T, 128>(io, map, b, h, s);
+  if (d == 64) return launch_attn<float, 64>(io, map, b, h, s);
+  if (d == 128) return launch_attn<float, 128>(io, map, b, h, s);
+  return cudaErrorInvalidValue;
+}
+
+static cudaError_t run_mma(int d, const AttnIO<__nv_bfloat16>& io,
+                           const SelectedMap& map, int b, int n_kv, int n_split,
+                           float* part_o, float* part_ml, cudaStream_t s) {
+  if (d == 64)
+    return launch_attn_mma<64>(io, map, b, n_kv, n_split, part_o,
+                               part_ml, s);
+  if (d == 128)
+    return launch_attn_mma<128>(io, map, b, n_kv, n_split, part_o,
+                                part_ml, s);
   return cudaErrorInvalidValue;
 }
 
@@ -78,7 +96,9 @@ static cudaError_t run(int d, const AttnIO<T>& io, const SelectedMap& map,
 // dtype: 0 = float32, 1 = bfloat16.  q (b, h, t, d) and k, v (b, n_kv, T, d)
 // are strided views with a contiguous head dim; key_pos (b, T) int32;
 // ids (b, n_kv, nb) int32 (block ids at g > 1, token slots at g == 1);
-// start (b,) int32.  Returns cudaGetLastError() after the launch.
+// start (b,) int32.  bf16 only: n_split from
+// tiling.attn_geometry, part_o / part_ml the fp32 scratch of a split walk
+// (null when n_split == 1).  Returns cudaGetLastError() after the launches.
 extern "C" int selected_attention_launch(
     int dtype, int d, const void* q, const void* k, const void* v,
     const void* key_pos, const void* ids, const void* start, void* out, int b,
@@ -86,7 +106,8 @@ extern "C" int selected_attention_launch(
     long long sq_h, long long sq_t, long long sk_b, long long sk_h,
     long long sk_t, long long sv_b, long long sv_h, long long sv_t,
     long long si_b, long long si_h, long long so_b, long long so_h,
-    long long so_t, float scale, void* stream) {
+    long long so_t, float scale, int n_split, void* part_o,
+    void* part_ml, void* stream) {
   using namespace quoka;
   SelectedMap map{sk_b, sk_h, sk_t, sv_b, sv_h, sv_t,
                   static_cast<const int*>(key_pos),
@@ -99,7 +120,7 @@ extern "C" int selected_attention_launch(
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv, n_keys,
                      scale};
-    return static_cast<int>(run<float>(d, io, map, b, h, s));
+    return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
     AttnIO<__nv_bfloat16> io{static_cast<const __nv_bfloat16*>(q),
@@ -108,7 +129,9 @@ extern "C" int selected_attention_launch(
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv,
                              n_keys, scale};
-    return static_cast<int>(run<__nv_bfloat16>(d, io, map, b, h, s));
+    return static_cast<int>(run_mma(d, io, map, b, n_kv, n_split,
+                                    static_cast<float*>(part_o),
+                                    static_cast<float*>(part_ml), s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,11 +22,13 @@
 // Bound on the H100 at the serve path's shape (qwen3-4b, g=16, budget 1024,
 // chunk t=128, h=32, n_kv=8, d=128, bf16): as for the linear kernel, about
 // 2.4 GFLOP per request row against ~7 MB, so bound by operations at
-// tensor-core rates; decode (t=1) is bound by the bytes.  This first design
-// reuses the simple fp32 CUDA-core tile of attn_tile.cuh through a new key
-// map; the per-key table lookup is one extra dependent load in the tile's
-// offset-resolution step.
-#include "attn_tile.cuh"
+// tensor-core rates; decode (t=1) is bound by the bytes.  It runs on the
+// linear kernel's tiles through a new key map: bf16 on the tensor-core tile
+// of attn_mma.cuh, fp32 on attn_tile.cuh.  The per-key table lookup is one
+// extra dependent load in the resolver warp's offset step, which runs tiles
+// ahead of the loads; the split of the key walk depends only on the shapes,
+// so the two kernels agree bit for bit on the same rows.
+#include "attn_mma.cuh"
 
 namespace quoka {
 
@@ -77,11 +79,22 @@ struct PagedMap {
   }
 };
 
-template <typename T>
-static cudaError_t run(int d, const AttnIO<T>& io, const PagedMap& map,
+static cudaError_t run(int d, const AttnIO<float>& io, const PagedMap& map,
                        int b, int h, cudaStream_t s) {
-  if (d == 64) return launch_attn<T, 64>(io, map, b, h, s);
-  if (d == 128) return launch_attn<T, 128>(io, map, b, h, s);
+  if (d == 64) return launch_attn<float, 64>(io, map, b, h, s);
+  if (d == 128) return launch_attn<float, 128>(io, map, b, h, s);
+  return cudaErrorInvalidValue;
+}
+
+static cudaError_t run_mma(int d, const AttnIO<__nv_bfloat16>& io,
+                           const PagedMap& map, int b, int n_kv, int n_split,
+                           float* part_o, float* part_ml, cudaStream_t s) {
+  if (d == 64)
+    return launch_attn_mma<64>(io, map, b, n_kv, n_split, part_o,
+                               part_ml, s);
+  if (d == 128)
+    return launch_attn_mma<128>(io, map, b, n_kv, n_split, part_o,
+                                part_ml, s);
   return cudaErrorInvalidValue;
 }
 
@@ -92,8 +105,10 @@ static cudaError_t run(int d, const AttnIO<T>& io, const PagedMap& map,
 // slot and head; pos (n_pool, bs) int32 and table (b, nb_table) int32
 // contiguous;
 // ids (b, n_kv, nb) int32 (block ids at g > 1, token slots at g == 1, on
-// the logical grid); start (b,) int32.  Returns cudaGetLastError() after
-// the launch.
+// the logical grid); start (b,) int32.  bf16 only: n_split
+// from tiling.attn_geometry, part_o / part_ml the fp32 scratch of a split
+// walk (null when n_split == 1).  Returns cudaGetLastError() after the
+// launches.
 extern "C" int selected_attention_paged_launch(
     int dtype, int d, const void* q, const void* k, const void* v,
     const void* pos, const void* table, const void* ids, const void* start,
@@ -102,7 +117,8 @@ extern "C" int selected_attention_paged_launch(
     int g, long long sq_b, long long sq_h, long long sq_t, long long sk_n,
     long long sk_s, long long sk_h, long long sv_n, long long sv_s,
     long long sv_h, long long si_b, long long si_h, long long so_b,
-    long long so_h, long long so_t, float scale, void* stream) {
+    long long so_h, long long so_t, float scale, int n_split,
+    void* part_o, void* part_ml, void* stream) {
   using namespace quoka;
   PagedMap map{sk_n, sk_s, sk_h, sv_n, sv_s, sv_h,
                static_cast<const int*>(pos), static_cast<const int*>(table),
@@ -116,7 +132,7 @@ extern "C" int selected_attention_paged_launch(
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv, n_keys,
                      scale};
-    return static_cast<int>(run<float>(d, io, map, b, h, s));
+    return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
     AttnIO<__nv_bfloat16> io{static_cast<const __nv_bfloat16*>(q),
@@ -125,7 +141,9 @@ extern "C" int selected_attention_paged_launch(
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv,
                              n_keys, scale};
-    return static_cast<int>(run<__nv_bfloat16>(d, io, map, b, h, s));
+    return static_cast<int>(run_mma(d, io, map, b, n_kv, n_split,
+                                    static_cast<float*>(part_o),
+                                    static_cast<float*>(part_ml), s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

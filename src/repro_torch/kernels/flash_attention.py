@@ -4,7 +4,9 @@
 Mask: attend(i, j) iff k_valid[j] and (not causal or j < boundary or
 j - boundary <= i); fully-masked rows give zeros.  For a CPU tensor the
 wrapper runs the plain version (``ref.flash_attention_ref``); for a CUDA
-tensor it launches the kernel or raises.  ``LAUNCHES`` counts launches.
+tensor it launches the kernel (bf16: ``csrc/attn_mma.cuh``, with its merge
+kernel when ``tiling.attn_geometry`` splits the key walk) or raises.
+``LAUNCHES`` counts wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, tiling
 
 LAUNCHES = 0
 HEAD_DIMS = (64, 128)
@@ -56,16 +58,18 @@ def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
         if x.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} needs a contiguous "
                              "head dim")
+    tiling.check_aligned("flash_attention", q=q, k=k, v=v)
     scale = (d ** -0.5) if scale is None else scale
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)                     # BHTD view of BTHD storage
+    geom, _scratch = tiling.split_args(q, h_kv, tq, tk)
     lib = build.library()
     rc = lib.flash_attention_launch(
         build.dtype_code(q.dtype), d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), k_valid.data_ptr(), o.data_ptr(), b, h, h_kv, tq, tk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         k_valid.stride(0), sva_h, *o.stride()[:3], int(causal),
-        int(boundary), float(scale), build.stream_ptr(q.device))
+        int(boundary), float(scale), *geom, build.stream_ptr(q.device))
     LAUNCHES += 1
     build.check(rc, "flash_attention")
     return o

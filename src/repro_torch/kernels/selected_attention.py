@@ -8,8 +8,10 @@ paged.cu``).  The chunk's queries attend over [plan-selected KV | causal
 chunk] read in place; validity is re-derived in the kernel exactly as
 ``core/plan.py::materialize`` derives it.  For a CPU tensor each wrapper
 runs its plain version (``ref.selected_ref`` / ``ref.selected_paged_ref``,
-which gather); for a CUDA tensor it launches its kernel or raises.
-``LAUNCHES`` and ``PAGED_LAUNCHES`` count launches.
+which gather); for a CUDA tensor it launches its kernel (bf16:
+``csrc/attn_mma.cuh``, with its merge kernel when ``tiling.attn_geometry``
+splits the key walk, identically for both views) or raises.
+``LAUNCHES`` and ``PAGED_LAUNCHES`` count wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, tiling
 
 LAUNCHES = 0
 PAGED_LAUNCHES = 0
@@ -43,6 +45,13 @@ def _plan_inputs(q, block_idx, chunk_start, g: int, n_kv: int, name: str):
         start = start.expand(b).contiguous() if start.ndim == 0 else \
             start.contiguous()
     return idx, si_h, start
+
+
+def _split_args(q, idx, g: int, n_kv: int):
+    """Launch geometry of either view: both walk the ``nb * g`` selected
+    keys, then the ``t`` chunk keys, so one shape splits identically."""
+    t = q.shape[2]
+    return tiling.split_args(q, n_kv, t, idx.shape[-1] * g + t)
 
 
 def selected_attention_bhtd(q, k, v, key_pos, block_idx, chunk_start, *,
@@ -86,16 +95,18 @@ def selected_attention_bhtd(q, k, v, key_pos, block_idx, chunk_start, *,
     dev = q.device
     nb = idx.shape[-1]
     key_pos = key_pos.to(torch.int32).contiguous()
+    tiling.check_aligned("selected_attention", q=q, k=k, v=v)
     scale = (d ** -0.5) if scale is None else scale
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     o = out.transpose(1, 2)
+    geom, _scratch = _split_args(q, idx, g, n_kv)
     lib = build.library()
     rc = lib.selected_attention_launch(
         build.dtype_code(q.dtype), d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), key_pos.data_ptr(), idx.data_ptr(), start.data_ptr(),
         o.data_ptr(), b, h, n_kv, t, T, nb, g,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        idx.stride(0), si_h, *o.stride()[:3], float(scale),
+        idx.stride(0), si_h, *o.stride()[:3], float(scale), *geom,
         build.stream_ptr(dev))
     LAUNCHES += 1
     build.check(rc, "selected_attention")
@@ -163,9 +174,12 @@ def selected_attention_paged(q, k_pool, v_pool, pos_pool, block_idx,
     nb = idx.shape[-1]
     table = table.to(device=dev, dtype=torch.int32).contiguous()
     pos_pool = pos_pool.to(torch.int32).contiguous()
+    tiling.check_aligned("selected_attention_paged", q=q, k_pool=k_pool,
+                         v_pool=v_pool)
     scale = (d ** -0.5) if scale is None else scale
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
     o = out.transpose(1, 2)
+    geom, _scratch = _split_args(q, idx, g, n_kv)
     lib = build.library()
     rc = lib.selected_attention_paged_launch(
         build.dtype_code(q.dtype), d, q.data_ptr(), k_pool.data_ptr(),
@@ -173,7 +187,7 @@ def selected_attention_paged(q, k_pool, v_pool, pos_pool, block_idx,
         idx.data_ptr(), start.data_ptr(), o.data_ptr(), b, h, n_kv, t,
         table.shape[1], n_blocks, bs, nb, g, *q.stride()[:3],
         *k_pool.stride()[:3], *v_pool.stride()[:3], idx.stride(0), si_h,
-        *o.stride()[:3], float(scale), build.stream_ptr(dev))
+        *o.stride()[:3], float(scale), *geom, build.stream_ptr(dev))
     PAGED_LAUNCHES += 1
     build.check(rc, "selected_attention_paged")
     return o

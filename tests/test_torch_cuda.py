@@ -53,6 +53,13 @@ def _err(got, want):
     (1, 32, 8, 1, 1025, 128, True, 1024, True),
     (2, 4, 2, 37, 119, 64, True, 16, False),
     (1, 4, 4, 16, 300, 64, False, 0, False),
+    # bf16 tile (attn_mma.cuh): a GQA group per block at groups 1 and 8,
+    # a 4224-key walk that wraps the K/V ring 66 times (256 blocks, no
+    # split), and a non-causal group of 4
+    (1, 8, 8, 128, 1152, 128, True, 1024, True),
+    (2, 16, 2, 64, 700, 128, True, 600, True),
+    (4, 32, 8, 128, 4224, 128, True, 4096, True),
+    (1, 32, 8, 64, 1000, 128, False, 0, True),
 ])
 def test_flash_kernel_matches_plain(dev, case, dtype):
     b, h, hkv, tq, tk, d, causal, boundary, per_head = case
@@ -123,6 +130,7 @@ def _plan(rng, g, b, n_kv, T, start, nsel):
     (16, 1, 4, 4, 128, 16, 0, 3, 64),           # nothing selectable
     (1, 1, 32, 8, 2048, 128, 1024, 1024, 128),  # token plan, per-head ids
     (1, 1, 2, 2, 96, 32, 33, 17, 64),           # ragged g=1
+    (16, 1, 32, 4, 2048, 64, 1024, 32, 128),    # group of 8
 ])
 def test_selected_kernel_matches_plain(dev, case, dtype):
     gran, b, h, n_kv, T, t, start, nsel, d = case
@@ -146,6 +154,44 @@ def test_selected_kernel_matches_plain(dev, case, dtype):
     want = ref.selected_ref(q, k, v, key_pos, idx, start, gran).transpose(1, 2)
     assert bool(torch.isfinite(got).all())
     assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gran,t", [(16, 1), (1, 1), (16, 128)])
+def test_selected_kernel_per_row_starts(dev, gran, t, dtype):
+    """A serve step's geometry: 4 rows with their own starts (one of them
+    idle: nothing written, no plan); at t = 1 the 32 (row, KV head) blocks
+    split the key walk (S = 8 on an H100) and the merge runs."""
+    b, h, n_kv, T, d, nsel = 4, 32, 8, 8320, 128, 64
+    starts = [8190, 3000, 1030, 0]            # chunk ends <= T
+    rng = np.random.default_rng(4)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, T, n_kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, T, n_kv, d), generator=g, device=dev).to(dtype)
+    key_pos = torch.arange(T, dtype=torch.int32, device=dev).repeat(b, 1)
+    idx = np.full((b, n_kv, nsel * 16) if gran == 1 else (b, nsel), -1,
+                  np.int32)
+    for bi, st in enumerate(starts):
+        key_pos[bi, st + t:] = -1
+        if st == 0:
+            key_pos[bi] = -1                   # idle row
+            continue
+        one = _plan(rng, gran, 1, n_kv, T, st, idx.shape[-1])
+        idx[bi] = one[0]
+    idx = torch.as_tensor(idx, device=dev)
+    st_dev = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    n0 = sa_mod.LAUNCHES
+    got = sa_mod.selected_attention_bhtd(qt, kt, vt, key_pos, idx, st_dev,
+                                         granularity=gran)
+    torch.cuda.synchronize()
+    assert sa_mod.LAUNCHES == n0 + 1
+    want = ref.selected_ref(q, k, v, key_pos, idx, st_dev,
+                            gran).transpose(1, 2)
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= _tol(want, dtype)
+    assert float(got[3].abs().max()) == 0.0     # idle row: exact zeros
 
 
 def _paged_inputs(dev, dtype, gran, t, start, d, bs=128, nb_logical=16,
@@ -205,11 +251,13 @@ def _paged_inputs(dev, dtype, gran, t, start, d, bs=128, nb_logical=16,
     (1, 128, 1024, 128),      # per-KV-head token plan
     (1, 1, 1037, 64),
     (16, 128, 0, 64),         # first chunk: nothing selectable
+    (16, 1, 1037, 128, 8, 32),  # qwen3-4b heads: bf16 splits the walk (S=5)
 ])
 def test_paged_kernel_matches_plain(dev, case, dtype):
-    gran, t, start, d = case
-    q, kp, vp, pp, idx, starts, table, bs = _paged_inputs(dev, dtype, gran,
-                                                          t, start, d)
+    gran, t, start, d, *heads = case
+    n_kv, h = heads or (2, 8)
+    q, kp, vp, pp, idx, starts, table, bs = _paged_inputs(
+        dev, dtype, gran, t, start, d, n_kv=n_kv, h=h)
     qt = q.transpose(1, 2)
     n0 = sa_mod.PAGED_LAUNCHES
     got = sa_mod.selected_attention_paged(qt, kp, vp, pp, idx, starts, table,

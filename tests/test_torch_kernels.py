@@ -198,3 +198,99 @@ def test_dense_and_blocked_attention_match_reference(tk):
     got = attention.attention_with_positions(tq_, tk_, tv, tqp, tkp)
     _close(got, ref_attention.attention_with_positions(jq, jk, jv, jqp, jkp))
     assert float(got[:, 0].abs().max()) == 0.0
+
+
+# launch geometry of the bf16 attention tile (csrc/attn_mma.cuh): pure
+# Python, so it is checked here; the kernels themselves run on the card
+N_SM = 132          # H100 SXM
+MAIN_GEOMETRIES = [
+    # (b, n_kv, group, tq, n_keys): qwen3-4b flash / selected / serve
+    (1, 8, 4, 128, 1152), (1, 8, 4, 1, 1025),
+    (1, 8, 4, 128, 64 * 16 + 128), (1, 8, 4, 1, 64 * 16 + 1),
+    (4, 8, 4, 128, 64 * 16 + 128), (4, 8, 4, 1, 64 * 16 + 1),
+]
+SMALL_GEOMETRIES = [(b, n_kv, group, tq, n_keys)
+                    for b in (1, 4) for n_kv in (1, 2, 8)
+                    for group in (1, 2, 4, 8) for tq in (1, 16, 37, 128)
+                    for n_keys in (1, 64, 65, 1025, 4224)]
+
+
+@pytest.mark.parametrize("shape", MAIN_GEOMETRIES + SMALL_GEOMETRIES[::7])
+def test_attn_geometry_covers_rows_and_keys(shape):
+    from repro_torch.kernels import tiling
+    b, n_kv, group, tq, n_keys = shape
+    m_tiles, n_split = tiling.attn_geometry(b, n_kv, group, tq, n_keys, N_SM)
+    # every (head, row) pair of the group in exactly one M tile, head-major
+    seen = [(p // tq, p % tq) for mt in range(m_tiles)
+            for p in range(mt * tiling.BM, (mt + 1) * tiling.BM)
+            if p < group * tq]
+    assert sorted(seen) == [(hg, i) for hg in range(group)
+                            for i in range(tq)]
+    assert m_tiles * tiling.BM - group * tq < tiling.BM
+    # slices [s * n // S, (s + 1) * n // S) cover the key tiles, none empty
+    n_tiles = max(1, -(-n_keys // tiling.BN))
+    assert 1 <= n_split <= n_tiles
+    bounds = [s * n_tiles // n_split for s in range(n_split + 1)]
+    assert bounds[0] == 0 and bounds[-1] == n_tiles
+    assert all(hi - lo >= 1 for lo, hi in zip(bounds, bounds[1:]))
+    # the card is filled, within one wave of resident blocks, where the
+    # key walk allows it
+    blocks = b * n_kv * m_tiles
+    if blocks >= N_SM:
+        assert n_split == 1
+    else:
+        assert blocks * n_split >= N_SM or n_split == n_tiles
+        assert blocks * n_split <= tiling.BLOCKS_PER_SM * N_SM
+
+
+@pytest.mark.parametrize("g,t,nsel", [(16, 128, 64), (16, 1, 64),
+                                      (1, 128, 1024), (1, 1, 1024)])
+def test_linear_and_paged_split_alike(monkeypatch, g, t, nsel):
+    """The linear and the paged wrapper derive the same launch geometry
+    for one shape (phase 9 of chip_smoke.py holds them bitwise equal)."""
+    from repro_torch.kernels import selected_attention as sa
+    from repro_torch.kernels import tiling
+    monkeypatch.setattr(tiling, "sm_count", lambda index: N_SM)
+    b, h, n_kv, d = 4, 32, 8, 128
+    q = torch.zeros((b, h, t, d), dtype=torch.bfloat16)
+    ids = torch.full((b, n_kv, nsel) if g == 1 else (b, nsel), -1)
+    got = []
+    for view in ("linear", "paged"):
+        idx, _, _ = sa._plan_inputs(q, ids, 0, g, n_kv, view)
+        geom, scratch = sa._split_args(q, idx, g, n_kv)
+        got.append((geom[0], [tuple(x.shape) for x in scratch]))
+    assert got[0] == got[1]
+    n_split, shapes = got[0]
+    m_tiles, want = tiling.attn_geometry(b, n_kv, h // n_kv, t,
+                                         nsel * g + t, N_SM)
+    assert n_split == want
+    rows = b * n_kv * m_tiles * tiling.BM
+    assert shapes == ([] if n_split == 1 else
+                      [(n_split, rows, d), (n_split, rows, 2)])
+    assert (n_split > 1) == (t == 1)       # decode splits, prefill fills
+
+
+def test_tile_shape_reaches_the_compiler():
+    """The bf16 tile's BM, BN and resident blocks are defined once, in
+    tiling.py: build.py hands them to nvcc and attn_mma.cuh takes its
+    constants from those macros (it refuses to build without them)."""
+    from repro_torch.kernels import build, tiling
+    assert set(tiling.NVCC_DEFINES) <= set(build.NVCC_FLAGS)
+    header = (build.CSRC / "attn_mma.cuh").read_text()
+    for flag, name in zip(tiling.NVCC_DEFINES,
+                          ("BM", "BN", "BLOCKS_PER_SM")):
+        macro = flag[2:].split("=")[0]
+        assert f"constexpr int {name} = {macro};" in header
+        assert f"defined({macro})" in header
+    assert "__launch_bounds__(NTHREADS, BLOCKS_PER_SM)" in header
+
+
+def test_bf16_rows_must_be_16_byte_aligned():
+    """The bf16 tile copies 16-byte chunks: a view whose rows start off a
+    16-byte boundary is refused before any launch; fp32 (the simple tile)
+    and aligned views pass."""
+    from repro_torch.kernels import tiling
+    x = torch.zeros((1, 2, 8, 72), dtype=torch.bfloat16)
+    tiling.check_aligned("k", ok=x[..., :64], f32=x.float()[..., 1:65])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tiling.check_aligned("k", q=x[..., 4:68])
