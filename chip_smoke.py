@@ -8,6 +8,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
   1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the same bf16
      tensors at the main path's shapes, each error beside its tolerance;
+     scoring also at d = 80 and d = 576 (small T, bf16 and fp32) with a
+     row that has no valid slot (exactly NEG_INF);
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -18,14 +20,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      and on the CPU (plain versions) gives the same logits and tokens;
   6. kernel timings at the main-path shapes, prefill and decode (CUDA
      events around a CUDA graph replay of one call, with L2 as the main
-     path leaves it for that kernel, and for the attention kernels with L2
-     warm and flushed both; the eager call's event and host times beside
-     them; and 20 attention calls back to back in one graph) against
-     their bound, the plain version and, for flash attention, one
-     ``scaled_dot_product_attention`` call; for the bf16 attention
-     kernels, the grids of the kernels one call launched and their device
-     time, read from a ``torch.profiler`` trace (the split count S and the
-     blocks per launch);
+     path leaves it for that kernel, and with L2 warm and flushed both;
+     the eager call's event and host times beside them; and 20 calls back
+     to back in one graph, each scoring call on its own copy of the cache)
+     against their bound, the plain version and, for flash attention, one
+     ``scaled_dot_product_attention`` call; for scoring and the bf16
+     attention kernels, the grids of the kernels one call launched and
+     their device time, read from a ``torch.profiler`` trace (the blocks
+     per launch and, for attention, the split count S);
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -115,6 +117,18 @@ def score_inputs(torch, dev, n_q, start=4096, T=8224):
     return qb, k.transpose(1, 2), valid       # the not-yet-written cap
 
 
+def small_score_inputs(torch, dev, n_q, d, dtype, T=300):
+    """Two rows at small T, q̄ in the main path's (b, n_q, n_kv, d) layout
+    viewed as BHND: row 0 with random validity, row 1 with none."""
+    g = torch.Generator(device=dev).manual_seed(40 + d + n_q)
+    qb = torch.randn((2, n_q, 2, d), generator=g, device=dev).transpose(1, 2)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((2, T, 2, d), generator=g, device=dev).to(dtype)
+    valid = torch.rand((2, T), generator=g, device=dev) < 0.8
+    valid[1] = False
+    return qb, k.transpose(1, 2), valid
+
+
 def flash_inputs(torch, dev, tq):
     """[selected budget 1024 | chunk tq]: per-KV-head budget validity with
     -1 padding; KV head 3 selected nothing and its chunk key 0 is a pad
@@ -176,6 +190,21 @@ def phase_parity(torch, np, dev, K):
         check(f"quoka_score T=8224 n_q={n_q}", err, 1e-4,
               "fp32 scores of bf16 products, summation order differs")
         e = max(e, err)
+    for d, n_q in ((80, 5), (576, 16)):
+        for dtype, tol, why in (
+                (torch.bfloat16, 1e-4, "fp32 scores of bf16 products"),
+                (torch.float32, 2e-5, "fp32 on the CUDA cores")):
+            qb, kt, valid = small_score_inputs(torch, dev, n_q, d, dtype)
+            got = qs.quoka_score_bhtd(qb, kt, valid)
+            want = ref.score_ref(qb, kt, valid)
+            if not bool((got[1] == ref.NEG_INF).all()):
+                raise AssertionError("quoka_score: a row with no valid "
+                                     "slot is not exactly NEG_INF")
+            err = max_err(got, want)
+            check(f"quoka_score T=300 d={d} n_q={n_q} "
+                  f"{str(dtype)[6:]}", err, tol,
+                  f"{why}, summation order differs")
+            e = max(e, err)
     errs["quoka_score"] = e
     e = 0.0
     for tq in (128, 1):
@@ -249,6 +278,7 @@ def phase_main(torch, np, K, model, label):
     log(f"  {label}: TTFT {r.ttft_s * 1e3:.1f} ms   decode "
         f"{r.decode_tps:.2f} tok/s   peak memory {peak:.2f} GiB   "
         f"launches {counts}")
+    log(f"  {label}: greedy tokens {r.tokens[0].tolist()}")
     return r, counts, peak
 
 
@@ -763,7 +793,9 @@ def phase_trace(torch, np, model, prompt=2048, steps=8):
                 total += us
                 by_name[e.key] = (us, e.count)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        return total, top
+        score = [sum(v[i] for k, v in by_name.items() if SCORE_KERNELS[0] in k)
+                 for i in (0, 1)]
+        return total, top, score
 
     out = {}
     tok, cache = prefill()                     # warm
@@ -785,7 +817,7 @@ def phase_trace(torch, np, model, prompt=2048, steps=8):
             else:
                 decode(tok, cache)
             torch.cuda.synchronize()
-        busy, top = busy_us(prof)
+        busy, top, (score_us, score_n) = busy_us(prof)
         idle = 1.0 - busy * 1e-6 / wall
         # host work: torch ops issued per layer call (outermost aten ops)
         n_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
@@ -799,8 +831,11 @@ def phase_trace(torch, np, model, prompt=2048, steps=8):
             f"{n_ops / calls:.0f} torch ops per layer call")
         for name, (us, n) in top:
             log(f"    {us / 1e3:9.2f} ms  {n:5d} calls  {name[:90]}")
+        log(f"    scoring: {score_us / 1e3:.2f} ms device in {score_n} calls "
+            f"({score_us / max(score_n, 1) / 1e3:.4f} ms per call)")
         out[label] = dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3,
                           idle_share=idle, ops_per_layer_call=n_ops / calls,
+                          score_ms=score_us / 1e3, score_calls=score_n,
                           top=[[nm[:90], us / 1e3, n]
                                for nm, (us, n) in top])
     return out
@@ -863,17 +898,19 @@ def nbytes(*ts):
 
 
 ATTN_KERNELS = ("attn_mma_kernel", "attn_merge_kernel")
+SCORE_KERNELS = ("score_kernel",)
 
 
-def launched(torch, call, reps=10):
-    """The bf16 attention kernels that one ``call`` launches, as a
+def launched(torch, call, names=ATTN_KERNELS, reps=10):
+    """The kernels ``names`` that one ``call`` launches, as a
     ``torch.profiler`` trace of ``reps`` eager calls records them:
     ``(n_split, blocks, {kernel: (grid, device ms per launch, launches
-    recorded)})`` with n_split the first grid dimension of
-    ``attn_mma_kernel`` and blocks summed over both kernels' grids.  The
-    trace is the second of two profiler steps (the first warms the
-    profiler up).  Fails unless each kernel ran with one grid, at most
-    once per call, and the merge ran exactly when the walk was split."""
+    recorded)})`` with blocks summed over the kernels' grids and, for the
+    bf16 attention kernels, n_split the first grid dimension of
+    ``attn_mma_kernel`` (else None).  The trace is the second of two
+    profiler steps (the first warms the profiler up).  Fails unless the
+    first kernel ran, each ran with one grid and at most once per call,
+    and the attention merge ran exactly when the walk was split."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -891,30 +928,68 @@ def launched(torch, call, reps=10):
             events = json.load(f)["traceEvents"]
     seen = {}
     for e in events:
-        name = next((k for k in ATTN_KERNELS if k in e.get("name", "")), None)
+        name = next((k for k in names if k in e.get("name", "")), None)
         if name is None or e.get("cat") != "kernel":
             continue
         grid = tuple(e["args"]["grid"])
         n, us, grids = seen.get(name, (0, 0.0, set()))
         seen[name] = (n + 1, us + float(e["dur"]), grids | {grid})
-    if "attn_mma_kernel" not in seen:
-        raise AssertionError(f"no attn_mma_kernel in the trace: {seen}")
+    if names[0] not in seen:
+        raise AssertionError(f"no {names[0]} in the trace: {seen}")
     out = {}
     for name, (n, us, grids) in seen.items():
         if n > reps or len(grids) != 1:
             raise AssertionError(f"{name}: {n} launches in {reps} calls, "
                                  f"grids {grids}")
         out[name] = (grids.pop(), us / n / 1e3, n)
+    blocks = sum(math.prod(g) for g, _, _ in out.values())
+    if names != ATTN_KERNELS:
+        return None, blocks, out
     grid = out["attn_mma_kernel"][0]
     if (grid[0] > 1) != ("attn_merge_kernel" in out):
         raise AssertionError(f"S={grid[0]} but kernels {sorted(out)}")
-    return grid[0], sum(math.prod(g) for g, _, _ in out.values()), out
+    return grid[0], blocks, out
 
 
 def fmt_launched(n_split, blocks, kernels) -> str:
     parts = [f"{k} grid {g} {ms:.4f} ms ({n} recorded)"
              for k, (g, ms, n) in kernels.items()]
-    return f"S={n_split}, {blocks} blocks ({'; '.join(parts)})"
+    split = "" if n_split is None else f"S={n_split}, "
+    return f"{split}{blocks} blocks ({'; '.join(parts)})"
+
+
+def time_row(torch, flush, label, call, plain, b_ms, b_by, lib_ms=None,
+             warm_main=True, names=ATTN_KERNELS, b2b=None, traced=None):
+    """One kernel row of phase 6: device time with L2 warm, with L2
+    flushed and back to back (``b2b``: 20 calls captured in one graph, by
+    default ``call`` 20 times), the plain version, a library call's time
+    where one exists, the bound, and the kernels a call of ``traced``
+    (default ``call``) launched (grids, blocks, device times), read from
+    a profiler trace.  "ms" is the time with L2 as the main path leaves
+    it: warm when ``warm_main``, else flushed."""
+    warm = time_ms(torch, call, None)
+    cold = time_ms(torch, call, flush)
+    # 20 calls back to back in one graph: the per-call device time
+    # without the fixed cost of launching a graph for a single call
+    b2b_ms = time_ms(torch, b2b or (lambda: [call() for _ in range(20)]),
+                     None, iters=5)["device"] / 20
+    p_ms = time_ms(torch, plain, None if warm_main else flush)
+    main = warm if warm_main else cold
+    n_split, blocks, kernels = launched(torch, traced or call, names)
+    lib = f"  sdpa {fmt(lib_ms)}" if lib_ms else ""
+    log(f"  {label}: {fmt(main)}  L2-warm {warm['device']:.4f}  "
+        f"L2-flushed {cold['device']:.4f}  back-to-back {b2b_ms:.4f}  "
+        f"plain {fmt(p_ms)}{lib}  bound {b_ms:.4f} ({b_by})  "
+        f"{fmt_launched(n_split, blocks, kernels)}")
+    r = dict(ms=main["device"], warm_ms=warm["device"],
+             cold_ms=cold["device"], b2b_ms=b2b_ms, plain_ms=p_ms["device"],
+             bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib_ms["device"] if lib_ms else None,
+             blocks=blocks,
+             kernel_ms={k: ms for k, (_, ms, _) in kernels.items()})
+    if n_split is not None:
+        r["n_split"] = n_split
+    return r
 
 
 def attention_times(torch, np, dev, K, flush):
@@ -934,27 +1009,8 @@ def attention_times(torch, np, dev, K, flush):
 
     def row(name, label, call, plain, b_ms, b_by, lib_ms=None,
             warm_main=True):
-        warm = time_ms(torch, call, None)
-        cold = time_ms(torch, call, flush)
-        # 20 calls back to back in one graph: the per-call device time
-        # without the fixed cost of launching a graph for a single call
-        b2b = time_ms(torch, lambda: [call() for _ in range(20)], None,
-                      iters=5)["device"] / 20
-        p_ms = time_ms(torch, plain, None if warm_main else flush)
-        main = warm if warm_main else cold
-        n_split, blocks, kernels = launched(torch, call)
-        lib = f"  sdpa {fmt(lib_ms)}" if lib_ms else ""
-        log(f"  {name} {label}: {fmt(main)}  L2-warm {warm['device']:.4f}  "
-            f"L2-flushed {cold['device']:.4f}  back-to-back {b2b:.4f}  "
-            f"plain {fmt(p_ms)}{lib}  "
-            f"bound {b_ms:.4f} ({b_by})  "
-            f"{fmt_launched(n_split, blocks, kernels)}")
-        r = dict(ms=main["device"], warm_ms=warm["device"],
-                 cold_ms=cold["device"], b2b_ms=b2b, plain_ms=p_ms["device"],
-                 bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lib_ms["device"] if lib_ms else None,
-                 n_split=n_split, blocks=blocks,
-                 kernel_ms={k: ms for k, (_, ms, _) in kernels.items()})
+        r = time_row(torch, flush, f"{name} {label}", call, plain, b_ms,
+                     b_by, lib_ms, warm_main)
         if label.startswith("prefill"):
             out[name].update(r)
         else:
@@ -1023,28 +1079,42 @@ def phase_timing(torch, np, dev, K, paged):
         junk.fill_(1)
 
     log("== phase 6: kernel times (ms; device = graph replay)")
-    rows = {}
+    rows = {"quoka_score": {}}
     # scoring and selected attention read the layer's KV cache, which the
     # other layers' weights have pushed out of L2 since its last use: flush.
     # Score: a mid-prefill chunk (half the cap is prior context), the last
-    # chunk and the first decode step (all of the prompt is).
-    for n_q, start in ((16, 4096), (16, PROMPT), (1, PROMPT)):
+    # chunk and the first decode step (all of the prompt is).  Back to
+    # back and in the trace, each call reads its own copy of the cache (20
+    # copies, 336 MB, far past the 50 MB L2), so those times are cold too.
+    for key, n_q, start in (("prefill", 16, 4096),
+                            ("last_chunk", 16, PROMPT),
+                            ("decode", 1, PROMPT)):
         qb, kt, valid = score_inputs(torch, dev, n_q, start)
+        copies = [kt.transpose(1, 2).clone().transpose(1, 2)
+                  for _ in range(20)]
         out = torch.empty((1, 8, kt.shape[2]), device=dev)
         # an invalid slot scores NEG_INF unread: only valid key rows count
         n_valid = int(valid.sum())
         k_bytes = 8 * n_valid * 128 * kt.element_size()
-        b_ms, b_by = bound(nbytes(qb.to(torch.bfloat16), valid, out)
-                           + k_bytes, 2 * 8 * n_valid * 128 * (n_q + 1))
-        ms = time_ms(torch, lambda: qs.quoka_score_bhtd(qb, kt, valid), flush)
-        p_ms = time_ms(torch, lambda: ref.score_ref(qb, kt, valid), flush)
-        log(f"  quoka_score n_q={n_q:2d} valid {n_valid}/{kt.shape[2]}: "
-            f"{fmt(ms)}  plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})")
-        if n_q == 16 and start == 4096:
-            rows["quoka_score"] = dict(ms=ms["device"],
-                                       plain_ms=p_ms["device"],
-                                       bound_ms=b_ms, bound_by=b_by,
-                                       library_ms=None)
+        b_ms, b_by = bound(nbytes(qb, valid, out) + k_bytes,
+                           2 * 8 * n_valid * 128 * (n_q + 1))
+        turn = iter(range(10 ** 9))
+
+        def rotating():
+            return qs.quoka_score_bhtd(qb, copies[next(turn) % 20], valid)
+        r = time_row(
+            torch, flush, f"quoka_score n_q={n_q} valid "
+            f"{n_valid}/{kt.shape[2]}",
+            lambda: qs.quoka_score_bhtd(qb, kt, valid),
+            lambda: ref.score_ref(qb, kt, valid), b_ms, b_by,
+            warm_main=False, names=SCORE_KERNELS,
+            b2b=lambda: [qs.quoka_score_bhtd(qb, c, valid) for c in copies],
+            traced=rotating)
+        if key == "prefill":
+            rows["quoka_score"].update(r)
+        else:
+            rows["quoka_score"][key] = r
+        del copies
     rows.update(attention_times(torch, np, dev, K, flush))
     # the paged kernel on the serve pool, one request row (the shape of
     # the linear kernel's row above) and the whole 4-row step; the pool is

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("quoka_score.cu", "flash_attention.cu", "selected_attention.cu",
            "selected_attention_paged.cu")
-HEADERS = ("attn_tile.cuh", "attn_mma.cuh")
+HEADERS = ("attn_tile.cuh", "attn_mma.cuh", "ptx.cuh")
 LIB_NAME = "libquoka_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,8 +37,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SPLIT = [_I, _P, _P, _P]
 # argument types of each extern "C" launcher, in source order
 SIGNATURES = {
-    "quoka_score_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _L, _L, _L, _L, _L, _L, _L, _P],
+    "quoka_score_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I]
+                          + [_L] * 9 + [_I] * 4 + [_P],
     "flash_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I] + [_L] * 14 + [_I, _I, _F] + _SPLIT,
     "selected_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

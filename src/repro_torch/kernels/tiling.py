@@ -1,4 +1,5 @@
-"""Launch geometry of the bf16 attention tile (``csrc/attn_mma.cuh``).
+"""Launch geometry of the bf16 attention tile (``csrc/attn_mma.cuh``) and
+of the scoring kernel (``csrc/quoka_score.cu``).
 
 One block owns one (batch, KV head) and ``BM`` of the GQA group's
 ``group * tq`` (query head, query row) pairs, enumerated head-major, and
@@ -12,6 +13,7 @@ and the paged selected-attention kernels split one call identically.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -20,8 +22,18 @@ import torch
 BM = 64     # (head, row) pairs per block
 BN = 64     # keys per tile
 BLOCKS_PER_SM = 2   # resident blocks of the tile (its __launch_bounds__)
+# The scoring kernel's block: at most SCORE_WARPS warps (its launch bound),
+# each owning SCORE_KEYS consecutive keys of a tile (the mma's M).
+SCORE_WARPS = 4
+SCORE_KEYS = 16
+SCORE_BLOCKS_PER_SM = 2    # resident scoring blocks aimed for
+SCORE_MAX_D = 576          # MLA's 512 + 64 latent
 NVCC_DEFINES = (f"-DQUOKA_MMA_BM={BM}", f"-DQUOKA_MMA_BN={BN}",
-                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}")
+                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}",
+                f"-DQUOKA_SCORE_WARPS={SCORE_WARPS}")
+# Hopper (H100, H200): shared memory one block may opt into, and per SM
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_PER_SM = 228 * 1024
 
 
 def attn_geometry(b: int, n_kv: int, group: int, tq: int, n_keys: int,
@@ -36,6 +48,58 @@ def attn_geometry(b: int, n_kv: int, group: int, tq: int, n_keys: int,
     if blocks < n_sm:
         n_split = min(n_tiles, BLOCKS_PER_SM * n_sm // blocks)
     return m_tiles, n_split
+
+
+class ScoreGeometry(NamedTuple):
+    warps: int      # warps per block; a tile is warps * SCORE_KEYS keys
+    stages: int     # depth of each warp's cp.async ring
+    n_chunks: int   # blocks per (batch, KV head); block c walks tiles
+                    # c, c + n_chunks, ... of the key axis
+    nq_pad: int     # queries padded (last row repeated) to a multiple of 16
+    smem: int       # dynamic shared memory of one block, bytes
+
+
+def score_smem(d: int, elem: int, nq_pad: int, warps: int,
+               stages: int) -> int:
+    """Bytes of one scoring block: each warp's ring of ``stages`` slices
+    of 16 key rows (padded by 16 bytes), the resident q̄ (bf16 rows padded
+    by 16 bytes, fp32 rows not) and each slot's valid bits.  Mirrors
+    ``smem_bytes`` in ``quoka_score.cu``."""
+    ring_row = d * elem + 16
+    q_row = 2 * d + 16 if elem == 2 else 4 * d
+    return (warps * stages * SCORE_KEYS * ring_row + nq_pad * q_row
+            + 4 * warps * stages)
+
+
+@functools.lru_cache(maxsize=1024)
+def score_geometry(b: int, n_kv: int, n_q: int, T: int, d: int, elem: int,
+                   n_sm: int) -> ScoreGeometry:
+    """Launch geometry of one scoring call (``elem``: bytes per K element,
+    2 for bf16, 4 for fp32).  The largest block whose ring fits one
+    block's shared memory (4 warps and 3 stages first), then enough blocks
+    per (batch, KV head) that ``SCORE_BLOCKS_PER_SM`` of them (or as many
+    as fit) are resident on every SM, at most one per tile.  Raises
+    ``ValueError`` for a head dim or query count the kernel does not
+    take."""
+    if d % 16 or not 16 <= d <= SCORE_MAX_D:
+        raise ValueError(f"quoka_score: head dim {d} is not a multiple of "
+                         f"16 in [16, {SCORE_MAX_D}]")
+    if n_q < 1:
+        raise ValueError(f"quoka_score: n_q = {n_q}")
+    nq_pad = -(-n_q // 16) * 16
+    for warps, stages in ((SCORE_WARPS, 3), (SCORE_WARPS, 2), (2, 3),
+                          (2, 2), (1, 3), (1, 2)):
+        smem = score_smem(d, elem, nq_pad, warps, stages)
+        if smem <= SMEM_PER_BLOCK:
+            break
+    else:
+        raise ValueError(f"quoka_score: n_q={n_q} queries at d={d} do not "
+                         "fit in shared memory")
+    n_tiles = max(1, -(-T // (warps * SCORE_KEYS)))
+    resident = max(1, min(SCORE_BLOCKS_PER_SM,
+                          SMEM_PER_SM // (smem + 1024)))
+    n_chunks = min(n_tiles, -(-resident * n_sm // max(1, b * n_kv)))
+    return ScoreGeometry(warps, stages, n_chunks, nq_pad, smem)
 
 
 @functools.lru_cache(maxsize=None)

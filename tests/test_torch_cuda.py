@@ -86,15 +86,34 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [(1, 8, 16, 8224, 128), (1, 8, 1, 8224, 128),
-                                  (2, 2, 5, 100, 64)])
+@pytest.mark.parametrize("case", [
+    # (b, n_kv, n_q, T, d[, "rows"])
+    (1, 8, 16, 8224, 128), (1, 8, 1, 8224, 128), (2, 2, 5, 100, 64),
+    # "rows": q̄ in the main path's (b, n_q, n_kv, d) layout viewed as
+    # BHND; row 0 random validity, row 1 all invalid (exactly NEG_INF),
+    # row 2 one valid run [37, 0.6 T) that tile boundaries cut; T not a
+    # multiple of the tile; n_q blocks of 16 with an edge-padded tail
+    (3, 8, 16, 8224, 128, "rows"), (3, 8, 1, 4133, 128, "rows"),
+    (3, 2, 5, 300, 80, "rows"), (3, 2, 20, 300, 80, "rows"),
+    (3, 4, 16, 1000, 64, "rows"), (3, 8, 20, 1000, 64, "rows"),
+    (3, 1, 16, 300, 576, "rows"), (3, 2, 1, 77, 576, "rows"),
+    (3, 1, 20, 700, 576, "rows"),
+])
 def test_score_kernel_matches_plain(dev, case, dtype):
-    b, nkv, nq, t, d = case
+    b, nkv, nq, t, d, *rows = case
     g = torch.Generator(device=dev).manual_seed(1)
-    qb = torch.randn((b, nkv, nq, d), generator=g, device=dev)
+    if rows:
+        qb = torch.randn((b, nq, nkv, d), generator=g,
+                         device=dev).transpose(1, 2)
+    else:
+        qb = torch.randn((b, nkv, nq, d), generator=g, device=dev)
     qb = qb / qb.norm(dim=-1, keepdim=True)
     k = torch.randn((b, t, nkv, d), generator=g, device=dev).to(dtype)
     valid = torch.rand((b, t), generator=g, device=dev) < 0.8
+    if rows:
+        valid[1] = False
+        valid[2] = False
+        valid[2, 37:int(0.6 * t)] = True
     kt = k.transpose(1, 2)
     n0 = qs_mod.LAUNCHES
     got = qs_mod.quoka_score_bhtd(qb, kt, valid)
@@ -102,6 +121,58 @@ def test_score_kernel_matches_plain(dev, case, dtype):
     assert qs_mod.LAUNCHES == n0 + 1
     want = ref.score_ref(qb, kt, valid)
     assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-4)
+    assert bool(torch.isfinite(got[valid[:, None].expand_as(got)]).all())
+    assert bool((got[~valid[:, None].expand_as(got)] == ref.NEG_INF).all())
+    if rows:
+        assert bool((got[1] == ref.NEG_INF).all())
+
+
+def test_score_call_launches_one_kernel(dev):
+    """The wrapper leaves q̄'s rounding to the kernel: one call on CUDA
+    tensors (fp32 q̄ in the main path's layout, a bf16 BTHD cache view)
+    adds one launch, one kernel to a profiler trace and no torch op but
+    the output's allocation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=dev).manual_seed(5)
+    qb = torch.randn((1, 16, 8, 128), generator=g, device=dev).transpose(1, 2)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((1, 8224, 8, 128), generator=g,
+                    device=dev).to(torch.bfloat16)
+    valid = torch.arange(8224, device=dev)[None] < 4096
+    kt = k.transpose(1, 2)
+    qs_mod.quoka_score_bhtd(qb, kt, valid)          # build and warm
+    torch.cuda.synchronize()
+    n0 = qs_mod.LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        qs_mod.quoka_score_bhtd(qb, kt, valid)
+        torch.cuda.synchronize()
+    assert qs_mod.LAUNCHES == n0 + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "score_kernel" in kernels[0], kernels
+    ops = [e.name for e in prof.events() if e.name.startswith("aten::")
+           and (e.cpu_parent is None
+                or not e.cpu_parent.name.startswith("aten::"))]
+    assert ops == ["aten::empty"], ops
+
+
+def test_score_unsupported_shapes_raise(dev):
+    """Head dims that are not a multiple of 16 in [16, 576], more queries
+    than fit beside the ring, and a q̄ that is not fp32 (the kernel does
+    the rounding itself) raise before any launch."""
+    n0 = qs_mod.LAUNCHES
+    valid = torch.ones((1, 64), dtype=bool, device=dev)
+    for d, nq in ((72, 16), (592, 16), (8, 1), (576, 4096)):
+        qb = torch.zeros((1, 2, nq, d), device=dev)
+        k = torch.zeros((1, 2, 64, d), device=dev)
+        with pytest.raises(ValueError, match="head dim|shared memory"):
+            qs_mod.quoka_score_bhtd(qb, k, valid)
+    k = torch.zeros((1, 2, 64, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        qs_mod.quoka_score_bhtd(k[:, :, :16], k, valid)
+    assert qs_mod.LAUNCHES == n0
 
 
 def _plan(rng, g, b, n_kv, T, start, nsel):

@@ -100,6 +100,7 @@ def test_flash_plain_masked_rows_match_reference(name):
 
 SCORE_CASES = [
     (2, 4, 16, 512, 64),
+    (1, 1, 16, 300, 576),     # MLA-latent-like single-kv-head
     (2, 2, 5, 100, 80),
     (1, 8, 1, 128, 128),      # single query (decode)
 ]
@@ -119,6 +120,31 @@ def test_score_plain_matches_reference(case):
     _close(got, ref_ops._score_xla(jqb, jk, jval))
     _close(got, ref_score(jqb.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
                           jval, block_t=128))
+
+
+def test_score_plain_rounds_qbar_to_key_dtype():
+    """bf16 keys with an fp32 q̄ (the main path's types): the plain version
+    rounds q̄ to bf16 before the products, as the reference's production
+    oracle does (the CUDA kernel now does the rounding itself, so the
+    wrapper no longer casts); without the rounding the scores would move
+    by far more than the tolerance."""
+    b, nkv, nq, t, d = 2, 2, 5, 100, 80
+    rng = np.random.default_rng(4)
+    qb = rng.standard_normal((b, nq, nkv, d), np.float32)
+    qb /= np.linalg.norm(qb, axis=-1, keepdims=True)
+    k = torch.as_tensor(rng.standard_normal((b, t, nkv, d), np.float32))
+    k = k.to(torch.bfloat16)
+    valid = rng.random((b, t)) < 0.8
+    (jqb, tqb), (jval, tval) = _both(qb), _both(valid)
+    jk = jnp.asarray(k.float().numpy()).astype(jnp.bfloat16)
+    got = ops.score(tqb, k, tval)
+    assert got.dtype == torch.float32
+    _close(got, ref_ops._score_xla(jqb, jk, jval))
+    _close(got, ref_score(jqb.astype(jnp.bfloat16).transpose(0, 2, 1, 3),
+                          jk.transpose(0, 2, 1, 3), jval, block_t=128))
+    unrounded = ops.score(tqb, k.float(), tval)
+    assert float((unrounded - got)[tval[:, None].expand_as(got)].abs()
+                 .max()) > 10 * TOL
 
 
 def test_score_proj_dim_not_yet_ported():
@@ -294,3 +320,68 @@ def test_bf16_rows_must_be_16_byte_aligned():
     tiling.check_aligned("k", ok=x[..., :64], f32=x.float()[..., 1:65])
     with pytest.raises(ValueError, match="16-byte aligned"):
         tiling.check_aligned("k", q=x[..., 4:68])
+
+
+# launch geometry of the scoring kernel (csrc/quoka_score.cu)
+SCORE_GEOMETRIES = [
+    # (b, n_kv, n_q, T, d, bytes per K element)
+    (1, 8, 16, 8224, 128, 2), (1, 8, 1, 8224, 128, 2),   # qwen3-4b
+    (4, 8, 16, 8320, 128, 2), (4, 8, 1, 8320, 128, 2),   # serve step
+    (1, 1, 16, 300, 576, 2), (1, 1, 16, 300, 576, 4),    # MLA latent
+    (2, 2, 5, 100, 80, 2), (2, 2, 5, 100, 80, 4),
+    (1, 8, 20, 1000, 64, 4), (2, 4, 16, 512, 64, 4), (1, 8, 1, 17, 16, 2),
+    (64, 32, 16, 65536, 128, 2),                          # more blocks than SMs
+]
+
+
+@pytest.mark.parametrize("shape", SCORE_GEOMETRIES)
+def test_score_geometry_covers_every_tile(shape):
+    """Blocks c = 0 .. n_chunks - 1 of a (batch, KV head) walk tiles c,
+    c + n_chunks, ... (the kernel's loop): every tile exactly once; the
+    padded query blocks of 16 cover n_q; the ring fits one block's shared
+    memory; the card is filled where the tiles allow."""
+    from repro_torch.kernels import tiling
+    b, n_kv, n_q, T, d, elem = shape
+    g = tiling.score_geometry(b, n_kv, n_q, T, d, elem, N_SM)
+    n_tiles = -(-T // (g.warps * tiling.SCORE_KEYS))
+    assert 1 <= g.n_chunks <= n_tiles
+    walked = [c + j * g.n_chunks for c in range(g.n_chunks)
+              for j in range((n_tiles - 1 - c) // g.n_chunks + 1)]
+    assert sorted(walked) == list(range(n_tiles))
+    assert g.nq_pad % 16 == 0 and g.nq_pad - 16 < n_q <= g.nq_pad
+    assert g.stages in (2, 3) and 1 <= g.warps <= tiling.SCORE_WARPS
+    assert g.smem == tiling.score_smem(d, elem, g.nq_pad, g.warps, g.stages)
+    assert g.smem <= tiling.SMEM_PER_BLOCK
+    blocks = b * n_kv * g.n_chunks
+    assert blocks >= N_SM or g.n_chunks == n_tiles
+    if d <= 128 and elem == 2:     # the main path's tile: 64 keys, 3 stages
+        assert (g.warps, g.stages) == (tiling.SCORE_WARPS, 3)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_score_ring_fits_every_head_dim(elem):
+    """Every head dim the kernel takes (multiples of 16 up to 576, MLA's
+    latent) gets a ring of at least two stages within one block's shared
+    memory; other head dims are refused before any launch."""
+    from repro_torch.kernels import tiling
+    for d in range(16, tiling.SCORE_MAX_D + 1, 16):
+        for n_q in (1, 5, 16, 20):
+            g = tiling.score_geometry(1, 8, n_q, 8224, d, elem, N_SM)
+            assert g.stages >= 2 and g.smem <= tiling.SMEM_PER_BLOCK
+    for d in (0, 8, 24, 72, 592, 1024):
+        with pytest.raises(ValueError, match="head dim"):
+            tiling.score_geometry(1, 8, 16, 8224, d, elem, N_SM)
+
+
+def test_score_tile_reaches_the_compiler():
+    """The scoring block's warp count is defined in tiling.py only:
+    build.py hands it to nvcc and quoka_score.cu takes its launch bound
+    from the macro (it refuses to build without it)."""
+    from repro_torch.kernels import build, tiling
+    flag = f"-DQUOKA_SCORE_WARPS={tiling.SCORE_WARPS}"
+    assert flag in tiling.NVCC_DEFINES and flag in build.NVCC_FLAGS
+    src = (build.CSRC / "quoka_score.cu").read_text()
+    assert "constexpr int MAX_WARPS = QUOKA_SCORE_WARPS;" in src
+    assert "defined(QUOKA_SCORE_WARPS)" in src
+    assert "__launch_bounds__(MAX_WARPS * 32)" in src
+    assert "ptx.cuh" in build.HEADERS
