@@ -25,13 +25,17 @@ class QuokaConfig:
     query_agg: str = "max"         # "max" | "mean"     (Table 10 ablation)
     keep_first: int = 4            # sink tokens always kept
     method: str = "quoka"
+    # method-specific knobs for the baselines
+    rank: int = 64                 # SparQ / Loki down-projection dim
     # selection granularity in tokens: 1 = per-token top-k, >1 = blocks of
     # g tokens shared across KV heads (core/plan.py)
     granularity: int = 1
-    # cross-layer plan reuse; only 1 (score every layer) is ported
+    # cross-layer plan reuse: score every ``reuse_interval`` layers and
+    # reuse the last plan in between; correction layers always re-score
     reuse_interval: int = 1
     correction_layers: Tuple[int, ...] = ()
-    # low-rank scoring; only 0 (full head dim) is ported
+    # low-rank scoring: project q̄ and K to this dim before the scoring
+    # kernel (kernels/ops.py::score_projection); 0 = full head dim
     score_proj_dim: int = 0
     # route block-granular selection onto the fused selected-attention
     # kernel instead of materialize + attention (core/plan.py::fused_route)

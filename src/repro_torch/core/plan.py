@@ -11,9 +11,15 @@ across KV heads.  The fused route (``fused_attend_with_ctx``) attends
 straight through a block plan with the selected-attention kernel instead
 of materializing it.
 
-Not ported yet: cross-layer plan reuse (``reuse_interval > 1``:
-``PlanCarry`` / ``refresh``), the in-jit ``LayerObs`` telemetry and the
-prefetch-oracle block counts; the tensor-parallel T-local route.
+Cross-layer reuse (``reuse_interval`` / ``correction_layers``) threads a
+``PlanCarry`` through the layer loop (``models/stack.py``): a layer builds
+when the carry is still empty, at ``layer % reuse_interval == 0`` and at a
+correction layer, and reuses the carried indices in between; ``refresh``
+is that decision, taken on the host (layer indices are Python ints), so it
+costs no device sync.
+
+Not ported yet: the ``LayerObs`` telemetry, the prefetch-oracle block
+counts and the tensor-parallel T-local route.
 """
 from __future__ import annotations
 
@@ -35,6 +41,13 @@ class SelectionPlan(NamedTuple):
     idx: torch.Tensor
 
 
+class PlanCarry(NamedTuple):
+    """The plan state carried across layers: the last built plan's indices
+    and whether one was built yet."""
+    idx: torch.Tensor
+    valid: bool
+
+
 def grid(cfg: QuokaConfig) -> int:
     return max(1, int(cfg.granularity))
 
@@ -48,10 +61,13 @@ def resolve_budget(cfg: QuokaConfig, context_len: int) -> int:
                              context_len), grid(cfg))
 
 
-def _check_ported(cfg: QuokaConfig) -> None:
-    if max(1, cfg.reuse_interval) > 1 or cfg.correction_layers:
-        raise NotImplementedError("cross-layer plan reuse (reuse_interval > "
-                                  "1) is not yet ported")
+def plan_idx_shape(cfg: QuokaConfig, b: int, n_kv: int, t: int,
+                   budget: Optional[int] = None):
+    """Shape of ``SelectionPlan.idx`` for a (b, T, n_kv, d) cache view."""
+    g = grid(cfg)
+    bud = floor_to_grid(min(budget or sel_scores.resolve_budget(cfg, t), t),
+                        g)
+    return (b, n_kv, bud) if g == 1 else (b, bud // g)
 
 
 def plan_scores(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
@@ -155,15 +171,47 @@ def select(method: str, q, k, v, key_pos, chunk_start, cfg: QuokaConfig,
     return materialize(pln, k, v, key_pos, chunk_start, cfg)
 
 
-def select_with_ctx(method: str, q, k, v, key_pos, chunk_start,
-                    cfg: QuokaConfig, budget: Optional[int] = None,
-                    q_valid=None) -> Selected:
-    """The block-facing staged selection: build + materialize (the
-    reference's branch without telemetry or plan reuse, which are not
-    ported; plan reuse raises)."""
-    _check_ported(cfg)
-    return select(method, q, k, v, key_pos, chunk_start, cfg, budget=budget,
-                  q_valid=q_valid)
+def empty_carry(shape, device) -> PlanCarry:
+    """An invalid carry of ``plan_idx_shape``: the first selecting layer
+    builds."""
+    return PlanCarry(idx=torch.full(shape, -1, dtype=torch.long,
+                                    device=device), valid=False)
+
+
+def _refresh_decision(carry: PlanCarry, layer_idx: int,
+                      cfg: QuokaConfig) -> bool:
+    """Does layer ``layer_idx`` rebuild?  (empty carry, the interval grid,
+    or a correction layer.)"""
+    s = max(1, cfg.reuse_interval)
+    return (not carry.valid or layer_idx % s == 0
+            or layer_idx in cfg.correction_layers)
+
+
+def refresh(carry: Optional[PlanCarry], layer_idx: int, cfg: QuokaConfig,
+            build_fn):
+    """(plan for this layer, updated carry).  With no carry (reuse off, or
+    a geometry the carry cannot span) every layer builds; otherwise the
+    layer builds or reuses per ``_refresh_decision``.  ``layer_idx`` is the
+    global layer index, so reuse runs span stacks."""
+    if carry is None:
+        return build_fn(), None
+    if _refresh_decision(carry, layer_idx, cfg):
+        pln = build_fn()
+    else:
+        pln = SelectionPlan(idx=carry.idx)
+    return pln, PlanCarry(idx=pln.idx, valid=True)
+
+
+def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
+                    key_pos, chunk_start, cfg: QuokaConfig,
+                    budget: Optional[int] = None, q_valid=None):
+    """The block-facing staged selection: refresh-or-build, then
+    materialize.  Returns (Selected, updated carry)."""
+    pln, plan = refresh(
+        plan, ctx.get("layer_idx", 0), cfg,
+        lambda: build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
+                      q_valid=q_valid))
+    return materialize(pln, k, v, key_pos, chunk_start, cfg), plan
 
 
 def fused_route(cfg: QuokaConfig, method: str, k,
@@ -177,14 +225,17 @@ def fused_route(cfg: QuokaConfig, method: str, k,
     return g > 1 and k.shape[1] % g == 0
 
 
-def fused_attend_with_ctx(method: str, q, k, v, key_pos, chunk_start,
-                          cfg: QuokaConfig, budget: Optional[int] = None,
-                          q_valid=None):
-    """Build the plan, then attend straight through its block ids with
-    ``ops.selected_attention``: no materialize, no [budget | chunk] concat,
-    one kernel launch.  Callers gate on ``fused_route``."""
-    _check_ported(cfg)
-    pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                q_valid=q_valid)
-    return kops.selected_attention(q, k, v, key_pos, pln.idx, chunk_start,
-                                   granularity=grid(cfg))
+def fused_attend_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q,
+                          k, v, key_pos, chunk_start, cfg: QuokaConfig,
+                          budget: Optional[int] = None, q_valid=None):
+    """Refresh-or-build the plan, then attend straight through its block
+    ids with ``ops.selected_attention``: no materialize, no [budget | chunk]
+    concat, one kernel launch.  Callers gate on ``fused_route``.  Returns
+    (attention output (b, t, h, d), updated carry)."""
+    pln, plan = refresh(
+        plan, ctx.get("layer_idx", 0), cfg,
+        lambda: build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
+                      q_valid=q_valid))
+    att = kops.selected_attention(q, k, v, key_pos, pln.idx, chunk_start,
+                                  granularity=grid(cfg))
+    return att, plan

@@ -88,7 +88,9 @@ def quoka_scores(q, k, valid, cfg: QuokaConfig):
     """Algorithm 1 lines 6-10.  q: (b, N_Q, h, d) sub-selected; k:
     (b, T, n_kv, d); valid (b, T).  Returns fp32 (b, n_kv, T), NEG_INF on
     invalid slots.  Cosine + max goes through the scoring kernel
-    (``ops.score``); the "dot" and "mean" ablation arms stay plain torch."""
+    (``ops.score``, low-rank under ``score_proj_dim``); the "dot" and
+    "mean" ablation arms stay plain torch and ignore the projection, as in
+    the reference."""
     b, nq, h, d = q.shape
     n_kv = k.shape[2]
     group = h // n_kv
@@ -100,7 +102,8 @@ def quoka_scores(q, k, valid, cfg: QuokaConfig):
         raise ValueError(cfg.scoring)
     qbar = qn.reshape(b, nq, n_kv, group, d).mean(3)              # (b,N_Q,n_kv,d)
     if cfg.scoring == "cosine" and cfg.query_agg == "max":
-        return kops.score(qbar, k, valid, proj_dim=cfg.score_proj_dim)
+        return kops.score(qbar, k, valid,
+                          proj=score_proj(cfg, d, device=k.device))
     kf = k.float()
     s = torch.einsum("bnkd,btkd->bknt", qbar.to(k.dtype).float(), kf)
     if cfg.scoring == "cosine":
@@ -114,6 +117,15 @@ def quoka_scores(q, k, valid, cfg: QuokaConfig):
         raise ValueError(cfg.query_agg)
     return torch.where(valid[:, None, :], s_hat,
                        torch.full_like(s_hat, NEG_INF))
+
+
+def score_proj(cfg: QuokaConfig, d: int, device="cpu"):
+    """The cached low-rank scoring projection for ``cfg.score_proj_dim`` on
+    ``device``, or None when the mode is off or would not reduce d."""
+    r = cfg.score_proj_dim
+    if not r or r >= d:
+        return None
+    return kops.score_projection(d, r, device)
 
 
 def prior_context_valid(key_pos, chunk_start):

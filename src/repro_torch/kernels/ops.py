@@ -8,7 +8,10 @@ no backend switch.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_bhtd
 from repro_torch.kernels.quoka_score import quoka_score_bhtd
@@ -54,16 +57,55 @@ def selected_attention(q, k, v, key_pos, plan_idx, chunk_start, *,
     return out.transpose(1, 2)
 
 
-def score(qbar, k, valid, *, proj_dim: int = 0):
+_PROJ_SEED = 7
+_PROJ: Dict[Tuple[int, int], torch.Tensor] = {}      # (d, r) -> fp32 CPU
+_PROJ_ON: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+
+def score_projection(d: int, r: int, device="cpu") -> torch.Tensor:
+    """Cached low-rank scoring projection (d, r), fp32, on ``device``.
+
+    A fixed JL-style random projection stands in for Loki's offline PCA
+    and serves the ``score_proj_dim`` mode.  It is drawn once per (d, r) on
+    the CPU from a ``torch.Generator`` seeded 7, scaled by 1/sqrt(r), so
+    every device sees the same numbers; the reference draws its own from
+    ``jax.random``, which torch cannot reproduce (``training/checkpoint.py::
+    load_score_projection`` installs the reference's array instead)."""
+    dev = torch.device(device)
+    key = (d, r, dev)
+    proj = _PROJ_ON.get(key)
+    if proj is None:
+        base = _PROJ.get((d, r))
+        if base is None:
+            gen = torch.Generator().manual_seed(_PROJ_SEED)
+            base = torch.randn((d, r), generator=gen) / math.sqrt(r)
+            _PROJ[(d, r)] = base
+        proj = _PROJ_ON[key] = base.to(dev)
+    return proj
+
+
+def set_score_projection(d: int, r: int, proj: torch.Tensor) -> None:
+    """Replace the cached (d, r) projection on every device."""
+    if tuple(proj.shape) != (d, r):
+        raise ValueError(f"score projection shape {tuple(proj.shape)} != "
+                         f"{(d, r)}")
+    _PROJ[(d, r)] = proj.detach().to("cpu", torch.float32).clone()
+    for key in [key for key in _PROJ_ON if key[:2] == (d, r)]:
+        del _PROJ_ON[key]
+
+
+def score(qbar, k, valid, *, proj: Optional[torch.Tensor] = None):
     """Fused QUOKA scoring (Algorithm 1 lines 7-10).
 
     qbar: (b, n_q, n_kv, d) pre-aggregated normalised queries; k:
     (b, T, n_kv, d) raw keys; valid (b, T).  Returns fp32 (b, n_kv, T) with
-    NEG_INF on invalid slots.  ``proj_dim`` > 0 (low-rank scoring) is not
-    yet ported: its projection is drawn by ``jax.random`` in the reference.
+    NEG_INF on invalid slots.  ``proj`` (d, r) projects both operands first
+    (``score_proj_dim``): q̄ in fp32, K in its storage dtype (a plain
+    product, no fp32 copy of the cache); the unchanged kernel then runs at
+    head dim r, so scores are cosines in the projected space.  On the card
+    r must be a multiple of 16 up to 576 (``tiling.score_geometry``).
     """
-    if proj_dim and proj_dim < qbar.shape[-1]:
-        raise NotImplementedError(
-            "score_proj_dim > 0 is not yet ported (its projection comes from "
-            "jax.random in the reference)")
+    if proj is not None:
+        qbar = qbar.float() @ proj
+        k = k @ proj.to(k.dtype)
     return quoka_score_bhtd(qbar.transpose(1, 2), k.transpose(1, 2), valid)

@@ -6,6 +6,12 @@ mode (TTFT / decode throughput):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --prompt-len 8192 --max-new 32 --method quoka
 
+``--method`` takes every selection method of ``core/selection.py::METHODS``
+(QUOKA, the six baselines, ``full``); ``--compare-dense`` also runs
+``full`` on the same prompts.  Cross-layer plan reuse and low-rank scoring
+are set in the config (``QuokaConfig.reuse_interval`` /
+``correction_layers`` / ``score_proj_dim``), as in the reference.
+
 Continuous-batching trace mode (paged KV pool + chunked-prefill/decode
 scheduler + cross-request prefix caching):
 
@@ -29,6 +35,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.core.selection import METHODS
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import make_requests
@@ -41,12 +48,17 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--method", default="quoka", choices=("quoka", "full"))
+    ap.add_argument("--method", default="quoka", choices=METHODS)
     ap.add_argument("--budget", type=int, default=None)
+    ap.add_argument("--budget-ratio", type=float, default=None,
+                    help="B_SA as a fraction of the prompt (paper Table 2)")
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--compare-dense", action="store_true",
+                    help="one-shot mode: also run method 'full' on the same "
+                         "prompts")
     ap.add_argument("--granularity", type=int, default=None,
                     help="selection granularity in tokens (default: config)")
     ap.add_argument("--fused", action="store_true",
@@ -208,6 +220,8 @@ def main(argv=None):
     q = cfg.quoka
     if args.budget:
         q = dataclasses.replace(q, budget=args.budget)
+    if args.budget_ratio:
+        q = dataclasses.replace(q, budget_ratio=args.budget_ratio)
     if args.granularity:
         q = dataclasses.replace(q, granularity=args.granularity)
     if args.fused:
@@ -221,13 +235,16 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     toks = rng.integers(3, cfg.vocab,
                         (args.batch, args.prompt_len)).astype(np.int32)
-    eng = Engine(model, method=args.method, device=device,
-                 sampler=SamplerConfig(temperature=args.temperature))
-    r = eng.generate({"tokens": toks}, args.max_new)
-    print(f"{args.method:10s} TTFT {r.ttft_s * 1e3:9.1f} ms   "
-          f"decode {r.decode_tps:8.1f} tok/s   "
-          f"prompt {args.prompt_len} x {args.batch}   device {r.device}")
-    return r
+    runs = []
+    for m in [args.method] + (["full"] if args.compare_dense else []):
+        eng = Engine(model, method=m, device=device,
+                     sampler=SamplerConfig(temperature=args.temperature))
+        r = eng.generate({"tokens": toks}, args.max_new)
+        print(f"{m:18s} TTFT {r.ttft_s * 1e3:9.1f} ms   "
+              f"decode {r.decode_tps:8.1f} tok/s   "
+              f"prompt {args.prompt_len} x {args.batch}   device {r.device}")
+        runs.append(r)
+    return runs[0]                       # the run of ``--method``
 
 
 if __name__ == "__main__":

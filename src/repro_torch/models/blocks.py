@@ -12,10 +12,11 @@ layer's KV cache along one of three routes, as in the reference:
   * staged        scoring kernel, top-k, materialize, then the flash kernel
                   over [selected budget | chunk].
 
-``ctx`` (dict): ``method``, ``qcfg`` (QuokaConfig) and ``slot`` (the
+``ctx`` (dict): ``method``, ``qcfg`` (QuokaConfig), ``slot`` (the
 chunk's cache write slot: an int, or a per-row (b,) tensor under
 continuous batching; distinct from positions, since pad slots carry
-pos == -1).
+pos == -1) and, under cross-layer plan reuse, ``layer_idx`` (the global
+layer index ``core/plan.py::refresh`` decides on).
 """
 from __future__ import annotations
 
@@ -78,9 +79,23 @@ class AttnBlock(nn.Module):
             k = rope(k, pos, cfg.rope_theta)
         return q, k, v
 
-    def apply(self, x, pos, kv: KVCache, ctx):
+    def plan_carry_shape(self, cache: KVCache, t: int, method: str, qcfg):
+        """Shape of the plan this block would build for a t-token chunk, or
+        None when it never selects here (``full``, the dense bypass, a
+        cache off the selection grid), which disables the carry."""
+        b, cap, n_kv = cache.k.shape[:3]
+        budget = sel_mod.resolve_budget(qcfg, cap)
+        if method == "full" or cap <= budget + t:
+            return None
+        if plan_mod.grid(qcfg) > 1 and cap % plan_mod.grid(qcfg):
+            return None
+        return plan_mod.plan_idx_shape(qcfg, b, n_kv, cap, budget)
+
+    def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
-        ``kv`` in place and returns the block output."""
+        ``kv`` in place.  ``plan`` is the cross-layer ``PlanCarry`` (None:
+        no reuse).  Returns (block output, updated carry); the dense bypass
+        leaves the carry as it came."""
         cfg = self.cfg
         b, t, _ = x.shape
         q, k, v = self._qkv(rmsnorm(self.ln1, x, cfg.norm_eps), pos)
@@ -96,17 +111,17 @@ class AttnBlock(nn.Module):
         elif plan_mod.fused_route(qcfg, method, kv.k):
             # the chunk's KV was just written into the cache, so the kernel
             # reads it from there rather than from a [budget | chunk] concat
-            att = plan_mod.fused_attend_with_ctx(
-                method, q, kv.k, kv.v, kv.pos, start, qcfg,
+            att, plan = plan_mod.fused_attend_with_ctx(
+                ctx, plan, method, q, kv.k, kv.v, kv.pos, start, qcfg,
                 budget=budget, q_valid=pos >= 0)
         else:
-            sel = plan_mod.select_with_ctx(
-                method, q, kv.k, kv.v, kv.pos, start, qcfg,
+            sel, plan = plan_mod.select_with_ctx(
+                ctx, plan, method, q, kv.k, kv.v, kv.pos, start, qcfg,
                 budget=budget, q_valid=pos >= 0)
             att = self._selected_attention(q, k, v, pos, sel)
         x = x + linear(self.wo, att.reshape(b, t, -1))
         h = rmsnorm(self.ln2, x, cfg.norm_eps)
-        return x + mlp(self.mlp, h, cfg.act)
+        return x + mlp(self.mlp, h, cfg.act), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is

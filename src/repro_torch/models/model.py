@@ -112,8 +112,12 @@ class Model(nn.Module):
         return {"method": method, "qcfg": self.cfg.quoka}
 
     def _apply_stacks(self, x, pos, cache, ctx):
+        """All stacks in order, threading the cross-layer plan carry and
+        the global layer offset (the reuse schedule spans stacks)."""
+        plan, layer0 = None, 0
         for s, sc in zip(self.stacks, cache):
-            x = s.apply(x, pos, sc, ctx)
+            x, plan = s.apply(x, pos, sc, dict(ctx, layer0=layer0), plan=plan)
+            layer0 += len(s.layers)
         return x
 
     def _readout(self, x):

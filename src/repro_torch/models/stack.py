@@ -3,7 +3,8 @@
 The reference scans one compiled block body over a stacked ``(repeats,
 ...)`` parameter axis; eager PyTorch runs a Python loop over an
 ``nn.ModuleList`` instead, layer ``i`` holding row ``i`` of the reference's
-stacked leaves (see ``training/checkpoint.py::from_flat``).
+stacked leaves (see ``training/checkpoint.py::from_flat``).  The loop
+threads the cross-layer plan carry and each layer's global index.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import List, Sequence
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import plan as plan_mod
 from repro_torch.models.blocks import make_block
 from repro_torch.serving.cache import KVCache
 
@@ -31,9 +33,33 @@ class Stack(nn.Module):
     def init_cache(self, batch: int, cap: int) -> List[KVCache]:
         return [blk.init_cache(batch, cap) for blk in self.layers]
 
-    def apply(self, x, pos, caches: List[KVCache], ctx):
+    def _plan_carry0(self, caches: List[KVCache], t: int, ctx, plan):
+        """The initial plan carry, or None when reuse is off: it engages
+        only with ``reuse_interval > 1`` and when every layer would build a
+        plan of the same shape (else every layer builds its own).  An
+        incoming carry of that shape (from the previous stack) is
+        adopted."""
+        qcfg = ctx.get("qcfg")
+        method = ctx.get("method", "full")
+        if qcfg is None or method == "full" or max(1, qcfg.reuse_interval) <= 1:
+            return None
+        shapes = [blk.plan_carry_shape(kv, t, method, qcfg)
+                  for blk, kv in zip(self.layers, caches)]
+        if shapes[0] is None or any(s != shapes[0] for s in shapes):
+            return None
+        if isinstance(plan, plan_mod.PlanCarry) and \
+                tuple(plan.idx.shape) == shapes[0]:
+            return plan
+        return plan_mod.empty_carry(shapes[0], caches[0].k.device)
+
+    def apply(self, x, pos, caches: List[KVCache], ctx, plan=None):
         """Prefill chunk or decode step through every layer; caches are
-        updated in place."""
-        for blk, kv in zip(self.layers, caches):
-            x = blk.apply(x, pos, kv, ctx)
-        return x
+        updated in place.  ``ctx["layer0"]`` is this stack's first global
+        layer index.  Returns (x, plan carry): the carry passes through
+        untouched when reuse is off here."""
+        carry = self._plan_carry0(caches, x.shape[1], ctx, plan)
+        layer0 = int(ctx.get("layer0", 0))
+        for i, (blk, kv) in enumerate(zip(self.layers, caches)):
+            cj = ctx if carry is None else dict(ctx, layer_idx=layer0 + i)
+            x, carry = blk.apply(x, pos, kv, cj, plan=carry)
+        return x, (plan if carry is None else carry)

@@ -15,7 +15,10 @@ serving modes share the model and the kernel facade:
     (``ops.selected_attention(table=)``) is not on this path, in the
     reference either.
 
-Kernel builds and a warm-up run stay off the clocks in both modes; the
+Both modes take every selection method of ``core/selection.py::METHODS``,
+and cross-layer plan reuse and low-rank scoring from the model's
+``QuokaConfig``.  Kernel builds and a warm-up run stay off the clocks in
+both modes; the
 clocks are host clocks around a device synchronisation.  Not ported yet:
 the telemetry registry, the host-memory tier and its prefetch, and mesh
 serving (each raises).
@@ -29,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.selection import METHODS
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.serving import pool as pl
 from repro_torch.serving.policy import resolve_policy
@@ -116,6 +120,8 @@ class Engine:
         self.model = model
         self.device = dev
         self.method = method or model.cfg.quoka.method
+        if self.method not in METHODS:
+            raise ValueError(f"unknown selection method {self.method!r}")
         self.sampler = sampler
         self.stats: Dict[str, float] = {}   # prefix-cache stats of last serve
         self._warmed: set = set()           # warmed generate/serve geometries

@@ -7,6 +7,8 @@ and saves them with ``np.savez``.  Stacked layer leaves carry a leading
 ``(repeats, ...)`` axis; row ``r`` of period position ``j`` is the port's
 layer ``r * len(period) + j`` of that stack.  Each linear weight is stored
 once in the compute dtype; the embedding and norm gains stay fp32.
+``load_score_projection`` bridges the one array that is not a parameter:
+the cached low-rank scoring projection.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.model import Model
 
 _BLOCK_LEAVES = {
@@ -64,6 +67,15 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
         raise ValueError(f"checkpoint has parameters the port does not "
                          f"hold: {sorted(extra)}")
     return model
+
+
+def load_score_projection(d: int, r: int, array: np.ndarray) -> None:
+    """Install the reference's low-rank scoring projection (``np.asarray(
+    repro.kernels.ops.score_projection(d, r))``) as the port's cached
+    (d, r) projection, used by ``score_proj_dim`` and Loki on every
+    device.  The reference draws it from ``jax.random``; this bridge is how
+    both packages score with the same numbers."""
+    kops.set_score_projection(d, r, torch.from_numpy(np.array(array)))
 
 
 def restore(path: str, cfg: ModelConfig, device=None) -> Model:

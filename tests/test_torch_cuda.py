@@ -384,3 +384,90 @@ def test_unsupported_head_dim_raises(dev):
             torch.zeros((1, 1), dtype=torch.int32, device=dev), 0,
             torch.zeros((1, 2), dtype=torch.int32, device=dev),
             granularity=16, block_size=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,nq", [(32, 16), (32, 1), (64, 16), (64, 1)])
+def test_score_kernel_at_projected_dims(dev, r, nq, dtype):
+    """Low-rank scoring (``score_proj_dim``): q̄ and K projected from
+    d = 128 to r, then the scoring kernel at head dim r, against the plain
+    version on the same projected inputs."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(3)
+    qb = torch.randn((1, nq, 8, 128), generator=g, device=dev)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((1, 8224, 8, 128), generator=g, device=dev).to(dtype)
+    valid = torch.arange(8224, device=dev)[None] < 4096
+    proj = ops.score_projection(128, r, dev)
+    n0 = qs_mod.LAUNCHES
+    got = ops.score(qb, k, valid, proj=proj)
+    torch.cuda.synchronize()
+    assert qs_mod.LAUNCHES == n0 + 1
+    qp, kp = qb.float() @ proj, k @ proj.to(dtype)
+    want = ref.score_ref(qp.transpose(1, 2), kp.transpose(1, 2), valid)
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-4)
+    assert bool((got[:, :, 4096:] == ref.NEG_INF).all())
+
+
+def test_score_projection_rank_the_kernel_cannot_take_raises(dev):
+    """r = 24 is no multiple of 16: the card raises (the CPU's plain
+    version takes any r)."""
+    from repro_torch.kernels import ops
+    qb = torch.randn((1, 4, 2, 64), device=dev)
+    k = torch.randn((1, 100, 2, 64), device=dev)
+    valid = torch.ones((1, 100), dtype=torch.bool, device=dev)
+    n0 = qs_mod.LAUNCHES
+    with pytest.raises(ValueError, match="head dim"):
+        ops.score(qb, k, valid, proj=ops.score_projection(64, 24, dev))
+    assert qs_mod.LAUNCHES == n0
+    ops.score(qb.cpu(), k.cpu(), valid.cpu(),
+              proj=ops.score_projection(64, 24))
+
+
+HARNESS_METHODS = ("quoka", "sample_attention", "sparq", "loki",
+                   "less_is_more", "snapkv", "keydiff", "full")
+
+
+@pytest.mark.parametrize("route", ["staged_g1", "fused_g16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", HARNESS_METHODS)
+def test_harness_on_the_card_matches_cpu(dev, method, dtype, route):
+    """The chunked-prefill harness at b = 2, T = 512, h = 8, n_kv = 2,
+    d = 64 (chunk 128, budget 64): the card (scoring, flash and selected
+    kernels) gives the CPU's outputs and recalls, and launches its
+    attention kernel on every chunk."""
+    import dataclasses
+    from repro_torch.configs.base import QuokaConfig
+    from repro_torch.core import chunked_prefill as cp
+    from repro_torch.data.synthetic import structured_qkv
+    fused = route == "fused_g16"
+    cfg = QuokaConfig(chunk_size=128, budget=64, n_queries=16, keep_first=4)
+    if fused:
+        cfg = dataclasses.replace(cfg, granularity=16, fused_select_attn=True)
+    cpu = [x.to(dtype) for x in structured_qkv(3, 2, 512, 8, 2, 64)]
+    card = [x.to(dev) for x in cpu]
+    fa_mod.LAUNCHES = sa_mod.LAUNCHES = qs_mod.LAUNCHES = 0
+    got = cp.chunked_sparse_attention(*card, cfg, method)
+    torch.cuda.synchronize()
+    launches = (fa_mod.LAUNCHES, sa_mod.LAUNCHES, qs_mod.LAUNCHES)
+    want = cp.chunked_sparse_attention(*cpu, cfg, method)
+    assert _err(got.cpu(), want) <= _tol(want, dtype)
+    if method == "full":
+        assert launches == (0, 0, 0)
+        return
+    attn = (0, 4) if fused else (4, 0)
+    assert launches == attn + ((4 if method == "quoka" else 0),)
+    for fn in (cp.key_recall, cp.critical_key_recall):
+        assert float(fn(*card, cfg, method)) == float(fn(*cpu, cfg, method))
+
+
+def test_sample_positions_on_the_card_match_cpu(dev):
+    """SampleAttention's query rows are built on the card; its float32
+    product and truncation give the CPU's rows for every t in 1..1024 and
+    n in 1..32 (which equal the reference's, see test_torch_baselines)."""
+    from repro_torch.core.selection import sample_positions
+    for n in range(1, 33):
+        for t in range(1, 1025):
+            got = sample_positions(t, n, dev)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), sample_positions(t, n)), (t, n)

@@ -147,13 +147,6 @@ def test_score_plain_rounds_qbar_to_key_dtype():
                  .max()) > 10 * TOL
 
 
-def test_score_proj_dim_not_yet_ported():
-    z = torch.zeros((1, 2, 1, 64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ops.score(z, torch.zeros((1, 8, 1, 64)), torch.ones((1, 8), dtype=bool),
-                  proj_dim=16)
-
-
 def _fused_case(case):
     """(q, k, v, key_pos, idx, start, g) as numpy, one geometry tuple of
     the reference's FUSED_CASES (plan ids include -1 padding and, at

@@ -4,9 +4,13 @@ Query subselection and scoring agree within 2e-5; plan indices must be
 EQUAL, including under forced ties (``keep_first`` sinks are all +inf and
 duplicated scores must break to the lower index, as ``jax.lax.top_k``
 does); materialize at g=1 and g=16 gathers the same KV and positions.
+Cross-layer plan reuse rebuilds on the reference's schedule, and a
+4-layer granite-3-2b under reuse gives the reference's logits (1e-4) and
+greedy tokens.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,9 +111,103 @@ def test_build_and_materialize_match_reference(g):
                                       np.asarray(getattr(want, name)))
 
 
-def test_reuse_interval_not_yet_ported():
-    pcfg = dataclasses.replace(QuokaConfig(), reuse_interval=2)
-    z = torch.zeros((1, 4, 2, 64))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        plan.select_with_ctx("quoka", z, z, z, torch.zeros((1, 4),
-                             dtype=torch.int32), 0, pcfg)
+# ---------------------------------------------------------------------------
+# cross-layer plan reuse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("corr", [(), (3,), (0, 5, 7)])
+@pytest.mark.parametrize("interval", [1, 2, 4])
+def test_refresh_decisions_match_reference(interval, corr):
+    """Over layers 0-11 the port rebuilds exactly where the reference's
+    ``_refresh_decision`` says so, and reuses the carried ids between."""
+    rcfg, pcfg = _qcfgs(reuse_interval=interval, correction_layers=corr)
+    shape = (1, 4)
+    rcarry = ref_plan.empty_carry(shape)
+    pcarry = plan.empty_carry(shape, "cpu")
+    built = []
+    for li in range(12):
+        want = bool(ref_plan._refresh_decision(rcarry, li, rcfg))
+        assert plan._refresh_decision(pcarry, li, pcfg) == want, li
+        rcarry = ref_plan.PlanCarry(idx=rcarry.idx, valid=jnp.ones((), bool))
+        pln, pcarry = plan.refresh(
+            pcarry, li, pcfg,
+            lambda: plan.SelectionPlan(idx=torch.full(shape, li)))
+        assert pcarry.valid and torch.equal(pcarry.idx, pln.idx)
+        built.append(int(pln.idx[0, 0]))
+        if want:
+            assert built[-1] == li
+        else:
+            assert built[-1] == built[-2]
+    pln, carry = plan.refresh(None, 5, pcfg, lambda: plan.SelectionPlan(
+        idx=torch.full(shape, 7)))
+    assert carry is None and int(pln.idx[0, 0]) == 7
+
+
+GRANITE_REUSE = {
+    "interval2": {"reuse_interval": 2},
+    "interval4": {"reuse_interval": 4},
+    "interval4_corr1": {"reuse_interval": 4, "correction_layers": (1,)},
+    "interval2_g16_fused": {"reuse_interval": 2, "granularity": 16,
+                            "fused_select_attn": True},
+}
+
+
+def _granite_pair(qover):
+    from repro.configs import get_config as ref_config
+    from repro.models.model import build_model as ref_build
+    from repro.training.checkpoint import _flatten
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.training.checkpoint import from_flat
+    rc = ref_config("granite-3-2b").smoke(n_layers=4)
+    rc = dataclasses.replace(rc, quoka=dataclasses.replace(rc.quoka, **qover))
+    pc = port_config("granite-3-2b").smoke(n_layers=4)
+    pc = dataclasses.replace(pc, quoka=dataclasses.replace(pc.quoka, **qover))
+    rm = ref_build(rc)
+    params = rm.init(jax.random.PRNGKey(0))
+    return rm, params, from_flat(_flatten(params), pc, "cpu")
+
+
+def _granite_tokens():
+    return np.random.default_rng(14).integers(3, 512, (2, 96)).astype(
+        np.int32)
+
+
+def _port_prefill(pm, toks):
+    return pm.prefill({"tokens": toks}, pm.init_cache(2, 96), "quoka")[0]
+
+
+@pytest.mark.parametrize("variant", sorted(GRANITE_REUSE))
+def test_reuse_prefill_and_generate_match_reference(variant):
+    """granite-3-2b smoke (4 layers) under plan reuse: prefill logits within
+    1e-4 and greedy tokens equal to the reference; the carry changes the
+    result (layers consume an earlier layer's plan)."""
+    from repro.serving.engine import Engine as RefEngine
+    from repro_torch.serving.engine import Engine
+    rm, params, pm = _granite_pair(GRANITE_REUSE[variant])
+    toks = _granite_tokens()
+    want, _ = rm.prefill(params, {"tokens": jnp.asarray(toks)},
+                         rm.init_cache(2, 96), "quoka")
+    got = _port_prefill(pm, toks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+    no_reuse = dict(GRANITE_REUSE[variant], reuse_interval=1,
+                    correction_layers=())
+    base = _port_prefill(_granite_pair(no_reuse)[2], toks)
+    assert not torch.allclose(got, base, atol=1e-6), "carry not engaged"
+    rt = RefEngine(rm, params, method="quoka", backend="xla").generate(
+        {"tokens": jnp.asarray(toks)}, 6).tokens
+    pt = Engine(pm, method="quoka", device="cpu").generate(
+        {"tokens": toks}, 6).tokens
+    np.testing.assert_array_equal(pt, np.asarray(rt))
+
+
+def test_corrections_everywhere_equal_interval_one():
+    """reuse_interval 4 with every layer a correction layer rebuilds every
+    layer: the same logits as interval 1."""
+    toks = _granite_tokens()
+    _, _, p1 = _granite_pair({"reuse_interval": 1})
+    _, _, p4 = _granite_pair({"reuse_interval": 4,
+                              "correction_layers": (0, 1, 2, 3)})
+    np.testing.assert_allclose(_port_prefill(p4, toks).numpy(),
+                               _port_prefill(p1, toks).numpy(), atol=1e-6,
+                               rtol=1e-6)
