@@ -10,7 +10,12 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      tensors at the main path's shapes, each error beside its tolerance;
      scoring also at d = 80 and d = 576 (small T, bf16 and fp32) with a
      row that has no valid slot (exactly NEG_INF), and at the projected
-     d = 32 and 64 of low-rank scoring (n_q 16 and 1, T 8224);
+     d = 32 and 64 of low-rank scoring (n_q 16 and 1, T 8224); scoring,
+     flash and selected attention at llama3-2-3b's shapes (GQA group 3,
+     d = 128) and stablelm-3b's (MHA 32 / 32, d = 80); flash, selected and
+     paged attention at d = 8, 32, 80, 112 and 120, fp32 and bf16, GQA
+     groups 1, 3 and 7, each with a row that has no valid key (exact
+     zeros), paged equal to linear bit for bit;
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -28,7 +33,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      ``scaled_dot_product_attention`` call; for scoring and the bf16
      attention kernels, the grids of the kernels one call launched and
      their device time, read from a ``torch.profiler`` trace (the blocks
-     per launch and, for attention, the split count S);
+     per launch and, for attention, the split count S); flash and selected
+     attention also at stablelm-3b's shapes (d = 80, MHA);
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -63,15 +69,33 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      oracle; at a small size the card equals the CPU for every method and
      QUOKA's key recall beats SampleAttention's;
  13. every baseline serves a smoke-size model on the card and on the CPU
-     with equal tokens.
+     with equal tokens;
+ 14. llama3-2-3b (28 layers, d_model 3072, 24 / 8 heads, d 128) at full
+     width from random weights: ``Engine.generate`` staged and fused at
+     prompt 8192, 32 new tokens, with exact launch counts (28 x 95 per
+     kernel and run);
+ 15. stablelm-3b (32 layers, d_model 2560, 32 / 32 heads, d 80) the same
+     way (32 x 95), run last;
+ 16. the host-memory tier on llama3-2-3b ``serve`` (fused g = 16; block
+     128, a 64-block device pool, a 128-block pinned host tier, prefetch
+     depth 4, one decode row; run after phase 14 on its model): A (6144
+     tokens), then B (6144 other tokens) whose pressure demotes most of A,
+     then [B, A], where A's host blocks are staged during B's steps and
+     promoted at A's admission; greedy tokens equal a 256-block pool with
+     no tier and ``generate``; one block held byte for byte through
+     demotion and promotion; every slab's H2D copy in a profiler trace
+     from pinned memory, on a side stream, inside one step's compute span;
+     A's cold and promoted TTFT.
 
 The last three lines are the card's name and power limit, one JSON line
-with every kernel, and ``{"ok": true, "device": {...}}``.  Without a CUDA
+with every kernel (``launches`` from phases 3-4, ``paths`` the launches
+of every one-shot path), and ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the repository's ``src`` next to it, it exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import math
@@ -120,11 +144,12 @@ def check(name, err, tol, why):
 # inputs at the main path's shapes (qwen3-4b: h=32, n_kv=8, d=128, bf16)
 # ---------------------------------------------------------------------------
 
-def score_inputs(torch, dev, n_q, start=4096, T=8224):
+def score_inputs(torch, dev, n_q, start=4096, T=8224, n_kv=8, d=128):
     g = torch.Generator(device=dev).manual_seed(10 + n_q)
-    qb = torch.randn((1, 8, n_q, 128), generator=g, device=dev)
+    qb = torch.randn((1, n_kv, n_q, d), generator=g, device=dev)
     qb = qb / qb.norm(dim=-1, keepdim=True)
-    k = torch.randn((1, T, 8, 128), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, T, n_kv, d), generator=g,
+                    device=dev).to(torch.bfloat16)
     pos = torch.arange(T, device=dev)[None]
     valid = pos < start                       # prior context; the tail is
     return qb, k.transpose(1, 2), valid       # the not-yet-written cap
@@ -152,17 +177,17 @@ def small_score_inputs(torch, dev, n_q, d, dtype, T=300):
     return qb, k.transpose(1, 2), valid
 
 
-def flash_inputs(torch, dev, tq):
+def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128):
     """[selected budget 1024 | chunk tq]: per-KV-head budget validity with
     -1 padding; KV head 3 selected nothing and its chunk key 0 is a pad
     slot, so query row 0 of that head group attends nothing."""
     B = 1024
     tk = B + tq
     g = torch.Generator(device=dev).manual_seed(20 + tq)
-    q = torch.randn((1, tq, 32, 128), generator=g, device=dev)
-    k = torch.randn((1, tk, 8, 128), generator=g, device=dev)
-    v = torch.randn((1, tk, 8, 128), generator=g, device=dev)
-    valid = torch.rand((1, 8, tk), generator=g, device=dev) < 0.9
+    q = torch.randn((1, tq, h, d), generator=g, device=dev)
+    k = torch.randn((1, tk, n_kv, d), generator=g, device=dev)
+    v = torch.randn((1, tk, n_kv, d), generator=g, device=dev)
+    valid = torch.rand((1, n_kv, tk), generator=g, device=dev) < 0.9
     valid[:, :, B:] = True
     valid[:, 3, :B] = False
     valid[:, 3, B] = False
@@ -171,13 +196,14 @@ def flash_inputs(torch, dev, tq):
             v.to(bf).transpose(1, 2), valid, B)
 
 
-def selected_inputs(torch, np, dev, g, t, start, T=8224, B=1024):
+def selected_inputs(torch, np, dev, g, t, start, T=8224, B=1024, h=32,
+                    n_kv=8, d=128):
     rng = np.random.default_rng(30 + g + t + start)
     gen = torch.Generator(device=dev).manual_seed(31 + g + t)
     bf = torch.bfloat16
-    q = torch.randn((1, t, 32, 128), generator=gen, device=dev).to(bf)
-    k = torch.randn((1, T, 8, 128), generator=gen, device=dev).to(bf)
-    v = torch.randn((1, T, 8, 128), generator=gen, device=dev).to(bf)
+    q = torch.randn((1, t, h, d), generator=gen, device=dev).to(bf)
+    k = torch.randn((1, T, n_kv, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((1, T, n_kv, d), generator=gen, device=dev).to(bf)
     key_pos = torch.arange(T, dtype=torch.int32, device=dev)[None].clone()
     key_pos[:, start + t:] = -1
     if g > 1:
@@ -186,11 +212,11 @@ def selected_inputs(torch, np, dev, g, t, start, T=8224, B=1024):
         idx = np.full((1, B // g), -1, np.int64)
         idx[0, :n] = rng.choice(hi, size=n, replace=False)
     else:
-        idx = np.full((1, 8, B), -1, np.int64)
-        for h in range(8):
+        idx = np.full((1, n_kv, B), -1, np.int64)
+        for hh in range(n_kv):
             n = min(B - 5, max(start, 1))
-            idx[0, h, :n] = rng.choice(max(start + 2, 1), size=n,
-                                       replace=False)
+            idx[0, hh, :n] = rng.choice(max(start + 2, 1), size=n,
+                                        replace=False)
     return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_pos,
             torch.as_tensor(idx, device=dev), start)
 
@@ -275,7 +301,169 @@ def phase_parity(torch, np, dev, K):
               "rounding each")
         e = max(e, err)
     errs["selected_attention"] = e
+    # the slice's other main paths: llama3-2-3b (GQA group 3, d = 128) and
+    # stablelm-3b (MHA 32 / 32, d = 80) at their shapes
+    for arch, (h, n_kv, d) in ARCH_SHAPES.items():
+        group = h // n_kv
+        for n_q in (16, 1):
+            qb, kt, valid = score_inputs(torch, dev, n_q, n_kv=n_kv, d=d)
+            err = max_err(qs.quoka_score_bhtd(qb, kt, valid),
+                          ref.score_ref(qb, kt, valid))
+            check(f"{arch} quoka_score n_q={n_q} d={d}", err, 1e-4,
+                  "fp32 scores of bf16 products, summation order differs")
+            errs["quoka_score"] = max(errs["quoka_score"], err)
+        for tq in (128, 1):
+            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d)
+            got = fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                          boundary=B)
+            want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                           k_valid=valid)
+            if float(got[:, 3 * group:4 * group, 0].abs().max()) != 0.0:
+                raise AssertionError(f"{arch} flash_attention: fully-masked "
+                                     "row not zero")
+            err = max_err(got, want)
+            check(f"{arch} flash_attention tq={tq} h={h}/{n_kv} d={d}",
+                  err, bf16_ulp(want), "1 bf16 ulp of the output")
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        for g, t, start in ((16, 128, 4096), (16, 1, 8197), (1, 128, 4096)):
+            q, k, v, key_pos, idx, st = selected_inputs(
+                torch, np, dev, g, t, start, h=h, n_kv=n_kv, d=d)
+            got = sa.selected_attention_bhtd(q, k, v, key_pos, idx, st,
+                                             granularity=g)
+            want = ref.selected_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), key_pos, idx, st,
+                                    g).transpose(1, 2)
+            err = max_err(got, want)
+            check(f"{arch} selected_attention g={g} t={t} d={d}", err,
+                  bf16_ulp(want), "1 bf16 ulp of the output")
+            errs["selected_attention"] = max(errs["selected_attention"], err)
+    for name, err in head_dim_sweep(torch, np, dev, K).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     return errs
+
+
+# (h, n_kv, d) of the slice's other models (phases 14, 15)
+ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80)}
+SWEEP_DIMS = (8, 32, 80, 112, 120)
+SWEEP_HEADS = ((4, 4), (6, 2), (14, 2))      # GQA groups 1, 3 and 7
+
+
+def sweep_pool(torch, np, dev, dtype, d, h, n_kv, g, t, start, bs=128,
+               nb=16):
+    """A paged pool of 2 * nb + 5 blocks holding two requests' linear views
+    in permuted blocks (stale positions elsewhere) and an idle third row
+    (table all -1, start 0: no valid key, so exact zeros); plan ids on the
+    logical grid.  Returns (q, k_pool, v_pool, pos_pool, ids, starts,
+    table)."""
+    T, N = nb * bs, 2 * nb + 5
+    rng = np.random.default_rng(7 * d + h + g + t)
+    gen = torch.Generator(device=dev).manual_seed(d + h)
+    q = torch.randn((3, t, h, d), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((N, bs, n_kv, d), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((N, bs, n_kv, d), generator=gen, device=dev).to(dtype)
+    pos = torch.as_tensor(rng.integers(0, T, (N, bs)), dtype=torch.int32,
+                          device=dev)
+    perm = rng.permutation(N)
+    table = np.full((3, nb), -1, np.int32)
+    for bi in range(2):
+        for lb in range(nb):
+            phys = int(perm[bi * nb + lb])
+            table[bi, lb] = phys
+            p = np.arange(lb * bs, (lb + 1) * bs)
+            pos[phys] = torch.as_tensor(np.where(p < start + t, p, -1),
+                                        device=dev)
+    starts = torch.as_tensor([start, start, 0], dtype=torch.int32,
+                             device=dev)
+    if g > 1:
+        hi = -(-start // g)
+        ids = np.full((3, 16), -1, np.int32)
+        for bi in range(2):
+            ids[bi, :15] = rng.choice(hi, size=15, replace=False)
+    else:
+        ids = np.full((3, n_kv, 256), -1, np.int32)
+        for bi in range(2):
+            for hh in range(n_kv):
+                ids[bi, hh, :255] = rng.choice(start + 2, size=255,
+                                               replace=False)
+    return (q, kp, vp, pos, torch.as_tensor(ids, device=dev), starts,
+            torch.as_tensor(table, device=dev))
+
+
+def head_dim_sweep(torch, np, dev, K):
+    """Flash, selected and paged attention at head dims off the old 64 /
+    128 (8 and 120 padded to the next multiple of 16; 80 and 112 with a
+    tail of unswizzled chunks), fp32 and bf16, GQA groups 1, 3 and 7, each
+    with a row that has no valid key (exact zeros); paged equal to linear
+    bit for bit.  Returns {kernel: max error}."""
+    fa, sa, ref = K["flash"], K["selected"], K["ref"]
+    errs = {"flash_attention": 0.0, "selected_attention": 0.0,
+            "selected_attention_paged": 0.0}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in SWEEP_DIMS:
+            for h, n_kv in SWEEP_HEADS:
+                gen = torch.Generator(device=dev).manual_seed(d + h)
+                for tq, tk, bnd in ((64, 300, 200), (1, 1025, 1024)):
+                    q = torch.randn((2, h, tq, d), generator=gen,
+                                    device=dev).to(dtype)
+                    k = torch.randn((2, n_kv, tk, d), generator=gen,
+                                    device=dev).to(dtype)
+                    v = torch.randn((2, n_kv, tk, d), generator=gen,
+                                    device=dev).to(dtype)
+                    valid = torch.rand((2, n_kv, tk), generator=gen,
+                                       device=dev) < 0.9
+                    valid[1, 0] = False
+                    got = fa.flash_attention_bhtd(q, k, v, valid,
+                                                  causal=True, boundary=bnd)
+                    want = ref.flash_attention_ref(q, k, v, causal=True,
+                                                   boundary=bnd,
+                                                   k_valid=valid)
+                    _sweep_check(torch, "flash", d, h, n_kv, dtype, got,
+                                 want, got[1, :h // n_kv], errs,
+                                 "flash_attention")
+                    n += 1
+                for g, t, start in ((16, 64, 1024), (1, 1, 1037)):
+                    q, kp, vp, pp, ids, st, tab = sweep_pool(
+                        torch, np, dev, dtype, d, h, n_kv, g, t, start)
+                    qt = q.transpose(1, 2)
+                    paged = sa.selected_attention_paged(
+                        qt, kp, vp, pp, ids, st, tab, granularity=g,
+                        block_size=kp.shape[1])
+                    kl, vl, kpos = ref.linearize_pool(kp, vp, pp, tab)
+                    lin = sa.selected_attention_bhtd(
+                        qt, kl.transpose(1, 2), vl.transpose(1, 2), kpos,
+                        ids, st, granularity=g)
+                    want = ref.selected_ref(q, kl, vl, kpos, ids, st,
+                                            g).transpose(1, 2)
+                    _sweep_check(torch, f"selected g={g}", d, h, n_kv, dtype,
+                                 lin, want, lin[2], errs,
+                                 "selected_attention")
+                    e = max_err(paged, lin)
+                    if e != 0.0:
+                        raise AssertionError(f"paged != linear at d={d} "
+                                             f"h={h}/{n_kv} {dtype}: {e}")
+                    errs["selected_attention_paged"] = max(
+                        errs["selected_attention_paged"],
+                        max_err(paged, want))
+                    n += 2
+    torch.cuda.synchronize()
+    log(f"  head-dim sweep: {n} calls at d {SWEEP_DIMS}, groups 1/3/7, fp32 "
+        f"and bf16 within tolerance, no-key rows exact zeros, paged == "
+        f"linear bitwise; max errors {errs}")
+    return errs
+
+
+def _sweep_check(torch, name, d, h, n_kv, dtype, got, want, empty, errs,
+                 key):
+    tol = 2e-5 if dtype == torch.float32 else bf16_ulp(want)
+    err = max_err(got, want)
+    if not bool(torch.isfinite(got).all()) or not err <= tol:
+        raise AssertionError(f"{name} d={d} h={h}/{n_kv} {dtype}: error "
+                             f"{err} above {tol}")
+    if float(empty.abs().max()) != 0.0:
+        raise AssertionError(f"{name} d={d} h={h}/{n_kv} {dtype}: a row "
+                             "with no valid key is not exact zeros")
+    errs[key] = max(errs[key], err)
 
 
 def reset_counts(K):
@@ -402,9 +590,9 @@ class ServeKernelCheck:
         score_k, sel_k, fns = self.orig
 
         def step_fn(fn):
-            def run(data, table, *args):
+            def run(data, table, *args, **kw):
                 self.table = table
-                return fn(data, table, *args)
+                return fn(data, table, *args, **kw)
             return run
 
         def score(qbar, k, valid):
@@ -1004,6 +1192,226 @@ def phase_small_baselines(torch, np):
         log(f"  {m}: serve tokens equal on card and CPU")
 
 
+def phase_oneshot(torch, np, K, arch, phase):
+    """Phases 14 (llama3-2-3b) and 15 (stablelm-3b): ``Engine.generate`` at
+    the published width from random weights (seed 0), staged then fused
+    (g = 16), with exact launch counts: one score and one attention launch
+    per layer per chunk and per decode step.  Returns (the model, on the
+    fused route, and its numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch)
+    log(f"== phase {phase}: {arch} one-shot at full width ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, bf16), prompt {PROMPT}, {MAX_NEW} new")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
+    per_run = cfg.n_layers * (PROMPT // cfg.quoka.chunk_size + MAX_NEW - 1)
+    out = {}
+    for route, qover, want in (
+            ("staged", {}, {"quoka_score": per_run,
+                            "flash_attention": per_run,
+                            "selected_attention": 0,
+                            "selected_attention_paged": 0}),
+            ("fused", dict(granularity=16, fused_select_attn=True),
+             {"quoka_score": per_run, "flash_attention": 0,
+              "selected_attention": per_run,
+              "selected_attention_paged": 0})):
+        model.cfg = dataclasses.replace(cfg, quoka=dataclasses.replace(
+            cfg.quoka, **qover))
+        r, counts, peak = phase_main(torch, np, K, model, f"{arch} {route}")
+        if counts != want:
+            raise AssertionError(f"{arch} {route} launches {counts} != "
+                                 f"{want}")
+        out[route] = dict(ttft_s=r.ttft_s, decode_tok_s=r.decode_tps,
+                          peak_gib=peak, launches=counts,
+                          tokens=r.tokens[0].tolist())
+    return model, out
+
+
+HT_PROMPT, HT_NEW = 6144, 16                  # phase 16
+
+
+def phase_host_tier(torch, np, K, model):
+    """Phase 16: the host-memory tier on llama3-2-3b ``serve``, fused g=16:
+    a 64-block device pool (block 128) with a 128-block host tier,
+    prefetch depth 4, one decode row.  A (6144 tokens) is served, then B
+    (6144 other tokens), whose pressure demotes most of A; then [B, A]: A
+    waits behind B, its host blocks are staged during B's steps and
+    promoted at A's admission.  The same traces on a 256-block pool with
+    no tier and each request's own ``generate`` give the same greedy
+    tokens; one of A's blocks is held byte for byte through demotion and
+    promotion; a ``torch.profiler`` trace of [B, A] shows every H2D copy of
+    a slab from pinned memory, on a stream other than the compute stream,
+    inside the device span of one step (between the step's first and last
+    compute kernels, no token fetch in between), and counts the copies
+    that overlap a compute kernel itself."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.pool import _chain_hashes, _slab_leaves
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    L = cfg.n_layers
+    log("== phase 16: host tier, llama3-2-3b serve, fused g=16 (block 128, "
+        "device pool 64 blocks, host tier 128 blocks, prefetch depth 4, "
+        "one prefill and one decode row)")
+    rng = np.random.default_rng(16)
+    a = rng.integers(3, cfg.vocab, (HT_PROMPT,)).astype(np.int32)
+    b = rng.integers(3, cfg.vocab, (HT_PROMPT,)).astype(np.int32)
+
+    def trace(*ps):
+        return [Request(rid=rid, tokens=p, max_new=HT_NEW) for rid, p in ps]
+
+    eng = Engine(model, method="quoka")
+    # one prefill row and one decode row: every product has generate's
+    # shape, so bf16 rounds alike and the tokens can be held to it
+    kw = dict(block_size=128, max_decode_batch=1, max_prefill_tokens=128)
+    t0 = time.perf_counter()
+    tier = eng.make_serve_state(trace((1, a), (2, b)), num_blocks=64,
+                                host_tier_blocks=128, prefetch_depth=4, **kw)
+    pool = tier.pool
+    if not pool.host.store.is_pinned():
+        raise AssertionError("host tier rows are not pinned")
+    slab = pool.host.store.shape[1]
+    log(f"  tier state: {pool.num_blocks} device blocks, host tier "
+        f"{pool.host.capacity} pinned slabs of {slab / 2 ** 20:.2f} MiB "
+        f"({pool.host.capacity * slab / 2 ** 30:.2f} GiB), built and warmed "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    def run(state, label, ps):
+        torch.cuda.synchronize()
+        reset_counts(K)
+        r = eng.serve(trace(*ps), state=state)
+        counts = read_counts(K)
+        steps = r.prefill_steps + r.decode_steps
+        want = {"quoka_score": L * steps, "flash_attention": 0,
+                "selected_attention": L * steps,
+                "selected_attention_paged": 0}
+        if counts != want:
+            raise AssertionError(f"phase 16 {label} launches {counts} != "
+                                 f"{want}")
+        st = dict(eng.stats)
+        log(f"  {label}: wall {r.wall_s:.2f} s, steps {r.steps} "
+            f"({r.prefill_steps} prefill / {r.decode_steps} decode), "
+            f"cached {r.cached_len}, TTFT "
+            f"{ {k: round(v, 4) for k, v in r.ttft_s.items()} } s, "
+            f"launches {counts}; pool {st}")
+        return r, st
+
+    def packed(blk):
+        return torch.cat([leaf[blk].reshape(-1).view(torch.uint8)
+                          for leaf in _slab_leaves(pool.data)]).cpu()
+
+    h0 = _chain_hashes(a, pool.block_size)[0]
+    r_a, _ = run(tier, "A cold", [(1, a)])
+    snap = packed(pool._full[h0])
+    r_b, s_b = run(tier, "B (pressure on A's blocks)", [(2, b)])
+    if s_b["demoted"] < 1 or h0 not in pool._h_full:
+        raise AssertionError(f"B did not demote A's first block: {s_b}")
+    slot = pool._h_full[h0]
+    pool.host.written[slot].synchronize()
+    if not torch.equal(pool.host.row(slot), snap):
+        raise AssertionError("a demoted slab differs from its device block")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tier.json")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r_ba, s_ba = run(tier, "[B, A] (A promoted)", [(2, b), (1, a)])
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    if s_ba["promoted"] < 1 or s_ba["staged_used"] < 1 or \
+            s_b["demoted"] < 1:
+        raise AssertionError(f"tier not exercised: {s_ba}")
+    if not torch.equal(packed(pool._full[h0]), snap):
+        raise AssertionError("a promoted block differs from its slab")
+    pool.check_invariants()
+    # every H2D copy of a slab in the trace of [B, A]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    streams = {}
+    for e in kern:
+        streams[e["args"]["stream"]] = streams.get(e["args"]["stream"], 0) + 1
+    compute = max(streams, key=streams.get)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")
+              and e.get("args", {}).get("bytes") == slab]
+    if not copies:
+        raise AssertionError("no slab H2D copy in the trace")
+    on_compute = sorted((k["ts"], k["ts"] + k["dur"]) for k in kern
+                        if k["args"]["stream"] == compute)
+    starts = [k[0] for k in on_compute]
+    # a step ends with its one fetch of the tokens (device -> pageable)
+    fetches = sorted(e["ts"] for e in events
+                     if e.get("cat") == "gpu_memcpy"
+                     and "DtoH" in e.get("name", "")
+                     and "Pageable" in e["name"]
+                     and e["args"]["stream"] == compute)
+    direct = 0
+    for e in copies:
+        if "Pinned" not in e["name"] or "Pageable" in e["name"]:
+            raise AssertionError(f"slab copy not from pinned memory: "
+                                 f"{e['name']}")
+        if e["args"]["stream"] == compute:
+            raise AssertionError("slab copy on the compute stream")
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        # the step it runs in: between two fetches, inside the span of
+        # that step's compute kernels
+        f = bisect.bisect_left(fetches, lo)
+        f0 = fetches[f - 1] if f > 0 else -math.inf
+        f1 = fetches[f] if f < len(fetches) else math.inf
+        i = bisect.bisect_left(starts, hi) - 1
+        step = [k for k in on_compute[bisect.bisect_right(starts, f0):
+                                      bisect.bisect_left(starts, f1)]]
+        if f1 < hi or not step or step[0][0] > lo or \
+                max(k[1] for k in step) < hi:
+            raise AssertionError(f"slab copy [{lo}, {hi}] not inside one "
+                                 f"step's compute span")
+        direct += i >= 0 and on_compute[i][1] > lo
+    h2d_ms = sum(e["dur"] for e in copies) / 1e3
+    gbps = len(copies) * slab / (h2d_ms * 1e-3) / 1e9
+    log(f"  trace of [B, A]: {len(copies)} slab H2D copies, all "
+        f"{copies[0]['name']}, on stream(s) "
+        f"{sorted({e['args']['stream'] for e in copies})} (compute stream "
+        f"{compute}), each inside the compute span of one step; {direct} "
+        f"of them overlap a compute kernel, the rest fall in the step's "
+        f"host gaps; {h2d_ms:.2f} ms of copies, {gbps:.1f} GB/s")
+    # the same traces on a 256-block pool with no tier, and generate
+    big = eng.make_serve_state(trace((1, a), (2, b)), num_blocks=256,
+                               host_tier_blocks=0, **kw)
+    g_a, _ = run(big, "no tier, 256 blocks: A", [(1, a)])
+    g_b, _ = run(big, "no tier, 256 blocks: B", [(2, b)])
+    g_ba, _ = run(big, "no tier, 256 blocks: [B, A]", [(2, b), (1, a)])
+    gen = {rid: eng.generate({"tokens": p[None]}, HT_NEW).tokens[0]
+           for rid, p in ((1, a), (2, b))}
+    for label, rt, rn in (("A", r_a, g_a), ("B", r_b, g_b),
+                          ("[B, A]", r_ba, g_ba)):
+        for rid, toks in rt.tokens.items():
+            if not (np.array_equal(toks, rn.tokens[rid])
+                    and np.array_equal(toks, gen[rid])):
+                raise AssertionError(
+                    f"phase 16 {label} request {rid}: tier {toks}, no tier "
+                    f"{rn.tokens[rid]}, generate {gen[rid]}")
+    cold = r_a.ttft_s[1]
+    promoted = r_ba.ttft_s[1] - r_ba.latency_s[2]
+    dev_hit = g_ba.ttft_s[1] - g_ba.latency_s[2]
+    log(f"  greedy tokens equal: tier == no tier == generate, every trace")
+    log(f"  A's TTFT: cold {cold:.4f} s | promoted from the host tier "
+        f"{promoted:.4f} s (from B's completion; {s_ba['promoted']:.0f} "
+        f"blocks promoted, {s_ba['staged_used']:.0f} from staging) | device "
+        f"hit, no tier {dev_hit:.4f} s")
+    return dict(ttft_cold_s=cold, ttft_promoted_s=promoted,
+                ttft_device_hit_s=dev_hit, demoted=s_b["demoted"],
+                promoted=s_ba["promoted"], staged_used=s_ba["staged_used"],
+                host_evictions=s_ba["host_evictions"],
+                slab_bytes=slab, h2d_copies=len(copies),
+                h2d_copies_on_a_kernel=direct, h2d_ms=h2d_ms,
+                h2d_gb_per_s=gbps, wall_s={"A": r_a.wall_s, "B": r_b.wall_s,
+                                           "BA": r_ba.wall_s})
+
+
 def phase_trace(torch, np, model, prompt=2048, steps=8):
     """Phase 7: where the time of the staged route goes.  One chunked
     prefill of ``prompt`` tokens and ``steps`` decode steps, each timed
@@ -1260,76 +1668,89 @@ def time_row(torch, flush, label, call, plain, b_ms, b_by, lib_ms=None,
 
 def attention_times(torch, np, dev, K, flush):
     """Flash and linear selected attention at the main path's prefill
-    (tq = 128) and decode (tq = 1) shapes: device time with L2 warm, with
+    (tq = 128) and decode (tq = 1) shapes, qwen3-4b's (h 32 / 8, d 128)
+    and stablelm-3b's (MHA 32 / 32, d 80): device time with L2 warm, with
     L2 flushed and back to back, the plain version, SDPA for flash, the
     bound, and the kernels one call launched (their grids, so the split
     count and the blocks, and their device times), read from a profiler
-    trace.  Returns {kernel:
-    row}: the prefill numbers at the top level, the decode ones under
-    "decode"; "ms" is the time with L2 as the main path leaves it (flash:
-    warm, the tensors just written; selected: flushed, a cache the other
-    layers have evicted)."""
+    trace.  Returns {kernel: row}: qwen3-4b's prefill numbers at the top
+    level, its decode ones under "decode", stablelm-3b's under "d80" and
+    "d80_decode"; "ms" is the time with L2 as the main path leaves it
+    (flash: warm, the tensors just written; selected: flushed, a cache the
+    other layers have evicted)."""
     import torch.nn.functional as F
     fa, sa, ref = K["flash"], K["selected"], K["ref"]
     out = {"flash_attention": {}, "selected_attention": {}}
 
-    def row(name, label, call, plain, b_ms, b_by, lib_ms=None,
+    def row(name, key, label, call, plain, b_ms, b_by, lib_ms=None,
             warm_main=True):
         r = time_row(torch, flush, f"{name} {label}", call, plain, b_ms,
                      b_by, lib_ms, warm_main)
-        if label.startswith("prefill"):
+        if key is None:
             out[name].update(r)
         else:
-            out[name]["decode"] = r
+            out[name][key] = r
 
-    for tq in (128, 1):
-        q, k, v, valid, B = flash_inputs(torch, dev, tq)
-        tk = k.shape[2]
-        i = torch.arange(tq, device=dev)[:, None]
-        j = torch.arange(tk, device=dev)[None, :]
-        mask = ((j < B) | (j - B <= i))[None, None] & \
-            valid.repeat_interleave(4, dim=1)[:, :, None, :]   # (1,32,tq,tk)
-        pairs = int(mask.sum())
-        o = torch.empty_like(q)
-        # K/V rows masked by k_valid are never needed
-        kv_bytes = 2 * int(valid.sum()) * 128 * k.element_size()
-        b_ms, b_by = bound(nbytes(q, valid, o) + kv_bytes, 4 * 128 * pairs)
-        kr = k.repeat_interleave(4, dim=1)
-        vr = v.repeat_interleave(4, dim=1)
-        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=mask), None)
-        row("flash_attention", f"{'prefill' if tq > 1 else 'decode'} "
-            f"tq={tq} tk={tk}",
-            lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
-                                            boundary=B),
-            lambda: ref.flash_attention_ref(q, k, v, causal=True,
-                                            boundary=B, k_valid=valid),
-            b_ms, b_by, l_ms)
-    for g, t, start in ((16, 128, 4096), (16, 1, 8197)):
-        q, k, v, key_pos, idx, st = selected_inputs(torch, np, dev, g, t,
-                                                    start)
-        # keys this data needs: valid selected slots and the chunk rows
-        blocks = idx[idx >= 0]
-        rows_sel = (blocks[:, None] * g
-                    + torch.arange(g, device=dev)).reshape(-1)
-        pos_sel = key_pos[0, rows_sel]
-        n_sel = int(((pos_sel >= 0) & (pos_sel < st)).sum())
-        n_chunk_pairs = t * (t + 1) // 2
-        pairs = 32 * (n_sel * t + n_chunk_pairs)
-        o = torch.empty_like(q)
-        kv_rows = 8 * (n_sel + t) * 128 * 2 * 2
-        b_ms, b_by = bound(nbytes(q, o, idx) + kv_rows
-                           + 4 * (len(rows_sel) + t), 4 * 128 * pairs)
-        # the start as a device tensor: a graph cannot capture the
-        # host-to-device copy that a Python int costs the plain version
-        st_dev = torch.full((1,), st, dtype=torch.int32, device=dev)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        row("selected_attention", f"{'prefill' if t > 1 else 'decode'} "
-            f"g={g} t={t}",
-            lambda: sa.selected_attention_bhtd(q, k, v, key_pos, idx, st_dev,
-                                               granularity=g),
-            lambda: ref.selected_ref(qt, kt, vt, key_pos, idx, st_dev, g),
-            b_ms, b_by, warm_main=False)
+    for tag, (h, n_kv, d) in (("", (32, 8, 128)),
+                              ("d80", ARCH_SHAPES["stablelm-3b"])):
+        group = h // n_kv
+        for tq in (128, 1):
+            key = ((tag + "_decode") if tag else "decode") if tq == 1 \
+                else (tag or None)
+            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d)
+            tk = k.shape[2]
+            i = torch.arange(tq, device=dev)[:, None]
+            j = torch.arange(tk, device=dev)[None, :]
+            mask = ((j < B) | (j - B <= i))[None, None] & \
+                valid.repeat_interleave(group, dim=1)[:, :, None, :]
+            pairs = int(mask.sum())
+            o = torch.empty_like(q)
+            # K/V rows masked by k_valid are never needed
+            kv_bytes = 2 * int(valid.sum()) * d * k.element_size()
+            b_ms, b_by = bound(nbytes(q, valid, o) + kv_bytes,
+                               4 * d * pairs)
+            kr = k.repeat_interleave(group, dim=1)
+            vr = v.repeat_interleave(group, dim=1)
+            l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask), None)
+            row("flash_attention", key,
+                f"{'prefill' if tq > 1 else 'decode'} tq={tq} tk={tk} "
+                f"h={h}/{n_kv} d={d}",
+                lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                                boundary=B),
+                lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                boundary=B, k_valid=valid),
+                b_ms, b_by, l_ms)
+        for g, t, start in ((16, 128, 4096), (16, 1, 8197)):
+            key = ((tag + "_decode") if tag else "decode") if t == 1 \
+                else (tag or None)
+            q, k, v, key_pos, idx, st = selected_inputs(
+                torch, np, dev, g, t, start, h=h, n_kv=n_kv, d=d)
+            # keys this data needs: valid selected slots and the chunk rows
+            blocks = idx[idx >= 0]
+            rows_sel = (blocks[:, None] * g
+                        + torch.arange(g, device=dev)).reshape(-1)
+            pos_sel = key_pos[0, rows_sel]
+            n_sel = int(((pos_sel >= 0) & (pos_sel < st)).sum())
+            n_chunk_pairs = t * (t + 1) // 2
+            pairs = h * (n_sel * t + n_chunk_pairs)
+            o = torch.empty_like(q)
+            kv_rows = n_kv * (n_sel + t) * d * 2 * 2
+            b_ms, b_by = bound(nbytes(q, o, idx) + kv_rows
+                               + 4 * (len(rows_sel) + t), 4 * d * pairs)
+            # the start as a device tensor: a graph cannot capture the
+            # host-to-device copy that a Python int costs the plain version
+            st_dev = torch.full((1,), st, dtype=torch.int32, device=dev)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            row("selected_attention", key,
+                f"{'prefill' if t > 1 else 'decode'} g={g} t={t} "
+                f"h={h}/{n_kv} d={d}",
+                lambda: sa.selected_attention_bhtd(q, k, v, key_pos, idx,
+                                                   st_dev, granularity=g),
+                lambda: ref.selected_ref(qt, kt, vt, key_pos, idx, st_dev,
+                                         g),
+                b_ms, b_by, warm_main=False)
     return out
 
 
@@ -1499,8 +1920,10 @@ def main() -> int:
     state, kv0, tables, serve, serve_errs = phase_serve(torch, np, K, model)
     for name, err in serve_errs.items():
         errs[name] = max(errs[name], err)
-    errs["selected_attention_paged"], n_paged, (q, pos, tab, idx, st, _) = \
+    e_paged, n_paged, (q, pos, tab, idx, st, _) = \
         phase_paged(torch, np, K, state, kv0, tables)
+    errs["selected_attention_paged"] = max(errs["selected_attention_paged"],
+                                           e_paged)
     paged = (q, kv0.k, kv0.v, pos, tab, idx, st)
     del state
     model.cfg = cfg
@@ -1516,6 +1939,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     harness = phase_harness(torch, np, K, card, dev)
     phase_small_baselines(torch, np)
+    # the slice's paths: llama3-2-3b one-shot, its serve over the host
+    # tier (on the same model), stablelm-3b one-shot
+    torch.cuda.empty_cache()
+    llama, oneshot = phase_oneshot(torch, np, K, "llama3-2-3b", 14)
+    oneshot = {"llama3-2-3b": oneshot}
+    tier = phase_host_tier(torch, np, K, llama)
+    del llama
+    torch.cuda.empty_cache()
+    stablelm, oneshot["stablelm-3b"] = phase_oneshot(torch, np, K,
+                                                     "stablelm-3b", 15)
+    del stablelm
+    torch.cuda.empty_cache()
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -1533,11 +1968,19 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/selected_attention_paged.cu",
             "src/repro/kernels/selected_attention.py:304"),
     }
+    # launches on each main path of the run, beside qwen3-4b's
+    paths = {name: {"qwen3-4b staged": c_st[name],
+                    "qwen3-4b fused": c_fu[name]} for name in meta}
+    for arch, runs in oneshot.items():
+        for route, r in runs.items():
+            for name in meta:
+                paths[name][f"{arch} {route}"] = r["launches"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=repl, launches=launches[name],
-                            max_abs_err=errs[name], **timing[name]))
+                            max_abs_err=errs[name], paths=paths[name],
+                            **timing[name]))
     main_path = {
         "staged": dict(ttft_s=r_st.ttft_s, decode_tok_s=r_st.decode_tps,
                        peak_gib=peak_st),
@@ -1545,7 +1988,8 @@ def main() -> int:
                       peak_gib=peak_fu)}
     log(json.dumps({"main_path": main_path, "trace": trace,
                     "serve": serve, "methods": methods,
-                    "harness": harness,
+                    "harness": harness, "oneshot": oneshot,
+                    "host_tier": tier,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

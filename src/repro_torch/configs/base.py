@@ -78,6 +78,17 @@ class ModelConfig:
         """(period, n_repeats) groups; a dense decoder is one stack."""
         return [(self.pattern, self.n_layers)]
 
+    def param_count(self) -> int:
+        """Weight-matrix parameters (embedding, attention projections,
+        MLP; norms left out), as the reference's ``param_count`` counts a
+        dense decoder."""
+        d, hd = self.d_model, self.resolved_head_dim
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        mlp = (2 if self.act == "gelu" else 3) * d * self.d_ff
+        return emb + self.n_layers * (attn + mlp)
+
     def smoke(self, **overrides) -> "ModelConfig":
         """Reduced variant for CPU tests — the same reduction as the
         reference's ``ModelConfig.smoke`` for dense configs."""
@@ -100,9 +111,12 @@ class ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import granite_3_2b, qwen3_4b
+    from repro_torch.configs import (granite_3_2b, llama3_2_3b, qwen3_4b,
+                                     stablelm_3b)
     known = {"qwen3-4b": qwen3_4b.get_config,
-             "granite-3-2b": granite_3_2b.get_config}
+             "granite-3-2b": granite_3_2b.get_config,
+             "llama3-2-3b": llama3_2_3b.get_config,
+             "stablelm-3b": stablelm_3b.get_config}
     key = name.replace("_", "-").replace(".", "-")
     if key not in known:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(known)}")

@@ -211,7 +211,38 @@ def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
         plan, ctx.get("layer_idx", 0), cfg,
         lambda: build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
                       q_valid=q_valid))
+    _note_block_counts(ctx, pln, cfg)
     return materialize(pln, k, v, key_pos, chunk_start, cfg), plan
+
+
+def _note_block_counts(ctx, pln: SelectionPlan, cfg: QuokaConfig) -> None:
+    """Leave this layer's ``pool_block_counts`` in ``ctx["_selblk"]`` when
+    the caller asked for the prefetch oracle's side channel
+    (``ctx["selblk"] = (block_size, n_blocks)``); models/stack.py pops and
+    sums it over the layers."""
+    sb = ctx.get("selblk")
+    if sb is not None:
+        ctx["_selblk"] = pool_block_counts(pln, cfg, sb[0], sb[1])
+
+
+def pool_block_counts(plan: SelectionPlan, cfg: QuokaConfig,
+                      block_size: int, n_blocks: int) -> torch.Tensor:
+    """(b, n_blocks) int32: how many of this plan's selected entries land
+    in each LOGICAL pool block of the request's cache view, read off the
+    plan's indices before materialize — QUOKA's stage-2 output doubling as
+    the host tier's prefetch oracle (serving/engine.py::_prefetch).  Token
+    plans (g == 1) map a slot to its block by ``// block_size``; block
+    plans map grid ids through ``g / block_size``.  Padding (-1) and ids
+    past ``n_blocks`` drop out."""
+    g = grid(cfg)
+    flat = plan.idx.reshape(plan.idx.shape[0], -1).long()
+    ids = flat // block_size if g == 1 else (flat * g) // block_size
+    ids = torch.where((flat >= 0) & (ids < n_blocks), ids,
+                      torch.full_like(ids, n_blocks))
+    out = torch.zeros((flat.shape[0], n_blocks + 1), dtype=torch.int32,
+                      device=flat.device)
+    out.scatter_add_(1, ids, torch.ones_like(ids, dtype=torch.int32))
+    return out[:, :n_blocks]
 
 
 def fused_route(cfg: QuokaConfig, method: str, k,
@@ -238,4 +269,5 @@ def fused_attend_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q,
                       q_valid=q_valid))
     att = kops.selected_attention(q, k, v, key_pos, pln.idx, chunk_start,
                                   granularity=grid(cfg))
+    _note_block_counts(ctx, pln, cfg)
     return att, plan

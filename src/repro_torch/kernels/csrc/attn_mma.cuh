@@ -18,7 +18,14 @@
 //   * Tensor cores: four warps each own 16 rows; S = Q K^T and O += P V are
 //     mma.sync.m16n8k16 bf16 products with fp32 accumulation, operands
 //     read with ldmatrix from 128-byte-swizzled shared memory (16-byte chunk
-//     c of row r sits at chunk c ^ (r & 7): conflict-free).  mma.sync, not
+//     c of row r sits at chunk c ^ (r & 7) within its group of 8: conflict-
+//     free).  A row of D / 8 chunks that is not a multiple of 8 (D = 16, 48,
+//     80, 112) keeps its last D / 8 % 8 chunks unswizzled, so no chunk
+//     leaves its row.
+//   * Head dims: D is the multiple of 16 at or above the true d (the mma's
+//     k is 16); Q, K and V columns past d are zero-filled by cp.async and
+//     output columns past d are not written (attn_tile.cuh,
+//     with_head_dim).  mma.sync, not
 //     wgmma: its fragment layouts are fixed per thread, so the tile could be
 //     written and checked without a compiler at hand; wgmma is queued.  Q is
 //     staged once, unscaled, and read back per k-step (registers go to S
@@ -53,12 +60,15 @@ namespace mma {
 // The tile's shape is one decision, made in kernels/tiling.py (which sizes
 // the split and its scratch from it) and handed to nvcc by kernels/build.py.
 #if !defined(QUOKA_MMA_BM) || !defined(QUOKA_MMA_BN) || \
-    !defined(QUOKA_MMA_BLOCKS_PER_SM)
+    !defined(QUOKA_MMA_BLOCKS_PER_SM) || !defined(QUOKA_SMEM_PER_SM) || \
+    !defined(QUOKA_SMEM_PER_BLOCK)
 #error "build through kernels/build.py: it defines the tile's BM, BN, blocks"
 #endif
 constexpr int BM = QUOKA_MMA_BM;  // (head, row) pairs per block
 constexpr int BN = QUOKA_MMA_BN;  // keys per tile
 constexpr int BLOCKS_PER_SM = QUOKA_MMA_BLOCKS_PER_SM;  // resident blocks
+constexpr int SMEM_PER_SM = QUOKA_SMEM_PER_SM;          // bytes, the card's
+constexpr int SMEM_PER_BLOCK = QUOKA_SMEM_PER_BLOCK;
 static_assert(BM == 64 && BN == 64,
               "the fragment and staging loops are written for a 64 x 64 tile");
 constexpr int MMA_WARPS = BM / 16;  // 16 rows each
@@ -66,9 +76,21 @@ constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr int NTHREADS = MMA_THREADS + 32;   // + the offset resolver warp
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Shared memory of one block with a K/V ring of `stages` tiles: Q, the ring,
+// and the resolver's offsets, min_i, biases and tile maxima for stages + 1
+// tiles.  Mirrored by tiling.attn_smem.
+template <int D>
+constexpr int attn_smem(int stages) {
+  return BM * D * 2 + stages * 2 * BN * D * 2 + (stages + 1) * (BN * 24 + 4);
+}
+
 template <int D>
 struct Cfg {
-  static constexpr int STAGES = D == 64 ? 3 : 2;  // K/V ring depth
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D: a multiple of 16");
+  // K/V ring depth: 3 where BLOCKS_PER_SM blocks of 3 stages fit an SM
+  // (with the 1 KiB each block reserves), else 2 (tiling.attn_stages)
+  static constexpr int STAGES =
+      BLOCKS_PER_SM * (attn_smem<D>(3) + 1024) <= SMEM_PER_SM ? 3 : 2;
   static constexpr int RING = STAGES + 1;         // offset slots
   static constexpr int CH = D / 8;                // 16-byte chunks per row
   static constexpr int ROW_BYTES = D * 2;
@@ -81,13 +103,16 @@ struct Cfg {
   static constexpr int KB_OFF = MI_OFF + RING * BN * 4;
   static constexpr int TM_OFF = KB_OFF + RING * BN * 4;
   static constexpr int SMEM = TM_OFF + RING * 4;
+  static_assert(SMEM == attn_smem<D>(STAGES), "layout != attn_smem");
+  static_assert(SMEM <= SMEM_PER_BLOCK, "the tile exceeds a block's smem");
+  static constexpr int CH8 = CH & ~7;  // chunks in whole swizzled groups
 };
 
 struct Split {
   int n_kv;
   int n_split;
   int m_pad;        // m_tiles * BM: rows of one (batch, KV head) in scratch
-  float* part_o;    // (n_split, b * n_kv, m_pad, D) unnormalised acc
+  float* part_o;    // (n_split, b * n_kv, m_pad, d) unnormalised acc
   float* part_ml;   // (n_split, b * n_kv, m_pad, 2) running max (log2), l
 };
 
@@ -105,10 +130,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// swizzled byte offset of 16-byte chunk `ch` of row `r`
+// swizzled byte offset of 16-byte chunk `ch` of row `r` (the chunks past
+// the last whole group of 8 stay in place)
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return r * Cfg<D>::ROW_BYTES + ((ch ^ (r & 7)) << 4);
+  const int c = ch < Cfg<D>::CH8 ? ch ^ (r & 7) : ch;
+  return r * Cfg<D>::ROW_BYTES + (c << 4);
 }
 
 template <int D, class Map>
@@ -128,6 +155,7 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
   const int split = blockIdx.x, mt = blockIdx.y, bh = blockIdx.z;
   const int bi = bh / sp.n_kv, hk = bh % sp.n_kv;
   const int rows = io.group * io.tq;
+  const int dch = io.d / 8;  // chunks of a row that hold data
   const int n_tiles = max(1, (io.n_keys + BN - 1) / BN);
   const int t0 = static_cast<int>((long long)split * n_tiles / sp.n_split);
   const int nt =
@@ -164,9 +192,10 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
       const bool is_v = u >= BN * C::CH / MMA_THREADS;
       const int y = tid + (u % (BN * C::CH / MMA_THREADS)) * MMA_THREADS;
       const int c = y / C::CH, ch = y % C::CH;
-      const bool live = kmin[base + c] != NEVER;
+      const bool live = kmin[base + c] != NEVER && ch < dch;
       const __nv_bfloat16* src =
-          (is_v ? io.v + voff[base + c] : io.k + koff[base + c]) + ch * 8;
+          (is_v ? io.v + voff[base + c] : io.k + koff[base + c]) +
+          (ch < dch ? ch : 0) * 8;
       cp_async16(ks + (is_v ? C::TILE_BYTES : 0) + swz<D>(c, ch), src, live);
     }
   };
@@ -180,11 +209,11 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
       const int x = tid + u * MMA_THREADS;
       const int r = x / C::CH, ch = x % C::CH;
       const int p = mt * BM + r;
-      const bool ok = p < rows;
-      const int hg = ok ? p / io.tq : 0, i = ok ? p % io.tq : 0;
+      const bool ok = p < rows && ch < dch;
+      const int hg = p < rows ? p / io.tq : 0, i = p < rows ? p % io.tq : 0;
       const __nv_bfloat16* src = io.q + bi * io.sq_b +
                                  (hk * io.group + hg) * io.sq_h +
-                                 i * io.sq_t + ch * 8;
+                                 i * io.sq_t + (ch < dch ? ch : 0) * 8;
       cp_async16(q_s + swz<D>(r, ch), src, ok);
     }
     cp_commit();
@@ -354,6 +383,7 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
           io.o + bi * io.so_b + head[e] * io.so_h + qi[e] * io.so_t;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
+        if (dt >= dch) break;
         const float a = l[e] > 0.f ? o[dt][2 * e] * inv : 0.f;
         const float c = l[e] > 0.f ? o[dt][2 * e + 1] * inv : 0.f;
         *reinterpret_cast<__nv_bfloat162*>(op + dt * 8 + 2 * tq4) =
@@ -362,11 +392,13 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
     } else {
       const size_t row =
           ((size_t)split * gridDim.z + bh) * sp.m_pad + mt * BM + r;
-      float* po = sp.part_o + row * D;
+      float* po = sp.part_o + row * io.d;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
+      for (int dt = 0; dt < D / 8; ++dt) {
+        if (dt >= dch) break;
         *reinterpret_cast<float2*>(po + dt * 8 + 2 * tq4) =
             make_float2(o[dt][2 * e], o[dt][2 * e + 1]);
+      }
       if (tq4 == 0)
         *reinterpret_cast<float2*>(sp.part_ml + row * 2) =
             make_float2(m[e], l[e]);
@@ -376,11 +408,12 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 
 // One warp per (head, row) pair: combine the n_split partial (m, l, acc)
 // by log-sum-exp and write the bf16 output (exact zeros where every l is 0).
-// The slices' loads are independent, so they are issued together.
+// The slices' loads are independent, so they are issued together.  Lane L
+// owns the column pairs 2L + 64e of the d columns.
 template <int D>
 __global__ void __launch_bounds__(128)
     attn_merge_kernel(AttnIO<__nv_bfloat16> io, Split sp) {
-  constexpr int E = D / 32;  // columns per lane
+  constexpr int E = (D + 63) / 64;  // column pairs per lane, at most
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p = blockIdx.x * 4 + warp;
   const int bh = blockIdx.y;
@@ -394,31 +427,37 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     mmax = fmaxf(mmax, __shfl_xor_sync(0xffffffffu, mmax, o));
-  float l = 0.f, acc[E];
+  float l = 0.f, acc[E][2];
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int e = 0; e < E; ++e) acc[e][0] = acc[e][1] = 0.f;
 #pragma unroll 4
   for (int s = 0; s < sp.n_split; ++s) {
     const size_t row = s * per_split + row0;
     const float2 ml = *reinterpret_cast<const float2*>(sp.part_ml + row * 2);
     const float w = exp2f(ml.x - mmax);
     l += w * ml.y;
-    const float* po = sp.part_o + row * D + lane * E;
+    const float* po = sp.part_o + row * io.d;
 #pragma unroll
-    for (int e = 0; e < E; e += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(po + e);
-      acc[e] += w * x.x;
-      acc[e + 1] += w * x.y;
+    for (int e = 0; e < E; ++e) {
+      const int c = 2 * lane + 64 * e;
+      if (c < io.d) {
+        const float2 x = *reinterpret_cast<const float2*>(po + c);
+        acc[e][0] += w * x.x;
+        acc[e][1] += w * x.y;
+      }
     }
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
   __nv_bfloat16* op = io.o + bi * io.so_b +
                       (hk * io.group + p / io.tq) * io.so_h +
-                      (p % io.tq) * io.so_t + lane * E;
+                      (p % io.tq) * io.so_t;
 #pragma unroll
-  for (int e = 0; e < E; e += 2)
-    *reinterpret_cast<__nv_bfloat162*>(op + e) = __floats2bfloat162_rn(
-        l > 0.f ? acc[e] * inv : 0.f, l > 0.f ? acc[e + 1] * inv : 0.f);
+  for (int e = 0; e < E; ++e) {
+    const int c = 2 * lane + 64 * e;
+    if (c < io.d)
+      *reinterpret_cast<__nv_bfloat162*>(op + c) = __floats2bfloat162_rn(
+          l > 0.f ? acc[e][0] * inv : 0.f, l > 0.f ? acc[e][1] * inv : 0.f);
+  }
 }
 
 }  // namespace mma

@@ -21,11 +21,20 @@
 // registers in fp32.  Masked logits are the finite NEG_INF and p is
 // re-masked explicitly, so a row that attends nothing keeps l == 0 and
 // writes exact zeros, never NaN.
+//
+// Head dims: the tiles take every head dim d that is a multiple of 8 in
+// [8, 128] (the reference's kernels take any d).  Each is instantiated at
+// D, the multiple of 16 at or above d (with_head_dim), and reads the true
+// d at run time: Q and K columns past d are zero-filled in shared memory
+// (a zero column changes no dot product), V's are zero too, and output
+// columns past d are never written.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace quoka {
 
@@ -50,7 +59,27 @@ struct AttnIO {
   int group;                   // query heads per KV head
   int n_keys;                  // logical keys the map walks
   float scale;
+  int d;                       // head dim: a multiple of 8, D - 16 < d <= D
 };
+
+// Calls f(std::integral_constant<int, D>) with D the instantiated width of
+// head dim d (the multiple of 16 at or above it); d not a multiple of 8 in
+// [8, 128] is refused.
+template <class F>
+static cudaError_t with_head_dim(int d, F&& f) {
+  if (d < 8 || d > 128 || d % 8) return cudaErrorInvalidValue;
+  switch ((d + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 16>());
+    case 2: return f(std::integral_constant<int, 32>());
+    case 3: return f(std::integral_constant<int, 48>());
+    case 4: return f(std::integral_constant<int, 64>());
+    case 5: return f(std::integral_constant<int, 80>());
+    case 6: return f(std::integral_constant<int, 96>());
+    case 7: return f(std::integral_constant<int, 112>());
+    case 8: return f(std::integral_constant<int, 128>());
+  }
+  return cudaErrorInvalidValue;
+}
 
 constexpr int BQ = 16;   // query rows per block
 constexpr int BK = 32;   // keys per tile
@@ -80,7 +109,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     const int rr = x / D, dd = x % D;
     const int row = q0 + rr;
     float val = 0.f;
-    if (row < io.tq)
+    if (row < io.tq && dd < io.d)
       val = to_f(io.q[bi * io.sq_b + hi * io.sq_h + row * io.sq_t + dd]);
     Qs[rr][dd] = val * io.scale;
   }
@@ -105,8 +134,9 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     __syncthreads();
     for (int x = tid; x < BK * D; x += NT) {
       const int c = x / D, dd = x % D;
-      Ks[c][dd] = to_f(io.k[koff[c] + dd]);
-      Vs[c][dd] = to_f(io.v[voff[c] + dd]);
+      const bool in = dd < io.d;
+      Ks[c][dd] = in ? to_f(io.k[koff[c] + dd]) : 0.f;
+      Vs[c][dd] = in ? to_f(io.v[voff[c] + dd]) : 0.f;
     }
     __syncthreads();
 
@@ -157,7 +187,8 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     T* op = io.o + bi * io.so_b + hi * io.so_h + qi * io.so_t;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      op[c8 + 8 * e] = from_f<T>(l > 0.f ? acc[e] * inv : 0.f);
+      if (c8 + 8 * e < io.d)
+        op[c8 + 8 * e] = from_f<T>(l > 0.f ? acc[e] * inv : 0.f);
   }
 }
 

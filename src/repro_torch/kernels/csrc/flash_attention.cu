@@ -5,6 +5,8 @@
 // causal or j < boundary or j - boundary <= i); rows that attend nothing
 // write exact zeros.  `boundary` is a runtime int here (it was static on the
 // TPU) and k_valid is per KV head, with a zero head stride when shared.
+// Head dims: every multiple of 8 in [8, 128], as the reference's any d up
+// to there (with_head_dim, attn_tile.cuh).
 //
 // Bound on the H100 at the main-path shape (qwen3-4b prefill chunk: b=1,
 // h=32, h_kv=8, tq=128, tk=1152, d=128, bf16): about 2.4 GFLOP against 6.7 MB
@@ -45,21 +47,18 @@ struct FlashMap {
 
 static cudaError_t run(int d, const AttnIO<float>& io, const FlashMap& map,
                        int b, int h, cudaStream_t s) {
-  if (d == 64) return launch_attn<float, 64>(io, map, b, h, s);
-  if (d == 128) return launch_attn<float, 128>(io, map, b, h, s);
-  return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto D) {
+    return launch_attn<float, decltype(D)::value>(io, map, b, h, s);
+  });
 }
 
 static cudaError_t run_mma(int d, const AttnIO<__nv_bfloat16>& io,
                            const FlashMap& map, int b, int h_kv, int n_split,
                            float* part_o, float* part_ml, cudaStream_t s) {
-  if (d == 64)
-    return launch_attn_mma<64>(io, map, b, h_kv, n_split, part_o,
-                               part_ml, s);
-  if (d == 128)
-    return launch_attn_mma<128>(io, map, b, h_kv, n_split, part_o,
-                                part_ml, s);
-  return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto D) {
+    return launch_attn_mma<decltype(D)::value>(io, map, b, h_kv, n_split,
+                                               part_o, part_ml, s);
+  });
 }
 
 }  // namespace quoka
@@ -86,7 +85,7 @@ extern "C" int flash_attention_launch(
     AttnIO<float> io{static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, tq, h / h_kv, tk,
-                     scale};
+                     scale, d};
     return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
@@ -95,7 +94,7 @@ extern "C" int flash_attention_launch(
                              static_cast<const __nv_bfloat16*>(v),
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, tq, h / h_kv,
-                             tk, scale};
+                             tk, scale, d};
     return static_cast<int>(run_mma(d, io, map, b, h_kv, n_split,
                                     static_cast<float*>(part_o),
                                     static_cast<float*>(part_ml), s));

@@ -81,21 +81,18 @@ struct PagedMap {
 
 static cudaError_t run(int d, const AttnIO<float>& io, const PagedMap& map,
                        int b, int h, cudaStream_t s) {
-  if (d == 64) return launch_attn<float, 64>(io, map, b, h, s);
-  if (d == 128) return launch_attn<float, 128>(io, map, b, h, s);
-  return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto D) {
+    return launch_attn<float, decltype(D)::value>(io, map, b, h, s);
+  });
 }
 
 static cudaError_t run_mma(int d, const AttnIO<__nv_bfloat16>& io,
                            const PagedMap& map, int b, int n_kv, int n_split,
                            float* part_o, float* part_ml, cudaStream_t s) {
-  if (d == 64)
-    return launch_attn_mma<64>(io, map, b, n_kv, n_split, part_o,
-                               part_ml, s);
-  if (d == 128)
-    return launch_attn_mma<128>(io, map, b, n_kv, n_split, part_o,
-                                part_ml, s);
-  return cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto D) {
+    return launch_attn_mma<decltype(D)::value>(io, map, b, n_kv, n_split,
+                                               part_o, part_ml, s);
+  });
 }
 
 }  // namespace quoka
@@ -131,7 +128,7 @@ extern "C" int selected_attention_paged_launch(
     AttnIO<float> io{static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv, n_keys,
-                     scale};
+                     scale, d};
     return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
@@ -140,7 +137,7 @@ extern "C" int selected_attention_paged_launch(
                              static_cast<const __nv_bfloat16*>(v),
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv,
-                             n_keys, scale};
+                             n_keys, scale, d};
     return static_cast<int>(run_mma(d, io, map, b, n_kv, n_split,
                                     static_cast<float*>(part_o),
                                     static_cast<float*>(part_ml), s));

@@ -5,8 +5,10 @@ Mask: attend(i, j) iff k_valid[j] and (not causal or j < boundary or
 j - boundary <= i); fully-masked rows give zeros.  For a CPU tensor the
 wrapper runs the plain version (``ref.flash_attention_ref``); for a CUDA
 tensor it launches the kernel (bf16: ``csrc/attn_mma.cuh``, with its merge
-kernel when ``tiling.attn_geometry`` splits the key walk) or raises.
-``LAUNCHES`` counts wrapper calls that launched.
+kernel when ``tiling.attn_geometry`` splits the key walk) or raises.  The
+kernel takes every head dim that is a multiple of 8 up to 128
+(``tiling.attn_width``); another raises before any launch.  ``LAUNCHES``
+counts wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ import torch
 from repro_torch.kernels import build, ref, tiling
 
 LAUNCHES = 0
-HEAD_DIMS = (64, 128)
 
 
 def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
@@ -37,8 +38,7 @@ def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
     if k.shape != (b, h_kv, tk, d) or v.shape != k.shape or h % h_kv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    tiling.attn_width("flash_attention", d)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k, v must share a dtype")
     if not (q.device == k.device == v.device):

@@ -10,7 +10,8 @@ chunk] read in place; validity is re-derived in the kernel exactly as
 runs its plain version (``ref.selected_ref`` / ``ref.selected_paged_ref``,
 which gather); for a CUDA tensor it launches its kernel (bf16:
 ``csrc/attn_mma.cuh``, with its merge kernel when ``tiling.attn_geometry``
-splits the key walk, identically for both views) or raises.
+splits the key walk, identically for both views) or raises.  Both take
+every head dim that is a multiple of 8 up to 128 (``tiling.attn_width``).
 ``LAUNCHES`` and ``PAGED_LAUNCHES`` count wrapper calls that launched.
 """
 from __future__ import annotations
@@ -23,7 +24,6 @@ from repro_torch.kernels import build, ref, tiling
 
 LAUNCHES = 0
 PAGED_LAUNCHES = 0
-HEAD_DIMS = (64, 128)
 
 
 def _plan_inputs(q, block_idx, chunk_start, g: int, n_kv: int, name: str):
@@ -78,9 +78,7 @@ def selected_attention_bhtd(q, k, v, key_pos, block_idx, chunk_start, *,
             or key_pos.shape != (b, T):
         raise ValueError(f"selected_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} key_pos {tuple(key_pos.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"selected_attention: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    tiling.attn_width("selected_attention", d)
     if T % g:
         raise ValueError(f"cache length {T} must be a multiple of the "
                          f"granularity {g}")
@@ -158,9 +156,7 @@ def selected_attention_paged(q, k_pool, v_pool, pos_pool, block_idx,
                          f"{tuple(q.shape)} k_pool {tuple(k_pool.shape)} "
                          f"pos_pool {tuple(pos_pool.shape)} table "
                          f"{tuple(table.shape)} (block_size {bs})")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"selected_attention_paged: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    tiling.attn_width("selected_attention_paged", d)
     if not (q.dtype == k_pool.dtype == v_pool.dtype):
         raise TypeError("selected_attention_paged: q and the pools must "
                         "share a dtype")

@@ -28,12 +28,45 @@ SCORE_WARPS = 4
 SCORE_KEYS = 16
 SCORE_BLOCKS_PER_SM = 2    # resident scoring blocks aimed for
 SCORE_MAX_D = 576          # MLA's 512 + 64 latent
-NVCC_DEFINES = (f"-DQUOKA_MMA_BM={BM}", f"-DQUOKA_MMA_BN={BN}",
-                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}",
-                f"-DQUOKA_SCORE_WARPS={SCORE_WARPS}")
 # Hopper (H100, H200): shared memory one block may opt into, and per SM
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_PER_SM = 228 * 1024
+NVCC_DEFINES = (f"-DQUOKA_MMA_BM={BM}", f"-DQUOKA_MMA_BN={BN}",
+                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}",
+                f"-DQUOKA_SCORE_WARPS={SCORE_WARPS}",
+                f"-DQUOKA_SMEM_PER_SM={SMEM_PER_SM}",
+                f"-DQUOKA_SMEM_PER_BLOCK={SMEM_PER_BLOCK}")
+# The attention tiles (flash, selected, paged) take every head dim that is a
+# multiple of 8 up to ATTN_MAX_D, each built at the multiple of 16 at or
+# above it (the mma's k), with the columns past d zero-filled.
+ATTN_MAX_D = 128
+
+
+def attn_width(kernel: str, d: int) -> int:
+    """The instantiated width D of head dim ``d`` in the attention tiles
+    (``with_head_dim`` in ``csrc/attn_tile.cuh``); raises ``ValueError``
+    before any launch for a head dim they do not take."""
+    if d % 8 or not 8 <= d <= ATTN_MAX_D:
+        raise ValueError(f"{kernel}: head dim {d} is not a multiple of 8 "
+                         f"in [8, {ATTN_MAX_D}]")
+    return -(-d // 16) * 16
+
+
+def attn_smem(width: int, stages: int) -> int:
+    """Bytes of one bf16 attention block at width D: Q, a K/V ring of
+    ``stages`` tiles, and the resolver's per-key offsets, min_i and biases
+    and per-tile maxima for stages + 1 tiles.  Mirrors ``attn_smem`` in
+    ``csrc/attn_mma.cuh``."""
+    return (BM * width * 2 + stages * 2 * BN * width * 2
+            + (stages + 1) * (BN * 24 + 4))
+
+
+def attn_stages(width: int) -> int:
+    """Depth of the bf16 tile's K/V ring at width D: 3 where
+    ``BLOCKS_PER_SM`` blocks of 3 stages fit one SM (each block reserves
+    1 KiB more), else 2 (``Cfg<D>::STAGES``)."""
+    return 3 if BLOCKS_PER_SM * (attn_smem(width, 3) + 1024) \
+        <= SMEM_PER_SM else 2
 
 
 def attn_geometry(b: int, n_kv: int, group: int, tq: int, n_keys: int,

@@ -22,10 +22,18 @@ scheduler + cross-request prefix caching):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
         --trace multi_tenant --policy slo --ttft-deadline 0.5
 
-Weights are random from a seed unless ``--ckpt`` names a reference npz
-checkpoint; latency does not depend on the weights.  Not ported yet: the
-telemetry flags (``--metrics``, ``--trace-dir``), the host tier flags and
-``--mesh``.
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-2-3b \
+        --continuous --trace multiturn --num-blocks 64 \
+        --host-tier-blocks 128 --prefetch-depth 4
+
+``--arch`` takes every config of ``configs/base.py::get_config`` (qwen3-4b,
+granite-3-2b, llama3-2-3b, stablelm-3b).  ``--host-tier-blocks`` puts a
+host-memory tier behind the paged pool (pair it with an undersized
+``--num-blocks`` to make pressure demote blocks there), and
+``--prefetch-depth`` caps the host blocks staged per step.  Weights are
+random from a seed unless ``--ckpt`` names a reference npz checkpoint;
+latency does not depend on the weights.  Not ported yet: the telemetry
+flags (``--metrics``, ``--trace-dir``) and ``--mesh``.
 """
 from __future__ import annotations
 
@@ -100,6 +108,16 @@ def parse_args(argv=None):
                     help="KV pool block size (default: chunk_size)")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="KV pool size (default: fits max-decode-batch)")
+    ap.add_argument("--host-tier-blocks", type=int, default=None,
+                    help="hierarchical pool: host-memory tier capacity in "
+                         "blocks (evicted prefix blocks demote there and "
+                         "stay matchable; default 0: no tier). "
+                         "Pair with an undersized --num-blocks to exercise "
+                         "demotion")
+    ap.add_argument("--prefetch-depth", type=int, default=None,
+                    help="host-tier blocks staged (H2D on a side stream) "
+                         "per engine step ahead of promotion, ranked by the "
+                         "QUOKA selection-count oracle (default 4)")
     ap.add_argument("--max-prefill-tokens", type=int, default=None,
                     help="prompt tokens packed per engine step "
                          "(default: 4 * chunk_size)")
@@ -175,7 +193,9 @@ def run_continuous(model, args, device):
     kw = dict(block_size=args.block_size, num_blocks=args.num_blocks,
               max_prefill_tokens=args.max_prefill_tokens,
               max_decode_batch=args.max_decode_batch,
-              prefix_cache=not args.no_prefix_cache, policy=args.policy)
+              prefix_cache=not args.no_prefix_cache,
+              host_tier_blocks=args.host_tier_blocks,
+              prefetch_depth=args.prefetch_depth, policy=args.policy)
     longest = max(prompts, key=len)
     eng.serve(make_requests([longest] * 2, args.max_new), **kw)
     res = eng.serve(make_requests(prompts, args.max_new, arrivals=arrivals,
@@ -207,6 +227,12 @@ def run_continuous(model, args, device):
           f"prompt tokens served from cache ({100 * s['hit_rate']:.1f}%), "
           f"{s['evictions']:.0f} evictions, "
           f"{s['cow_copies']:.0f} COW copies")
+    if "demoted" in s:
+        print(f"{'host tier':10s} {s['demoted']:.0f} demoted, "
+              f"{s['promoted']:.0f} promoted "
+              f"({s['staged_used']:.0f} from prefetch staging), "
+              f"{s['host_evictions']:.0f} host evictions, "
+              f"{s['host_blocks']:.0f} blocks resident")
     return res
 
 

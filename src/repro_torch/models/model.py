@@ -4,9 +4,10 @@ of ``repro/models/model.py``, dense family only).
 Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
 loop over chunks, each selecting from the KV cache per layer),
 ``prefill_chunk`` (one chunk with per-row starts and valid lengths: the
-continuous-batching unit) and ``decode_step``.  Training forward, modality
-frontends, the MTP head and the in-step telemetry outputs are not ported
-yet.
+continuous-batching unit) and ``decode_step``; the last two can return
+the host tier's prefetch oracle (``sel_blocks``).  Training forward,
+modality frontends, the MTP head and the in-step telemetry outputs are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +22,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import embed, rmsnorm, unembed
 from repro_torch.models.stack import Stack
 from repro_torch.serving.cache import KVCache
+
+
+def _on(x, dev, dtype=None) -> torch.Tensor:
+    """A host array or a tensor as a tensor on ``dev``."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=dtype, device=dev)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,12 +121,17 @@ class Model(nn.Module):
 
     def _apply_stacks(self, x, pos, cache, ctx):
         """All stacks in order, threading the cross-layer plan carry and
-        the global layer offset (the reuse schedule spans stacks)."""
-        plan, layer0 = None, 0
+        the global layer offset (the reuse schedule spans stacks).
+        Returns (x, sel): ``sel`` sums the stacks' prefetch-oracle counts
+        when ``ctx["selblk"]`` is set, else None."""
+        plan, layer0, sel = None, 0, None
         for s, sc in zip(self.stacks, cache):
-            x, plan = s.apply(x, pos, sc, dict(ctx, layer0=layer0), plan=plan)
+            x, plan, ss = s.apply(x, pos, sc, dict(ctx, layer0=layer0),
+                                  plan=plan)
+            if ss is not None:
+                sel = ss if sel is None else sel + ss
             layer0 += len(s.layers)
-        return x
+        return x, sel
 
     def _readout(self, x):
         return unembed(self.embed, rmsnorm(self.ln_f, x, self.cfg.norm_eps))
@@ -138,9 +151,9 @@ class Model(nn.Module):
         h = x_all
         for c0 in range(0, t, bcp):
             # write SLOT of the chunk — pad slots keep their slot, pos -1
-            h = self._apply_stacks(x_all[:, c0:c0 + bcp],
-                                   pos_all[:, c0:c0 + bcp], cache,
-                                   dict(base, slot=c0))
+            h, _ = self._apply_stacks(x_all[:, c0:c0 + bcp],
+                                      pos_all[:, c0:c0 + bcp], cache,
+                                      dict(base, slot=c0))
         return self._readout(h[:, -1:])[:, 0], cache
 
     @torch.no_grad()
@@ -148,18 +161,22 @@ class Model(nn.Module):
                       method: Optional[str] = None, valid_len=None,
                       with_obs: bool = False, sel_blocks=None):
         """One B_CP chunk through all stacks: the unit of per-chunk dispatch
-        under continuous batching.  batch["tokens"]: (b, B_CP) chunk;
+        under continuous batching.  batch["tokens"]: (b, B_CP) chunk (a
+        host array or a tensor, as ``valid_len``);
         ``pos_start`` an int or a per-row (b,) tensor (each request's chunk
         starts at its own offset; it is also the write slot).  ``valid_len``
         (b,) marks how many leading chunk tokens are real: the rest get
         pos = -1 and are masked everywhere.  Returns (last VALID hidden
-        state (b, d), cache)."""
-        if with_obs or sel_blocks is not None:
-            raise NotImplementedError("prefill_chunk: with_obs / sel_blocks "
-                                      "are not yet ported")
+        state (b, d), cache); ``sel_blocks = (block_size, n_blocks)``
+        appends the prefetch oracle's output, the (b, n_blocks) int32
+        selection counts per logical pool block summed over layers
+        (``core/plan.py::pool_block_counts``)."""
+        if with_obs:
+            raise NotImplementedError("prefill_chunk: with_obs (the "
+                                      "telemetry outputs) is not yet ported")
         method = method or self.cfg.quoka.method
         dev = self.device
-        tok = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
+        tok = _on(batch["tokens"], dev)
         x = embed(self.embed, tok, self.cfg.compute_dtype)
         b, t = tok.shape
         offs = torch.arange(t, dtype=torch.int32, device=dev)
@@ -170,23 +187,28 @@ class Model(nn.Module):
             slot = int(pos_start)
             pos = (slot + offs)[None].expand(b, t)
         if valid_len is not None:
-            vl = torch.as_tensor(np.asarray(valid_len), dtype=torch.int32,
-                                 device=dev)
+            vl = _on(valid_len, dev, torch.int32)
             pos = torch.where(offs[None] < vl[:, None], pos,
                               torch.full_like(pos, -1))
-        x = self._apply_stacks(x, pos, cache,
-                               dict(self._ctx(method), slot=slot))
+        ctx = dict(self._ctx(method), slot=slot)
+        if sel_blocks is not None:
+            ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
+        x, sel = self._apply_stacks(x, pos, cache, ctx)
         if valid_len is None:
-            return x[:, -1], cache
-        li = (vl.long() - 1).clamp(0, t - 1)
-        return x[torch.arange(b, device=dev), li], cache
+            last = x[:, -1]
+        else:
+            li = (vl.long() - 1).clamp(0, t - 1)
+            last = x[torch.arange(b, device=dev), li]
+        return (last, cache) if sel_blocks is None else (last, cache, sel)
 
     @torch.no_grad()
     def decode_step(self, tokens, pos, cache,
-                    method: Optional[str] = None):
+                    method: Optional[str] = None, sel_blocks=None):
         """One decode step.  tokens (b,) on the model's device; pos an int
         or a per-row (b,) tensor (continuous batching): the slot and
-        position of each new token.  Returns (logits (b, V), cache)."""
+        position of each new token.  Returns (logits (b, V), cache), plus
+        the selection counts when ``sel_blocks`` is set (see
+        ``prefill_chunk``)."""
         cfg = self.cfg
         method = method or cfg.quoka.method
         b = tokens.shape[0]
@@ -198,9 +220,13 @@ class Model(nn.Module):
             slot = int(pos)
             pos2 = torch.full((b, 1), slot, dtype=torch.int32,
                               device=self.device)
-        x = self._apply_stacks(x, pos2, cache,
-                               dict(self._ctx(method), slot=slot))
-        return self._readout(x)[:, 0], cache
+        ctx = dict(self._ctx(method), slot=slot)
+        if sel_blocks is not None:
+            ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
+        x, sel = self._apply_stacks(x, pos2, cache, ctx)
+        logits = self._readout(x)[:, 0]
+        return (logits, cache) if sel_blocks is None else \
+            (logits, cache, sel)
 
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> Model:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -55,11 +56,26 @@ class Stack(nn.Module):
     def apply(self, x, pos, caches: List[KVCache], ctx, plan=None):
         """Prefill chunk or decode step through every layer; caches are
         updated in place.  ``ctx["layer0"]`` is this stack's first global
-        layer index.  Returns (x, plan carry): the carry passes through
-        untouched when reuse is off here."""
+        layer index.  Returns (x, plan carry, sel): the carry passes through
+        untouched when reuse is off here.  ``sel`` is the prefetch oracle's
+        side channel: with ``ctx["selblk"] = (block_size, n_blocks)`` set,
+        the (b, n_blocks) int32 sum over this stack's layers of each plan's
+        ``pool_block_counts`` (a layer that selected nothing adds zero),
+        else None."""
         carry = self._plan_carry0(caches, x.shape[1], ctx, plan)
         layer0 = int(ctx.get("layer0", 0))
+        sel_on = ctx.get("selblk") is not None
+        sel = None
         for i, (blk, kv) in enumerate(zip(self.layers, caches)):
-            cj = ctx if carry is None else dict(ctx, layer_idx=layer0 + i)
+            # a per-layer copy when the layer leaves something in it
+            cj = ctx if carry is None and not sel_on else \
+                dict(ctx, layer_idx=layer0 + i)
             x, carry = blk.apply(x, pos, kv, cj, plan=carry)
-        return x, (plan if carry is None else carry)
+            if sel_on:
+                sb = cj.pop("_selblk", None)
+                if sel is None:
+                    sel = torch.zeros((x.shape[0], ctx["selblk"][1]),
+                                      dtype=torch.int32, device=x.device)
+                if sb is not None:
+                    sel += sb
+        return x, (plan if carry is None else carry), sel

@@ -19,9 +19,17 @@ Both modes take every selection method of ``core/selection.py::METHODS``,
 and cross-layer plan reuse and low-rank scoring from the model's
 ``QuokaConfig``.  Kernel builds and a warm-up run stay off the clocks in
 both modes; the
-clocks are host clocks around a device synchronisation.  Not ported yet:
-the telemetry registry, the host-memory tier and its prefetch, and mesh
-serving (each raises).
+clocks are host clocks around a device synchronisation.
+
+With the host-memory tier on (``host_tier_blocks``), the step functions
+also return the plans' selection counts per logical pool block
+(``core/plan.py::pool_block_counts``, summed over layers) stacked beside
+the sampled tokens, so both reach the host in the step's one copy.  The
+engine folds them into a decayed hotness per logical block and, while a
+step is dispatched and before that copy, stages the next waiting request's
+hottest host-tier blocks (``_prefetch``): their H2D copies run on a side
+stream under the step's compute.  Not ported yet: the telemetry registry
+and mesh serving (each raises).
 """
 from __future__ import annotations
 
@@ -69,6 +77,10 @@ class ServeState:
     occupancy: List[float] = field(default_factory=list)
     #: (rid, token) pairs emitted by the LAST step() — the streaming feed
     events: List[Tuple[int, int]] = field(default_factory=list)
+    prefetch_depth: int = 0              # host blocks staged per step
+    #: decayed selection counts per logical block, the prefetch ranking
+    #: (None: no host tier)
+    hot: Optional[np.ndarray] = None
 
     @property
     def now(self) -> float:
@@ -200,41 +212,64 @@ class Engine:
     # continuous batching
     # ------------------------------------------------------------------
     def _continuous_fns(self, block_size: int, max_nb: int,
-                        num_blocks: int):
+                        num_blocks: int, sel_on: bool = False):
         """The two step functions for one geometry: gather blocks -> model
         step -> sample -> scatter the touched blocks back.  Host arrays
         (tables, starts, lengths) stay on the host for the index decisions
         of gather/scatter; the model gets the per-row starts as device
-        tensors."""
+        tensors.  Each returns the sampled tokens (rows,) or, with
+        ``sel_on`` (host tier), (rows, 1 + max_nb) int64: the tokens, then
+        the plans' selection counts per logical block (the prefetch
+        oracle), stacked so one copy brings both to the host.  ``during``
+        (the prefetch hook) runs once the gather is queued and the step's
+        inputs are on the device, before the model: an eager step is
+        dispatched kernel by kernel, so copies started there run under this
+        step's compute (started after the whole step, they would find the
+        card idle), and no copy from pageable memory — which would wait
+        behind them on the copy engine, and hold the host there — comes
+        until the scatter."""
         model, method, sampler = self.model, self.method, self.sampler
         dev = self.device
         chunk = model.cfg.quoka.chunk_size
+        selb = (block_size, max_nb) if sel_on else None
+
+        def out(tok, res):
+            return tok if not sel_on else \
+                torch.cat([tok[:, None], res[2].long()], dim=1)
 
         @torch.no_grad()
-        def prefill_step(data, table, tokens, start, vlen, generator):
+        def prefill_step(data, table, tokens, start, vlen, generator,
+                         during=None):
             cache = pl.gather(data, table, num_blocks, block_size)
-            last_h, cache = model.prefill_chunk(
-                {"tokens": tokens}, torch.as_tensor(start, device=dev),
-                cache, method, valid_len=vlen)
-            logits = model._readout(last_h[:, None, :])[:, 0]
+            inputs = [torch.as_tensor(x, device=dev)
+                      for x in (tokens, start, vlen)]
+            if during is not None:
+                during()
+            res = model.prefill_chunk(
+                {"tokens": inputs[0]}, inputs[1], cache, method,
+                valid_len=inputs[2], sel_blocks=selb)
+            logits = model._readout(res[0][:, None, :])[:, 0]
             tok = sample(logits, generator, sampler)
             # the whole chunk is written (pos -1 past valid_len), so a row
             # with any valid token touches all of its chunk's blocks
             wrote = np.where(vlen > 0, chunk, 0)
             touched = pl.touched_blocks(start, wrote, max_nb, block_size)
-            pl.scatter(data, cache, table, touched, num_blocks, block_size)
-            return tok
+            pl.scatter(data, res[1], table, touched, num_blocks, block_size)
+            return out(tok, res)
 
         @torch.no_grad()
-        def decode_step(data, table, tokens, pos, live, generator):
+        def decode_step(data, table, tokens, pos, live, generator,
+                        during=None):
             cache = pl.gather(data, table, num_blocks, block_size)
-            logits, cache = model.decode_step(
-                torch.as_tensor(tokens, device=dev).long(),
-                torch.as_tensor(pos, device=dev), cache, method)
-            tok = sample(logits, generator, sampler)
+            inputs = [torch.as_tensor(x, device=dev) for x in (tokens, pos)]
+            if during is not None:
+                during()
+            res = model.decode_step(inputs[0].long(), inputs[1], cache,
+                                    method, sel_blocks=selb)
+            tok = sample(res[0], generator, sampler)
             touched = pl.touched_blocks(pos, live, max_nb, block_size)
-            pl.scatter(data, cache, table, touched, num_blocks, block_size)
-            return tok
+            pl.scatter(data, res[1], table, touched, num_blocks, block_size)
+            return out(tok, res)
 
         return prefill_step, decode_step
 
@@ -268,11 +303,15 @@ class Engine:
         scheduling policy (serving/policy.py); a preempting policy widens
         the per-request block geometry to the suspend/resume worst case.
         ``max_prefill_rows`` overrides the prefill-row count (default: the
-        full-chunk capacity ``max_prefill_tokens // chunk``).  The host
-        tier (``host_tier_blocks`` / ``prefetch_depth``) is not ported."""
-        if host_tier_blocks or prefetch_depth:
-            raise NotImplementedError("the host-memory tier and its "
-                                      "prefetch are not yet ported")
+        full-chunk capacity ``max_prefill_tokens // chunk``).
+
+        ``host_tier_blocks`` > 0 (default 0) turns on the hierarchical
+        pool (demoted prefix blocks stay matchable in host memory;
+        serving/pool.py) and the step functions' selection-count output;
+        ``prefetch_depth`` (default 4) caps the host blocks the prefetch
+        hook stages per step."""
+        htb = int(host_tier_blocks or 0)
+        pfd = 4 if prefetch_depth is None else int(prefetch_depth)
         chunk = self.model.cfg.quoka.chunk_size
         block_size = block_size or chunk
         g = self.model.cfg.quoka.granularity
@@ -293,21 +332,25 @@ class Engine:
         b_p = (max(1, max_prefill_tokens // chunk)
                if max_prefill_rows is None else max(1, int(max_prefill_rows)))
         b_d = max_decode_batch
-        pool = pl.PagedKVCache(self.model, num_blocks, block_size)
+        pool = pl.PagedKVCache(self.model, num_blocks, block_size,
+                               host_tier_blocks=htb)
         # selection methods consume prefill in ``granularity``-sized score
         # units — that is the finest grid a packed chunk can be charged at
         grid = 1 if self.method == "full" else max(1, g)
         sched = Scheduler(pool, chunk, max_prefill_tokens, max_decode_batch,
                           prefix_cache=prefix_cache, prefix_align=align,
                           policy=pol, max_prefill_rows=b_p, token_grid=grid)
-        fns = self._continuous_fns(block_size, max_nb, num_blocks)
+        fns = self._continuous_fns(block_size, max_nb, num_blocks,
+                                   sel_on=htb > 0)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         state = ServeState(pool=pool, sched=sched, fns=fns,
                            generator=generator, chunk=chunk, max_nb=max_nb,
-                           b_prefill=b_p, b_decode=b_d)
-        sig = ("serve", block_size, max_nb, b_p, b_d, num_blocks)
+                           b_prefill=b_p, b_decode=b_d, prefetch_depth=pfd,
+                           hot=np.zeros((max_nb,), np.float64) if htb
+                           else None)
+        sig = ("serve", block_size, max_nb, b_p, b_d, num_blocks, htb > 0)
         if sig not in self._warmed:
             self._warm_steps(state)
             self._warmed.add(sig)
@@ -327,6 +370,61 @@ class Engine:
         zeros_d = np.zeros((state.b_decode,), np.int32)
         state.fns[1](pool.data, idle_d, zeros_d, zeros_d, zeros_d, wgen)
         _sync(self.device)
+
+    @staticmethod
+    def _fetch(out: torch.Tensor) -> np.ndarray:
+        """The step's one device-to-host copy (and so its one sync)."""
+        return out.cpu().numpy()
+
+    def _note_hot(self, state: ServeState, res: np.ndarray,
+                  rows: int) -> np.ndarray:
+        """Split a step's fetched output into its tokens and, with the host
+        tier on, fold its selection counts ((rows, max_nb) after the token
+        column) into the decayed per-logical-block hotness the prefetch
+        ranks by: the decay keeps the ranking on the current working set's
+        selection pattern."""
+        if state.hot is None:
+            return res
+        state.hot = 0.5 * state.hot + res[:rows, 1:].astype(
+            np.float64).sum(axis=0)
+        return res[:, 0]
+
+    def _prefetch(self, state: ServeState) -> int:
+        """Stage upcoming promotions' H2D copies while a step is being
+        dispatched (the step functions call this once their gather is
+        queued; the step's copy to the host comes after): the next waiting
+        request's host-tier matches, ranked by the decayed QUOKA selection
+        counts of their LOGICAL block offsets (blocks the scoring keeps
+        selecting move first), at most ``prefetch_depth`` new copies per
+        step.  An ordering hint only: a promotion copies whatever was not
+        staged at admission.  Returns the copies started.
+
+        Unlike the reference, which takes the ``prefetch_depth`` hottest
+        candidates and re-stages them idempotently (so a step after the
+        first stages nothing new), already staged slots are skipped: each
+        step moves up to ``prefetch_depth`` blocks the request still
+        needs.  Tokens do not depend on it."""
+        pool, sched = state.pool, state.sched
+        if pool.host is None or state.prefetch_depth <= 0 \
+                or not sched.waiting:
+            return 0
+        r = sched.waiting[0]
+        chain = sched._chain.get(r.rid)
+        if chain is None:           # hashed once while the request waits
+            chain = sched._chain[r.rid] = pl._chain_hashes(r.tokens,
+                                                            pool.block_size)
+        fulls, tail = pool.match_prefix(r.tokens, chain=chain)
+        cand = [(li, e[1]) for li, e in enumerate(fulls)
+                if isinstance(e, tuple)]
+        if tail is not None and isinstance(tail[0], tuple):
+            cand.append((len(fulls), tail[0][1]))
+        cand = [c for c in cand if c[1] not in pool._staged]
+        hot = state.hot
+        cand.sort(key=lambda c: -(hot[c[0]] if c[0] < hot.shape[0]
+                                  else 0.0))
+        with torch.profiler.record_function("pool_h2d_stage"):
+            return pool.stage(*[slot for _, slot in
+                                cand[:state.prefetch_depth]])
 
     def step(self, state: ServeState) -> Tuple[int, int]:
         """One engine step: admit, run a mixed chunk-prefill step over up to
@@ -348,9 +446,12 @@ class Engine:
                 tokens[i], start[i], vlen[i] = ch, st, vl
             table = pool.table_array([r.rid for r, *_ in rows],
                                      state.b_prefill, state.max_nb)
-            tok = state.fns[0](pool.data, table, tokens, start, vlen,
-                               state.generator)
-            tok_np = tok.cpu().numpy()           # the step's one sync
+            # host-tier blocks are staged while the step is dispatched,
+            # then comes the step's one sync
+            out = state.fns[0](pool.data, table, tokens, start, vlen,
+                               state.generator,
+                               during=lambda: self._prefetch(state))
+            tok_np = self._note_hot(state, self._fetch(out), len(rows))
             now = state.now
             for i, (r, ch, st, vl) in enumerate(rows):
                 ev = sched.note_prefilled(r, vl, int(tok_np[i]), now)
@@ -367,9 +468,10 @@ class Engine:
                 tokens[i], pos[i], live[i] = r.out[-1], r.decode_pos, 1
             table = pool.table_array([r.rid for r in drows],
                                      state.b_decode, state.max_nb)
-            tok = state.fns[1](pool.data, table, tokens, pos, live,
-                               state.generator)
-            tok_np = tok.cpu().numpy()
+            out = state.fns[1](pool.data, table, tokens, pos, live,
+                               state.generator,
+                               during=lambda: self._prefetch(state))
+            tok_np = self._note_hot(state, self._fetch(out), len(drows))
             now = state.now
             for i, r in enumerate(drows):
                 state.events.append((r.rid,
@@ -446,7 +548,9 @@ class Engine:
         state.events = []
         pool = state.pool
         prefix0 = (pool.lookups, pool.hit_requests, pool.hit_tokens,
-                   pool.prompt_tokens, pool.evictions, pool.cow_copies)
+                   pool.prompt_tokens, pool.evictions, pool.cow_copies,
+                   pool.demoted, pool.promoted, pool.host_evictions,
+                   pool.staged_used)
         sched0 = (sched.preemptions, sched.resumes, sched.deadline_misses)
         pending = sorted(requests, key=lambda r: r.arrival_s)
         state.t0 = time.perf_counter()
@@ -481,6 +585,13 @@ class Engine:
             "evictions": float(pool.evictions - prefix0[4]),
             "cow_copies": float(pool.cow_copies - prefix0[5]),
             "cached_blocks": float(pool.num_cached)}
+        if pool.host is not None:
+            self.stats.update(
+                demoted=float(pool.demoted - prefix0[6]),
+                promoted=float(pool.promoted - prefix0[7]),
+                host_evictions=float(pool.host_evictions - prefix0[8]),
+                staged_used=float(pool.staged_used - prefix0[9]),
+                host_blocks=float(len(pool.host)))
         return ServeResult(
             tokens={r.rid: np.asarray(r.out, np.int32) for r in done},
             ttft_s={r.rid: r.ttft_s for r in done},

@@ -35,9 +35,37 @@ reference:
   * Partially filled tail blocks are registered too; a sharer gets a
     COPY-ON-WRITE clone with the slots past the shared length stamped -1.
 
-Not ported yet: the host-memory tier behind the device pool (``HostTier``,
-demotion / promotion / staging) and mesh placement; asking for either
-raises.
+Hierarchical pool (``host_tier_blocks > 0``): a host-memory tier behind
+the device pool, as the reference's.  Pressure eviction DEMOTES a
+registered block — its content and registration move to a host slab —
+instead of stamping it away; ``match_prefix`` walks the hash chain over
+both tiers (``("host", slot)`` entries); ``alloc_prefix`` PROMOTES a host
+match into a fresh device block, re-registered on the device.  A hash lives
+in exactly one tier.  On the card:
+
+  * a slab is one block of every layer packed into one byte row — the K and
+    V rows of each layer, then each layer's positions — so a demotion is
+    one gather on the device and ONE copy; the tier's rows are pinned host
+    memory allocated up front (a pinned allocation that fails raises);
+  * demotion copies device -> host with ``non_blocking`` on the compute
+    stream and records an event: stream order keeps the copy ahead of the
+    stamp and the writes that recycle the block, and whatever later reads
+    the slab waits on that event;
+  * ``stage`` (the engine's prefetch) copies host -> device on a side
+    stream into a buffer from the compute stream's cached blocks, marked
+    with ``record_stream`` for the side stream, and records an event that
+    a promotion makes the compute stream wait on (several slots in one
+    call share the buffer, the stream switch and the event).  An unstaged
+    promotion copies on the compute stream (the reference's synchronous
+    ``device_put``; a normal path, not a fallback); the promotions of one
+    admission are written into their blocks with one copy per leaf;
+  * a host row is overwritten only after the last copy out of it: the
+    demotion that reuses a slot makes the compute stream wait on that
+    copy's event.
+
+On a CPU pool the rows are plain host tensors and every copy is
+synchronous: device memory already is host memory, as in the reference.
+Not ported yet: mesh placement (asking for it raises).
 """
 from __future__ import annotations
 
@@ -126,6 +154,89 @@ def _layers(data) -> Iterator[KVCache]:
         yield from stack
 
 
+def _slab_leaves(data) -> List[torch.Tensor]:
+    """A slab's leaves in their packed order: every layer's K and V, then
+    every layer's positions (so each leaf starts on an aligned byte
+    offset: the int32 rows follow K/V rows of an even number of bytes)."""
+    layers = list(_layers(data))
+    return [x for kv in layers for x in (kv.k, kv.v)] + \
+        [kv.pos for kv in layers]
+
+
+def _slab_nbytes(data) -> int:
+    """Bytes of one block of every layer: one host slab."""
+    return sum(leaf[0].numel() * leaf.element_size()
+               for leaf in _slab_leaves(data))
+
+
+class HostTier:
+    """Slot-addressed host store of demoted block slabs + LRU.
+
+    Storage only: registrations and the cross-tier hash indices stay on
+    ``PagedKVCache`` (beside the device tier's) so ``check_invariants``
+    covers both tiers in one place.  The pool drives eviction: ``oldest``
+    names the victim, the pool unregisters it, then ``drop`` frees the
+    slot.  The rows are allocated up front, pinned when the pool is on the
+    card.  ``written`` / ``read`` hold the event of the last copy into and
+    out of each slot (card only)."""
+
+    def __init__(self, capacity: int, nbytes: int, device: torch.device):
+        self.capacity = int(capacity)
+        self.device = device
+        self.store = torch.empty((self.capacity, int(nbytes)),
+                                 dtype=torch.uint8,
+                                 pin_memory=device.type == "cuda")
+        self._free: List[int] = list(range(self.capacity))
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.written: Dict[int, "torch.cuda.Event"] = {}
+        self.read: Dict[int, "torch.cuda.Event"] = {}
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def oldest(self) -> int:
+        return next(iter(self._lru))
+
+    def put(self) -> int:
+        """Take a free slot (caller ensured one) at the MRU end."""
+        slot = self._free.pop()
+        self._lru[slot] = None
+        return slot
+
+    def row(self, slot: int) -> torch.Tensor:
+        return self.store[slot]
+
+    def write(self, slot: int, data, b: int) -> None:
+        """Copy block ``b`` of every layer of ``data`` into ``slot``: one
+        gather into a packed buffer, then one copy.  On the card the copy
+        is asynchronous on the current stream, after any copy still reading
+        the slot's previous slab, and its event is recorded."""
+        parts = [leaf[b].reshape(-1).view(torch.uint8)
+                 for leaf in _slab_leaves(data)]
+        if self.device.type != "cuda":
+            torch.cat(parts, out=self.store[slot])
+            return
+        cur = torch.cuda.current_stream(self.device)
+        busy = self.read.pop(slot, None)
+        if busy is not None:
+            cur.wait_event(busy)
+        self.store[slot].copy_(torch.cat(parts), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(cur)
+        self.written[slot] = done
+
+    def touch(self, slot: int) -> None:
+        self._lru.move_to_end(slot)
+
+    def drop(self, slot: int) -> None:
+        del self._lru[slot]
+        self._free.append(slot)
+
+
 class PagedKVCache:
     """Fixed-size-block KV pool + per-request block tables + free-list +
     content-addressed prefix cache (refcounts, LRU eviction, COW tails)."""
@@ -134,10 +245,6 @@ class PagedKVCache:
                  host_tier_blocks: int = 0):
         if mesh is not None:
             raise NotImplementedError("paged pool on a mesh is not yet "
-                                      "ported")
-        if host_tier_blocks:
-            raise NotImplementedError("the host-memory tier "
-                                      "(host_tier_blocks > 0) is not yet "
                                       "ported")
         self.model = model
         self.num_blocks = int(num_blocks)
@@ -151,6 +258,21 @@ class PagedKVCache:
         self._reg: Dict[int, Tuple] = {}            # block -> registration
         self._full: Dict[int, int] = {}             # chain hash -> block
         self._tail: Dict[int, int] = {}             # prefix hash -> block
+        # ---- host tier (module docstring) ----
+        self.host: Optional[HostTier] = (
+            HostTier(host_tier_blocks, _slab_nbytes(self.data), self.device)
+            if host_tier_blocks else None)
+        self._h_reg: Dict[int, Tuple] = {}          # host slot -> registration
+        self._h_full: Dict[int, int] = {}           # chain hash -> host slot
+        self._h_tail: Dict[int, int] = {}           # prefix hash -> host slot
+        # host slot -> (device buffer, event of its H2D copy or None)
+        self._staged: Dict[int, Tuple] = {}
+        # the staging stream, made up front: creating it inside a step
+        # would hold the host while the first copies run
+        self._side: Optional[torch.cuda.Stream] = (
+            torch.cuda.Stream(self.device)
+            if self.host is not None and self.device.type == "cuda"
+            else None)
         # ---- counters (Engine.stats / ServeResult.prefix) ----
         self.evictions = 0
         self.cow_copies = 0
@@ -158,6 +280,10 @@ class PagedKVCache:
         self.hit_requests = 0
         self.hit_tokens = 0
         self.prompt_tokens = 0
+        self.demoted = 0
+        self.promoted = 0
+        self.host_evictions = 0                     # host-tier cache LOSS
+        self.staged_used = 0                        # promotions from staging
 
     @property
     def device(self) -> torch.device:
@@ -187,25 +313,40 @@ class PagedKVCache:
         return self.alloc_prefix(rid, n)
 
     def alloc_prefix(self, rid: int, n_total: int,
-                     shared: Sequence[int] = (),
-                     cow: Optional[Tuple[int, int]] = None) -> List[int]:
-        """Build request ``rid``'s table: ``shared`` prefix blocks (physical
-        ids, refcount-pinned read-only) in logical order followed by the
-        remaining fresh blocks.  ``cow = (src, keep)`` initialises the first
-        fresh block as a copy of block ``src`` with slots >= ``keep``
-        invalidated (shared partial tail)."""
+                     shared: Sequence = (),
+                     cow: Optional[Tuple] = None) -> List[int]:
+        """Build request ``rid``'s table: ``shared`` prefix entries in
+        logical order followed by the remaining fresh blocks.  An entry is
+        a physical device block id (refcount-pinned read-only) or ``("host",
+        slot)``, a host-tier block PROMOTED here into a fresh device block
+        (from its staged copy when the engine prefetched it) and
+        re-registered on the device under its hash; so only device entries
+        come for free, promotions draw fresh blocks.
+
+        ``cow = (src, keep)`` initialises the first post-prefix fresh block
+        as a copy of ``src`` — a device block id or ``("host", slot)`` —
+        with slots >= ``keep`` invalidated (shared partial tail).  A host
+        COW source is copied, not consumed: the host copy stays
+        matchable."""
         if rid in self._tables:
             raise RuntimeError(f"request {rid} already holds blocks")
-        shared = list(shared)
-        n_fresh = n_total - len(shared)
-        protect = shared + ([cow[0]] if cow else [])
+        dev_shared = [e for e in shared if not isinstance(e, tuple)]
+        promote = [e[1] for e in shared if isinstance(e, tuple)]
+        cow_host = cow is not None and isinstance(cow[0], tuple)
+        n_fresh = n_total - len(dev_shared)
+        protect = dev_shared + ([cow[0]] if cow and not cow_host else [])
         if not self.can_alloc(n_fresh, exclude=protect):
             raise RuntimeError(
                 f"pool exhausted: need {n_fresh} fresh blocks, "
                 f"{len(self._free)} free + {len(self._lru)} evictable")
         # pin the shared prefix FIRST so fresh allocation cannot evict it
-        for b in shared:
+        for b in dev_shared:
             self._pin(b)
+        # take the host sources BEFORE fresh allocation: taking fresh
+        # blocks can demote device blocks into the host tier, and a host
+        # eviction that causes must not hit a slot about to be promoted
+        promo = [self._take_host(s) for s in promote]   # [(buffer, reg)]
+        cow_buf = self._peek_host(cow[0][1]) if cow_host else None
         fresh, stale = [], []
         for _ in range(n_fresh):
             b, was_cached = self._take_fresh(protect)
@@ -214,20 +355,42 @@ class PagedKVCache:
             fresh.append(b)
             self._ref[b] = 1
         self._stamp(stale)                 # evicted content is stale
+        # the table in logical order, promotions drawing fresh blocks
+        it = iter(fresh)
+        table, promo_dst = [], []
+        for e in shared:
+            if isinstance(e, tuple):
+                promo_dst.append(next(it))
+                table.append(promo_dst[-1])
+            else:
+                table.append(e)
+        rest = list(it)
+        _write_blocks(self.data, [buf for buf, _ in promo], promo_dst)
+        for (_, reg), dst in zip(promo, promo_dst):
+            self._reg[dst] = reg           # re-registered on the DEVICE
+            index = self._full if reg[0] == "full" else self._tail
+            index[reg[1]] = dst
+            self.promoted += 1
         if cow is not None:
             src, keep = cow
-            if src not in self._ref and src not in self._lru:
-                raise RuntimeError(f"COW source block {src} not resident")
-            _cow_block(self.data, src, fresh[0], keep)
+            if cow_host:
+                _write_blocks(self.data, [cow_buf], [rest[0]])
+                for kv in _layers(self.data):
+                    kv.pos[rest[0], keep:] = -1
+            else:
+                if src not in self._ref and src not in self._lru:
+                    raise RuntimeError(f"COW source block {src} not resident")
+                _cow_block(self.data, src, rest[0], keep)
             self.cow_copies += 1
-        self._tables[rid] = shared + fresh
+        self._tables[rid] = table + rest
         return self._tables[rid]
 
     def free(self, rid: int) -> List[int]:
         """Release a request's blocks.  Registered blocks stay resident on
         the LRU list (matchable until evicted); the rest are pos=-1-stamped
         so no stale KV can leak into a later allocation.  Returns the
-        blocks that landed on the LRU list."""
+        blocks that landed on the LRU list (the suspend path demotes
+        exactly those)."""
         blocks = self._tables.pop(rid)   # KeyError on double free
         stale, retained = [], []
         for b in blocks:
@@ -261,9 +424,12 @@ class PagedKVCache:
                      chain: Optional[List[int]] = None
                      ) -> Tuple[List[int], Optional[Tuple[int, int]]]:
         """Longest cached prefix of ``tokens``: (matched full blocks, tail).
-        ``tail = (block, n_common)`` if a registered partial tail extends
-        the matched full-block prefix by ``n_common`` shared tokens.
-        ``chain`` is the precomputed ``_chain_hashes`` of ``tokens``."""
+        Each full-block entry is a device block id or, with the host tier
+        on, ``("host", slot)`` for a demoted block (a hash lives in one
+        tier only).  ``tail = (src, n_common)`` if a registered partial
+        tail (same encoding) extends the matched full-block prefix by
+        ``n_common`` shared tokens.  ``chain`` is the precomputed
+        ``_chain_hashes`` of ``tokens``."""
         toks = np.asarray(tokens).reshape(-1)
         bs = self.block_size
         if chain is None:
@@ -271,14 +437,25 @@ class PagedKVCache:
         h, fulls = _HASH_SEED, []
         for h2 in chain:
             b = self._full.get(h2)
+            if b is None and self.host is not None:
+                s = self._h_full.get(h2)
+                if s is not None:
+                    b = ("host", s)
+                    self.host.touch(s)
             if b is None:
                 break
             fulls.append(b)
             h = h2
         tail = None
         tb = self._tail.get(h)
+        t_toks = self._reg[tb][2] if tb is not None else None
+        if tb is None and self.host is not None:
+            s = self._h_tail.get(h)
+            if s is not None:
+                tb = ("host", s)
+                t_toks = self._h_reg[s][2]
+                self.host.touch(s)
         if tb is not None:
-            t_toks = self._reg[tb][2]
             rem = toks[len(fulls) * bs:]
             m = 0
             while m < min(len(rem), len(t_toks)) and \
@@ -312,6 +489,7 @@ class PagedKVCache:
                 self._reg[tb] = ("tail", h,
                                  tuple(map(int, toks[len(toks) - rem:])))
                 self._tail[h] = tb
+        self._drop_host_duplicates()
 
     def register_suspend(self, rid: int, tokens: np.ndarray) -> None:
         """Content-address request ``rid``'s blocks over ``tokens`` — the
@@ -348,17 +526,82 @@ class PagedKVCache:
             elif cur is None and h not in self._tail:
                 self._reg[tb] = ("tail", h, t_toks)
                 self._tail[h] = tb
+        self._drop_host_duplicates()
 
-    def suspend(self, rid: int, tokens: np.ndarray) -> None:
+    def _drop_host_duplicates(self) -> None:
+        """Single residency: a cold admit can re-prefill and register
+        content whose demoted copy still sits on the host tier; the host
+        copy goes (the device copy is the one sharers should pin)."""
+        if self.host is None:
+            return
+        for idx, hmap in ((self._full, self._h_full),
+                          (self._tail, self._h_tail)):
+            for hh in [hh for hh in hmap if hh in idx]:
+                self._h_unregister(hmap[hh])
+
+    def suspend(self, rid: int, tokens: np.ndarray) -> Tuple[int, int]:
         """Preemption: release request ``rid``'s blocks with their KV kept
-        matchable for resume (content-registered, then parked on the LRU
-        list; pressure in between is real cache loss and forces a
-        replay)."""
+        matchable for resume (content-registered, then freed).  With the
+        host tier on, the blocks this request owned alone are demoted at
+        once (suspension exists to free device blocks now), while blocks
+        shared with live requests stay pinned on the device; without one
+        they park on the LRU list (pressure in between is real cache loss
+        and forces a replay).  Returns (blocks released, blocks
+        demoted)."""
         self.register_suspend(rid, tokens)
-        self.free(rid)
+        n_total = len(self._tables[rid])
+        retained = self.free(rid)
+        demoted = 0
+        if self.host is not None:
+            stale = []
+            for b in retained:
+                if b in self._lru and b in self._reg:
+                    del self._lru[b]
+                    self._demote(b)
+                    stale.append(b)
+                    self._free.append(b)
+                    demoted += 1
+            self._stamp(stale)
+        return n_total, demoted
 
-    def stage(self, slot: int) -> bool:
-        raise NotImplementedError("host-tier staging is not yet ported")
+    def stage(self, *slots: int) -> int:
+        """Start the H2D copies of host slots ``slots`` ahead of their
+        promotion (the engine's prefetch calls this while a step is
+        dispatched).  On the card the copies run back to back on a side
+        stream, each after its slot's own demotion copy, into one buffer
+        from the compute stream's cached blocks (a fresh device allocation
+        between the two streams' commands would stop them running
+        concurrently; the side stream first waits for the compute work
+        queued so far, which may still use those blocks), and record one
+        event that a promotion makes the compute stream wait on.  Slots
+        already staged are skipped; returns the copies started."""
+        if self.host is None:
+            return 0
+        slots = [s for s in dict.fromkeys(slots) if s not in self._staged]
+        if not slots:
+            return 0
+        dev = self.device
+        if dev.type != "cuda":
+            for slot in slots:
+                self._staged[slot] = (self.host.row(slot).clone(), None)
+            return len(slots)
+        side = self._side
+        buf = torch.empty((len(slots), self.host.store.shape[1]),
+                          dtype=torch.uint8, device=dev)
+        buf.record_stream(side)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        done = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            for i, slot in enumerate(slots):
+                written = self.host.written.get(slot)
+                if written is not None:
+                    side.wait_event(written)
+                buf[i].copy_(self.host.row(slot), non_blocking=True)
+            done.record(side)
+        for i, slot in enumerate(slots):
+            self.host.read[slot] = done
+            self._staged[slot] = (buf[i], done)
+        return len(slots)
 
     # ---- internals -------------------------------------------------------
     def _pin(self, b: int) -> None:
@@ -380,7 +623,10 @@ class PagedKVCache:
         for b in self._lru:                        # oldest first
             if b not in protect:
                 del self._lru[b]
-                self._unregister(b)
+                if self.host is not None:
+                    self._demote(b)
+                else:
+                    self._unregister(b)
                 self.evictions += 1
                 return b, True
         raise RuntimeError("pool exhausted: no evictable block")
@@ -390,6 +636,75 @@ class PagedKVCache:
         index = self._full if reg[0] == "full" else self._tail
         if index.get(reg[1]) == b:
             del index[reg[1]]
+
+    # ---- host tier internals --------------------------------------------
+    def _demote(self, b: int) -> None:
+        """Move an evicted registered block into the host tier: copy its
+        slab out (dispatched BEFORE the caller stamps and recycles the
+        block: stream order keeps the copy first) and move the hash
+        registration across tiers.  The host tier's own eviction (its
+        oldest slot) is real cache loss."""
+        reg = self._reg.pop(b)
+        index = self._full if reg[0] == "full" else self._tail
+        if index.get(reg[1]) != b:
+            return                          # duplicate content; nothing owned
+        del index[reg[1]]
+        hmap = self._h_full if reg[0] == "full" else self._h_tail
+        old = hmap.get(reg[1])
+        if old is not None:                 # stale host copy of the same hash
+            self._h_unregister(old)
+        if self.host.num_free == 0:
+            self._h_unregister(self.host.oldest())
+            self.host_evictions += 1
+        slot = self.host.put()
+        self.host.write(slot, self.data, b)
+        self._h_reg[slot] = reg
+        hmap[reg[1]] = slot
+        self.demoted += 1
+
+    def _h_unregister(self, slot: int) -> None:
+        reg = self._h_reg.pop(slot)
+        index = self._h_full if reg[0] == "full" else self._h_tail
+        if index.get(reg[1]) == slot:
+            del index[reg[1]]
+        self.host.drop(slot)
+        self._staged.pop(slot, None)
+
+    def _device_copy(self, slot: int) -> torch.Tensor:
+        """Slot ``slot``'s slab on the pool's device, ready for the compute
+        stream: its staged copy (the stream waits on the copy's event, and
+        the buffer is marked in use there) or a copy made now on the
+        compute stream, which orders it after the slot's demotion."""
+        staged = self._staged.get(slot)
+        if staged is None:
+            row = self.host.row(slot)
+            return torch.empty(row.shape, dtype=torch.uint8,
+                               device=self.device).copy_(row,
+                                                         non_blocking=True)
+        buf, done = staged
+        self.staged_used += 1
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
+        return buf
+
+    def _take_host(self, slot: int) -> Tuple[torch.Tensor, Tuple]:
+        """Consume host slot ``slot`` for promotion: (its slab on the
+        device, its registration)."""
+        reg = self._h_reg.pop(slot)
+        index = self._h_full if reg[0] == "full" else self._h_tail
+        if index.get(reg[1]) == slot:
+            del index[reg[1]]
+        buf = self._device_copy(slot)
+        self._staged.pop(slot, None)
+        self.host.drop(slot)
+        return buf, reg
+
+    def _peek_host(self, slot: int) -> torch.Tensor:
+        """Slot ``slot``'s slab on the device WITHOUT consuming it (a COW
+        tail source: the sharer's clone is private, so the host copy stays
+        matchable, staged copy included)."""
+        self.host.touch(slot)
+        return self._device_copy(slot)
 
     def _stamp(self, blocks: List[int]) -> None:
         """pos=-1-stamp ``blocks`` on device: recycled blocks must read as
@@ -423,6 +738,24 @@ class PagedKVCache:
             assert r is not None and r[0] == "tail" and r[1] == h
         for b in self._reg:
             assert b in held or b in lru, "registered block recycled"
+        if self.host is not None:
+            slots = set(self._h_reg)
+            assert slots == set(self.host._lru), \
+                "host registrations out of sync with stored slabs"
+            assert len(slots) + self.host.num_free == self.host.capacity, \
+                "host slot leaked or invented"
+            assert not (slots & set(self.host._free)), \
+                "host slot both stored and free"
+            for h, s in self._h_full.items():
+                assert self._h_reg.get(s, (None, None))[:2] == ("full", h)
+            for h, s in self._h_tail.items():
+                r = self._h_reg.get(s)
+                assert r is not None and r[0] == "tail" and r[1] == h
+            assert not (set(self._h_full) & set(self._full)), \
+                "full-block hash resident in both tiers"
+            assert not (set(self._h_tail) & set(self._tail)), \
+                "tail hash resident in both tiers"
+            assert set(self._staged) <= slots, "staged buffer for freed slot"
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +778,22 @@ def _cow_block(data, src: int, dst: int, keep: int) -> None:
         kv.v[dst] = kv.v[src]
         kv.pos[dst] = kv.pos[src]
         kv.pos[dst, keep:] = -1
+
+
+def _write_blocks(data, bufs: List[torch.Tensor], dsts: List[int]) -> None:
+    """Unpack slabs (packed byte rows on the pool's device) into blocks
+    ``dsts`` of every layer — the H2D half of promotion: one copy per leaf
+    for all the blocks, not one per leaf and block."""
+    if not bufs:
+        return
+    src = bufs[0][None] if len(bufs) == 1 else torch.stack(bufs)
+    ids = torch.as_tensor(dsts, device=src.device)
+    off = 0
+    for leaf in _slab_leaves(data):
+        n = leaf[0].numel() * leaf.element_size()
+        rows = src[:, off:off + n].view(leaf.dtype)
+        leaf.index_copy_(0, ids, rows.view(len(bufs), *leaf.shape[1:]))
+        off += n
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: MECHANICS only — ordering and preemption
 choices live in a pluggable ``SchedPolicy`` (serving/policy.py).
 Counterpart of ``repro/serving/scheduler.py``, host-side Python; the
-telemetry registry and the host tier are not ported.
+telemetry registry is not ported.
 
 Per engine step:
 
@@ -17,7 +17,10 @@ Per engine step:
      request's longest cached prefix (full blocks + COW tail, floored to
      ``prefix_align``), pins the shared blocks into its table and admits
      it with only the uncached suffix as prefill work (``n_prefilled``
-     starts at the hit length).
+     starts at the hit length).  With the host tier on, matched entries
+     may be ``("host", slot)``: cached work, but not cached blocks — each
+     is promoted into a fresh device block, so only device entries lower
+     the fresh-block demand or are protected from eviction.
   2. ``pack_prefill``: pending prompt chunks in policy order, one B_CP
      chunk per request (chunks of one request are sequential), charging
      the chunk's REAL token count (rounded to ``token_grid``) against
@@ -27,7 +30,8 @@ Per engine step:
 
 Preemption (suspend/resume): suspending a DECODE request registers its
 blocks — prompt AND generated KV — in the pool's content-addressed prefix
-cache and frees them (parked on the LRU list), freeing its batch slot.
+cache and frees them (demoted to the host tier when there is one, parked
+on the LRU list otherwise), freeing its batch slot.
 Resume is re-admission through the same prefix-match machinery: the
 preserved KV comes back as a cache hit covering ``Request.kv_len`` tokens,
 and any suffix lost to eviction in between is replayed in prefill chunks
@@ -57,6 +61,16 @@ from repro_torch.serving.policy import SchedPolicy, resolve_policy
 from repro_torch.serving.pool import (PagedKVCache, _chain_hashes,
                                       blocks_for_request, blocks_for_resume,
                                       max_blocks_bound)
+
+
+def _device_entries(shared: List, cow) -> Tuple[List[int], List[int]]:
+    """(device-resident shared blocks, blocks to protect from eviction) of
+    a hit: ``("host", slot)`` entries are promoted into fresh blocks, so
+    only device ids share for free or can be protected."""
+    dev_shared = [b for b in shared if not isinstance(b, tuple)]
+    protect = dev_shared + \
+        ([cow[0]] if cow and not isinstance(cow[0], tuple) else [])
+    return dev_shared, protect
 
 
 class Scheduler:
@@ -234,17 +248,18 @@ class Scheduler:
         cached, shared, cow = (self._match(r) if self.prefix_cache
                                else (0, [], None))
         n = self.blocks_needed(r, cached_len=cached)
-        protect = shared + ([cow[0]] if cow else [])
-        if cached and not pool.can_alloc(n - len(shared), exclude=protect):
+        dev_shared, protect = _device_entries(shared, cow)
+        if cached and not pool.can_alloc(n - len(dev_shared),
+                                         exclude=protect):
             # a hit can demand MORE of the pool than a cold admit: a
             # token-granularity hit shifts the chunk grid (up to one
             # extra block of padding) and its shared/COW-source blocks
             # are protected from eviction.  Degrade to a cold admit
             # rather than stalling the candidate on a pool the request
             # fits cold.
-            cached, shared, cow, protect = 0, [], None, []
+            cached, shared, cow, dev_shared, protect = 0, [], None, [], []
             n = self.blocks_needed(r)
-        if not pool.can_alloc(n - len(shared), exclude=protect):
+        if not pool.can_alloc(n - len(dev_shared), exclude=protect):
             return False
         pool.alloc_prefix(r.rid, n, shared, cow)
         pool.lookups += 1
@@ -262,8 +277,8 @@ class Scheduler:
     # ---- suspend / resume ------------------------------------------------
     def suspend(self, r: rq.Request, now: float) -> None:
         """Preempt a DECODE request: its KV blocks are content-registered
-        and released (parked on the pool's LRU list), its batch slot
-        freed.  The request parks in ``suspended`` until the policy
+        and released (demoted to the host tier when there is one), its
+        batch slot freed.  The request parks in ``suspended`` until the policy
         re-admits it."""
         assert r.status == rq.DECODE, \
             f"only decoding requests are preemptible (rid {r.rid} is " \
@@ -297,16 +312,17 @@ class Scheduler:
         cached, shared, cow = self._hit(cached, fulls, tail)
         n = blocks_for_resume(r.kv_len, r.prompt_len, r.max_new,
                               self.chunk_size, pool.block_size, cached)
-        protect = shared + ([cow[0]] if cow else [])
-        if cached and not pool.can_alloc(n - len(shared), exclude=protect):
+        dev_shared, protect = _device_entries(shared, cow)
+        if cached and not pool.can_alloc(n - len(dev_shared),
+                                         exclude=protect):
             # same degrade as fresh admission: a hit's protected blocks can
             # exceed what a hit-free reservation needs; fall back to a full
             # replay-from-scratch resume rather than stalling (the preempt
             # admission bound guarantees the cold reservation fits)
-            cached, shared, cow, protect = 0, [], None, []
+            cached, shared, cow, dev_shared, protect = 0, [], None, [], []
             n = blocks_for_resume(r.kv_len, r.prompt_len, r.max_new,
                                   self.chunk_size, pool.block_size, 0)
-        if not pool.can_alloc(n - len(shared), exclude=protect):
+        if not pool.can_alloc(n - len(dev_shared), exclude=protect):
             return False
         pool.alloc_prefix(r.rid, n, shared, cow)
         self._rchain.pop(r.rid, None)

@@ -372,11 +372,20 @@ def test_paged_table_entry_outside_pool(dev):
     assert sa_mod.PAGED_LAUNCHES == n0
 
 
-def test_unsupported_head_dim_raises(dev):
-    x = torch.zeros((1, 2, 4, 96), device=dev)
+@pytest.mark.parametrize("d", [12, 136])
+def test_unsupported_head_dim_raises(dev, d):
+    """Head dims the attention tiles do not take (not a multiple of 8, or
+    past 128) are refused before any launch."""
+    x = torch.zeros((1, 2, 4, d), device=dev)
+    n0 = (fa_mod.LAUNCHES, sa_mod.LAUNCHES, sa_mod.PAGED_LAUNCHES)
     with pytest.raises(ValueError, match="head dim"):
         fa_mod.flash_attention_bhtd(x, x, x)
-    pool = torch.zeros((2, 16, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        sa_mod.selected_attention_bhtd(
+            x, x, x, torch.zeros((1, 4), dtype=torch.int32, device=dev),
+            torch.zeros((1, 1), dtype=torch.int32, device=dev), 0,
+            granularity=4)
+    pool = torch.zeros((2, 16, 2, d), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         sa_mod.selected_attention_paged(
             x, pool, pool, torch.zeros((2, 16), dtype=torch.int32,
@@ -384,6 +393,112 @@ def test_unsupported_head_dim_raises(dev):
             torch.zeros((1, 1), dtype=torch.int32, device=dev), 0,
             torch.zeros((1, 2), dtype=torch.int32, device=dev),
             granularity=16, block_size=16)
+    assert (fa_mod.LAUNCHES, sa_mod.LAUNCHES, sa_mod.PAGED_LAUNCHES) == n0
+
+
+# every head dim the tiles take is built at the next multiple of 16: 8 and
+# 120 are padded (Q and K zero-filled), 80 and 112 leave a row's last
+# chunks unswizzled; groups 1 (MHA: stablelm), 3 (llama3-2-3b), 7
+HEAD_DIM_CASES = [(d, h, n_kv) for d in (8, 32, 80, 112, 120)
+                  for h, n_kv in ((4, 4), (6, 2), (14, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,n_kv", HEAD_DIM_CASES)
+def test_flash_kernel_at_every_head_dim(dev, d, h, n_kv, dtype):
+    """Prefill (a split-free 300-key walk) and decode (a split walk) at
+    head dims off the old 64 / 128; a KV head with no valid key gives
+    exact zeros."""
+    g = torch.Generator(device=dev).manual_seed(d + h)
+    for tq, tk, boundary in ((64, 300, 200), (1, 1025, 1024)):
+        q = torch.randn((2, h, tq, d), generator=g, device=dev).to(dtype)
+        k = torch.randn((2, n_kv, tk, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((2, n_kv, tk, d), generator=g, device=dev).to(dtype)
+        valid = torch.rand((2, n_kv, tk), generator=g, device=dev) < 0.9
+        valid[1, 0] = False                    # nothing to attend
+        got = fa_mod.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                          boundary=boundary)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=True,
+                                       boundary=boundary, k_valid=valid)
+        assert bool(torch.isfinite(got).all())
+        assert _err(got, want) <= _tol(want, dtype)
+        assert float(got[1, : h // n_kv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,n_kv", HEAD_DIM_CASES)
+def test_selected_and_paged_kernels_at_every_head_dim(dev, d, h, n_kv,
+                                                      dtype):
+    """Linear selected attention (g = 16 prefill, g = 1 decode) and the
+    paged kernel on the same pool at head dims off the old 64 / 128: each
+    matches its plain version, an idle row is exact zeros, and the paged
+    kernel equals the linear one bit for bit."""
+    for gran, t, start in ((16, 64, 1024), (1, 1, 1037)):
+        q, kp, vp, pp, idx, starts, table, bs = _paged_inputs(
+            dev, dtype, gran, t, start, d, n_kv=n_kv, h=h)
+        qt = q.transpose(1, 2)
+        got = sa_mod.selected_attention_paged(
+            qt, kp, vp, pp, idx, starts, table, granularity=gran,
+            block_size=bs)
+        k, v, key_pos = ref.linearize_pool(kp, vp, pp, table)
+        lin = sa_mod.selected_attention_bhtd(
+            qt, k.transpose(1, 2), v.transpose(1, 2), key_pos, idx, starts,
+            granularity=gran)
+        torch.cuda.synchronize()
+        want = ref.selected_ref(q, k, v, key_pos, idx, starts,
+                                gran).transpose(1, 2)
+        assert bool(torch.isfinite(got).all())
+        assert _err(lin, want) <= _tol(want, dtype)
+        assert float(lin[2].abs().max()) == 0.0     # idle row
+        assert _err(got, lin) == 0.0
+
+
+def test_host_tier_pinned_round_trip_on_side_stream(dev):
+    """On the card the host tier's rows are pinned; a demotion copies a
+    block out on the compute stream, ``stage`` copies it back on a side
+    stream, and the promotion that consumes the staged copy writes the
+    block's bytes back unchanged; an unstaged promotion does too."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.pool import PagedKVCache
+    cfg = dataclasses.replace(get_config("llama3-2-3b").smoke(),
+                              dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev)
+    pool = PagedKVCache(model, num_blocks=3, block_size=16,
+                        host_tier_blocks=4)
+    assert pool.host.store.is_pinned()
+    toks = np.arange(32, dtype=np.int32) + 3
+    pool.alloc(0, 2)
+    donor = list(pool.table(0))
+    g = torch.Generator(device=dev).manual_seed(0)
+    for st in pool.data:
+        for kv in st:
+            kv.k[donor] = torch.randn(kv.k[donor].shape, generator=g,
+                                      device=dev).to(kv.k.dtype)
+            kv.v[donor] = torch.randn(kv.v[donor].shape, generator=g,
+                                      device=dev).to(kv.v.dtype)
+            kv.pos[donor] = torch.arange(32, dtype=torch.int32,
+                                         device=dev).view(2, 16)
+    pool.register_prefix(0, toks)
+    want = [leaf[donor].clone() for st in pool.data for kv in st
+            for leaf in kv]
+    pool.free(0)
+    pool.alloc(1, 3)                         # demotes both blocks
+    pool.free(1)
+    fulls, _ = pool.match_prefix(toks)
+    assert all(isinstance(e, tuple) for e in fulls) and pool.demoted == 2
+    assert pool.stage(fulls[0][1]) == 1      # staged; the second is not
+    side = pool._side
+    assert side is not None and side != torch.cuda.current_stream(dev)
+    table = pool.alloc_prefix(2, 3, shared=fulls)
+    torch.cuda.synchronize()
+    assert pool.promoted == 2 and pool.staged_used == 1
+    got = [leaf[table[:2]] for st in pool.data for kv in st for leaf in kv]
+    for w, x in zip(want, got):
+        assert torch.equal(w, x)
+    pool.check_invariants()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -147,15 +147,15 @@ def test_score_plain_rounds_qbar_to_key_dtype():
                  .max()) > 10 * TOL
 
 
-def _fused_case(case):
+def _fused_case(case, d=16):
     """(q, k, v, key_pos, idx, start, g) as numpy, one geometry tuple of
     the reference's FUSED_CASES (plan ids include -1 padding and, at
-    g == 1, slots at or past the chunk start)."""
+    g == 1, slots at or past the chunk start), at head dim ``d``."""
     g, b, h, n_kv, T, chunk, start, nsel, seed = case
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((b, chunk, h, 16), np.float32)
-    k = rng.standard_normal((b, T, n_kv, 16), np.float32)
-    v = rng.standard_normal((b, T, n_kv, 16), np.float32)
+    q = rng.standard_normal((b, chunk, h, d), np.float32)
+    k = rng.standard_normal((b, T, n_kv, d), np.float32)
+    v = rng.standard_normal((b, T, n_kv, d), np.float32)
     key_pos = np.arange(T, dtype=np.int32)[None].repeat(b, 0)
     if g > 1:
         hi = -(-max(start, 1) // g)
@@ -187,6 +187,25 @@ def test_selected_plain_matches_reference(case):
     q, k, v, key_pos, idx, start, g = _fused_case(case)
     if case[6] == 52:
         key_pos[:, 16:32] = -1             # a never-written cache block
+    (jq, tq_), (jk, tk_), (jv, tv), (jp, tp), (ji, ti) = map(
+        _both, (q, k, v, key_pos, idx))
+    got = ops.selected_attention(tq_, tk_, tv, tp, ti, start, granularity=g)
+    assert got.shape == tq_.shape and bool(torch.isfinite(got).all())
+    for backend in ("xla", "pallas_interpret"):
+        _close(got, ref_ops.selected_attention(jq, jk, jv, jp, ji,
+                                               jnp.int32(start),
+                                               granularity=g,
+                                               backend=backend))
+
+
+@pytest.mark.parametrize("d", [8, 32, 80])
+@pytest.mark.parametrize("case", [FUSED_CASES[0], FUSED_CASES[3]])
+def test_selected_plain_at_head_dims_matches_reference(case, d):
+    """Selected attention at the head dims the attention tiles gained
+    (d = 8 and 80 are padded to 16 and 80's rows keep a tail of
+    unswizzled chunks on the card), g = 16 and g = 1, against the
+    reference's oracle and its interpret-mode Pallas kernel."""
+    q, k, v, key_pos, idx, start, g = _fused_case(case, d)
     (jq, tq_), (jk, tk_), (jv, tv), (jp, tp), (ji, ti) = map(
         _both, (q, k, v, key_pos, idx))
     got = ops.selected_attention(tq_, tk_, tv, tp, ti, start, granularity=g)
@@ -302,6 +321,37 @@ def test_tile_shape_reaches_the_compiler():
         assert f"constexpr int {name} = {macro};" in header
         assert f"defined({macro})" in header
     assert "__launch_bounds__(NTHREADS, BLOCKS_PER_SM)" in header
+
+
+def test_attention_tiles_take_every_head_dim_to_128():
+    """The attention tiles build each head dim that is a multiple of 8 up
+    to 128 at the next multiple of 16 (the mma's k), and refuse any other
+    before a launch; at every width the bf16 tile's ring fits one block's
+    shared memory and BLOCKS_PER_SM blocks of it fit an SM (3 stages where
+    they fit, as at d = 64, else 2, as at d = 128); the header's layout is
+    the one ``attn_smem`` mirrors and its stage rule reads the same
+    compiler constants."""
+    from repro_torch.kernels import build, tiling
+    widths = {d: tiling.attn_width("k", d) for d in range(8, 129, 8)}
+    assert all(w % 16 == 0 and w - 16 < d <= w for d, w in widths.items())
+    assert sorted(set(widths.values())) == list(range(16, 129, 16))
+    for d in (0, 4, 12, 100, 136, 576):
+        with pytest.raises(ValueError, match="head dim"):
+            tiling.attn_width("k", d)
+    for w in range(16, 129, 16):
+        st = tiling.attn_stages(w)
+        smem = tiling.attn_smem(w, st)
+        assert st in (2, 3) and smem <= tiling.SMEM_PER_BLOCK
+        assert tiling.BLOCKS_PER_SM * (smem + 1024) <= tiling.SMEM_PER_SM
+    assert (tiling.attn_stages(64), tiling.attn_stages(128)) == (3, 2)
+    header = (build.CSRC / "attn_mma.cuh").read_text()
+    assert "BM * D * 2 + stages * 2 * BN * D * 2 + (stages + 1) * (BN * 24 " \
+        "+ 4)" in header
+    assert "BLOCKS_PER_SM * (attn_smem<D>(3) + 1024) <= SMEM_PER_SM ? 3 : 2" \
+        in header
+    for flag in (f"-DQUOKA_SMEM_PER_SM={tiling.SMEM_PER_SM}",
+                 f"-DQUOKA_SMEM_PER_BLOCK={tiling.SMEM_PER_BLOCK}"):
+        assert flag in build.NVCC_FLAGS
 
 
 def test_bf16_rows_must_be_16_byte_aligned():

@@ -56,7 +56,8 @@ def _tokens(seed, vocab, t=PROMPT):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-3-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-3-2b", "llama3-2-3b",
+                                  "stablelm-3b"])
 def test_logits_and_greedy_tokens_match_reference(arch, variant):
     method, qover = VARIANTS[variant]
     rm, params, pm = _pair(arch, qover)

@@ -5,8 +5,8 @@ Both packages run the same weights: the reference's initial parameters go
 through the weight bridge (``training/checkpoint.py::from_flat``).  Greedy
 tokens of the port's ``serve`` must equal the reference's ``serve`` and the
 port's own per-request ``generate``, for dense attention, QUOKA through the
-staged route and QUOKA g = 16 through the fused route, on granite-3-2b and
-qwen3-4b; the step counts and prefix hits must be the reference's too.
+staged route and QUOKA g = 16 through the fused route, on granite-3-2b,
+qwen3-4b, llama3-2-3b and stablelm-3b (MHA); the step counts and prefix hits must be the reference's too.
 Also covered: a prefix-cache hit, a COW tail, a pool small enough to
 queue, a ragged tail chunk, EOS, suspend/resume with no host tier, the
 streaming front end, and the options that are not ported yet.
@@ -74,7 +74,8 @@ def _same_tokens(got, want):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-4b", "llama3-2-3b",
+                                  "stablelm-3b"])
 def test_serve_matches_reference_and_generate(arch, variant):
     """A ragged tail (24) and interleaved prefill/decode steps; greedy
     tokens, step counts and occupancy equal the reference's serve, and each
@@ -354,9 +355,6 @@ def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
             Engine(pm, device="cpu", **kw)
     eng = Engine(pm, method="quoka", device="cpu")
     pr = make_requests(_prompts(1, (16,), pm.cfg.vocab), 2)
-    for kw in (dict(host_tier_blocks=4), dict(prefetch_depth=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            eng.serve(pr, block_size=BS, **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pm.prefill_chunk({"tokens": np.zeros((1, 16), np.int32)}, 0,
                          pm.init_cache(1, 32), with_obs=True)
