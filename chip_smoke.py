@@ -15,7 +15,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      d = 128) and stablelm-3b's (MHA 32 / 32, d = 80); flash, selected and
      paged attention at d = 8, 32, 80, 112 and 120, fp32 and bf16, GQA
      groups 1, 3 and 7, each with a row that has no valid key (exact
-     zeros), paged equal to linear bit for bit;
+     zeros), paged equal to linear bit for bit; flash at deepseek-v3's
+     prefill and decode shapes (128 heads over one latent KV head, d 576,
+     V the 512-wide latent and V zero-padded to 576), bf16 and fp32, rows
+     with no valid key exact zeros, the unpadded output equal to the
+     padded call's first 512 columns;
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -34,7 +38,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      attention kernels, the grids of the kernels one call launched and
      their device time, read from a ``torch.profiler`` trace (the blocks
      per launch and, for attention, the split count S); flash and selected
-     attention also at stablelm-3b's shapes (d = 80, MHA);
+     attention also at stablelm-3b's shapes (d = 80, MHA), flash at
+     deepseek-v3's (d 576, beside SDPA and the backend SDPA took) and
+     scoring at its latent (n_kv 1, d 576);
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -85,7 +91,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      no tier and ``generate``; one block held byte for byte through
      demotion and promotion; every slab's H2D copy in a profiler trace
      from pinned memory, on a side stream, inside one step's compute span;
-     A's cold and promoted TTFT.
+     A's cold and promoted TTFT;
+ 17. olmoe-1b-7b (16 layers, d_model 2048, MHA 16 / 16, 64 experts top-8,
+     capacity dispatch) at full width: ``Engine.generate`` staged and fused
+     with exact launch counts (16 x 95), layer 0's capacity dispatch on the
+     card against the CPU (fp32: the same dropped pairs, outputs within
+     1e-4 relative), and a serve of three requests (8192, 3000, 2048
+     tokens) with one prefill and one decode row, whose whole-chunk
+     requests (8192 and 2048 tokens) equal their own ``generate``;
+ 18. deepseek-v3's attention and expert geometry cut to 4 layers (3 dense
+     MLA, 1 MLA + 256 experts): ``Engine.generate`` staged with exact
+     launch counts (4 x 95), and layer 0's selected attention (flash at d
+     576 over the latent) held to its plain version on its own inputs.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -113,7 +130,13 @@ PROMPT, MAX_NEW = 8192, 32
 SERVE_NEW = 16                     # new tokens per request in phase 8
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg=""):
+    """Print a line; a phase's header carries the script's elapsed time."""
+    if msg.startswith("== "):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -196,6 +219,33 @@ def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128):
             v.to(bf).transpose(1, 2), valid, B)
 
 
+# deepseek-v3's flash call (phase 18's path): absorbed queries of 128 heads
+# over one latent KV head, [latent 512 | rope 64] keys, the latent as V
+MLA_H, MLA_D, MLA_DV = 128, 576, 512
+MLA_SCALE = 192 ** -0.5                 # 1 / sqrt(qk_nope 128 + qk_rope 64)
+
+
+def mla_flash_inputs(torch, dev, tq, dtype, b=1):
+    """MLABlock's flash call at deepseek-v3's width: q (b, 128, tq, 576)
+    over [selected budget 1024 | chunk tq] keys (b, 1, 1024 + tq, 576), a
+    tenth of the budget invalid (selection padding); V is the 512-wide
+    latent, the keys' first 512 columns (a view, as the block passes it).
+    With b = 2 the second row has no valid budget key and its first four
+    chunk keys are pad slots: its first four query rows attend nothing."""
+    B = 1024
+    tk = B + tq
+    g = torch.Generator(device=dev).manual_seed(50 + tq)
+    q = torch.randn((b, tq, MLA_H, MLA_D), generator=g, device=dev)
+    k = torch.randn((b, tk, 1, MLA_D), generator=g, device=dev)
+    valid = torch.rand((b, tk), generator=g, device=dev) < 0.9
+    valid[:, B:] = True
+    if b > 1:
+        valid[1, :B + 4] = False
+    q = q.to(dtype).transpose(1, 2)
+    k = k.to(dtype).transpose(1, 2)
+    return q, k, k[..., :MLA_DV], valid, B
+
+
 def selected_inputs(torch, np, dev, g, t, start, T=8224, B=1024, h=32,
                     n_kv=8, d=128):
     rng = np.random.default_rng(30 + g + t + start)
@@ -238,6 +288,15 @@ def phase_parity(torch, np, dev, K):
         err = max_err(got, want)
         check(f"quoka_score T=8224 n_q={n_q}", err, 1e-4,
               "fp32 scores of bf16 products, summation order differs")
+        e = max(e, err)
+    # deepseek-v3's latent (phase 18): one KV head, d = 576, prompt 8192
+    for n_q in (16, 1):
+        qb, kt, valid = score_inputs(torch, dev, n_q, start=PROMPT, n_kv=1,
+                                     d=576)
+        err = max_err(qs.quoka_score_bhtd(qb, kt, valid),
+                      ref.score_ref(qb, kt, valid))
+        check(f"deepseek-v3 quoka_score T=8224 n_q={n_q} n_kv=1 d=576", err,
+              1e-4, "fp32 scores of bf16 products, summation order differs")
         e = max(e, err)
     for d, n_q in ((80, 5), (576, 16)):
         for dtype, tol, why in (
@@ -301,8 +360,9 @@ def phase_parity(torch, np, dev, K):
               "rounding each")
         e = max(e, err)
     errs["selected_attention"] = e
-    # the slice's other main paths: llama3-2-3b (GQA group 3, d = 128) and
-    # stablelm-3b (MHA 32 / 32, d = 80) at their shapes
+    # the slice's other main paths at their shapes: llama3-2-3b (GQA group
+    # 3, d = 128), stablelm-3b (MHA 32 / 32, d = 80) and olmoe-1b-7b (MHA
+    # 16 / 16, d = 128)
     for arch, (h, n_kv, d) in ARCH_SHAPES.items():
         group = h // n_kv
         for n_q in (16, 1):
@@ -339,11 +399,56 @@ def phase_parity(torch, np, dev, K):
             errs["selected_attention"] = max(errs["selected_attention"], err)
     for name, err in head_dim_sweep(torch, np, dev, K).items():
         errs[name] = max(errs.get(name, 0.0), err)
+    errs["flash_attention"] = max(errs["flash_attention"],
+                                  mla_flash_parity(torch, dev, K))
     return errs
 
 
-# (h, n_kv, d) of the slice's other models (phases 14, 15)
-ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80)}
+def mla_flash_parity(torch, dev, K):
+    """Phase 2, deepseek-v3's flash shapes (prefill tq 128 and decode, b 2)
+    on the wide tile, bf16 and fp32: the 512-wide latent as V, and V
+    zero-padded to 576 as the reference passes it; each against the plain
+    version, the unpadded output against the padded call's first 512
+    columns, and the rows with no valid key exact zeros."""
+    import torch.nn.functional as F
+    fa, ref = K["flash"], K["ref"]
+    e = 0.0
+    for tq in (128, 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, valid, B = mla_flash_inputs(torch, dev, tq, dtype, b=2)
+            v_pad = F.pad(v, (0, MLA_D - MLA_DV))
+            kw = dict(causal=True, boundary=B, scale=MLA_SCALE)
+            got = fa.flash_attention_bhtd(q, k, v, valid, **kw)
+            pad = fa.flash_attention_bhtd(q, k, v_pad, valid, **kw)
+            want = ref.flash_attention_ref(q, k, v, k_valid=valid, **kw)
+            want_pad = ref.flash_attention_ref(q, k, v_pad, k_valid=valid,
+                                               **kw)
+            if got.shape != (2, MLA_H, tq, MLA_DV) or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"MLA flash: shape {tuple(got.shape)} "
+                                     "or non-finite output")
+            for x in (got, pad):
+                if float(x[1, :, :min(4, tq)].abs().max()) != 0.0:
+                    raise AssertionError("MLA flash: a row with no valid "
+                                         "key is not exactly zero")
+            bf = dtype == torch.bfloat16
+            tol = bf16_ulp(want) if bf else 2e-5
+            why = "1 bf16 ulp of the output" if bf else \
+                "fp32 on the CUDA cores, summation order differs"
+            label = f"MLA flash_attention tq={tq} d=576 {str(dtype)[6:]}"
+            for name, x, w in (("dv=512", got, want),
+                               ("dv=576 (padded V)", pad, want_pad),
+                               ("dv=512 vs padded[:512]", got,
+                                pad[..., :MLA_DV])):
+                err = max_err(x, w)
+                check(f"{label} {name}", err, tol, why)
+                e = max(e, err)
+    return e
+
+
+# (h, n_kv, d) of the slice's other models (phases 14, 15, 17)
+ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80),
+               "olmoe-1b-7b": (16, 16, 128)}
 SWEEP_DIMS = (8, 32, 80, 112, 120)
 SWEEP_HEADS = ((4, 4), (6, 2), (14, 2))      # GQA groups 1, 3 and 7
 
@@ -1412,20 +1517,216 @@ def phase_host_tier(torch, np, K, model):
                                            "BA": r_ba.wall_s})
 
 
-def phase_trace(torch, np, model, prompt=2048, steps=8):
-    """Phase 7: where the time of the staged route goes.  One chunked
-    prefill of ``prompt`` tokens and ``steps`` decode steps, each timed
-    without the profiler (host clock around synchronize) and traced once
-    with ``torch.profiler`` for the device time by kernel.  Device idle
-    share = 1 - device busy time / untraced wall time."""
+OLMOE_NEW = 16                                  # phase 17's serve
+
+
+def phase_olmoe(torch, np, K):
+    """Phase 17: olmoe-1b-7b (16 layers, d_model 2048, MHA 16 / 16, d 128,
+    64 experts top-8, d_expert 1024, capacity dispatch) at full width from
+    random weights: one-shot staged and fused (``phase_oneshot``), one MoE
+    layer's capacity dispatch on the card against the same plain code on
+    the CPU, and a continuous serve of three requests.  Returns the
+    one-shot numbers and the rest."""
+    model, oneshot = phase_oneshot(torch, np, K, "olmoe-1b-7b", 17)
+    out = {"capacity": moe_capacity_check(torch, np, model)}
+    out["serve"] = olmoe_serve(torch, np, K, model)
+    out["trace"] = phase_trace(torch, np, model, phase="  phase 17")
+    del model
+    torch.cuda.empty_cache()
+    return oneshot, out
+
+
+def moe_capacity_check(torch, np, model):
+    """Layer 0's MoE in fp32 on one 128-token chunk (capacity 20 slots per
+    expert), on the card and on the CPU: the router's experts and the
+    dropped (token, choice) pairs identical, outputs within 1e-4
+    relative."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(model.cfg, dtype=torch.float32)
+    layer = model.layers()[0].moe
+    cpu = moe.MoE(cfg, "cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in layer.state_dict().items()})
+    gpu = moe.MoE(cfg, model.device)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((1, cfg.quoka.chunk_size, cfg.d_model), generator=gen)
+    want = moe.moe_apply(cpu, x, cfg)
+    got = moe.moe_apply(gpu, x.to(model.device), cfg).cpu()
+    xf = x.reshape(-1, cfg.d_model)
+    cap = moe.capacity(cfg.moe, xf.shape[0])
+    _, ids_c, _ = moe.route(cpu, xf, cfg.moe)
+    _, ids_g, _ = moe.route(gpu, xf.to(model.device), cfg.moe)
+    if not torch.equal(ids_g.cpu(), ids_c):
+        raise AssertionError("phase 17: the router's experts differ on the "
+                             "card")
+    drop_c = ~moe.capacity_slots(ids_c, cfg.moe.n_experts, cap)[2]
+    drop_g = ~moe.capacity_slots(ids_g, cfg.moe.n_experts, cap)[2].cpu()
+    if not torch.equal(drop_g, drop_c):
+        raise AssertionError("phase 17: the dropped pairs differ on the "
+                             "card")
+    rel = max_err(got, want) / float(want.abs().max())
+    check("olmoe layer 0 capacity dispatch, card vs CPU (fp32, relative)",
+          rel, 1e-4, "fp32 products, summation order differs")
+    log(f"  capacity {cap} slots per expert; {int(drop_c.sum())} of "
+        f"{drop_c.numel()} (token, choice) pairs dropped, the same set on "
+        f"the card and the CPU")
+    return dict(capacity=cap, dropped=int(drop_c.sum()),
+                pairs=drop_c.numel(), rel_err=rel)
+
+
+def olmoe_serve(torch, np, K, model):
+    """Phase 17's serve: three requests (8192, 3000 and 2048 tokens, 16 new
+    each) on the fused route, block 128, one prefill row and one decode
+    row, so every MoE call's batch has ``generate``'s shape and N (the
+    capacity depends on N).  A request must equal its own ``generate``
+    where that runs the same computation: the whole-chunk prompts (8192
+    and 2048 tokens, both above budget + chunk - 16, so ``generate``
+    selects too).  The 3000-token one only reports its first differing
+    token: ``generate`` left-pads it where the serve step packs a ragged
+    tail (another chunking), as in the reference."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    L = cfg.n_layers
+    rng = np.random.default_rng(17)
+    prompts = {i: rng.integers(3, cfg.vocab, (n,)).astype(np.int32)
+               for i, n in enumerate((8192, 3000, 2048))}
+    trace = [Request(rid=i, tokens=p, max_new=OLMOE_NEW)
+             for i, p in prompts.items()]
+    log("  serve: 8192, 3000 and 2048 tokens, 16 new each, fused g=16, "
+        "block 128, one prefill and one decode row")
+    eng = Engine(model, method="quoka")
+    state = eng.make_serve_state(trace, block_size=128, max_decode_batch=1,
+                                 max_prefill_tokens=128)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K)
+    r = eng.serve(trace, state=state)
+    counts = read_counts(K)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = r.prefill_steps + r.decode_steps
+    want = {"quoka_score": L * steps, "flash_attention": 0,
+            "selected_attention": L * steps, "selected_attention_paged": 0}
+    if counts != want:
+        raise AssertionError(f"phase 17 serve launches {counts} != {want}")
+    log(f"  serve: wall {r.wall_s:.2f} s, {r.generated} tokens, "
+        f"{r.tokens_per_s:.2f} tok/s, steps {r.steps} ({r.prefill_steps} "
+        f"prefill / {r.decode_steps} decode), peak {peak:.2f} GiB, "
+        f"launches {counts}, TTFT "
+        f"{ {k: round(v, 3) for k, v in r.ttft_s.items()} } s")
+    first_diff = {}
+    for rid, p in prompts.items():
+        got = r.tokens[rid]
+        gen = eng.generate(eng.pad_prompt(p[None]), OLMOE_NEW).tokens[0]
+        if got.shape != (OLMOE_NEW,) or got.min() < 0 or \
+                got.max() >= cfg.vocab:
+            raise AssertionError(f"phase 17 serve: bad tokens {got}")
+        diff = np.flatnonzero(got != gen)
+        first_diff[rid] = int(diff[0]) if diff.size else None
+        qc = cfg.quoka
+        why = "another chunking" if len(p) % qc.chunk_size else None
+        if why is None and diff.size:
+            raise AssertionError(f"phase 17 serve request {rid} (prompt "
+                                 f"{len(p)}): tokens {got} != generate's "
+                                 f"{gen}")
+        log(f"    request {rid}, prompt {len(p)}: "
+            + ("tokens equal generate's" if not diff.size else
+               f"first token differing from generate's at step "
+               f"{first_diff[rid]} ({why}, reported only)"))
+    return dict(wall_s=r.wall_s, tokens_per_s=r.tokens_per_s,
+                steps=r.steps, peak_gib=peak, launches=counts,
+                ttft_s=r.ttft_s, first_diff_vs_generate=first_diff)
+
+
+DEEPSEEK_LAYERS = ((("mla",), 3), (("mla_moe",), 1))   # phase 18's cut
+
+
+def phase_deepseek(torch, np, K):
+    """Phase 18: deepseek-v3's published attention and expert geometry
+    (d_model 7168, 128 heads, q_lora 1536, latent 512 + rope 64, 256
+    experts top-8 plus one shared, d_expert 2048, vocab 129280, untied,
+    MTP held) cut in depth to its 3 dense MLA layers and 1 MoE layer, from
+    random weights: one-shot staged (MLA's only route) with exact launch
+    counts, then layer 0's selected attention on the card against its
+    plain version on the call's own inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4,
+                              layer_groups=DEEPSEEK_LAYERS)
+    log(f"== phase 18: deepseek-v3 attention geometry, 4 layers (3 mla + 1 "
+        f"mla_moe; published 61), d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, latent {cfg.mla.kv_lora_rank} + {cfg.mla.qk_rope_dim}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, bf16, prompt "
+        f"{PROMPT}, {MAX_NEW} new")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB)")
+    per_run = cfg.n_layers * (PROMPT // cfg.quoka.chunk_size + MAX_NEW - 1)
+    r, counts, peak = phase_main(torch, np, K, model, "deepseek-v3 staged")
+    want = {"quoka_score": per_run, "flash_attention": per_run,
+            "selected_attention": 0, "selected_attention_paged": 0}
+    if counts != want:
+        raise AssertionError(f"deepseek-v3 staged launches {counts} != "
+                             f"{want}")
+    # layer 0's flash call at the chunk after a 2048-token prefill
+    pre, chunk = PROMPT // 4, cfg.quoka.chunk_size
+    toks = np.random.default_rng(18).integers(
+        3, cfg.vocab, (1, pre + chunk)).astype(np.int32)
+    cache = model.init_cache(1, PROMPT + MAX_NEW)
+    model.prefill({"tokens": toks[:, :pre]}, cache)
+    calls = []
+    kernel = ops.attention
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return kernel(*a, **kw)
+    ops.attention = recording
+    model.prefill_chunk({"tokens": toks[:, pre:]}, pre, cache)
+    ops.attention = kernel
+    (q, k, v, valid), kw = calls[0]
+    got = kernel(q, k, v, valid, **kw)
+    want_o = K["ref"].flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        k_valid=valid, **kw).transpose(1, 2)
+    check(f"deepseek-v3 layer 0 selected attention q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} v {tuple(v.shape)}, card vs plain",
+          max_err(got, want_o), bf16_ulp(want_o), "1 bf16 ulp of the output")
+    blk = model.layers()[0]
+    out, out_p = blk._decompress(got, q.dtype), blk._decompress(want_o,
+                                                                q.dtype)
+    rel = max_err(out, out_p) / float(out_p.float().abs().max())
+    log(f"  layer 0's block output after W_uv, kernel vs plain flash: "
+        f"{rel:.2e} relative")
+    res = dict(ttft_s=r.ttft_s, decode_tok_s=r.decode_tps, peak_gib=peak,
+               launches=counts, tokens=r.tokens[0].tolist(),
+               layer0_rel_err=rel,
+               trace=phase_trace(torch, np, model, phase="  phase 18"))
+    del model, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7"):
+    """Phase 7 (and the traces of phases 17-18): where the time of the
+    model's route goes.  One chunked prefill of ``prompt`` tokens and
+    ``steps`` decode steps, each timed without the profiler (host clock
+    around synchronize) and traced once with ``torch.profiler`` for the
+    device time by kernel.  Device idle share = 1 - device busy time /
+    untraced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    log(f"== phase 7: trace, staged prefill of {prompt} tokens "
+    log(f"{phase}: trace, {model.cfg.name} prefill of {prompt} tokens "
         f"({prompt // model.cfg.quoka.chunk_size} chunks) + {steps} "
         f"decode steps")
     toks = np.random.default_rng(7).integers(
         3, model.cfg.vocab, (1, prompt)).astype(np.int32)
-    cap = prompt + steps
+    g = model.cfg.quoka.granularity     # a block plan's cap is on its grid
+    cap = -(-(prompt + steps) // g) * g
 
     def prefill():
         cache = model.init_cache(1, cap)
@@ -1754,6 +2055,103 @@ def attention_times(torch, np, dev, K, flush):
     return out
 
 
+def sdpa_backend(torch, call) -> str:
+    """The backend one ``scaled_dot_product_attention`` call took, read off
+    the names of the kernels a profiler trace of it records: flash,
+    efficient (cutlass fmha), cudnn, else math (the plain products)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for tag, backend in (("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("cudnn", "cudnn")):
+        if tag in names:
+            return backend
+    return "math"
+
+
+def mla_times(torch, dev, K, flush):
+    """Phase 6, flash at deepseek-v3's shapes (b 1, 128 heads over one
+    latent KV head, d 576, V the 512-wide latent): prefill (tq 128, tk 1152)
+    and decode (tq 1, tk 1025), as ``attention_times`` times qwen3-4b's
+    rows, beside SDPA on the same inputs, the same mask and scale, in two
+    forms that copy no K or V: K and V expanded to 128 heads (stride-0
+    views), and the 128 heads folded into the query rows of the one KV
+    head (q's storage is (b, tq, h, d), so the fold is a view).  The
+    faster is the row's library time; each form's time and the backend it
+    took are kept.  Returns {"d576": prefill row, "d576_decode": decode
+    row}."""
+    fa, ref = K["flash"], K["ref"]
+    rows = {}
+    for tq in (128, 1):
+        q, k, v, valid, B = mla_flash_inputs(torch, dev, tq, torch.bfloat16)
+        tk = k.shape[2]
+        i = torch.arange(tq, device=dev)[:, None]
+        j = torch.arange(tk, device=dev)[None, :]
+        mask = ((j < B) | (j - B <= i))[None, None] & valid[:, None, None]
+        pairs = MLA_H * int(mask.sum())
+        o = torch.empty((1, MLA_H, tq, MLA_DV), dtype=q.dtype, device=dev)
+        # K and V rows masked by k_valid are never needed; MLA's V is K's
+        # first 512 columns (a view), so those bytes are read once
+        n_valid = int(valid.sum())
+        aliased = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+        kv_cols = MLA_D if aliased else MLA_D + MLA_DV
+        b_ms, b_by = bound(nbytes(q, valid, o)
+                           + n_valid * kv_cols * q.element_size(),
+                           2 * (MLA_D + MLA_DV) * pairs)
+        want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                       k_valid=valid, scale=MLA_SCALE)
+        sdpa = {}
+        for form, call in mla_sdpa_forms(torch, q, k, v, mask).items():
+            # a wrong view or mask is off by O(1); bf16 rounding is not
+            rel = max_err(call(), want) / float(want.abs().max())
+            check(f"SDPA {form} d=576 tq={tq} vs plain (relative)", rel,
+                  2e-2, "the same function: bf16 SDPA against fp32 sums")
+            sdpa[form] = (time_ms(torch, call, None),
+                          sdpa_backend(torch, call))
+            log(f"    sdpa {form}: {fmt(sdpa[form][0])}, backend "
+                f"{sdpa[form][1]}")
+        best = min(sdpa, key=lambda f: sdpa[f][0]["device"])
+        l_ms = sdpa[best][0]
+        label = f"{'prefill' if tq > 1 else 'decode'} tq={tq} tk={tk} " \
+            f"h={MLA_H}/1 d={MLA_D} dv={MLA_DV}"
+        r = time_row(
+            torch, flush, f"flash_attention {label}",
+            lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                            boundary=B, scale=MLA_SCALE),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                            k_valid=valid, scale=MLA_SCALE),
+            b_ms, b_by, l_ms)
+        r.update(sdpa_form=best, sdpa_backend=sdpa[best][1],
+                 sdpa_ms={f: t["device"] for f, (t, _) in sdpa.items()},
+                 sdpa_backends={f: be for f, (_, be) in sdpa.items()})
+        rows["d576" if tq > 1 else "d576_decode"] = r
+    return rows
+
+
+def mla_sdpa_forms(torch, q, k, v, mask):
+    """SDPA calls for flash at MLA's shapes (q (1, h, tq, d) with (b, tq,
+    h, d) storage, one KV head k (1, 1, tk, d), v (1, 1, tk, dv), a bool
+    mask (1, 1, tq, tk)) that copy no K or V: "expand", K and V expanded
+    to h heads (stride-0 views); "folded", the h heads folded into the
+    query rows of the one KV head (row i * h + head is query i of head).
+    Each returns (1, h, tq, dv)."""
+    import torch.nn.functional as F
+    _, h, tq, d = q.shape
+    ke, ve = k.expand(-1, h, -1, -1), v.expand(-1, h, -1, -1)
+    qf = q.transpose(1, 2).reshape(1, 1, tq * h, d)
+    mf = mask.repeat_interleave(h, dim=2)
+    return {
+        "expand": lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask, scale=MLA_SCALE),
+        "folded": lambda: F.scaled_dot_product_attention(
+            qf, k, v, attn_mask=mf, scale=MLA_SCALE).reshape(
+                1, tq, h, v.shape[-1]).transpose(1, 2)}
+
+
 def phase_timing(torch, np, dev, K, paged):
     """Phase 6: each kernel at its main-path prefill and decode shapes
     against its bound, its plain version and, for flash, SDPA with the same
@@ -1775,27 +2173,32 @@ def phase_timing(torch, np, dev, K, paged):
     # copies, 336 MB, far past the 50 MB L2), so those times are cold too.
     # The last row is low-rank scoring (score_proj_dim = 32): the kernel at
     # d = 32 on the projected cache, mid-prefill.
-    for key, n_q, start, rank in (("prefill", 16, 4096, 0),
-                                  ("last_chunk", 16, PROMPT, 0),
-                                  ("decode", 1, PROMPT, 0),
-                                  ("proj32", 16, 4096, 32)):
-        qb, kt, valid = score_inputs(torch, dev, n_q, start) if not rank \
+    # The d576 row is deepseek-v3's latent (one KV head, d = 576) at its
+    # last prefill chunk.
+    for key, n_q, start, rank, n_kv, d in (
+            ("prefill", 16, 4096, 0, 8, 128),
+            ("last_chunk", 16, PROMPT, 0, 8, 128),
+            ("decode", 1, PROMPT, 0, 8, 128),
+            ("proj32", 16, 4096, 32, 8, 128),
+            ("d576", 16, PROMPT, 0, 1, MLA_D)):
+        qb, kt, valid = score_inputs(torch, dev, n_q, start, n_kv=n_kv,
+                                     d=d) if not rank \
             else projected_score_inputs(torch, dev, n_q, rank, start)
         d = kt.shape[-1]
         copies = [kt.transpose(1, 2).clone().transpose(1, 2)
                   for _ in range(20)]
-        out = torch.empty((1, 8, kt.shape[2]), device=dev)
+        out = torch.empty((1, n_kv, kt.shape[2]), device=dev)
         # an invalid slot scores NEG_INF unread: only valid key rows count
         n_valid = int(valid.sum())
-        k_bytes = 8 * n_valid * d * kt.element_size()
+        k_bytes = n_kv * n_valid * d * kt.element_size()
         b_ms, b_by = bound(nbytes(qb, valid, out) + k_bytes,
-                           2 * 8 * n_valid * d * (n_q + 1))
+                           2 * n_kv * n_valid * d * (n_q + 1))
         turn = iter(range(10 ** 9))
 
         def rotating():
             return qs.quoka_score_bhtd(qb, copies[next(turn) % 20], valid)
         r = time_row(
-            torch, flush, f"quoka_score n_q={n_q} d={d} valid "
+            torch, flush, f"quoka_score n_q={n_q} n_kv={n_kv} d={d} valid "
             f"{n_valid}/{kt.shape[2]}",
             lambda: qs.quoka_score_bhtd(qb, kt, valid),
             lambda: ref.score_ref(qb, kt, valid), b_ms, b_by,
@@ -1808,6 +2211,7 @@ def phase_timing(torch, np, dev, K, paged):
             rows["quoka_score"][key] = r
         del copies
     rows.update(attention_times(torch, np, dev, K, flush))
+    rows["flash_attention"].update(mla_times(torch, dev, K, flush))
     # the paged kernel on the serve pool, one request row (the shape of
     # the linear kernel's row above) and the whole 4-row step; the pool is
     # cold in L2 as each layer finds it
@@ -1951,6 +2355,10 @@ def main() -> int:
                                                      "stablelm-3b", 15)
     del stablelm
     torch.cuda.empty_cache()
+    # the MoE and MLA slice: olmoe-1b-7b, then deepseek-v3 cut to 4 layers
+    oneshot["olmoe-1b-7b"], olmoe = phase_olmoe(torch, np, K)
+    deepseek = phase_deepseek(torch, np, K)
+    oneshot["deepseek-v3 (4 layers)"] = {"staged": deepseek}
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -1989,7 +2397,7 @@ def main() -> int:
     log(json.dumps({"main_path": main_path, "trace": trace,
                     "serve": serve, "methods": methods,
                     "harness": harness, "oneshot": oneshot,
-                    "host_tier": tier,
+                    "host_tier": tier, "olmoe": olmoe,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,2 +1,2 @@
-from repro_torch.configs.base import (ModelConfig, QuokaConfig,  # noqa: F401
-                                     get_config)
+from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
+                                     MoEConfig, QuokaConfig, get_config)

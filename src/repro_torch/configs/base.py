@@ -1,8 +1,11 @@
 """Config dataclasses for the port (counterpart of ``repro/configs/base.py``).
 
-This slice ports the dense GQA decoder family only: block kind ``"attn"``.
-Field names and defaults match the reference so a test can build the same
-configuration in both packages; dtypes are torch dtypes.
+Ported block kinds: ``"attn"`` (dense GQA attention + SwiGLU MLP),
+``"attn_moe"`` (GQA attention + MoE FFN), ``"mla"`` (DeepSeek multi-head
+latent attention + SwiGLU MLP) and ``"mla_moe"`` (MLA + MoE FFN); families
+``"dense"`` and ``"moe"``.  Field names and defaults match the reference so
+a test can build the same configuration in both packages; dtypes are torch
+dtypes.
 """
 from __future__ import annotations
 
@@ -11,6 +14,28 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int               # per-expert FFN hidden dim
+    n_shared: int = 0           # shared (always-on) experts, deepseek-style
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+    # "dense" = weighted sum over all experts (exact, smoke-test scale);
+    # "capacity" = scatter/gather dispatch with fixed capacity (production).
+    dispatch: str = "dense"
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_head_dim: int
 
 
 @dataclass(frozen=True)
@@ -45,7 +70,7 @@ class QuokaConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only "dense" is ported
+    family: str                    # "dense" | "moe" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,6 +80,14 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     use_rope: bool = True
     rope_theta: float = 10_000.0
+    # repeating block pattern; None -> one kind, collapsed to one period
+    layer_pattern: Optional[Tuple[str, ...]] = None
+    # explicit ((period, n_repeats), ...) for non-periodic stacks, e.g.
+    # deepseek-v3: ((("mla",), 3), (("mla_moe",), 58))
+    layer_groups: Optional[Tuple[Tuple[Tuple[str, ...], int], ...]] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    mtp: bool = False              # deepseek multi-token-prediction head
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     act: str = "silu"
@@ -72,26 +105,82 @@ class ModelConfig:
 
     @property
     def pattern(self) -> Tuple[str, ...]:
-        return ("attn",)
+        if self.layer_pattern is not None:
+            return self.layer_pattern
+        base = "attn_moe" if self.moe is not None else "attn"
+        if self.mla is not None:
+            base = "mla_moe" if self.moe is not None else "mla"
+        return (base,)
 
     def stacks(self) -> Sequence[Tuple[Tuple[str, ...], int]]:
-        """(period, n_repeats) groups; a dense decoder is one stack."""
-        return [(self.pattern, self.n_layers)]
+        """Partition n_layers into (period, n_repeats) groups: the explicit
+        ``layer_groups``, else the pattern repeated with the tail
+        (n_layers % len(pattern)) a single-repeat stack of its own."""
+        if self.layer_groups is not None:
+            if sum(len(p) * r for p, r in self.layer_groups) != self.n_layers:
+                raise ValueError(f"{self.name}: layer_groups do not sum to "
+                                 f"{self.n_layers} layers")
+            return list(self.layer_groups)
+        pat = self.pattern
+        reps, rem = divmod(self.n_layers, len(pat))
+        out = []
+        if reps:
+            out.append((pat, reps))
+        if rem:
+            out.append((pat[:rem], 1))
+        return out
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Every layer's block kind, in order."""
+        return tuple(k for period, r in self.stacks() for k in period * r)
 
     def param_count(self) -> int:
-        """Weight-matrix parameters (embedding, attention projections,
-        MLP; norms left out), as the reference's ``param_count`` counts a
-        dense decoder."""
+        """Weight-matrix parameters (embedding and read-out, attention
+        projections, MLP or experts and router; norms left out), counted
+        as the reference's ``param_count`` counts them for the ported
+        kinds (the MTP head is not counted there either)."""
         d, hd = self.d_model, self.resolved_head_dim
-        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-            + self.n_heads * hd * d
-        mlp = (2 if self.act == "gelu" else 3) * d * self.d_ff
-        return emb + self.n_layers * (attn + mlp)
+        total = self.vocab * d * (1 if self.tie_embeddings else 2)
+        for kind in self.layer_kinds():
+            p = 0
+            if kind in ("attn", "attn_moe"):
+                p += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                    + self.n_heads * hd * d
+            if kind in ("mla", "mla_moe"):
+                m = self.mla
+                qk = m.qk_nope_dim + m.qk_rope_dim
+                p += d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk
+                p += d * (m.kv_lora_rank + m.qk_rope_dim)
+                p += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim
+                                                      + m.v_head_dim)
+                p += self.n_heads * m.v_head_dim * d
+            if kind == "attn":
+                p += (2 if self.act == "gelu" else 3) * d * self.d_ff
+            if kind == "mla":
+                p += 3 * d * self.d_ff
+            if kind in ("attn_moe", "mla_moe"):
+                e = self.moe
+                p += d * e.n_experts                       # router
+                p += e.n_experts * 3 * d * e.d_expert
+                p += e.n_shared * 3 * d * (e.d_expert if self.mla
+                                           else self.d_ff)
+            total += p
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters active per token: a MoE layer counts its top-k and
+        shared experts only."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        n_moe = sum(k in ("attn_moe", "mla_moe") for k in self.layer_kinds())
+        inactive = n_moe * (e.n_experts - e.top_k) * 3 * self.d_model \
+            * e.d_expert
+        return int(self.param_count() - inactive)
 
     def smoke(self, **overrides) -> "ModelConfig":
         """Reduced variant for CPU tests — the same reduction as the
-        reference's ``ModelConfig.smoke`` for dense configs."""
+        reference's ``ModelConfig.smoke`` for the ported kinds."""
         ch = dict(
             n_layers=min(self.n_layers, 2),
             d_model=min(self.d_model, 256),
@@ -104,6 +193,34 @@ class ModelConfig:
         )
         if self.n_kv_heads == self.n_heads:
             ch["n_kv_heads"] = ch["n_heads"]
+        if self.layer_groups is not None:
+            # the first two distinct kinds (deepseek: ("mla", "mla_moe"))
+            kinds = tuple(dict.fromkeys(
+                k for period, _ in self.layer_groups for k in period))
+            pat = kinds[:2] if len(kinds) >= 2 else kinds * 2
+            ch["layer_groups"] = None
+            ch["layer_pattern"] = pat
+            ch["n_layers"] = len(pat)
+        elif self.layer_pattern is not None:
+            pat = self.layer_pattern[-ch["n_layers"]:]
+            # keep at least one of each distinct block kind if possible
+            kinds = tuple(dict.fromkeys(self.layer_pattern))
+            if len(kinds) > 1 and len(set(pat)) < len(kinds):
+                pat = kinds[:ch["n_layers"]]
+            while len(pat) < ch["n_layers"]:
+                pat = pat + (pat[-1],)
+            ch["layer_pattern"] = pat
+            ch["n_layers"] = len(pat)
+        if self.moe is not None:
+            ch["moe"] = dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=min(self.moe.d_expert, 256), dispatch="dense")
+        if self.mla is not None:
+            ch["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                  qk_nope_dim=32, qk_rope_dim=16,
+                                  v_head_dim=32)
+            ch["head_dim"] = 0
         ch["quoka"] = dataclasses.replace(
             self.quoka, chunk_size=16, budget=32, n_queries=4, keep_first=2)
         ch.update(overrides)
@@ -111,12 +228,15 @@ class ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import (granite_3_2b, llama3_2_3b, qwen3_4b,
+    from repro_torch.configs import (deepseek_v3_671b, granite_3_2b,
+                                     llama3_2_3b, olmoe_1b_7b, qwen3_4b,
                                      stablelm_3b)
     known = {"qwen3-4b": qwen3_4b.get_config,
              "granite-3-2b": granite_3_2b.get_config,
              "llama3-2-3b": llama3_2_3b.get_config,
-             "stablelm-3b": stablelm_3b.get_config}
+             "stablelm-3b": stablelm_3b.get_config,
+             "olmoe-1b-7b": olmoe_1b_7b.get_config,
+             "deepseek-v3-671b": deepseek_v3_671b.get_config}
     key = name.replace("_", "-").replace(".", "-")
     if key not in known:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(known)}")

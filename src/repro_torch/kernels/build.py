@@ -39,8 +39,8 @@ _SPLIT = [_I, _P, _P, _P]
 SIGNATURES = {
     "quoka_score_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I]
                           + [_L] * 9 + [_I] * 4 + [_P],
-    "flash_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I] + [_L] * 14 + [_I, _I, _F] + _SPLIT,
+    "flash_attention_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I] + [_L] * 14 + [_I, _I, _F] + _SPLIT,
     "selected_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I] + [_L] * 14
                                  + [_F] + _SPLIT,

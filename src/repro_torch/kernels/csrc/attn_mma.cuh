@@ -43,7 +43,16 @@
 //     cp.async (16 bytes per thread, whole rows), so the loads of tiles
 //     j+1 .. j+STAGES-1 are in flight while tile j computes.  A key masked
 //     for every row (min_i == NEVER) is zero-filled, not read.
-//   * A split key walk: grid (n_split, m_tiles, b * n_kv).  When the blocks
+//   * MLA's width (flash only): Q and K 576 columns wide, V up to 576.  At
+//     BM = 64 over 4 warps an O row slice of 576 fp32 columns would be 288
+//     registers a thread (the limit is 255), and Q plus two stages of
+//     64-key K and V tiles 360 KiB of shared memory (227 KiB a block).  So
+//     the value width is split, not the key width: a block owns DV = 128
+//     of V's columns (grid.y = m_tiles x column slices) and computes S over
+//     all 576 key columns itself, and key tiles are BN = 32 keys (Wide
+//     below).  Slices past V's width are not launched, so MLA's 512-wide
+//     latent V skips the zero tail the reference pads to 576.
+//   * A split key walk: grid (n_split, m_tiles * column slices, b * n_kv).  When the blocks
 //     do not fill the card the wrapper picks n_split > 1 (a pure function of
 //     the shapes, ``tiling.attn_geometry``); slice s walks key tiles
 //     [s * n / S, (s + 1) * n / S) and writes its (m, l, acc) in fp32 to
@@ -61,7 +70,8 @@ namespace mma {
 // the split and its scratch from it) and handed to nvcc by kernels/build.py.
 #if !defined(QUOKA_MMA_BM) || !defined(QUOKA_MMA_BN) || \
     !defined(QUOKA_MMA_BLOCKS_PER_SM) || !defined(QUOKA_SMEM_PER_SM) || \
-    !defined(QUOKA_SMEM_PER_BLOCK)
+    !defined(QUOKA_SMEM_PER_BLOCK) || !defined(QUOKA_WIDE_D) || \
+    !defined(QUOKA_WIDE_DV) || !defined(QUOKA_WIDE_BN)
 #error "build through kernels/build.py: it defines the tile's BM, BN, blocks"
 #endif
 constexpr int BM = QUOKA_MMA_BM;  // (head, row) pairs per block
@@ -69,50 +79,74 @@ constexpr int BN = QUOKA_MMA_BN;  // keys per tile
 constexpr int BLOCKS_PER_SM = QUOKA_MMA_BLOCKS_PER_SM;  // resident blocks
 constexpr int SMEM_PER_SM = QUOKA_SMEM_PER_SM;          // bytes, the card's
 constexpr int SMEM_PER_BLOCK = QUOKA_SMEM_PER_BLOCK;
-static_assert(BM == 64 && BN == 64,
-              "the fragment and staging loops are written for a 64 x 64 tile");
+constexpr int WIDE_D = QUOKA_WIDE_D;    // MLA's [latent | rope] key width
+constexpr int WIDE_DV = QUOKA_WIDE_DV;  // V columns one wide block owns
+constexpr int WIDE_BN = QUOKA_WIDE_BN;  // keys per wide tile
+static_assert(BM == 64, "the fragment and staging loops take 64 rows");
 constexpr int MMA_WARPS = BM / 16;  // 16 rows each
 constexpr int MMA_THREADS = MMA_WARPS * 32;
 constexpr int NTHREADS = MMA_THREADS + 32;   // + the offset resolver warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory of one block with a K/V ring of `stages` tiles: Q, the ring,
-// and the resolver's offsets, min_i, biases and tile maxima for stages + 1
-// tiles.  Mirrored by tiling.attn_smem.
-template <int D>
+// Shared memory of one block with a K/V ring of `stages` tiles of TBN keys,
+// K DK and V DV columns wide: Q, the ring, and the resolver's offsets,
+// min_i, biases and tile maxima for stages + 1 tiles.  Mirrored by
+// tiling.attn_smem.
+template <int DK, int DV, int TBN>
 constexpr int attn_smem(int stages) {
-  return BM * D * 2 + stages * 2 * BN * D * 2 + (stages + 1) * (BN * 24 + 4);
+  return BM * DK * 2 + stages * TBN * (DK + DV) * 2 +
+         (stages + 1) * (TBN * 24 + 4);
 }
 
-template <int D>
-struct Cfg {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "D: a multiple of 16");
-  // K/V ring depth: 3 where BLOCKS_PER_SM blocks of 3 stages fit an SM
-  // (with the 1 KiB each block reserves), else 2 (tiling.attn_stages)
+// One instantiation of the tile: Q and K DK columns wide, DV columns of V
+// (and of the output) per block, TBN keys per tile, NB resident blocks an
+// SM aimed for (the kernel's launch bound).
+template <int DK, int DV, int TBN, int NB>
+struct Tile {
+  static_assert(DK % 16 == 0 && DK >= 16 && DV % 16 == 0 && DV <= DK,
+                "DK, DV: multiples of 16, DV <= DK");
+  static_assert(TBN == 32 || TBN == 64, "TBN: 32 or 64 keys");
+  static constexpr int D = DK;
+  static constexpr int V = DV;
+  static constexpr int N = TBN;
+  static constexpr int BLOCKS = NB;
+  // K/V ring depth: 3 where NB blocks of 3 stages fit an SM (with the 1 KiB
+  // each block reserves), else 2 (tiling.attn_stages)
   static constexpr int STAGES =
-      BLOCKS_PER_SM * (attn_smem<D>(3) + 1024) <= SMEM_PER_SM ? 3 : 2;
+      NB * (attn_smem<DK, DV, TBN>(3) + 1024) <= SMEM_PER_SM ? 3 : 2;
   static constexpr int RING = STAGES + 1;         // offset slots
-  static constexpr int CH = D / 8;                // 16-byte chunks per row
-  static constexpr int ROW_BYTES = D * 2;
-  static constexpr int TILE_BYTES = BN * ROW_BYTES;  // K or V of one tile
-  static constexpr int Q_BYTES = BM * ROW_BYTES;
+  static constexpr int CH = DK / 8;               // 16-byte chunks per row
+  static constexpr int CHV = DV / 8;              // ... per V row
+  static constexpr int K_BYTES = TBN * DK * 2;    // K of one tile
+  static constexpr int STAGE_BYTES = K_BYTES + TBN * DV * 2;
+  static constexpr int Q_BYTES = BM * DK * 2;
   static constexpr int KV_OFF = Q_BYTES;
-  static constexpr int KO_OFF = KV_OFF + STAGES * 2 * TILE_BYTES;
-  static constexpr int VO_OFF = KO_OFF + RING * BN * 8;
-  static constexpr int MI_OFF = VO_OFF + RING * BN * 8;
-  static constexpr int KB_OFF = MI_OFF + RING * BN * 4;
-  static constexpr int TM_OFF = KB_OFF + RING * BN * 4;
+  static constexpr int KO_OFF = KV_OFF + STAGES * STAGE_BYTES;
+  static constexpr int VO_OFF = KO_OFF + RING * TBN * 8;
+  static constexpr int MI_OFF = VO_OFF + RING * TBN * 8;
+  static constexpr int KB_OFF = MI_OFF + RING * TBN * 4;
+  static constexpr int TM_OFF = KB_OFF + RING * TBN * 4;
   static constexpr int SMEM = TM_OFF + RING * 4;
-  static_assert(SMEM == attn_smem<D>(STAGES), "layout != attn_smem");
+  static_assert(SMEM == attn_smem<DK, DV, TBN>(STAGES), "layout != attn_smem");
   static_assert(SMEM <= SMEM_PER_BLOCK, "the tile exceeds a block's smem");
-  static constexpr int CH8 = CH & ~7;  // chunks in whole swizzled groups
+  static_assert((TBN * CH) % MMA_THREADS == 0 &&
+                (TBN * CHV) % MMA_THREADS == 0 &&
+                (BM * CH) % MMA_THREADS == 0,
+                "whole staging rounds");
 };
+
+// The tile at head dims up to 128 (every kernel), and MLA's wide tile
+// (flash only)
+template <int D>
+using Cfg = Tile<D, D, BN, BLOCKS_PER_SM>;
+using Wide = Tile<WIDE_D, WIDE_DV, WIDE_BN, 1>;
 
 struct Split {
   int n_kv;
   int n_split;
+  int n_cs;         // column slices of V: blockIdx.y = m tile * n_cs + slice
   int m_pad;        // m_tiles * BM: rows of one (batch, KV head) in scratch
-  float* part_o;    // (n_split, b * n_kv, m_pad, d) unnormalised acc
+  float* part_o;    // (n_split, b * n_kv, m_pad, dv) unnormalised acc
   float* part_ml;   // (n_split, b * n_kv, m_pad, 2) running max (log2), l
 };
 
@@ -130,18 +164,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// swizzled byte offset of 16-byte chunk `ch` of row `r` (the chunks past
-// the last whole group of 8 stay in place)
-template <int D>
+// swizzled byte offset of 16-byte chunk `ch` of row `r` in rows of CH
+// chunks (the chunks past the last whole group of 8 stay in place)
+template <int CH>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  const int c = ch < Cfg<D>::CH8 ? ch ^ (r & 7) : ch;
-  return r * Cfg<D>::ROW_BYTES + (c << 4);
+  const int c = ch < (CH & ~7) ? ch ^ (r & 7) : ch;
+  return r * CH * 16 + (c << 4);
 }
 
-template <int D, class Map>
-__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+template <class C, class Map>
+__global__ void __launch_bounds__(NTHREADS, C::BLOCKS)
     attn_mma_kernel(AttnIO<__nv_bfloat16> io, Map map, Split sp) {
-  using C = Cfg<D>;
+  constexpr int D = C::D, DV = C::V, BN = C::N;
   extern __shared__ __align__(128) unsigned char smem[];
   long long* koff = reinterpret_cast<long long*>(smem + C::KO_OFF);
   long long* voff = reinterpret_cast<long long*>(smem + C::VO_OFF);
@@ -152,10 +186,16 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
   const uint32_t kv_s = q_s + C::KV_OFF;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int split = blockIdx.x, mt = blockIdx.y, bh = blockIdx.z;
+  const int split = blockIdx.x, bh = blockIdx.z;
+  // a tile whose block owns all of V's columns has one slice: c0 folds to 0
+  constexpr bool SLICED = DV < D;
+  const int mt = SLICED ? blockIdx.y / sp.n_cs : blockIdx.y;
+  const int cs = SLICED ? blockIdx.y % sp.n_cs : 0;
   const int bi = bh / sp.n_kv, hk = bh % sp.n_kv;
   const int rows = io.group * io.tq;
-  const int dch = io.d / 8;  // chunks of a row that hold data
+  const int dch = io.d / 8;   // chunks of a Q / K row that hold data
+  const int vch = io.dv / 8;  // ... of a V row
+  const int c0 = cs * DV;     // this block's first V / output column
   const int n_tiles = max(1, (io.n_keys + BN - 1) / BN);
   const int t0 = static_cast<int>((long long)split * n_tiles / sp.n_split);
   const int nt =
@@ -183,20 +223,26 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
     top = __reduce_max_sync(0xffffffffu, top);
     if (lane == 0) tmax[slot] = top;
   };
-  // mma warps: K and V rows of local tile j into ring stage j % STAGES
+  // mma warps: K rows and this block's V columns of local tile j into
+  // ring stage j % STAGES
   auto load = [&](int j) {
     const int base = (j % C::RING) * BN;
-    const uint32_t ks = kv_s + (j % C::STAGES) * 2 * C::TILE_BYTES;
+    const uint32_t ks = kv_s + (j % C::STAGES) * C::STAGE_BYTES;
 #pragma unroll
-    for (int u = 0; u < 2 * BN * C::CH / MMA_THREADS; ++u) {
-      const bool is_v = u >= BN * C::CH / MMA_THREADS;
-      const int y = tid + (u % (BN * C::CH / MMA_THREADS)) * MMA_THREADS;
+    for (int u = 0; u < BN * C::CH / MMA_THREADS; ++u) {
+      const int y = tid + u * MMA_THREADS;
       const int c = y / C::CH, ch = y % C::CH;
       const bool live = kmin[base + c] != NEVER && ch < dch;
-      const __nv_bfloat16* src =
-          (is_v ? io.v + voff[base + c] : io.k + koff[base + c]) +
-          (ch < dch ? ch : 0) * 8;
-      cp_async16(ks + (is_v ? C::TILE_BYTES : 0) + swz<D>(c, ch), src, live);
+      cp_async16(ks + swz<C::CH>(c, ch),
+                 io.k + koff[base + c] + (ch < dch ? ch : 0) * 8, live);
+    }
+#pragma unroll
+    for (int u = 0; u < BN * C::CHV / MMA_THREADS; ++u) {
+      const int y = tid + u * MMA_THREADS;
+      const int c = y / C::CHV, ch = y % C::CHV, gc = c0 / 8 + ch;
+      const bool live = kmin[base + c] != NEVER && gc < vch;
+      cp_async16(ks + C::K_BYTES + swz<C::CHV>(c, ch),
+                 io.v + voff[base + c] + (gc < vch ? gc : 0) * 8, live);
     }
   };
 
@@ -214,7 +260,7 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
       const __nv_bfloat16* src = io.q + bi * io.sq_b +
                                  (hk * io.group + hg) * io.sq_h +
                                  i * io.sq_t + (ch < dch ? ch : 0) * 8;
-      cp_async16(q_s + swz<D>(r, ch), src, ok);
+      cp_async16(q_s + swz<C::CH>(r, ch), src, ok);
     }
     cp_commit();
   }
@@ -247,9 +293,9 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 
   const float sl2 = io.scale * LOG2E;  // logits in log2 units
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int dt = 0; dt < DV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
@@ -266,8 +312,8 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
     cp_commit();
     if (!warp_live) continue;
 
-    const uint32_t ks = kv_s + (j % C::STAGES) * 2 * C::TILE_BYTES;
-    const uint32_t vs = ks + C::TILE_BYTES;
+    const uint32_t ks = kv_s + (j % C::STAGES) * C::STAGE_BYTES;
+    const uint32_t vs = ks + C::K_BYTES;
     const int slot = j % C::RING;
 
     float s[BN / 8][4];
@@ -280,13 +326,13 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t qa[4];  // Q stays in shared memory: registers go to S, O
-        ldsm_x4(qa, q_s + swz<D>(warp * 16 + (mi & 1) * 8 + (lane & 7),
-                                 2 * kk + (mi >> 1)));
+        ldsm_x4(qa, q_s + swz<C::CH>(warp * 16 + (mi & 1) * 8 + (lane & 7),
+                                     2 * kk + (mi >> 1)));
 #pragma unroll
         for (int np = 0; np < BN / 16; ++np) {
           uint32_t b[4];
-          ldsm_x4(b, ks + swz<D>(np * 16 + (mi >> 1) * 8 + (lane & 7),
-                                 2 * kk + (mi & 1)));
+          ldsm_x4(b, ks + swz<C::CH>(np * 16 + (mi >> 1) * 8 + (lane & 7),
+                                     2 * kk + (mi & 1)));
           mma16816(s[2 * np], qa, b[0], b[1]);
           mma16816(s[2 * np + 1], qa, b[2], b[3]);
         }
@@ -345,7 +391,7 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 #pragma unroll
     for (int e = 0; e < 2; ++e) l[e] = alpha[e] * l[e] + ls[e];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       o[dt][0] *= alpha[0];
       o[dt][1] *= alpha[0];
       o[dt][2] *= alpha[1];
@@ -356,10 +402,10 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t b[4];
-          ldsm_x4_t(b, vs + swz<D>(kk * 16 + (mi & 1) * 8 + (lane & 7),
-                                   2 * dp + (mi >> 1)));
+          ldsm_x4_t(b, vs + swz<C::CHV>(kk * 16 + (mi & 1) * 8 + (lane & 7),
+                                        2 * dp + (mi >> 1)));
           mma16816(o[2 * dp], pa[kk], b[0], b[1]);
           mma16816(o[2 * dp + 1], pa[kk], b[2], b[3]);
         }
@@ -380,10 +426,10 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
     if (sp.n_split == 1) {
       const float inv = l[e] > 0.f ? 1.f / l[e] : 0.f;
       __nv_bfloat16* op =
-          io.o + bi * io.so_b + head[e] * io.so_h + qi[e] * io.so_t;
+          io.o + bi * io.so_b + head[e] * io.so_h + qi[e] * io.so_t + c0;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        if (dt >= dch) break;
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        if (c0 / 8 + dt >= vch) break;
         const float a = l[e] > 0.f ? o[dt][2 * e] * inv : 0.f;
         const float c = l[e] > 0.f ? o[dt][2 * e + 1] * inv : 0.f;
         *reinterpret_cast<__nv_bfloat162*>(op + dt * 8 + 2 * tq4) =
@@ -392,14 +438,14 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
     } else {
       const size_t row =
           ((size_t)split * gridDim.z + bh) * sp.m_pad + mt * BM + r;
-      float* po = sp.part_o + row * io.d;
+      float* po = sp.part_o + row * io.dv + c0;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        if (dt >= dch) break;
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        if (c0 / 8 + dt >= vch) break;
         *reinterpret_cast<float2*>(po + dt * 8 + 2 * tq4) =
             make_float2(o[dt][2 * e], o[dt][2 * e + 1]);
       }
-      if (tq4 == 0)
+      if (tq4 == 0 && cs == 0)  // every column slice has the same m, l
         *reinterpret_cast<float2*>(sp.part_ml + row * 2) =
             make_float2(m[e], l[e]);
     }
@@ -409,7 +455,7 @@ __global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
 // One warp per (head, row) pair: combine the n_split partial (m, l, acc)
 // by log-sum-exp and write the bf16 output (exact zeros where every l is 0).
 // The slices' loads are independent, so they are issued together.  Lane L
-// owns the column pairs 2L + 64e of the d columns.
+// owns the column pairs 2L + 64e of the dv output columns.
 template <int D>
 __global__ void __launch_bounds__(128)
     attn_merge_kernel(AttnIO<__nv_bfloat16> io, Split sp) {
@@ -436,11 +482,11 @@ __global__ void __launch_bounds__(128)
     const float2 ml = *reinterpret_cast<const float2*>(sp.part_ml + row * 2);
     const float w = exp2f(ml.x - mmax);
     l += w * ml.y;
-    const float* po = sp.part_o + row * io.d;
+    const float* po = sp.part_o + row * io.dv;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int c = 2 * lane + 64 * e;
-      if (c < io.d) {
+      if (c < io.dv) {
         const float2 x = *reinterpret_cast<const float2*>(po + c);
         acc[e][0] += w * x.x;
         acc[e][1] += w * x.y;
@@ -454,7 +500,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int c = 2 * lane + 64 * e;
-    if (c < io.d)
+    if (c < io.dv)
       *reinterpret_cast<__nv_bfloat162*>(op + c) = __floats2bfloat162_rn(
           l > 0.f ? acc[e][0] * inv : 0.f, l > 0.f ? acc[e][1] * inv : 0.f);
   }
@@ -462,40 +508,53 @@ __global__ void __launch_bounds__(128)
 
 }  // namespace mma
 
-// bf16 launch: n_split comes from the wrapper (tiling.attn_geometry);
-// part_o / part_ml are its fp32 scratch, used only when n_split > 1.
+// bf16 launch of tile C: n_split comes from the wrapper
+// (tiling.attn_geometry); part_o / part_ml are its fp32 scratch, used only
+// when n_split > 1.  The column slices cover V's dv columns.
 // static: the `configured` bits stay private to each library that
 // includes this header (an inline function's static is shared process-wide)
-template <int D, class Map>
-static cudaError_t launch_attn_mma(const AttnIO<__nv_bfloat16>& io,
-                                   const Map& map, int b, int n_kv,
-                                   int n_split, float* part_o, float* part_ml,
-                                   cudaStream_t stream) {
-  using C = mma::Cfg<D>;
+template <class C, class Map>
+static cudaError_t launch_attn_tile(const AttnIO<__nv_bfloat16>& io,
+                                    const Map& map, int b, int n_kv,
+                                    int n_split, float* part_o,
+                                    float* part_ml, cudaStream_t stream) {
   // the shared-memory limit is a per-device attribute: set it once each
   static unsigned long long configured = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 64 || !((configured >> dev) & 1ull)) {
-    e = cudaFuncSetAttribute(mma::attn_mma_kernel<D, Map>,
+    e = cudaFuncSetAttribute(mma::attn_mma_kernel<C, Map>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::SMEM);
     if (e != cudaSuccess) return e;
     if (dev < 64) configured |= 1ull << dev;
   }
   const int m_tiles = (io.group * io.tq + mma::BM - 1) / mma::BM;
-  if (m_tiles < 1 || n_split < 1 || (n_split > 1 && !(part_o && part_ml)))
+  const int n_cs = (io.dv + C::V - 1) / C::V;
+  if (m_tiles < 1 || n_split < 1 || (n_split > 1 && !(part_o && part_ml)) ||
+      io.d > C::D || io.dv > io.d || io.dv < 8 || io.dv % 8)
     return cudaErrorInvalidValue;
-  const mma::Split sp{n_kv, n_split, m_tiles * mma::BM, part_o, part_ml};
-  dim3 grid(n_split, m_tiles, b * n_kv);
-  mma::attn_mma_kernel<D, Map><<<grid, mma::NTHREADS, C::SMEM, stream>>>(
+  const mma::Split sp{n_kv, n_split, n_cs, m_tiles * mma::BM, part_o,
+                      part_ml};
+  dim3 grid(n_split, m_tiles * n_cs, b * n_kv);
+  mma::attn_mma_kernel<C, Map><<<grid, mma::NTHREADS, C::SMEM, stream>>>(
       io, map, sp);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return e;
   dim3 mgrid((io.group * io.tq + 3) / 4, b * n_kv);
-  mma::attn_merge_kernel<D><<<mgrid, 128, 0, stream>>>(io, sp);
+  mma::attn_merge_kernel<C::D><<<mgrid, 128, 0, stream>>>(io, sp);
   return cudaGetLastError();
+}
+
+// The tile at head dims up to 128 (width D)
+template <int D, class Map>
+static cudaError_t launch_attn_mma(const AttnIO<__nv_bfloat16>& io,
+                                   const Map& map, int b, int n_kv,
+                                   int n_split, float* part_o, float* part_ml,
+                                   cudaStream_t stream) {
+  return launch_attn_tile<mma::Cfg<D>>(io, map, b, n_kv, n_split, part_o,
+                                       part_ml, stream);
 }
 
 }  // namespace quoka

@@ -14,10 +14,10 @@
 // which expresses both kernels' masks: a valid unconditioned key has
 // min_i = 0, a causal chunk key at chunk-local index j has min_i = j.
 //
-// Per K tile of BK keys: 32 threads resolve the tile's row offsets and masks
+// Per K tile of BK keys: BK threads resolve the tile's row offsets and masks
 // into shared memory, all threads stage K and V (fp32) in shared memory,
-// each group of 8 lanes owns one query row (4 scores per lane, D/8 output
-// columns per lane), and the running max / sum / accumulator stay in
+// each group of 8 lanes owns one query row (BK / 8 scores per lane, D/8
+// output columns per lane), and the running max / sum / accumulator stay in
 // registers in fp32.  Masked logits are the finite NEG_INF and p is
 // re-masked explicitly, so a row that attends nothing keeps l == 0 and
 // writes exact zeros, never NaN.
@@ -27,7 +27,12 @@
 // D, the multiple of 16 at or above d (with_head_dim), and reads the true
 // d at run time: Q and K columns past d are zero-filled in shared memory
 // (a zero column changes no dot product), V's are zero too, and output
-// columns past d are never written.
+// columns past d are never written.  V and the output may be narrower
+// than Q and K (`dv` <= d, a multiple of 8: MLA's latent values beside its
+// [latent | rope] keys); V's columns past dv read as zero and output
+// columns past dv are not written.  The flash kernel also instantiates
+// D = 576 (MLA's key width) with a key tile of BK_WIDE keys, whose
+// shared memory is opted into above the default 48 KiB.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,7 +64,8 @@ struct AttnIO {
   int group;                   // query heads per KV head
   int n_keys;                  // logical keys the map walks
   float scale;
-  int d;                       // head dim: a multiple of 8, D - 16 < d <= D
+  int d;                       // head dim of q, k: a multiple of 8 <= D
+  int dv;                      // columns of v and the output, <= d
 };
 
 // Calls f(std::integral_constant<int, D>) with D the instantiated width of
@@ -81,20 +87,32 @@ static cudaError_t with_head_dim(int d, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-constexpr int BQ = 16;   // query rows per block
-constexpr int BK = 32;   // keys per tile
-constexpr int NT = 128;  // threads per block: 8 lanes per query row
+constexpr int BQ = 16;       // query rows per block
+constexpr int BK = 32;       // keys per tile up to D = 128
+constexpr int BK_WIDE = 16;  // keys per tile at D = 576 (shared memory)
+constexpr int NT = 128;      // threads per block: 8 lanes per query row
 
-template <typename T, int D, class Map>
+// Bytes of one block's dynamic shared memory: Q, K (rows padded by one
+// float), V and the tile's probabilities.
+template <int D, int TBK>
+constexpr int tile_smem() {
+  return 4 * (BQ * (D + 1) + TBK * (D + 1) + TBK * D + BQ * (TBK + 1));
+}
+
+template <typename T, int D, int TBK, class Map>
 __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
-  constexpr int E = D / 8;  // output columns per lane
-  __shared__ float Qs[BQ][D + 1];
-  __shared__ float Ks[BK][D + 1];
-  __shared__ float Vs[BK][D];
-  __shared__ float Ps[BQ][BK + 1];
-  __shared__ long long koff[BK];
-  __shared__ long long voff[BK];
-  __shared__ int kmin[BK];
+  constexpr int E = D / 8;     // output columns per lane
+  constexpr int KPL = TBK / 8; // keys per lane in a tile
+  extern __shared__ float fsm[];
+  float(*Qs)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fsm);
+  float(*Ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(fsm + BQ * (D + 1));
+  float(*Vs)[D] =
+      reinterpret_cast<float(*)[D]>(fsm + (BQ + TBK) * (D + 1));
+  float(*Ps)[TBK + 1] = reinterpret_cast<float(*)[TBK + 1]>(
+      fsm + (BQ + TBK) * (D + 1) + TBK * D);
+  __shared__ long long koff[TBK];
+  __shared__ long long voff[TBK];
+  __shared__ int kmin[TBK];
 
   const int tid = threadIdx.x;
   const int bi = blockIdx.z;
@@ -119,11 +137,11 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
-  const int n_tiles = (io.n_keys + BK - 1) / BK;
+  const int n_tiles = (io.n_keys + TBK - 1) / TBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();  // the previous tile is consumed, Q is staged
-    if (tid < BK) {
-      const int key = kt * BK + tid;
+    if (tid < TBK) {
+      const int key = kt * TBK + tid;
       long long ko = 0, vo = 0;
       int mi = NEVER;
       if (key < io.n_keys) map.key(bi, hk, key, ko, vo, mi);
@@ -132,25 +150,26 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
       kmin[tid] = mi;
     }
     __syncthreads();
-    for (int x = tid; x < BK * D; x += NT) {
+    for (int x = tid; x < TBK * D; x += NT) {
       const int c = x / D, dd = x % D;
-      const bool in = dd < io.d;
-      Ks[c][dd] = in ? to_f(io.k[koff[c] + dd]) : 0.f;
-      Vs[c][dd] = in ? to_f(io.v[voff[c] + dd]) : 0.f;
+      Ks[c][dd] = dd < io.d ? to_f(io.k[koff[c] + dd]) : 0.f;
+      Vs[c][dd] = dd < io.dv ? to_f(io.v[voff[c] + dd]) : 0.f;
     }
     __syncthreads();
 
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    float s[KPL];
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) s[j] = 0.f;
 #pragma unroll 8
     for (int dd = 0; dd < D; ++dd) {
       const float qv = Qs[r][dd];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] += qv * Ks[c8 + 8 * j][dd];
+      for (int j = 0; j < KPL; ++j) s[j] += qv * Ks[c8 + 8 * j][dd];
     }
-    bool ok[4];
+    bool ok[KPL];
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KPL; ++j) {
       ok[j] = qi < io.tq && qi >= kmin[c8 + 8 * j];
       s[j] = ok[j] ? s[j] : NEG_INF;
       mx = fmaxf(mx, s[j]);
@@ -161,7 +180,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     const float m_new = fmaxf(m, mx);
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < KPL; ++j) {
       const float p = ok[j] ? expf(s[j] - m_new) : 0.f;  // explicit re-mask
       Ps[r][c8 + 8 * j] = p;
       psum += p;
@@ -175,7 +194,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     __syncwarp();  // a row's P is written and read by the same warp
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] *= alpha;
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < TBK; ++c) {
       const float p = Ps[r][c];
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] += p * Vs[c][c8 + 8 * e];
@@ -187,16 +206,35 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnIO<T> io, Map map) {
     T* op = io.o + bi * io.so_b + hi * io.so_h + qi * io.so_t;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      if (c8 + 8 * e < io.d)
+      if (c8 + 8 * e < io.dv)
         op[c8 + 8 * e] = from_f<T>(l > 0.f ? acc[e] * inv : 0.f);
   }
 }
 
-template <typename T, int D, class Map>
-inline cudaError_t launch_attn(const AttnIO<T>& io, const Map& map, int b,
+// fp32 launch at width D with key tiles of TBK keys (BK up to D = 128).
+// static: the `configured` bits stay private to each library that includes
+// this header.
+template <typename T, int D, class Map, int TBK = BK>
+static cudaError_t launch_attn(const AttnIO<T>& io, const Map& map, int b,
                                int h, cudaStream_t stream) {
+  constexpr int SMEM = tile_smem<D, TBK>();
+  if (io.dv > io.d || io.dv % 8 || io.d > D) return cudaErrorInvalidValue;
+  if (SMEM > 48 * 1024) {
+    // above 48 KiB a kernel must opt in, once per device
+    static unsigned long long configured = 0;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64 || !((configured >> dev) & 1ull)) {
+      e = cudaFuncSetAttribute(attn_tile_kernel<T, D, TBK, Map>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+      if (e != cudaSuccess) return e;
+      if (dev < 64) configured |= 1ull << dev;
+    }
+  }
   dim3 grid((io.tq + BQ - 1) / BQ, h, b);
-  attn_tile_kernel<T, D, Map><<<grid, NT, 0, stream>>>(io, map);
+  attn_tile_kernel<T, D, TBK, Map><<<grid, NT, SMEM, stream>>>(io, map);
   return cudaGetLastError();
 }
 

@@ -116,7 +116,7 @@ extern "C" int selected_attention_launch(
     AttnIO<float> io{static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<float*>(out),
                      sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv, n_keys,
-                     scale, d};
+                     scale, d, d};
     return static_cast<int>(run(d, io, map, b, h, s));
   }
   if (dtype == 1) {
@@ -125,7 +125,7 @@ extern "C" int selected_attention_launch(
                              static_cast<const __nv_bfloat16*>(v),
                              static_cast<__nv_bfloat16*>(out),
                              sq_b, sq_h, sq_t, so_b, so_h, so_t, t, h / n_kv,
-                             n_keys, scale, d};
+                             n_keys, scale, d, d};
     return static_cast<int>(run_mma(d, io, map, b, n_kv, n_split,
                                     static_cast<float*>(part_o),
                                     static_cast<float*>(part_ml), s));

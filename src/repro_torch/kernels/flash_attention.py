@@ -7,8 +7,11 @@ wrapper runs the plain version (``ref.flash_attention_ref``); for a CUDA
 tensor it launches the kernel (bf16: ``csrc/attn_mma.cuh``, with its merge
 kernel when ``tiling.attn_geometry`` splits the key walk) or raises.  The
 kernel takes every head dim that is a multiple of 8 up to 128
-(``tiling.attn_width``); another raises before any launch.  ``LAUNCHES``
-counts wrapper calls that launched.
+(``tiling.attn_width``) and, on its wide tile, MLA's 576
+(``tiling.flash_width``); V may be narrower than Q and K (``dv <= d``, a
+multiple of 8: MLA's 512-wide latent beside its 576-wide keys), and the
+output is then ``dv`` wide.  Another shape raises before any launch.
+``LAUNCHES`` counts wrapper calls that launched.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ LAUNCHES = 0
 
 def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
                          boundary: int = 0, scale: Optional[float] = None):
-    """q: (b, h, tq, d); k, v: (b, h_kv, tk, d) (any strides with a
-    contiguous head dim); k_valid: bool (b, tk) or (b, h_kv, tk).
-    Returns (b, h, tq, d) in q's dtype."""
+    """q: (b, h, tq, d); k: (b, h_kv, tk, d); v: (b, h_kv, tk, dv) with
+    dv <= d (any strides with a contiguous last dim); k_valid: bool
+    (b, tk) or (b, h_kv, tk).  Returns (b, h, tq, dv) in q's dtype."""
     global LAUNCHES
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
@@ -34,11 +37,12 @@ def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     b, h, tq, d = q.shape
-    h_kv, tk = k.shape[1], k.shape[2]
-    if k.shape != (b, h_kv, tk, d) or v.shape != k.shape or h % h_kv:
+    h_kv, tk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (b, h_kv, tk, d) or v.shape != (b, h_kv, tk, dv) or \
+            h % h_kv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    tiling.attn_width("flash_attention", d)
+    tiling.flash_width(d, dv)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k, v must share a dtype")
     if not (q.device == k.device == v.device):
@@ -60,12 +64,12 @@ def flash_attention_bhtd(q, k, v, k_valid=None, *, causal: bool = True,
                              "head dim")
     tiling.check_aligned("flash_attention", q=q, k=k, v=v)
     scale = (d ** -0.5) if scale is None else scale
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, tq, h, dv), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)                     # BHTD view of BTHD storage
-    geom, _scratch = tiling.split_args(q, h_kv, tq, tk)
+    geom, _scratch = tiling.split_args(q, h_kv, tq, tk, dv)
     lib = build.library()
     rc = lib.flash_attention_launch(
-        build.dtype_code(q.dtype), d, q.data_ptr(), k.data_ptr(),
+        build.dtype_code(q.dtype), d, dv, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), k_valid.data_ptr(), o.data_ptr(), b, h, h_kv, tq, tk,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         k_valid.stride(0), sva_h, *o.stride()[:3], int(causal),

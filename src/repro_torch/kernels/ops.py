@@ -23,9 +23,11 @@ def attention(q, k, v, k_valid=None, *, causal: bool = True,
               boundary: int = 0, scale: Optional[float] = None):
     """Post-selection attention over a [selected budget | chunk] layout.
 
-    q: (b, tq, h, d); k, v: (b, tk, h_kv, d); k_valid: bool (b, tk) or
-    (b, h_kv, tk).  The first ``boundary`` keys are an unconditioned prefix;
-    the rest are causal in chunk-local indices.  Returns (b, tq, h, d)."""
+    q: (b, tq, h, d); k: (b, tk, h_kv, d); v: (b, tk, h_kv, dv) with
+    dv <= d (MLA's latent values beside its [latent | rope] keys; equal
+    widths otherwise); k_valid: bool (b, tk) or (b, h_kv, tk).  The first
+    ``boundary`` keys are an unconditioned prefix; the rest are causal in
+    chunk-local indices.  Returns (b, tq, h, dv)."""
     out = flash_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), k_valid, causal=causal,
                                boundary=boundary, scale=scale)

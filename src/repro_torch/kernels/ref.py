@@ -24,9 +24,11 @@ NEG_INF = -1e30
 def flash_attention_ref(q, k, v, *, causal: bool = True, boundary: int = 0,
                         k_valid: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None):
-    """q: (b, h, tq, d); k, v: (b, h_kv, tk, d); k_valid: bool (b, tk) or
-    (b, h_kv, tk).  attend(i, j) iff k_valid[j] and (not causal or
-    j < boundary or j - boundary <= i).  Fully-masked rows give zeros."""
+    """q: (b, h, tq, d); k: (b, h_kv, tk, d); v: (b, h_kv, tk, dv), dv <= d
+    (the output is dv wide: the softmax of q·kᵀ over d columns, times V);
+    k_valid: bool (b, tk) or (b, h_kv, tk).  attend(i, j) iff k_valid[j]
+    and (not causal or j < boundary or j - boundary <= i).  Fully-masked
+    rows give zeros."""
     b, h, tq, d = q.shape
     h_kv, tk = k.shape[1], k.shape[2]
     g = h // h_kv

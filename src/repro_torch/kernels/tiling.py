@@ -9,6 +9,11 @@ the key walk is cut into ``n_split`` slices: slice ``s`` walks key tiles
 slice has at least one tile, and a merge kernel combines the slices.  The
 choice depends only on the shapes (and the card's SM count), so the linear
 and the paged selected-attention kernels split one call identically.
+
+Flash attention also takes MLA's 576-wide [latent | rope] keys on a wide
+tile (``WIDE_*``): Q and K stay whole, the
+value width is cut into ``WIDE_DV``-column slices, one per block, and the
+keys come in tiles of ``WIDE_BN`` (``csrc/attn_mma.cuh``, ``Wide``).
 """
 from __future__ import annotations
 
@@ -31,15 +36,25 @@ SCORE_MAX_D = 576          # MLA's 512 + 64 latent
 # Hopper (H100, H200): shared memory one block may opt into, and per SM
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_PER_SM = 228 * 1024
-NVCC_DEFINES = (f"-DQUOKA_MMA_BM={BM}", f"-DQUOKA_MMA_BN={BN}",
-                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}",
-                f"-DQUOKA_SCORE_WARPS={SCORE_WARPS}",
-                f"-DQUOKA_SMEM_PER_SM={SMEM_PER_SM}",
-                f"-DQUOKA_SMEM_PER_BLOCK={SMEM_PER_BLOCK}")
 # The attention tiles (flash, selected, paged) take every head dim that is a
 # multiple of 8 up to ATTN_MAX_D, each built at the multiple of 16 at or
 # above it (the mma's k), with the columns past d zero-filled.
 ATTN_MAX_D = 128
+# Flash's wide tile: key width WIDE_D only (the widths between ATTN_MAX_D
+# and WIDE_D are refused); a block owns WIDE_DV columns of V and walks
+# WIDE_BN-key tiles, one block per SM (its shared memory: Q 72 KiB and a
+# 3-stage ring).
+WIDE_D = 576       # MLA's 512 + 64 [latent | rope] key width
+WIDE_DV = 128
+WIDE_BN = 32
+WIDE_BLOCKS_PER_SM = 1
+NVCC_DEFINES = (f"-DQUOKA_MMA_BM={BM}", f"-DQUOKA_MMA_BN={BN}",
+                f"-DQUOKA_MMA_BLOCKS_PER_SM={BLOCKS_PER_SM}",
+                f"-DQUOKA_SCORE_WARPS={SCORE_WARPS}",
+                f"-DQUOKA_SMEM_PER_SM={SMEM_PER_SM}",
+                f"-DQUOKA_SMEM_PER_BLOCK={SMEM_PER_BLOCK}",
+                f"-DQUOKA_WIDE_D={WIDE_D}", f"-DQUOKA_WIDE_DV={WIDE_DV}",
+                f"-DQUOKA_WIDE_BN={WIDE_BN}")
 
 
 def attn_width(kernel: str, d: int) -> int:
@@ -52,35 +67,65 @@ def attn_width(kernel: str, d: int) -> int:
     return -(-d // 16) * 16
 
 
-def attn_smem(width: int, stages: int) -> int:
-    """Bytes of one bf16 attention block at width D: Q, a K/V ring of
-    ``stages`` tiles, and the resolver's per-key offsets, min_i and biases
-    and per-tile maxima for stages + 1 tiles.  Mirrors ``attn_smem`` in
+def flash_width(d: int, dv: int) -> int:
+    """The instantiated width of flash attention at key width ``d`` and
+    value width ``dv`` (``with_flash_head_dim`` in
+    ``csrc/flash_attention.cu``): ``attn_width`` up to 128, or ``WIDE_D``
+    itself; ``dv`` a multiple of 8 in [8, d].  Raises ``ValueError``
+    before any launch otherwise."""
+    if d != WIDE_D and (d % 8 or not 8 <= d <= ATTN_MAX_D):
+        raise ValueError(f"flash_attention: head dim {d} is neither a "
+                         f"multiple of 8 in [8, {ATTN_MAX_D}] nor {WIDE_D}")
+    if dv % 8 or not 8 <= dv <= d:
+        raise ValueError(f"flash_attention: value width {dv} is not a "
+                         f"multiple of 8 in [8, {d}]")
+    return attn_width("flash_attention", d) if d <= ATTN_MAX_D else WIDE_D
+
+
+def attn_smem(width: int, stages: int, dv: int = 0, bn: int = BN) -> int:
+    """Bytes of one bf16 attention block at width D (V ``dv`` columns,
+    default D; ``bn`` keys per tile): Q, a K/V ring of ``stages`` tiles,
+    and the resolver's per-key offsets, min_i and biases and per-tile
+    maxima for stages + 1 tiles.  Mirrors ``attn_smem`` in
     ``csrc/attn_mma.cuh``."""
-    return (BM * width * 2 + stages * 2 * BN * width * 2
-            + (stages + 1) * (BN * 24 + 4))
+    dv = dv or width
+    return (BM * width * 2 + stages * bn * (width + dv) * 2
+            + (stages + 1) * (bn * 24 + 4))
 
 
-def attn_stages(width: int) -> int:
-    """Depth of the bf16 tile's K/V ring at width D: 3 where
-    ``BLOCKS_PER_SM`` blocks of 3 stages fit one SM (each block reserves
-    1 KiB more), else 2 (``Cfg<D>::STAGES``)."""
-    return 3 if BLOCKS_PER_SM * (attn_smem(width, 3) + 1024) \
+def attn_stages(width: int, dv: int = 0, bn: int = BN,
+                per_sm: int = BLOCKS_PER_SM) -> int:
+    """Depth of the bf16 tile's K/V ring: 3 where ``per_sm`` blocks of 3
+    stages fit one SM (each block reserves 1 KiB more), else 2
+    (``Tile::STAGES``)."""
+    return 3 if per_sm * (attn_smem(width, 3, dv, bn) + 1024) \
         <= SMEM_PER_SM else 2
 
 
 def attn_geometry(b: int, n_kv: int, group: int, tq: int, n_keys: int,
-                  n_sm: int) -> tuple[int, int]:
-    """(m_tiles, n_split) of one bf16 attention call.  Fewer blocks than
-    SMs are split into as many slices as fill the resident slots of one
-    wave, at most one slice per key tile."""
+                  n_sm: int, *, bn: int = BN, n_cs: int = 1,
+                  per_sm: int = BLOCKS_PER_SM) -> tuple[int, int]:
+    """(m_tiles, n_split) of one bf16 attention call whose blocks each own
+    one of ``n_cs`` column slices of V and walk ``bn``-key tiles.  Fewer
+    blocks than SMs are split into as many slices as fill the resident
+    slots of one wave, at most one slice per key tile."""
     m_tiles = -(-group * tq // BM)
-    n_tiles = max(1, -(-n_keys // BN))
-    blocks = b * n_kv * m_tiles
+    n_tiles = max(1, -(-n_keys // bn))
+    blocks = b * n_kv * m_tiles * n_cs
     n_split = 1
     if blocks < n_sm:
-        n_split = min(n_tiles, BLOCKS_PER_SM * n_sm // blocks)
+        n_split = min(n_tiles, per_sm * n_sm // blocks)
     return m_tiles, n_split
+
+
+def wide_geometry(b: int, n_kv: int, group: int, tq: int, n_keys: int,
+                  dv: int, n_sm: int) -> tuple[int, int, int]:
+    """(m_tiles, n_cs, n_split) of one flash call on the wide tile."""
+    n_cs = -(-dv // WIDE_DV)
+    m_tiles, n_split = attn_geometry(b, n_kv, group, tq, n_keys, n_sm,
+                                     bn=WIDE_BN, n_cs=n_cs,
+                                     per_sm=WIDE_BLOCKS_PER_SM)
+    return m_tiles, n_cs, n_split
 
 
 class ScoreGeometry(NamedTuple):
@@ -140,21 +185,29 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_args(q, n_kv: int, tq: int, n_keys: int):
+def split_args(q, n_kv: int, tq: int, n_keys: int, dv: int = 0):
     """The split arguments of one launch, ``(n_split, part_o, part_ml)``
     with the scratch pointers as ints (0 when unused), and the scratch
     tensors that back them (kept alive by the caller until the launch is
-    enqueued).  The launcher derives the M tiles from ``BM`` itself.  fp32
-    runs on the simple tile: ``(1, 0, 0)``."""
+    enqueued).  ``dv``: V's width (default q's d); a d above
+    ``ATTN_MAX_D`` takes the wide tile's geometry.  The launcher derives
+    the M tiles and column slices itself.  fp32 runs on the simple tile:
+    ``(1, 0, 0)``."""
     if q.dtype != torch.bfloat16:
         return (1, 0, 0), ()
     b, h, d = q.shape[0], q.shape[1], q.shape[3]
-    m_tiles, n_split = attn_geometry(b, n_kv, h // n_kv, tq, n_keys,
-                                     sm_count(q.device.index))
+    dv = dv or d
+    n_sm = sm_count(q.device.index)
+    if d > ATTN_MAX_D:
+        m_tiles, _, n_split = wide_geometry(b, n_kv, h // n_kv, tq, n_keys,
+                                            dv, n_sm)
+    else:
+        m_tiles, n_split = attn_geometry(b, n_kv, h // n_kv, tq, n_keys,
+                                         n_sm)
     if n_split == 1:
         return (1, 0, 0), ()
     rows = b * n_kv * m_tiles * BM
-    part_o = torch.empty((n_split, rows, d), dtype=torch.float32,
+    part_o = torch.empty((n_split, rows, dv), dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty((n_split, rows, 2), dtype=torch.float32,
                           device=q.device)

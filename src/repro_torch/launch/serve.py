@@ -26,8 +26,19 @@ scheduler + cross-request prefix caching):
         --continuous --trace multiturn --num-blocks 64 \
         --host-tier-blocks 128 --prefetch-depth 4
 
+MoE and MLA models (olmoe-1b-7b serves one-shot and continuous;
+deepseek-v3-671b one-shot only, since latent caches in the paged pool are
+not ported yet and ``--continuous`` raises for it):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --prompt-len 8192 --batch 1 [--continuous]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --device cpu --prompt-len 64
+
 ``--arch`` takes every config of ``configs/base.py::get_config`` (qwen3-4b,
-granite-3-2b, llama3-2-3b, stablelm-3b).  ``--host-tier-blocks`` puts a
+granite-3-2b, llama3-2-3b, stablelm-3b, olmoe-1b-7b, deepseek-v3-671b; the
+last is 671 B parameters at its published depth, so on one card use
+``--smoke`` or a checkpoint of a depth-cut copy).  ``--host-tier-blocks`` puts a
 host-memory tier behind the paged pool (pair it with an undersized
 ``--num-blocks`` to make pressure demote blocks there), and
 ``--prefetch-depth`` caps the host blocks staged per step.  Weights are
@@ -53,7 +64,10 @@ from repro_torch.training import checkpoint as ckpt
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="qwen3-4b, granite-3-2b, llama3-2-3b, stablelm-3b, "
+                         "olmoe-1b-7b (one-shot and --continuous), "
+                         "deepseek-v3-671b (one-shot; --continuous raises)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--method", default="quoka", choices=METHODS)

@@ -1,8 +1,11 @@
-"""GQA attention block, kind ``"attn"`` (counterpart of
-``repro/models/blocks.py::AttnBlock``; other block kinds are not ported).
+"""Attention blocks (counterpart of ``repro/models/blocks.py``):
+``AttnBlock`` for kinds ``"attn"`` (GQA + SwiGLU MLP) and ``"attn_moe"``
+(GQA + MoE FFN, ``models/moe.py``), ``MLABlock`` for ``"mla"`` and
+``"mla_moe"`` (DeepSeek multi-head latent attention over a compressed
+``LatentCache``); other kinds are not ported and raise.
 
-``apply`` runs a prefill chunk or a decode step (t == 1) against the
-layer's KV cache along one of three routes, as in the reference:
+``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
+the layer's KV cache along one of three routes, as in the reference:
 
   * dense bypass  ``method == "full"`` or capacity <= budget + t: plain
                   masked attention over the whole cache (no kernel);
@@ -12,6 +15,11 @@ layer's KV cache along one of three routes, as in the reference:
   * staged        scoring kernel, top-k, materialize, then the flash kernel
                   over [selected budget | chunk].
 
+``MLABlock.apply`` takes the dense bypass or the staged route only (the
+reference's ``fused_route`` never takes MLA): QUOKA scores the latent as
+one shared "KV head" and the flash kernel attends the absorbed queries
+over ``[latent | rope]`` keys, 576 wide at deepseek-v3's geometry.
+
 ``ctx`` (dict): ``method``, ``qcfg`` (QuokaConfig), ``slot`` (the
 chunk's cache write slot: an int, or a per-row (b,) tensor under
 continuous batching; distinct from positions, since pad slots carry
@@ -20,47 +28,76 @@ layer index ``core/plan.py::refresh`` decides on).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import selection as sel_mod
-from repro_torch.core.attention import attention_with_positions
+from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
+                                        attention_with_positions,
+                                        blocked_attention, position_mask)
 from repro_torch.kernels import ops as kops
+from repro_torch.models import moe
 from repro_torch.models.layers import linear, mlp, rmsnorm, rope
-from repro_torch.serving.cache import KVCache, kv_init, kv_write
+from repro_torch.serving.cache import (KVCache, LatentCache, kv_init,
+                                       kv_write, latent_init, latent_write)
+
+
+def _weight(dt, device):
+    def w(*shape):
+        return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                            requires_grad=False)
+    return w
+
+
+def _norm(d, device):
+    return nn.Parameter(torch.ones(d, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+def _ffn_params(blk, cfg: ModelConfig, device, gated: bool) -> None:
+    """The block's FFN: ``moe`` (models/moe.py) for a MoE kind, else the
+    MLP ``mlp`` ("up", "down" and, gated, "gate")."""
+    w = _weight(cfg.compute_dtype, device)
+    if blk.kind.endswith("_moe"):
+        blk.moe = moe.MoE(cfg, device)
+    else:
+        d = cfg.d_model
+        blk.mlp = nn.ParameterDict({"up": w(d, cfg.d_ff),
+                                    "down": w(cfg.d_ff, d)})
+        if gated:
+            blk.mlp["gate"] = w(d, cfg.d_ff)
+
+
+def _ffn(blk, x):
+    """x + FFN(norm2(x)): the MLP, or the MoE with no aux loss (inference;
+    ``moe.moe_apply`` takes a ctx to accumulate it)."""
+    cfg = blk.cfg
+    h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+    if blk.kind.endswith("_moe"):
+        return x + moe.moe_apply(blk.moe, h, cfg)
+    return x + mlp(blk.mlp, h, cfg.act)
 
 
 class AttnBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device, kind: str = "attn"):
         super().__init__()
-        if kind != "attn":
+        if kind not in ("attn", "attn_moe"):
             raise NotImplementedError(f"block kind {kind!r} is not yet ported")
         self.cfg = cfg
         self.kind = kind
-        d, hd, dt = cfg.d_model, cfg.resolved_head_dim, cfg.compute_dtype
-
-        def w(d_in, d_out):
-            return nn.Parameter(torch.empty((d_in, d_out), dtype=dt,
-                                            device=device),
-                                requires_grad=False)
-
-        def norm():
-            return nn.Parameter(torch.ones(d, dtype=torch.float32,
-                                           device=device),
-                                requires_grad=False)
-
-        self.ln1 = norm()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        w = _weight(cfg.compute_dtype, device)
+        self.ln1 = _norm(d, device)
         self.wq = w(d, cfg.n_heads * hd)
         self.wk = w(d, cfg.n_kv_heads * hd)
         self.wv = w(d, cfg.n_kv_heads * hd)
         self.wo = w(cfg.n_heads * hd, d)
-        self.ln2 = norm()
-        self.mlp = nn.ParameterDict({"up": w(d, cfg.d_ff),
-                                     "down": w(cfg.d_ff, d)})
-        if cfg.act != "gelu":
-            self.mlp["gate"] = w(d, cfg.d_ff)
+        self.ln2 = _norm(d, device)
+        _ffn_params(self, cfg, device, gated=cfg.act != "gelu")
 
     def init_cache(self, batch: int, cap: int) -> KVCache:
         cfg = self.cfg
@@ -120,8 +157,7 @@ class AttnBlock(nn.Module):
                 budget=budget, q_valid=pos >= 0)
             att = self._selected_attention(q, k, v, pos, sel)
         x = x + linear(self.wo, att.reshape(b, t, -1))
-        h = rmsnorm(self.ln2, x, cfg.norm_eps)
-        return x + mlp(self.mlp, h, cfg.act), plan
+        return _ffn(self, x), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is
@@ -137,5 +173,153 @@ class AttnBlock(nn.Module):
                               boundary=sel.pos.shape[-1])
 
 
-def make_block(cfg: ModelConfig, kind: str, device) -> AttnBlock:
+class MLABlock(nn.Module):
+    """DeepSeek MLA (kinds ``"mla"``, ``"mla_moe"``): queries absorbed into
+    the latent space (``q_abs[h] = q_nope[h] @ W_uk[h]``), one compressed
+    latent per token plus a shared rope key in the cache, attention in
+    latent space and the values decompressed by ``W_uv`` after it."""
+
+    def __init__(self, cfg: ModelConfig, device, kind: str = "mla"):
+        super().__init__()
+        if kind not in ("mla", "mla_moe"):
+            raise NotImplementedError(f"block kind {kind!r} is not yet ported")
+        self.cfg = cfg
+        self.kind = kind
+        m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        self.scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+        w = _weight(cfg.compute_dtype, device)
+        self.ln1 = _norm(d, device)
+        self.wq_a = w(d, m.q_lora_rank)
+        self.q_ln = _norm(m.q_lora_rank, device)
+        self.wq_b = w(m.q_lora_rank, h * (m.qk_nope_dim + m.qk_rope_dim))
+        self.wkv_a = w(d, m.kv_lora_rank + m.qk_rope_dim)
+        self.kv_ln = _norm(m.kv_lora_rank, device)
+        # decompression weights, head-major for absorption
+        self.wk_b = w(m.kv_lora_rank, h, m.qk_nope_dim)
+        self.wv_b = w(m.kv_lora_rank, h, m.v_head_dim)
+        self.wo = w(h * m.v_head_dim, d)
+        self.ln2 = _norm(d, device)
+        _ffn_params(self, cfg, device, gated=True)
+
+    def init_cache(self, batch: int, cap: int) -> LatentCache:
+        m = self.cfg.mla
+        return latent_init(batch, cap, m.kv_lora_rank, m.qk_rope_dim,
+                           self.cfg.compute_dtype, self.wq_a.device)
+
+    # ---- projections ----
+    def _queries(self, h, pos):
+        """(q_abs (b, t, H, r), q_rope (b, t, H, rope))."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, t, _ = h.shape
+        cq = rmsnorm(self.q_ln, linear(self.wq_a, h), cfg.norm_eps)
+        q = linear(self.wq_b, cq).reshape(b, t, cfg.n_heads,
+                                          m.qk_nope_dim + m.qk_rope_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        q_rope = rope(q_rope, pos, cfg.rope_theta)
+        q_abs = torch.einsum("bthn,rhn->bthr", q_nope,
+                             self.wk_b.to(q_nope.dtype))
+        return q_abs, q_rope
+
+    def _latent_kv(self, h, pos):
+        """(ckv (b, t, r) normalised latent, kr (b, t, rope) rope'd key)."""
+        cfg, m = self.cfg, self.cfg.mla
+        kv = linear(self.wkv_a, h)
+        ckv = rmsnorm(self.kv_ln, kv[..., :m.kv_lora_rank], cfg.norm_eps)
+        kr = rope(kv[:, :, None, m.kv_lora_rank:], pos,
+                  cfg.rope_theta)[:, :, 0, :]
+        return ckv, kr
+
+    def _decompress(self, o_lat, dtype):
+        """Latent attention output (b, t, H, r) -> (b, t, H * v) via W_uv,
+        in fp32 as the reference."""
+        b, t = o_lat.shape[:2]
+        out = torch.einsum("bthr,rhv->bthv", o_lat.float(),
+                           self.wv_b.float())
+        return out.reshape(b, t, -1).to(dtype)
+
+    def _absorbed_full(self, q_abs, q_rope, lat: LatentCache, q_pos):
+        """Position-masked absorbed attention over the whole cache; key
+        blocks stream through ``blocked_attention`` above its threshold,
+        as in the reference."""
+        if lat.capacity > BLOCKED_THRESHOLD:
+            qc = torch.cat([q_abs, q_rope], dim=-1)
+            o_lat = blocked_attention(qc, lat.latent[:, :, None],
+                                      lat.ckv[:, :, None], q_pos, lat.pos,
+                                      causal=True, scale=self.scale)
+            return self._decompress(o_lat, q_abs.dtype)
+        mask = position_mask(q_pos, lat.pos, causal=True)
+        return self._absorbed_attention(q_abs, q_rope, lat.ckv, lat.krope,
+                                        mask)
+
+    def _absorbed_attention(self, q_abs, q_rope, ckv, krope, mask):
+        """Attention entirely in latent space (the MLA deployment trick);
+        a fully-masked row keeps the reference's uniform softmax."""
+        logits = (torch.einsum("bthr,bsr->bhts", q_abs.float(), ckv.float())
+                  + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                                 krope.float())) * self.scale
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1)
+        o_lat = torch.einsum("bhts,bsr->bthr", probs, ckv.float())
+        return self._decompress(o_lat, q_abs.dtype)
+
+    def plan_carry_shape(self, cache: LatentCache, t: int, method: str,
+                         qcfg):
+        """Latent selection geometry: one shared "KV head" (n_kv == 1)."""
+        b, cap = cache.latent.shape[:2]
+        budget = sel_mod.resolve_budget(qcfg, cap)
+        if method == "full" or cap <= budget + t:
+            return None
+        if plan_mod.grid(qcfg) > 1 and cap % plan_mod.grid(qcfg):
+            return None
+        return plan_mod.plan_idx_shape(qcfg, b, 1, cap, budget)
+
+    def apply(self, x, pos, lat: LatentCache, ctx, plan=None):
+        """As ``AttnBlock.apply``, over the layer's latent cache (written
+        in place)."""
+        cfg = self.cfg
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        q_abs, q_rope = self._queries(h, pos)
+        ckv, kr = self._latent_kv(h, pos)
+        start = ctx["slot"]
+        latent_write(lat, ckv, kr, start, pos_new=pos)
+        method = ctx.get("method", "full")
+        budget = sel_mod.resolve_budget(ctx["qcfg"], lat.capacity) \
+            if method != "full" else 0
+        if method == "full" or lat.capacity <= budget + x.shape[1]:
+            att = self._absorbed_full(q_abs, q_rope, lat, pos)
+        else:
+            att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
+                                                 lat, start, ctx, plan)
+        x = x + linear(self.wo, att)
+        return _ffn(self, x), plan
+
+    def _selected_attention(self, q_abs, q_rope, ckv_chunk, kr_chunk, pos,
+                            lat: LatentCache, start, ctx, plan=None):
+        """QUOKA (or a baseline) on the compressed latent: one shared "KV
+        head" per token, scored by the absorbed per-head queries, so
+        pre-aggregation runs over all heads (n_kv == 1).  Then flash over
+        ``[selected | chunk]``: queries and keys are ``[absorbed | rope]``
+        vectors, the values the latent itself (its first ``r`` key
+        columns, no copy), where the reference pads it with zeros to the
+        key width and slices the output: the same numbers."""
+        qc = ctx["qcfg"]
+        method = ctx.get("method", "quoka")
+        r = lat.rank
+        keys = lat.latent[:, :, None, :]                        # (b,T,1,r+rd)
+        q_score = torch.cat([q_abs, q_rope], dim=-1)            # (b,t,H,r+rd)
+        sel, plan = plan_mod.select_with_ctx(
+            ctx, plan, method, q_score, keys, keys, lat.pos, start, qc,
+            q_valid=pos >= 0)
+        chunk = torch.cat([ckv_chunk, kr_chunk], dim=-1)        # (b,t,r+rd)
+        k_cat = torch.cat([sel.k[:, :, 0], chunk], dim=1)[:, :, None, :]
+        k_valid = torch.cat([sel.pos >= 0, (pos >= 0)[:, None, :]], dim=-1)
+        o_lat = kops.attention(q_score, k_cat, k_cat[..., :r], k_valid,
+                               causal=True, boundary=sel.pos.shape[-1],
+                               scale=self.scale)
+        return self._decompress(o_lat, q_abs.dtype), plan
+
+
+def make_block(cfg: ModelConfig, kind: str, device):
+    if kind in ("mla", "mla_moe"):
+        return MLABlock(cfg, device, kind)
     return AttnBlock(cfg, device, kind)

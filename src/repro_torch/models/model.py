@@ -1,13 +1,16 @@
-"""Dense decoder model: embedding, layer stacks, tied read-out (counterpart
-of ``repro/models/model.py``, dense family only).
+"""Decoder model: embedding, layer stacks, read-out (counterpart of
+``repro/models/model.py``, families ``"dense"`` and ``"moe"``).
 
 Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
 loop over chunks, each selecting from the KV cache per layer),
 ``prefill_chunk`` (one chunk with per-row starts and valid lengths: the
 continuous-batching unit) and ``decode_step``; the last two can return
-the host tier's prefetch oracle (``sel_blocks``).  Training forward,
-modality frontends, the MTP head and the in-step telemetry outputs are not
-ported yet.
+the host tier's prefetch oracle (``sel_blocks``).  The read-out is tied to
+the embedding or, untied, ``lm_head`` (fp32, as the reference applies
+it).  The DeepSeek multi-token-prediction head's parameters are held
+(``mtp``) so a reference checkpoint loads; MTP is a training-time loss and
+runs at no inference entry point.  Training forward, modality frontends
+and the in-step telemetry outputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,9 +22,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import embed, rmsnorm, unembed
-from repro_torch.models.stack import Stack
-from repro_torch.serving.cache import KVCache
+from repro_torch.models.blocks import AttnBlock, MLABlock, make_block
+from repro_torch.models.layers import embed, linear, rmsnorm, unembed
+from repro_torch.models.stack import Cache, Stack
 
 
 def _on(x, dev, dtype=None) -> torch.Tensor:
@@ -46,14 +49,32 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class MTPHead(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head: one extra block (MLA
+    when the model has MLA) fed ``mix([norm(h_t); emb(tok_t+1)])``.  Held
+    for the weight bridge; a training-time loss, not run at inference."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.block = make_block(cfg, "mla" if cfg.mla else "attn", device)
+        self.ln = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                          device=device),
+                               requires_grad=False)
+        self.mix = nn.Parameter(torch.empty((2 * d, d),
+                                            dtype=cfg.compute_dtype,
+                                            device=device),
+                                requires_grad=False)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         """Allocates the parameters (uninitialised) on ``device``; fill them
         with ``init`` or ``training/checkpoint.py::from_flat``."""
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only tied dense decoders are ported")
+                f"{cfg.name}: family {cfg.family!r} is not yet ported")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -64,6 +85,11 @@ class Model(nn.Module):
         self.ln_f = nn.Parameter(
             torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
             requires_grad=False)
+        # untied read-out, fp32 as the reference applies it
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty((cfg.d_model, cfg.vocab), dtype=torch.float32,
+                        device=dev), requires_grad=False)
+        self.mtp = MTPHead(cfg, dev) if cfg.mtp else None
 
     @property
     def device(self) -> torch.device:
@@ -71,6 +97,11 @@ class Model(nn.Module):
 
     def layers(self):
         return [blk for s in self.stacks for blk in s.layers]
+
+    @property
+    def has_latent(self) -> bool:
+        """Does any layer keep an MLA latent cache?"""
+        return any(isinstance(blk, MLABlock) for blk in self.layers())
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":
@@ -86,13 +117,35 @@ class Model(nn.Module):
                                 dtype=torch.float32) * std)
 
         normal_(self.embed, 0.02)
-        hd = cfg.resolved_head_dim
-        wo_std = 1.0 / math.sqrt(cfg.n_heads * hd * 2 * cfg.n_layers)
         for blk in self.layers():
-            for p in (blk.wq, blk.wk, blk.wv, *blk.mlp.values()):
-                normal_(p, 1.0 / math.sqrt(p.shape[0]))
-            normal_(blk.wo, wo_std)
+            self._init_block(blk, normal_)
+        if self.lm_head is not None:
+            normal_(self.lm_head, 1.0 / math.sqrt(cfg.d_model))
+        if self.mtp is not None:
+            self._init_block(self.mtp.block, normal_)
+            normal_(self.mtp.mix, 1.0 / math.sqrt(2 * cfg.d_model))
         return self
+
+    def _init_block(self, blk, normal_) -> None:
+        """One block's leaves at the reference's scales: linear weights
+        1/sqrt(d_in), MLA's decompression weights 1/sqrt(kv_lora_rank), the
+        output projection 1/sqrt(its fan-in * 2 * n_layers)."""
+        cfg = self.cfg
+        ffn = list(blk.mlp.values()) if hasattr(blk, "mlp") else []
+        if isinstance(blk, AttnBlock):
+            fan_in = cfg.n_heads * cfg.resolved_head_dim
+            for p in (blk.wq, blk.wk, blk.wv, *ffn):
+                normal_(p, 1.0 / math.sqrt(p.shape[0]))
+        else:
+            m = cfg.mla
+            fan_in = cfg.n_heads * m.v_head_dim
+            for p in (blk.wq_a, blk.wq_b, blk.wkv_a, *ffn):
+                normal_(p, 1.0 / math.sqrt(p.shape[0]))
+            for p in (blk.wk_b, blk.wv_b):
+                normal_(p, 1.0 / math.sqrt(m.kv_lora_rank))
+        if hasattr(blk, "moe"):
+            blk.moe.init(normal_)
+        normal_(blk.wo, 1.0 / math.sqrt(fan_in * 2 * cfg.n_layers))
 
     # ------------------------------------------------------------------
     def embed_inputs(self, batch: Dict):
@@ -112,8 +165,9 @@ class Model(nn.Module):
                               torch.full_like(pos, -1), pos)
         return x, pos
 
-    def init_cache(self, batch: int, cap: int) -> List[List[KVCache]]:
-        """One KV cache per layer, grouped by stack."""
+    def init_cache(self, batch: int, cap: int) -> List[List[Cache]]:
+        """One cache per layer (``KVCache`` or, MLA, ``LatentCache``),
+        grouped by stack."""
         return [s.init_cache(batch, cap) for s in self.stacks]
 
     def _ctx(self, method: str) -> Dict:
@@ -134,7 +188,10 @@ class Model(nn.Module):
         return x, sel
 
     def _readout(self, x):
-        return unembed(self.embed, rmsnorm(self.ln_f, x, self.cfg.norm_eps))
+        x = rmsnorm(self.ln_f, x, self.cfg.norm_eps)
+        if self.lm_head is None:
+            return unembed(self.embed, x)
+        return linear(self.lm_head, x.float())
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache, method: Optional[str] = None):

@@ -4,11 +4,14 @@ The reference scans one compiled block body over a stacked ``(repeats,
 ...)`` parameter axis; eager PyTorch runs a Python loop over an
 ``nn.ModuleList`` instead, layer ``i`` holding row ``i`` of the reference's
 stacked leaves (see ``training/checkpoint.py::from_flat``).  The loop
-threads the cross-layer plan carry and each layer's global index.
+threads the cross-layer plan carry and each layer's global index.  A
+period may mix kinds; each layer's cache is a ``KVCache`` (attention
+kinds) or a ``LatentCache`` (MLA), and the plan carry engages only where
+every layer would build a plan of one shape, as in the reference.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Union
 
 import torch
 from torch import nn
@@ -16,7 +19,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.models.blocks import make_block
-from repro_torch.serving.cache import KVCache
+from repro_torch.serving.cache import KVCache, LatentCache
+
+Cache = Union[KVCache, LatentCache]
 
 
 class Stack(nn.Module):
@@ -31,10 +36,10 @@ class Stack(nn.Module):
             make_block(cfg, kind, device) for _ in range(repeats)
             for kind in self.period)
 
-    def init_cache(self, batch: int, cap: int) -> List[KVCache]:
+    def init_cache(self, batch: int, cap: int) -> List[Cache]:
         return [blk.init_cache(batch, cap) for blk in self.layers]
 
-    def _plan_carry0(self, caches: List[KVCache], t: int, ctx, plan):
+    def _plan_carry0(self, caches: List[Cache], t: int, ctx, plan):
         """The initial plan carry, or None when reuse is off: it engages
         only with ``reuse_interval > 1`` and when every layer would build a
         plan of the same shape (else every layer builds its own).  An
@@ -51,9 +56,9 @@ class Stack(nn.Module):
         if isinstance(plan, plan_mod.PlanCarry) and \
                 tuple(plan.idx.shape) == shapes[0]:
             return plan
-        return plan_mod.empty_carry(shapes[0], caches[0].k.device)
+        return plan_mod.empty_carry(shapes[0], caches[0].pos.device)
 
-    def apply(self, x, pos, caches: List[KVCache], ctx, plan=None):
+    def apply(self, x, pos, caches: List[Cache], ctx, plan=None):
         """Prefill chunk or decode step through every layer; caches are
         updated in place.  ``ctx["layer0"]`` is this stack's first global
         layer index.  Returns (x, plan carry, sel): the carry passes through

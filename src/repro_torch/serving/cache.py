@@ -1,11 +1,17 @@
-"""Per-layer KV cache (counterpart of ``repro/serving/cache.py``).
+"""Per-layer KV and MLA latent caches (counterpart of
+``repro/serving/cache.py``).
 
 Every slot carries its absolute position (``pos``, -1 = empty), so masks
 everywhere derive from positions.  Unlike the reference, which is
 functional (it returns updated arrays), ``kv_write`` writes the chunk into
 the cache tensors IN PLACE: an eager PyTorch program has no buffer
 donation, and a copy of the whole cache per chunk would cost its size in
-memory traffic every layer.
+memory traffic every layer.  ``latent_write`` does the same for MLA.
+
+``LatentCache`` keeps the reference's two leaves, the latent ``ckv`` and
+the shared rope key ``krope``, as column views of ONE (b, cap, r + rope)
+buffer: MLA's selection reads ``[ckv | krope]`` per layer call, and the
+buffer is that concatenation already.
 """
 from __future__ import annotations
 
@@ -62,5 +68,64 @@ def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
     s = min(max(start, 0), cap - t)
     cache.k[:, s:s + t] = k_new
     cache.v[:, s:s + t] = v_new
+    cache.pos[:, s:s + t] = pos_new
+    return cache
+
+
+class LatentCache(NamedTuple):
+    """DeepSeek MLA compressed cache: per token the latent (``rank``
+    columns) and the shared rope key, side by side in ``latent``."""
+    latent: torch.Tensor   # (b, cap, rank + rope)
+    pos: torch.Tensor      # (b, cap) int32, -1 = empty
+    rank: int              # kv_lora_rank
+
+    @property
+    def ckv(self) -> torch.Tensor:
+        return self.latent[..., :self.rank]
+
+    @property
+    def krope(self) -> torch.Tensor:
+        return self.latent[..., self.rank:]
+
+    @property
+    def capacity(self) -> int:
+        return self.latent.shape[1]
+
+
+def latent_init(batch: int, cap: int, r: int, rope: int, dtype,
+                device) -> LatentCache:
+    return LatentCache(
+        latent=torch.zeros((batch, cap, r + rope), dtype=dtype,
+                           device=device),
+        pos=torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+        rank=r)
+
+
+def latent_write(cache: LatentCache, ckv_new, krope_new, start,
+                 pos_new=None) -> LatentCache:
+    """MLA twin of ``kv_write``, in place: the same int-or-per-row
+    ``start``, clamping and optional ``pos_new``."""
+    b, t = ckv_new.shape[:2]
+    r = cache.rank
+    cap = cache.capacity
+    dev = cache.pos.device
+    if isinstance(start, torch.Tensor) and start.ndim == 1:
+        s = start.to(device=dev, dtype=torch.int64)
+        offs = torch.arange(t, device=dev)
+        if pos_new is None:
+            pos_new = s[:, None] + offs
+        rows = s.clamp(0, cap - t)[:, None] + offs                # (b, t)
+        bi = torch.arange(b, device=dev)[:, None]
+        cache.latent[bi, rows, :r] = ckv_new.to(cache.latent.dtype)
+        cache.latent[bi, rows, r:] = krope_new.to(cache.latent.dtype)
+        cache.pos[bi, rows] = pos_new.to(torch.int32)
+        return cache
+    start = int(start)
+    if pos_new is None:
+        pos_new = torch.arange(start, start + t, dtype=torch.int32,
+                               device=dev).expand(b, t)
+    s = min(max(start, 0), cap - t)
+    cache.latent[:, s:s + t, :r] = ckv_new
+    cache.latent[:, s:s + t, r:] = krope_new
     cache.pos[:, s:s + t] = pos_new
     return cache

@@ -7,7 +7,8 @@ physical-block axis and whose capacity axis is the within-block slot axis,
 so every leaf is ``(N, block_size, n_kv, d)`` (``pos`` ``(N, block_size)``)
 — the layout the paged selected-attention kernel reads.  Every leaf keeps
 the ``pos``-derived mask semantics of serving/cache.py (``pos == -1`` marks
-an empty/invalid slot).
+an empty/invalid slot).  MLA's latent caches have no pool layout yet: a
+model with one is refused.
 
 A request's logical cache is the concatenation of its blocks in
 block-table order, materialised per step by ``gather`` (table id -1 reads
@@ -246,6 +247,9 @@ class PagedKVCache:
         if mesh is not None:
             raise NotImplementedError("paged pool on a mesh is not yet "
                                       "ported")
+        if model.has_latent:
+            raise NotImplementedError("latent caches in the paged pool are "
+                                      "not yet ported")
         self.model = model
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)

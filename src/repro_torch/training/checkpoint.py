@@ -6,7 +6,12 @@ The reference flattens its parameter pytree to '/'-joined key paths
 and saves them with ``np.savez``.  Stacked layer leaves carry a leading
 ``(repeats, ...)`` axis; row ``r`` of period position ``j`` is the port's
 layer ``r * len(period) + j`` of that stack.  Each linear weight is stored
-once in the compute dtype; the embedding and norm gains stay fp32.
+once in the compute dtype; the embedding, an untied ``lm_head`` and the
+norm gains stay fp32.  MoE blocks add ``moe/router/w``, the expert stacks
+``moe/gate``, ``moe/up``, ``moe/down`` and ``moe/shared/*``; MLA blocks
+``wq_a/w``, ``q_ln/g``, ``wq_b/w``, ``wkv_a/w``, ``kv_ln/g``, ``wk_b``,
+``wv_b``; an MTP model ``mtp/block/*`` (one unstacked block), ``mtp/ln/g``
+and ``mtp/mix/w``.
 ``load_score_projection`` bridges the one array that is not a parameter:
 the cached low-rank scoring projection.
 """
@@ -19,19 +24,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models.blocks import MLABlock
 from repro_torch.models.model import Model
 
-_BLOCK_LEAVES = {
-    "ln1/g": lambda blk: blk.ln1,
-    "ln2/g": lambda blk: blk.ln2,
-    "wq/w": lambda blk: blk.wq,
-    "wk/w": lambda blk: blk.wk,
-    "wv/w": lambda blk: blk.wv,
-    "wo/w": lambda blk: blk.wo,
-    "mlp/up/w": lambda blk: blk.mlp["up"],
-    "mlp/down/w": lambda blk: blk.mlp["down"],
-    "mlp/gate/w": lambda blk: blk.mlp["gate"],
-}
+
+def _block_leaves(blk) -> Dict[str, torch.Tensor]:
+    """A block's parameters under the reference's key suffixes."""
+    out = {"ln1/g": blk.ln1, "ln2/g": blk.ln2, "wo/w": blk.wo}
+    if isinstance(blk, MLABlock):
+        out.update({"wq_a/w": blk.wq_a, "q_ln/g": blk.q_ln,
+                    "wq_b/w": blk.wq_b, "wkv_a/w": blk.wkv_a,
+                    "kv_ln/g": blk.kv_ln, "wk_b": blk.wk_b,
+                    "wv_b": blk.wv_b})
+    else:
+        out.update({"wq/w": blk.wq, "wk/w": blk.wk, "wv/w": blk.wv})
+    if hasattr(blk, "moe"):
+        out.update({"moe/router/w": blk.moe.router, "moe/gate": blk.moe.gate,
+                    "moe/up": blk.moe.up, "moe/down": blk.moe.down})
+        out.update({f"moe/shared/{k}/w": p
+                    for k, p in blk.moe.shared.items()})
+    else:
+        out.update({f"mlp/{k}/w": p for k, p in blk.mlp.items()})
+    return out
 
 
 def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
@@ -45,23 +59,29 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
               device=None) -> Model:
     """Build the port's model from the reference's flat parameter dict."""
     model = Model(cfg, device)
-    expected = {"embed/emb", "ln_f/g"}
-    _copy(model.embed, flat["embed/emb"], "embed/emb")
-    _copy(model.ln_f, flat["ln_f/g"], "ln_f/g")
+    top = {"embed/emb": model.embed, "ln_f/g": model.ln_f}
+    if model.lm_head is not None:
+        top["lm_head/w"] = model.lm_head
+    if model.mtp is not None:
+        top.update({f"mtp/block/{k}": p
+                    for k, p in _block_leaves(model.mtp.block).items()})
+        top.update({"mtp/ln/g": model.mtp.ln, "mtp/mix/w": model.mtp.mix})
+    for key, param in top.items():
+        _copy(param, flat[key], key)
+    expected = set(top)
     for si, stack in enumerate(model.stacks):
         n_period = len(stack.period)
         for j in range(n_period):
-            for suffix, get in _BLOCK_LEAVES.items():
+            for suffix in _block_leaves(stack.layers[j]):
                 key = f"stacks/{si}/{j}/{suffix}"
-                if suffix == "mlp/gate/w" and cfg.act == "gelu":
-                    continue
                 expected.add(key)
                 arr = flat[key]
                 if arr.shape[0] != stack.repeats:
                     raise ValueError(f"{key}: {arr.shape[0]} repeats, "
                                      f"expected {stack.repeats}")
                 for r in range(stack.repeats):
-                    _copy(get(stack.layers[r * n_period + j]), arr[r], key)
+                    _copy(_block_leaves(stack.layers[r * n_period + j])[
+                        suffix], arr[r], key)
     extra = set(flat) - expected
     if extra:
         raise ValueError(f"checkpoint has parameters the port does not "

@@ -4,8 +4,13 @@
 Each config has its published dimensions and the reference's source, a
 parameter count equal to the reference's and inside the published band,
 stacks that cover every layer, and a small ``smoke()`` variant equal to the
-reference's in every dimension the port reads.
+reference's in every dimension the port reads.  The MoE and MLA configs
+(olmoe-1b-7b, deepseek-v3-671b) also match the reference's expert and
+latent geometry, layer groups, active-parameter count and smoke
+reduction.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -13,13 +18,16 @@ from repro.configs import get_config as ref_config
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 
-PORTED = ("qwen3-4b", "granite-3-2b", "llama3-2-3b", "stablelm-3b")
+PORTED = ("qwen3-4b", "granite-3-2b", "llama3-2-3b", "stablelm-3b",
+          "olmoe-1b-7b", "deepseek-v3-671b")
 
 EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
     "granite-3-2b": (40, 2048, 32, 8, 64, 8192, 49155),
     "llama3-2-3b": (28, 3072, 24, 8, 128, 8192, 128256),
     "stablelm-3b": (32, 2560, 32, 32, 80, 6912, 50304),
+    "olmoe-1b-7b": (16, 2048, 16, 16, 128, 1024, 50304),
+    "deepseek-v3-671b": (61, 7168, 128, 128, 56, 18432, 129280),
 }
 
 PARAMS_B = {   # published total parameters (1e9), as a band
@@ -27,6 +35,8 @@ PARAMS_B = {   # published total parameters (1e9), as a band
     "granite-3-2b": (2, 3.3),        # the reference's band
     "llama3-2-3b": (3.0, 3.5),       # Llama 3.2 3B: 3.21 B
     "stablelm-3b": (2, 3.5),         # the reference's band
+    "olmoe-1b-7b": (6, 8),           # OLMoE-1B-7B: 6.9 B
+    "deepseek-v3-671b": (620, 720),  # DeepSeek-V3: 671 B
 }
 
 
@@ -60,7 +70,9 @@ def test_param_counts_in_band(arch):
 def test_stacks_cover_all_layers(arch):
     cfg = get_config(arch)
     assert sum(len(p) * r for p, r in cfg.stacks()) == cfg.n_layers
-    assert {k for p, _ in cfg.stacks() for k in p} == {"attn"}
+    assert list(cfg.stacks()) == list(ref_config(arch).stacks())
+    assert {k for p, _ in cfg.stacks() for k in p} <= \
+        {"attn", "attn_moe", "mla", "mla_moe"}
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -71,14 +83,51 @@ def test_smoke_variant_is_small_and_the_references(arch):
     assert (s.n_heads == s.n_kv_heads) == \
         (get_config(arch).n_heads == get_config(arch).n_kv_heads)
     assert s.dtype == torch.float32
-    # the built smoke model holds exactly the counted weight matrices
+    # the built smoke model holds exactly the counted weights (matrices
+    # and expert / decompression stacks; the MTP head is not counted)
     model = build_model(s, device="cpu")
-    mats = sum(p.numel() for p in model.parameters() if p.ndim == 2)
+    mats = sum(p.numel() for n, p in model.named_parameters()
+               if p.ndim >= 2 and not n.startswith("mtp."))
     assert mats == s.param_count()
 
 
 def test_get_config_names():
     assert get_config("llama3.2-3b").name == "llama3-2-3b"
     assert get_config("stablelm_3b").name == "stablelm-3b"
+    assert get_config("olmoe_1b_7b").name == "olmoe-1b-7b"
     with pytest.raises(KeyError, match="ported"):
-        get_config("olmoe-1b-7b")
+        get_config("gemma3-27b")
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_and_mla_geometry_match_reference(arch):
+    """Expert and latent geometry, layer pattern and groups, MTP and the
+    read-out tie equal the reference's; the active-parameter count (top-k
+    and shared experts only) too, at full and smoke size."""
+    cfg, rc = get_config(arch), ref_config(arch)
+    assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(rc.moe)
+    assert (dataclasses.asdict(cfg.mla) if cfg.mla else None) == \
+        (dataclasses.asdict(rc.mla) if rc.mla else None)
+    assert (cfg.family, cfg.layer_pattern, cfg.layer_groups, cfg.mtp,
+            cfg.tie_embeddings) == (rc.family, rc.layer_pattern,
+                                    rc.layer_groups, rc.mtp,
+                                    rc.tie_embeddings)
+    for c, r in ((cfg, rc), (cfg.smoke(), rc.smoke())):
+        assert c.active_param_count() == r.active_param_count()
+        assert c.param_count() == r.param_count()
+    assert cfg.active_param_count() < cfg.param_count()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_and_mla_smoke_reduction_matches_reference(arch):
+    """smoke(): 4 experts, top-2, d_expert <= 256, dense dispatch, the MLA
+    smoke ranks with head_dim 0, and layer groups reduced to the first two
+    kinds as one pattern."""
+    s, rs = get_config(arch).smoke(), ref_config(arch).smoke()
+    assert dataclasses.asdict(s.moe) == dataclasses.asdict(rs.moe)
+    assert s.moe.dispatch == "dense" and s.moe.n_experts == 4
+    assert (dataclasses.asdict(s.mla) if s.mla else None) == \
+        (dataclasses.asdict(rs.mla) if rs.mla else None)
+    assert (s.layer_pattern, s.layer_groups, s.n_layers, s.head_dim) == \
+        (rs.layer_pattern, rs.layer_groups, rs.n_layers, rs.head_dim)
+    assert list(s.stacks()) == list(rs.stacks())

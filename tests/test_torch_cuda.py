@@ -375,7 +375,8 @@ def test_paged_table_entry_outside_pool(dev):
 @pytest.mark.parametrize("d", [12, 136])
 def test_unsupported_head_dim_raises(dev, d):
     """Head dims the attention tiles do not take (not a multiple of 8, or
-    past 128) are refused before any launch."""
+    past 128; flash's wide tile takes 576 alone) are refused before any
+    launch."""
     x = torch.zeros((1, 2, 4, d), device=dev)
     n0 = (fa_mod.LAUNCHES, sa_mod.LAUNCHES, sa_mod.PAGED_LAUNCHES)
     with pytest.raises(ValueError, match="head dim"):
@@ -586,3 +587,121 @@ def test_sample_positions_on_the_card_match_cpu(dev):
             got = sample_positions(t, n, dev)
             assert got.device.type == "cuda"
             assert torch.equal(got.cpu(), sample_positions(t, n)), (t, n)
+
+
+def _mla_flash_inputs(dev, dtype, tq, tk, boundary, h=128, seed=0):
+    """MLA's flash call: absorbed queries (2, h, tq, 576) over one latent KV
+    head of [latent | rope] keys (2, 1, tk, 576); V is the 512-wide latent
+    (the keys' first 512 columns, a strided view, as MLABlock passes it).
+    Row 1 has no valid budget key and its first four chunk keys invalid,
+    so its first four query rows attend nothing."""
+    g = torch.Generator(device=dev).manual_seed(tq + tk)
+    q = torch.randn((2, h, tq, 576), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, 1, tk, 576), generator=g, device=dev).to(dtype)
+    valid = torch.rand((2, tk), generator=g, device=dev) < 0.9
+    valid[1, :boundary] = False
+    valid[1, boundary:boundary + 4] = False
+    return q, k, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dv", [576, 512])
+@pytest.mark.parametrize("tq,tk,boundary", [(128, 1152, 1024),
+                                            (1, 1025, 1024)])
+def test_flash_kernel_at_mla_width(dev, tq, tk, boundary, dv, dtype):
+    """deepseek-v3's shapes (prefill and decode, 128 heads over one latent
+    head, scale 1/sqrt(192)) on the wide tile: V 576 wide (the reference's
+    zero-padded latent, here random) or 512 (the latent itself); rows with
+    no valid key give exact zeros; at dv = 512 the output equals the
+    576-wide call on the zero-padded V, sliced to 512 columns."""
+    q, k, valid = _mla_flash_inputs(dev, dtype, tq, tk, boundary)
+    v = k[..., :dv]
+    scale = 192 ** -0.5
+    n0 = fa_mod.LAUNCHES
+    got = fa_mod.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                      boundary=boundary, scale=scale)
+    torch.cuda.synchronize()
+    assert fa_mod.LAUNCHES == n0 + 1 and got.shape == (2, 128, tq, dv)
+    want = ref.flash_attention_ref(q, k, v, causal=True, boundary=boundary,
+                                   k_valid=valid, scale=scale)
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= _tol(want, dtype)
+    assert float(got[1, :, :4].abs().max()) == 0.0
+    if dv == 512:
+        v_pad = torch.nn.functional.pad(v, (0, 576 - dv))
+        pad = fa_mod.flash_attention_bhtd(q, k, v_pad, valid, causal=True,
+                                          boundary=boundary, scale=scale)
+        assert _err(got, pad[..., :dv]) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv,h,n_kv", [(576, 576, 4, 2), (576, 128, 8, 1),
+                                         (576, 48, 4, 4), (64, 32, 6, 2),
+                                         (128, 8, 4, 4)])
+def test_flash_kernel_wide_and_narrow_values(dev, d, dv, h, n_kv, dtype):
+    """The wide tile at other GQA groups and V widths (a whole, a single
+    and a partial column slice) and V narrower than the keys on the
+    narrow tile, prefill and a split decode walk; a KV head with no valid
+    key gives exact zeros."""
+    g = torch.Generator(device=dev).manual_seed(d + dv)
+    for tq, tk, boundary in ((64, 300, 200), (1, 1025, 1024)):
+        q = torch.randn((2, h, tq, d), generator=g, device=dev).to(dtype)
+        k = torch.randn((2, n_kv, tk, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((2, n_kv, tk, dv), generator=g, device=dev).to(dtype)
+        valid = torch.rand((2, n_kv, tk), generator=g, device=dev) < 0.9
+        valid[1, 0] = False
+        got = fa_mod.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                          boundary=boundary)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=True,
+                                       boundary=boundary, k_valid=valid)
+        assert got.shape == (2, h, tq, dv)
+        assert _err(got, want) <= _tol(want, dtype)
+        assert float(got[1, : h // n_kv].abs().max()) == 0.0
+
+
+def test_flash_value_wider_than_keys_raises(dev):
+    """V wider than the keys, or not a multiple of 8, is refused before a
+    launch."""
+    q = torch.zeros((1, 2, 4, 64), device=dev)
+    n0 = fa_mod.LAUNCHES
+    for dv in (72, 20):
+        v = torch.zeros((1, 2, 4, dv), device=dev)
+        with pytest.raises(ValueError, match="value width"):
+            fa_mod.flash_attention_bhtd(q, q, v)
+    assert fa_mod.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
+def test_moe_capacity_layer_on_the_card_matches_cpu(dev, arch):
+    """One MoE layer's capacity dispatch (capacity factor 0.5, so pairs
+    drop) on the card against the same plain code on the CPU, fp32: the
+    router picks the same experts, the same (token, choice) pairs drop,
+    and the outputs agree within 1e-4 relative."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    base = get_config(arch).smoke()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch="capacity", capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(0)
+    cpu = moe.MoE(cfg, "cpu")
+    cpu.init(lambda p, std: p.copy_(torch.randn(p.shape, generator=gen)
+                                    * std))
+    gpu = moe.MoE(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 24, cfg.d_model), generator=gen)
+    want = moe.moe_apply(cpu, x, cfg)
+    got = moe.moe_apply(gpu, x.to(dev), cfg)
+    torch.cuda.synchronize()
+    xf = x.reshape(-1, cfg.d_model)
+    _, ids_c, _ = moe.route(cpu, xf, cfg.moe)
+    _, ids_g, _ = moe.route(gpu, xf.to(dev), cfg.moe)
+    assert torch.equal(ids_g.cpu(), ids_c)
+    cap = moe.capacity(cfg.moe, xf.shape[0])
+    keep_c = moe.capacity_slots(ids_c, cfg.moe.n_experts, cap)[2]
+    keep_g = moe.capacity_slots(ids_g, cfg.moe.n_experts, cap)[2]
+    assert torch.equal(keep_g.cpu(), keep_c) and not bool(keep_c.all())
+    rel = _err(got.cpu(), want) / float(want.abs().max())
+    assert rel <= 1e-4

@@ -61,6 +61,36 @@ def test_flash_plain_matches_reference(case):
                           block_q=32, block_k=64))
 
 
+@pytest.mark.parametrize("dv", [576, 512])
+@pytest.mark.parametrize("tq", [16, 1])
+def test_flash_plain_at_mla_width_matches_reference(tq, dv):
+    """MLA's flash call at d = 576 (one latent KV head, 8 query heads,
+    scale 1/sqrt(192), the first 64 keys a selected budget): V 576 wide,
+    or the 512-wide latent, whose output must equal the reference's call
+    on V zero-padded to 576 sliced to 512 columns (``blocks.py``'s
+    ``[..., :r]``), against the xla oracle and the interpret-mode Pallas
+    kernel.  Key 3 is invalid everywhere."""
+    rng = np.random.default_rng(tq + dv)
+    tk, boundary, scale = 80, 64, 192 ** -0.5
+    q = rng.standard_normal((1, 8, tq, 576), np.float32)
+    k = rng.standard_normal((1, 1, tk, 576), np.float32)
+    v = k[..., :dv] if dv == 512 else \
+        rng.standard_normal((1, 1, tk, 576), np.float32)
+    v_ref = np.pad(v, ((0, 0),) * 3 + ((0, 576 - dv),))
+    valid = rng.random((1, tk)) < 0.9
+    valid[:, 3] = False
+    (jq, tq_), (jk, tk_), (jv, _), (jval, tval) = map(
+        _both, (q, k, v_ref, valid))
+    got = flash_attention_bhtd(tq_, tk_, torch.as_tensor(np.ascontiguousarray(
+        v)), tval, causal=True, boundary=boundary, scale=scale)
+    assert got.shape == (1, 8, tq, dv)
+    kw = dict(causal=True, boundary=boundary, scale=scale)
+    _close(got, ref_ref.flash_attention_ref(jq, jk, jv, k_valid=jval,
+                                            **kw)[..., :dv])
+    _close(got, ref_flash(jq, jk, jv, jval, block_q=16, block_k=32,
+                          **kw)[..., :dv])
+
+
 MASKED_CASES = {
     # name: (b, h, hkv, tq, tk, d, causal, boundary, invalid-slot setter)
     "midstream_block_one_kv_head":
@@ -320,7 +350,16 @@ def test_tile_shape_reaches_the_compiler():
         macro = flag[2:].split("=")[0]
         assert f"constexpr int {name} = {macro};" in header
         assert f"defined({macro})" in header
-    assert "__launch_bounds__(NTHREADS, BLOCKS_PER_SM)" in header
+    # the d <= 128 tile is built with BLOCKS_PER_SM as its launch bound
+    assert "__launch_bounds__(NTHREADS, C::BLOCKS)" in header
+    assert "using Cfg = Tile<D, D, BN, BLOCKS_PER_SM>;" in header
+    for name in ("WIDE_D", "WIDE_DV", "WIDE_BN"):
+        macro = f"QUOKA_{name}"
+        assert f"-D{macro}={getattr(tiling, name)}" in tiling.NVCC_DEFINES
+        assert f"constexpr int {name} = {macro};" in header
+        assert f"defined({macro})" in header
+    assert "using Wide = Tile<WIDE_D, WIDE_DV, WIDE_BN, 1>;" in header
+    assert tiling.WIDE_BLOCKS_PER_SM == 1
 
 
 def test_attention_tiles_take_every_head_dim_to_128():
@@ -345,13 +384,38 @@ def test_attention_tiles_take_every_head_dim_to_128():
         assert tiling.BLOCKS_PER_SM * (smem + 1024) <= tiling.SMEM_PER_SM
     assert (tiling.attn_stages(64), tiling.attn_stages(128)) == (3, 2)
     header = (build.CSRC / "attn_mma.cuh").read_text()
-    assert "BM * D * 2 + stages * 2 * BN * D * 2 + (stages + 1) * (BN * 24 " \
-        "+ 4)" in header
-    assert "BLOCKS_PER_SM * (attn_smem<D>(3) + 1024) <= SMEM_PER_SM ? 3 : 2" \
+    assert "BM * DK * 2 + stages * TBN * (DK + DV) * 2 +\n" \
+        "         (stages + 1) * (TBN * 24 + 4)" in header
+    assert "NB * (attn_smem<DK, DV, TBN>(3) + 1024) <= SMEM_PER_SM ? 3 : 2" \
         in header
+    assert "using Cfg = Tile<D, D, BN, BLOCKS_PER_SM>;" in header
     for flag in (f"-DQUOKA_SMEM_PER_SM={tiling.SMEM_PER_SM}",
                  f"-DQUOKA_SMEM_PER_BLOCK={tiling.SMEM_PER_BLOCK}"):
         assert flag in build.NVCC_FLAGS
+
+
+def test_flash_wide_tile_geometry():
+    """Flash takes every multiple of 8 up to 128 and MLA's 576 (the wide
+    tile), no width between, and V up to the key width; the wide tile's
+    Q and 3-stage ring of 32-key K tiles and 128-column V slices fit one
+    block's shared memory; deepseek-v3's prefill fills the card with 4
+    column slices of 256 row tiles, its decode (2 row tiles) splits the
+    key walk 16 ways."""
+    from repro_torch.kernels import tiling
+    assert tiling.flash_width(80, 80) == 80
+    assert tiling.flash_width(576, 512) == tiling.flash_width(576, 8) == 576
+    for d, dv in ((584, 8), (572, 8), (136, 8), (256, 128), (64, 72),
+                  (576, 12), (576, 0)):
+        with pytest.raises(ValueError, match="head dim|value width"):
+            tiling.flash_width(d, dv)
+    args = (tiling.WIDE_D, 3, tiling.WIDE_DV, tiling.WIDE_BN)
+    assert tiling.attn_stages(tiling.WIDE_D, tiling.WIDE_DV, tiling.WIDE_BN,
+                              tiling.WIDE_BLOCKS_PER_SM) == 3
+    assert tiling.attn_smem(*args) + 1024 <= tiling.SMEM_PER_BLOCK
+    assert tiling.wide_geometry(1, 1, 128, 128, 1152, 512, N_SM) == \
+        (256, 4, 1)
+    assert tiling.wide_geometry(1, 1, 128, 1, 1025, 512, N_SM) == (2, 4, 16)
+    assert tiling.wide_geometry(1, 1, 128, 1, 1025, 576, N_SM)[1] == 5
 
 
 def test_bf16_rows_must_be_16_byte_aligned():

@@ -57,7 +57,8 @@ def _tokens(seed, vocab, t=PROMPT):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-3-2b", "llama3-2-3b",
-                                  "stablelm-3b"])
+                                  "stablelm-3b", "olmoe-1b-7b",
+                                  "deepseek-v3-671b"])
 def test_logits_and_greedy_tokens_match_reference(arch, variant):
     method, qover = VARIANTS[variant]
     rm, params, pm = _pair(arch, qover)
@@ -134,10 +135,14 @@ def test_top_p_degenerate_cutoff_keeps_argmax():
     assert bool(torch.isfinite(kept).all())
 
 
-def test_restore_reads_reference_checkpoint(tmp_path):
+@pytest.mark.parametrize("arch", ["granite-3-2b", "olmoe-1b-7b",
+                                  "deepseek-v3-671b"])
+def test_restore_reads_reference_checkpoint(tmp_path, arch):
     """``restore`` loads the reference's npz checkpoint into the same
-    weights as ``from_flat`` (linear weights once in the compute dtype)."""
-    rm, params, pm = _pair("granite-3-2b", {})
+    weights as ``from_flat`` (linear weights once in the compute dtype),
+    every key of it (MoE experts and router; MLA leaves, ``lm_head`` and
+    ``mtp/*`` for deepseek), and refuses one the port does not hold."""
+    rm, params, pm = _pair(arch, {})
     path = str(tmp_path / "ckpt")
     ref_save(path, params)
     got = restore(path, pm.cfg, "cpu").state_dict()
@@ -145,3 +150,9 @@ def test_restore_reads_reference_checkpoint(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    flat = _flatten(params)
+    assert sum(a.size for a in flat.values()) == \
+        sum(p.numel() for p in pm.parameters())
+    flat["stacks/0/0/unknown/w"] = np.zeros((1, 2))
+    with pytest.raises(ValueError, match="does not hold"):
+        from_flat(flat, pm.cfg, "cpu")

@@ -75,7 +75,7 @@ def _same_tokens(got, want):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("arch", ["granite-3-2b", "qwen3-4b", "llama3-2-3b",
-                                  "stablelm-3b"])
+                                  "stablelm-3b", "olmoe-1b-7b"])
 def test_serve_matches_reference_and_generate(arch, variant):
     """A ragged tail (24) and interleaved prefill/decode steps; greedy
     tokens, step counts and occupancy equal the reference's serve, and each
@@ -365,3 +365,21 @@ def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
     assert (flash_attention.LAUNCHES, quoka_score.LAUNCHES,
             selected_attention.LAUNCHES,
             selected_attention.PAGED_LAUNCHES) == (0, 0, 0, 0)
+
+
+def test_latent_cache_serve_raises_and_generate_runs():
+    """deepseek-v3 (MLA's latent caches) has no paged-pool layout yet:
+    continuous serving is refused explicitly, with no fallback, while the
+    one-shot ``generate`` serves it with the reference's tokens."""
+    rm, params, pm = _pair("deepseek-v3-671b")
+    prompts = _prompts(7, (64, 48), pm.cfg.vocab)
+    eng = Engine(pm, method="quoka", device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="latent caches in the paged pool are not yet "
+                             "ported"):
+        eng.serve(make_requests(prompts, 4), block_size=BS)
+    toks = np.stack([prompts[0], prompts[0][::-1]])
+    want = RefEngine(rm, params, method="quoka").generate(
+        {"tokens": jnp.asarray(toks)}, 4).tokens
+    np.testing.assert_array_equal(eng.generate({"tokens": toks}, 4).tokens,
+                                  np.asarray(want))
