@@ -19,7 +19,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      prefill and decode shapes (128 heads over one latent KV head, d 576,
      V the 512-wide latent and V zero-padded to 576), bf16 and fp32, rows
      with no valid key exact zeros, the unpadded output equal to the
-     padded call's first 512 columns;
+     padded call's first 512 columns; scoring at h2o-danube-3-4b's wrapped
+     ring (n_kv 8, d 120 staged at 128, T 4096, n_q 16 and 1, bf16 and
+     fp32, a row with no valid slot exactly NEG_INF), and flash and
+     selected attention at gemma3-27b's global layers (h 32 / 16, budget
+     2048: [2048 | 128] keys, 128 plan blocks; prefill and decode);
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -38,9 +42,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      attention kernels, the grids of the kernels one call launched and
      their device time, read from a ``torch.profiler`` trace (the blocks
      per launch and, for attention, the split count S); flash and selected
-     attention also at stablelm-3b's shapes (d = 80, MHA), flash at
-     deepseek-v3's (d 576, beside SDPA and the backend SDPA took) and
-     scoring at its latent (n_kv 1, d 576);
+     attention also at stablelm-3b's shapes (d = 80, MHA) and gemma3-27b's
+     (group 2, budget 2048), flash at deepseek-v3's (d 576, beside SDPA
+     and the backend SDPA took), scoring at its latent (n_kv 1, d 576) and
+     at h2o-danube-3-4b's ring (d 120);
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -102,7 +107,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
  18. deepseek-v3's attention and expert geometry cut to 4 layers (3 dense
      MLA, 1 MLA + 256 experts): ``Engine.generate`` staged with exact
      launch counts (4 x 95), and layer 0's selected attention (flash at d
-     576 over the latent) held to its plain version on its own inputs.
+     576 over the latent) held to its plain version on its own inputs;
+ 19. that model served over the paged pool with the host tier (latent
+     caches in 128-slot blocks, 72 device blocks, 128 pinned slabs,
+     prefetch depth 4, one prefill and one decode row): A (8192 tokens),
+     B (a 4096-token prefix hit on A whose fresh blocks demote A's tail),
+     then [C (2048 tokens), A] (A staged during C's steps and promoted);
+     exact launch counts, every request's tokens equal its ``generate``,
+     every slab of A byte-exact through demotion and promotion, TTFT per
+     request; the serve step's last prefill and decode flash calls held to
+     the plain version and timed beside SDPA;
+ 20. h2o-danube-3-4b (24 layers, d_model 3840, 32 / 8 heads, d 120, every
+     layer windowed at 4096) at full width: ``Engine.generate`` at prompt
+     8192 (every ring wraps), staged and g = 16, with exact launch counts
+     (scoring on every layer call, 24 x 95; no flash, no selected
+     attention: a windowed layer attends on the plain masked path), and a
+     trace of its fused route as phase 7's;
+ 21. gemma3-27b's and h2o-danube-3-4b's smoke configs (window 64) at
+     prompt 160, card (kernels) vs CPU (plain versions): logits within
+     1e-4, greedy tokens equal, staged and g = 16;
+ 22. gemma3-27b (62 layers, d_model 5376, 32 / 16 heads, 5 local (window
+     1024) : 1 global, budget 2048) at full width and depth, last, on an
+     otherwise empty card: ``Engine.generate`` staged and fused (g = 16)
+     with exact launch counts (10 global layers x 95; the local layers'
+     1024-slot rings take the dense bypass), and a trace of the fused
+     route as phase 7's at prompt 4096 (at 2048 every layer would take
+     the dense bypass).
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -200,11 +230,36 @@ def small_score_inputs(torch, dev, n_q, d, dtype, T=300):
     return qb, k.transpose(1, 2), valid
 
 
-def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128):
-    """[selected budget 1024 | chunk tq]: per-KV-head budget validity with
+# h2o-danube-3-4b's scoring call (phase 20's path): its ring of 4096 slots
+# (window 4096), n_kv 8, d 120, at the chunk of an 8192-token prompt that
+# starts at 6016, mid-ring
+RING_T, RING_D, RING_START = 4096, 120, 6016
+
+
+def ring_score_inputs(torch, dev, n_q, dtype, b=1):
+    """q̄ (b, 8, n_q, 120) and a wrapped ring of 4096 slots: slot j holds
+    the newest position p <= the chunk's last with p % 4096 == j, so the
+    slots hold positions 4096-6015, then the chunk's own 128 (not yet prior
+    context: invalid), then 2048-4095: no monotonic order.  With b = 2 the
+    second row has no valid slot."""
+    g = torch.Generator(device=dev).manual_seed(60 + n_q)
+    qb = torch.randn((b, 8, n_q, RING_D), generator=g, device=dev)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((b, RING_T, 8, RING_D), generator=g,
+                    device=dev).to(dtype)
+    last = RING_START + 127
+    slot = torch.arange(RING_T, device=dev)
+    pos = last - (last - slot) % RING_T
+    valid = ((pos >= 0) & (pos < RING_START))[None].repeat(b, 1)
+    if b > 1:
+        valid[1] = False
+    return qb, k.transpose(1, 2), valid
+
+
+def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128, B=1024):
+    """[selected budget B | chunk tq]: per-KV-head budget validity with
     -1 padding; KV head 3 selected nothing and its chunk key 0 is a pad
     slot, so query row 0 of that head group attends nothing."""
-    B = 1024
     tk = B + tq
     g = torch.Generator(device=dev).manual_seed(20 + tq)
     q = torch.randn((1, tq, h, d), generator=g, device=dev)
@@ -397,10 +452,71 @@ def phase_parity(torch, np, dev, K):
             check(f"{arch} selected_attention g={g} t={t} d={d}", err,
                   bf16_ulp(want), "1 bf16 ulp of the output")
             errs["selected_attention"] = max(errs["selected_attention"], err)
+    for name, err in window_parity(torch, np, dev, K).items():
+        errs[name] = max(errs[name], err)
     for name, err in head_dim_sweep(torch, np, dev, K).items():
         errs[name] = max(errs.get(name, 0.0), err)
     errs["flash_attention"] = max(errs["flash_attention"],
                                   mla_flash_parity(torch, dev, K))
+    return errs
+
+
+def window_parity(torch, np, dev, K):
+    """Phase 2, the sliding-window slice's shapes: scoring at
+    h2o-danube-3-4b's wrapped ring (n_kv 8, d 120: staged at 128 with the
+    missing columns zero-filled; T 4096, n_q 16 and 1, bf16 and fp32, a
+    row with no valid slot exactly NEG_INF), and flash and selected
+    attention at gemma3-27b's global layers (h 32 / 16, a budget of 2048
+    keys: 128 plan blocks at g = 16; prefill and decode).  Returns
+    {kernel: max error}."""
+    fa, qs, sa, ref = K["flash"], K["score"], K["selected"], K["ref"]
+    errs = {"quoka_score": 0.0, "flash_attention": 0.0,
+            "selected_attention": 0.0}
+    for n_q in (16, 1):
+        for dtype, tol, why in (
+                (torch.bfloat16, 1e-4, "fp32 scores of bf16 products"),
+                (torch.float32, 2e-5, "fp32 on the CUDA cores")):
+            qb, kt, valid = ring_score_inputs(torch, dev, n_q, dtype, b=2)
+            got = qs.quoka_score_bhtd(qb, kt, valid)
+            want = ref.score_ref(qb, kt, valid)
+            if not bool((got[1] == ref.NEG_INF).all()):
+                raise AssertionError("quoka_score d=120: a row with no "
+                                     "valid slot is not exactly NEG_INF")
+            err = max_err(got, want)
+            check(f"h2o-danube quoka_score ring T={RING_T} n_q={n_q} "
+                  f"d={RING_D} {str(dtype)[6:]}", err, tol,
+                  f"{why}, summation order differs")
+            errs["quoka_score"] = max(errs["quoka_score"], err)
+    h, n_kv, d = ARCH_SHAPES["gemma3-27b"]
+    group = h // n_kv
+    for tq in (128, 1):
+        q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d,
+                                         B=GEMMA_BUDGET)
+        got = fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                      boundary=B)
+        want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                       k_valid=valid)
+        if float(got[:, 3 * group:4 * group, 0].abs().max()) != 0.0:
+            raise AssertionError("gemma3 flash_attention: fully-masked row "
+                                 "not zero")
+        err = max_err(got, want)
+        check(f"gemma3 flash_attention tq={tq} tk={B + tq} h={h}/{n_kv}",
+              err, bf16_ulp(want), "1 bf16 ulp of the output")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    for g, t, start in ((16, 128, 4096), (16, 1, 8197)):
+        q, k, v, key_pos, idx, st = selected_inputs(
+            torch, np, dev, g, t, start, B=GEMMA_BUDGET, h=h, n_kv=n_kv,
+            d=d)
+        got = sa.selected_attention_bhtd(q, k, v, key_pos, idx, st,
+                                         granularity=g)
+        want = ref.selected_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), key_pos, idx, st,
+                                g).transpose(1, 2)
+        err = max_err(got, want)
+        check(f"gemma3 selected_attention g={g} t={t} blocks "
+              f"{idx.shape[1]} h={h}/{n_kv}", err, bf16_ulp(want),
+              "1 bf16 ulp of the output")
+        errs["selected_attention"] = max(errs["selected_attention"], err)
     return errs
 
 
@@ -446,9 +562,11 @@ def mla_flash_parity(torch, dev, K):
     return e
 
 
-# (h, n_kv, d) of the slice's other models (phases 14, 15, 17)
+# (h, n_kv, d) of the slice's other models (phases 14, 15, 17, 20, 22)
 ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80),
-               "olmoe-1b-7b": (16, 16, 128)}
+               "olmoe-1b-7b": (16, 16, 128), "gemma3-27b": (32, 16, 128),
+               "h2o-danube-3-4b": (32, 8, 120)}
+GEMMA_BUDGET = 2048                   # gemma3-27b's QUOKA budget
 SWEEP_DIMS = (8, 32, 80, 112, 120)
 SWEEP_HEADS = ((4, 4), (6, 2), (14, 2))      # GQA groups 1, 3 and 7
 
@@ -1297,37 +1415,67 @@ def phase_small_baselines(torch, np):
         log(f"  {m}: serve tokens equal on card and CPU")
 
 
+def oneshot_launches(cfg):
+    """Exact launches of one ``generate`` (PROMPT, MAX_NEW) on ``cfg``'s
+    route: a layer selects at a chunk or decode step when its cache (a
+    ring of min(cap, window) slots for ``attn_local``) exceeds budget + t
+    (else it takes the dense bypass: no kernel); a selecting layer launches
+    scoring once, then flash (staged) or selected attention (fused), except
+    a windowed layer, which attends [selected | chunk] on the plain masked
+    path (as the reference)."""
+    from repro_torch.core.plan import resolve_budget
+    q = cfg.quoka
+    cap = PROMPT + MAX_NEW
+    if q.granularity > 1:
+        cap = -(-cap // q.granularity) * q.granularity
+    chunk = q.chunk_size
+    score = attn = 0
+    for kind in cfg.layer_kinds():
+        c = min(cap, cfg.sliding_window) if kind == "attn_local" else cap
+        bud = resolve_budget(q, c)
+        n = (PROMPT // chunk) * (c > bud + chunk) + \
+            (MAX_NEW - 1) * (c > bud + 1)
+        score += n
+        attn += 0 if kind == "attn_local" else n
+    # fused_route's test on a full-length cache view (cap is on the grid)
+    fused = q.fused_select_attn and q.granularity > 1
+    return {"quoka_score": score, "flash_attention": 0 if fused else attn,
+            "selected_attention": attn if fused else 0,
+            "selected_attention_paged": 0}
+
+
 def phase_oneshot(torch, np, K, arch, phase):
-    """Phases 14 (llama3-2-3b) and 15 (stablelm-3b): ``Engine.generate`` at
-    the published width from random weights (seed 0), staged then fused
-    (g = 16), with exact launch counts: one score and one attention launch
-    per layer per chunk and per decode step.  Returns (the model, on the
-    fused route, and its numbers)."""
+    """Phases 14 (llama3-2-3b), 15 (stablelm-3b), 20 (h2o-danube-3-4b) and
+    22 (gemma3-27b): ``Engine.generate`` at the published width from
+    random weights (seed 0), staged then g = 16 with the fused route on,
+    with exact launch counts (``oneshot_launches``): on a dense model one
+    score and one attention launch per layer per chunk and per decode
+    step; gemma3-27b's local layers (a 1024-slot ring, within budget 2048
+    + chunk) take the dense bypass, so only its 10 global layers launch;
+    h2o-danube-3-4b's windowed layers launch scoring only.  Returns (the
+    model, on the last route, and its numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch)
+    win = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
     log(f"== phase {phase}: {arch} one-shot at full width ({cfg.n_layers} "
         f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}, d {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab}, bf16), prompt {PROMPT}, {MAX_NEW} new")
+        f"vocab {cfg.vocab}{win}, budget {cfg.quoka.budget}, bf16), prompt "
+        f"{PROMPT}, {MAX_NEW} new")
     t0 = time.perf_counter()
     model = build_model(cfg, seed=0)
     torch.cuda.synchronize()
     log(f"  weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
-        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params")
-    per_run = cfg.n_layers * (PROMPT // cfg.quoka.chunk_size + MAX_NEW - 1)
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB)")
     out = {}
-    for route, qover, want in (
-            ("staged", {}, {"quoka_score": per_run,
-                            "flash_attention": per_run,
-                            "selected_attention": 0,
-                            "selected_attention_paged": 0}),
-            ("fused", dict(granularity=16, fused_select_attn=True),
-             {"quoka_score": per_run, "flash_attention": 0,
-              "selected_attention": per_run,
-              "selected_attention_paged": 0})):
+    for route, qover in (
+            ("staged", {}),
+            ("fused", dict(granularity=16, fused_select_attn=True))):
         model.cfg = dataclasses.replace(cfg, quoka=dataclasses.replace(
             cfg.quoka, **qover))
+        want = oneshot_launches(model.cfg)
         r, counts, peak = phase_main(torch, np, K, model, f"{arch} {route}")
         if counts != want:
             raise AssertionError(f"{arch} {route} launches {counts} != "
@@ -1706,14 +1854,207 @@ def phase_deepseek(torch, np, K):
                launches=counts, tokens=r.tokens[0].tolist(),
                layer0_rel_err=rel,
                trace=phase_trace(torch, np, model, phase="  phase 18"))
-    del model, cache
-    torch.cuda.empty_cache()
-    return res
+    del cache
+    return res, model
+
+
+DS_NEW = 16                                    # phase 19's new tokens
+
+
+def phase_deepseek_serve(torch, np, K, model):
+    """Phase 19: phase 18's deepseek-v3 (4 layers) served over the paged
+    pool with the host tier, staged (MLA's only route): every layer's
+    latent cache in pool blocks (block 128, a 72-block device pool, 128
+    pinned host slabs, prefetch depth 4, one prefill and one decode row).
+    A (8192 tokens) cold; B, A's first 4096 tokens then 4096 others (a
+    4096-token prefix hit; its fresh blocks demote A's tail to the host
+    tier); then [C (2048 tokens), A]: C's blocks demote more of A, A waits
+    behind C (too few device blocks for both), its host blocks staged during
+    C's steps and promoted at its admission.  Exact launch counts (one
+    score and one flash launch per layer per step); every request's greedy
+    tokens equal its own ``generate``; every slab of A is held byte for
+    byte through demotion (the host row) and promotion (the device block).
+    The last prefill and decode flash calls of A's cold serve (layer 3)
+    are held to the plain version and timed beside SDPA (phase 6's row
+    form).  Returns (numbers, {"d576_serve": row, "d576_serve_decode":
+    row})."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.pool import _chain_hashes, _slab_leaves
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    L = cfg.n_layers
+    log("== phase 19: deepseek-v3 (4 layers) serve over the paged pool and "
+        "the host tier, staged (block 128, device pool 72 blocks, host tier "
+        "128 blocks, prefetch depth 4, one prefill and one decode row)")
+    rng = np.random.default_rng(19)
+    a = rng.integers(3, cfg.vocab, (PROMPT,)).astype(np.int32)
+    b = np.concatenate([a[:PROMPT // 2], rng.integers(
+        3, cfg.vocab, (PROMPT // 2,)).astype(np.int32)])
+    c = rng.integers(3, cfg.vocab, (2048,)).astype(np.int32)
+    prompts = {1: a, 2: b, 3: c}
+
+    def trace(*rids):
+        return [Request(rid=rid, tokens=prompts[rid], max_new=DS_NEW)
+                for rid in rids]
+
+    eng = Engine(model, method="quoka")
+    t0 = time.perf_counter()
+    state = eng.make_serve_state(trace(1, 2, 3), block_size=128,
+                                 num_blocks=72, host_tier_blocks=128,
+                                 prefetch_depth=4, max_decode_batch=1,
+                                 max_prefill_tokens=128)
+    pool = state.pool
+    if not pool.host.store.is_pinned():
+        raise AssertionError("host tier rows are not pinned")
+    slab = pool.host.store.shape[1]
+    log(f"  pool: {pool.num_blocks} device blocks of latent caches "
+        f"({L} layers x 128 slots x {cfg.mla.kv_lora_rank} + "
+        f"{cfg.mla.qk_rope_dim}), host tier {pool.host.capacity} pinned "
+        f"slabs of {slab / 2 ** 20:.3f} MiB, {state.max_nb} blocks per "
+        f"request; built and warmed in {time.perf_counter() - t0:.1f} s")
+    # the flash calls of A's cold serve: the last with a chunk of queries
+    # and the last of a decode step (each replaces the one before)
+    seen = {}
+    kernel = ops.attention
+
+    def recording(*args, **kw):
+        seen["prefill" if args[0].shape[1] > 1 else "decode"] = (args, kw)
+        return kernel(*args, **kw)
+
+    totals = dict.fromkeys(read_counts(K), 0)
+
+    def run(label, *rids, record=False):
+        torch.cuda.synchronize()
+        reset_counts(K)
+        if record:
+            ops.attention = recording
+        try:
+            r = eng.serve(trace(*rids), state=state)
+        finally:
+            ops.attention = kernel
+        counts = read_counts(K)
+        steps = r.prefill_steps + r.decode_steps
+        want = {"quoka_score": L * steps, "flash_attention": L * steps,
+                "selected_attention": 0, "selected_attention_paged": 0}
+        if counts != want:
+            raise AssertionError(f"phase 19 {label} launches {counts} != "
+                                 f"{want}")
+        for name, n in counts.items():
+            totals[name] += n
+        st = dict(eng.stats)
+        log(f"  {label}: wall {r.wall_s:.2f} s, steps {r.steps} "
+            f"({r.prefill_steps} prefill / {r.decode_steps} decode), "
+            f"cached {r.cached_len}, TTFT "
+            f"{ {k: round(v, 4) for k, v in r.ttft_s.items()} } s, "
+            f"launches {counts}; pool {st}")
+        return r, st
+
+    def packed(blk):
+        return torch.cat([leaf[blk].reshape(-1).view(torch.uint8)
+                          for leaf in _slab_leaves(pool.data)])
+
+    chain = _chain_hashes(a, pool.block_size)
+    r_a, _ = run("A cold", 1, record=True)
+    snap = {h: packed(pool._full[h]) for h in chain}
+    r_b, s_b = run("B (A's first 4096 tokens, then 4096 others)", 2)
+    if r_b.cached_len[2] != PROMPT // 2:
+        raise AssertionError(f"B's prefix hit {r_b.cached_len[2]} != "
+                             f"{PROMPT // 2}")
+    demoted = [h for h in chain if h in pool._h_full]
+    if s_b["demoted"] < 1 or not demoted:
+        raise AssertionError(f"B demoted none of A's blocks: {s_b}")
+    for h in demoted:
+        slot = pool._h_full[h]
+        pool.host.written[slot].synchronize()
+        if not torch.equal(pool.host.row(slot), snap[h].cpu()):
+            raise AssertionError("a demoted latent slab differs from its "
+                                 "device block")
+    r_ca, s_ca = run("[C, A] (A promoted)", 3, 1)
+    if s_ca["promoted"] < 1:
+        raise AssertionError(f"A promoted nothing: {s_ca}")
+    for h in chain:
+        if not torch.equal(packed(pool._full[h]), snap[h]):
+            raise AssertionError("a promoted latent block differs from its "
+                                 "slab")
+    pool.check_invariants()
+    log(f"  latent slabs byte-exact: {len(demoted)} of A's {len(chain)} "
+        f"blocks on the host after B, all {len(chain)} back on the device "
+        f"after [C, A] ({s_ca['promoted']:.0f} promoted, "
+        f"{s_ca['staged_used']:.0f} from staging)")
+    gen = {rid: eng.generate({"tokens": p[None]}, DS_NEW).tokens[0]
+           for rid, p in prompts.items()}
+    for label, r in (("A", r_a), ("B", r_b), ("[C, A]", r_ca)):
+        for rid, toks in r.tokens.items():
+            if not np.array_equal(toks, gen[rid]):
+                raise AssertionError(f"phase 19 {label} request {rid}: "
+                                     f"serve {toks}, generate {gen[rid]}")
+    log("  greedy tokens equal: serve == generate, every request and trace")
+    promoted_ttft = r_ca.ttft_s[1] - r_ca.latency_s[3]
+    rows = {}
+    junk = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=model.device)
+    for what, key in (("prefill", "d576_serve"),
+                      ("decode", "d576_serve_decode")):
+        (q, k, v, valid), kw = seen[what]
+        B = kw["boundary"]
+        rows[key] = mla_flash_row(
+            torch, K, lambda: junk.fill_(1), q.transpose(1, 2),
+            k.transpose(1, 2), v.transpose(1, 2), valid, B,
+            f"serve {what} (layer {L - 1}, A's last)")
+    del junk
+    return dict(ttft_s={"A cold": r_a.ttft_s[1], "B hit": r_b.ttft_s[2],
+                        "C": r_ca.ttft_s[3],
+                        "A promoted (from C's completion)": promoted_ttft},
+                wall_s={"A": r_a.wall_s, "B": r_b.wall_s,
+                        "CA": r_ca.wall_s},
+                demoted=s_b["demoted"] + s_ca["demoted"],
+                promoted=s_ca["promoted"], staged_used=s_ca["staged_used"],
+                host_evictions=s_b["host_evictions"]
+                + s_ca["host_evictions"], slab_bytes=slab,
+                steps={"A": r_a.steps, "B": r_b.steps, "CA": r_ca.steps},
+                launches=totals), rows
+
+
+def phase_window_small(torch, np):
+    """Phase 21: gemma3-27b's and h2o-danube-3-4b's smoke configs (window
+    64, budget 32, chunk 16) in fp32, same weights on the card (kernels)
+    and on the CPU (plain versions), at prompt 160 > the window, so every
+    ring wraps: staged and g = 16 with the fused route on; prefill logits
+    within 1e-4 and greedy tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.engine import Engine
+    log("== phase 21: sliding-window smoke models, card (kernels) vs CPU "
+        "(plain versions), prompt 160 > window 64")
+    for arch in ("gemma3-27b", "h2o-danube-3-4b"):
+        base = get_config(arch).smoke()
+        toks = np.random.default_rng(21).integers(
+            3, base.vocab, (2, 160)).astype(np.int32)
+        for label, qover in (("staged g=1", {}),
+                             ("fused g=16", {"granularity": 16,
+                                             "fused_select_attn": True})):
+            cfg = dataclasses.replace(base, quoka=dataclasses.replace(
+                base.quoka, **qover))
+            cpu = build_model(cfg, device="cpu", seed=1)
+            gpu = Model(cfg)
+            gpu.load_state_dict(cpu.state_dict())
+            lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, 176))
+            lg, _ = gpu.prefill({"tokens": toks}, gpu.init_cache(2, 176))
+            check(f"{arch} smoke prefill logits, {label}",
+                  max_err(lg.cpu(), lc), 1e-4,
+                  "fp32 everywhere, summation order differs")
+            tc = Engine(cpu, device="cpu").generate({"tokens": toks},
+                                                    8).tokens
+            tg = Engine(gpu).generate({"tokens": toks}, 8).tokens
+            if not np.array_equal(tc, tg):
+                raise AssertionError(f"{arch} smoke greedy tokens differ, "
+                                     f"{label}: {tc} vs {tg}")
+            log(f"  {arch} smoke greedy tokens equal, {label}")
 
 
 def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7"):
-    """Phase 7 (and the traces of phases 17-18): where the time of the
-    model's route goes.  One chunked prefill of ``prompt`` tokens and
+    """Phase 7 (and the traces of phases 17-18, 20 and 22): where the time
+    of the model's route goes.  One chunked prefill of ``prompt`` tokens and
     ``steps`` decode steps, each timed without the profiler (host clock
     around synchronize) and traced once with ``torch.profiler`` for the
     device time by kernel.  Device idle share = 1 - device busy time /
@@ -1969,14 +2310,16 @@ def time_row(torch, flush, label, call, plain, b_ms, b_by, lib_ms=None,
 
 def attention_times(torch, np, dev, K, flush):
     """Flash and linear selected attention at the main path's prefill
-    (tq = 128) and decode (tq = 1) shapes, qwen3-4b's (h 32 / 8, d 128)
-    and stablelm-3b's (MHA 32 / 32, d 80): device time with L2 warm, with
+    (tq = 128) and decode (tq = 1) shapes, qwen3-4b's (h 32 / 8, d 128),
+    stablelm-3b's (MHA 32 / 32, d 80) and gemma3-27b's global layers' (h
+    32 / 16, a budget of 2048): device time with L2 warm, with
     L2 flushed and back to back, the plain version, SDPA for flash, the
     bound, and the kernels one call launched (their grids, so the split
     count and the blocks, and their device times), read from a profiler
     trace.  Returns {kernel: row}: qwen3-4b's prefill numbers at the top
     level, its decode ones under "decode", stablelm-3b's under "d80" and
-    "d80_decode"; "ms" is the time with L2 as the main path leaves it
+    "d80_decode", gemma3-27b's under "gemma3" and "gemma3_decode"; "ms" is
+    the time with L2 as the main path leaves it
     (flash: warm, the tensors just written; selected: flushed, a cache the
     other layers have evicted)."""
     import torch.nn.functional as F
@@ -1992,13 +2335,16 @@ def attention_times(torch, np, dev, K, flush):
         else:
             out[name][key] = r
 
-    for tag, (h, n_kv, d) in (("", (32, 8, 128)),
-                              ("d80", ARCH_SHAPES["stablelm-3b"])):
+    for tag, (h, n_kv, d), budget in (
+            ("", (32, 8, 128), 1024),
+            ("d80", ARCH_SHAPES["stablelm-3b"], 1024),
+            ("gemma3", ARCH_SHAPES["gemma3-27b"], GEMMA_BUDGET)):
         group = h // n_kv
         for tq in (128, 1):
             key = ((tag + "_decode") if tag else "decode") if tq == 1 \
                 else (tag or None)
-            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d)
+            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d,
+                                             B=budget)
             tk = k.shape[2]
             i = torch.arange(tq, device=dev)[:, None]
             j = torch.arange(tk, device=dev)[None, :]
@@ -2026,7 +2372,7 @@ def attention_times(torch, np, dev, K, flush):
             key = ((tag + "_decode") if tag else "decode") if t == 1 \
                 else (tag or None)
             q, k, v, key_pos, idx, st = selected_inputs(
-                torch, np, dev, g, t, start, h=h, n_kv=n_kv, d=d)
+                torch, np, dev, g, t, start, B=budget, h=h, n_kv=n_kv, d=d)
             # keys this data needs: valid selected slots and the chunk rows
             blocks = idx[idx >= 0]
             rows_sel = (blocks[:, None] * g
@@ -2084,52 +2430,64 @@ def mla_times(torch, dev, K, flush):
     faster is the row's library time; each form's time and the backend it
     took are kept.  Returns {"d576": prefill row, "d576_decode": decode
     row}."""
-    fa, ref = K["flash"], K["ref"]
     rows = {}
     for tq in (128, 1):
         q, k, v, valid, B = mla_flash_inputs(torch, dev, tq, torch.bfloat16)
-        tk = k.shape[2]
-        i = torch.arange(tq, device=dev)[:, None]
-        j = torch.arange(tk, device=dev)[None, :]
-        mask = ((j < B) | (j - B <= i))[None, None] & valid[:, None, None]
-        pairs = MLA_H * int(mask.sum())
-        o = torch.empty((1, MLA_H, tq, MLA_DV), dtype=q.dtype, device=dev)
-        # K and V rows masked by k_valid are never needed; MLA's V is K's
-        # first 512 columns (a view), so those bytes are read once
-        n_valid = int(valid.sum())
-        aliased = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
-        kv_cols = MLA_D if aliased else MLA_D + MLA_DV
-        b_ms, b_by = bound(nbytes(q, valid, o)
-                           + n_valid * kv_cols * q.element_size(),
-                           2 * (MLA_D + MLA_DV) * pairs)
-        want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
-                                       k_valid=valid, scale=MLA_SCALE)
-        sdpa = {}
-        for form, call in mla_sdpa_forms(torch, q, k, v, mask).items():
-            # a wrong view or mask is off by O(1); bf16 rounding is not
-            rel = max_err(call(), want) / float(want.abs().max())
-            check(f"SDPA {form} d=576 tq={tq} vs plain (relative)", rel,
-                  2e-2, "the same function: bf16 SDPA against fp32 sums")
-            sdpa[form] = (time_ms(torch, call, None),
-                          sdpa_backend(torch, call))
-            log(f"    sdpa {form}: {fmt(sdpa[form][0])}, backend "
-                f"{sdpa[form][1]}")
-        best = min(sdpa, key=lambda f: sdpa[f][0]["device"])
-        l_ms = sdpa[best][0]
-        label = f"{'prefill' if tq > 1 else 'decode'} tq={tq} tk={tk} " \
-            f"h={MLA_H}/1 d={MLA_D} dv={MLA_DV}"
-        r = time_row(
-            torch, flush, f"flash_attention {label}",
-            lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
-                                            boundary=B, scale=MLA_SCALE),
-            lambda: ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
-                                            k_valid=valid, scale=MLA_SCALE),
-            b_ms, b_by, l_ms)
-        r.update(sdpa_form=best, sdpa_backend=sdpa[best][1],
-                 sdpa_ms={f: t["device"] for f, (t, _) in sdpa.items()},
-                 sdpa_backends={f: be for f, (_, be) in sdpa.items()})
-        rows["d576" if tq > 1 else "d576_decode"] = r
+        rows["d576" if tq > 1 else "d576_decode"] = mla_flash_row(
+            torch, K, flush, q, k, v, valid, B,
+            "prefill" if tq > 1 else "decode")
     return rows
+
+
+def mla_flash_row(torch, K, flush, q, k, v, valid, B, what):
+    """One flash row at MLA's width (q (b, h, tq, 576) with (b, tq, h, d)
+    storage, one KV head, V the latent's first 512 columns, validity
+    (b, tk) or (b, 1, tk), a budget of B keys): its bound, SDPA in both
+    forms of ``mla_sdpa_forms`` (each checked against the plain version,
+    the faster the row's library time) and ``time_row``."""
+    fa, ref = K["flash"], K["ref"]
+    dev = q.device
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    valid = valid.reshape(b, tk)
+    i = torch.arange(tq, device=dev)[:, None]
+    j = torch.arange(tk, device=dev)[None, :]
+    mask = ((j < B) | (j - B <= i))[None, None] & valid[:, None, None]
+    pairs = h * int(mask.sum())
+    o = torch.empty((b, h, tq, v.shape[-1]), dtype=q.dtype, device=dev)
+    # K and V rows masked by k_valid are never needed; MLA's V is K's
+    # first 512 columns (a view), so those bytes are read once
+    n_valid = int(valid.sum())
+    aliased = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    kv_cols = MLA_D if aliased else MLA_D + MLA_DV
+    b_ms, b_by = bound(nbytes(q, valid, o)
+                       + n_valid * kv_cols * q.element_size(),
+                       2 * (MLA_D + MLA_DV) * pairs)
+    want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                   k_valid=valid, scale=MLA_SCALE)
+    sdpa = {}
+    for form, call in mla_sdpa_forms(torch, q, k, v, mask).items():
+        # a wrong view or mask is off by O(1); bf16 rounding is not
+        rel = max_err(call(), want) / float(want.abs().max())
+        check(f"SDPA {form} d=576 tq={tq} vs plain (relative)", rel,
+              2e-2, "the same function: bf16 SDPA against fp32 sums")
+        sdpa[form] = (time_ms(torch, call, None),
+                      sdpa_backend(torch, call))
+        log(f"    sdpa {form}: {fmt(sdpa[form][0])}, backend "
+            f"{sdpa[form][1]}")
+    best = min(sdpa, key=lambda f: sdpa[f][0]["device"])
+    label = f"{what} tq={tq} tk={tk} h={h}/1 d={MLA_D} dv={MLA_DV}"
+    r = time_row(
+        torch, flush, f"flash_attention {label}",
+        lambda: fa.flash_attention_bhtd(q, k, v, valid, causal=True,
+                                        boundary=B, scale=MLA_SCALE),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
+                                        k_valid=valid, scale=MLA_SCALE),
+        b_ms, b_by, sdpa[best][0])
+    r.update(sdpa_form=best, sdpa_backend=sdpa[best][1],
+             sdpa_ms={f: t["device"] for f, (t, _) in sdpa.items()},
+             sdpa_backends={f: be for f, (_, be) in sdpa.items()})
+    return r
 
 
 def mla_sdpa_forms(torch, q, k, v, mask):
@@ -2140,16 +2498,16 @@ def mla_sdpa_forms(torch, q, k, v, mask):
     query rows of the one KV head (row i * h + head is query i of head).
     Each returns (1, h, tq, dv)."""
     import torch.nn.functional as F
-    _, h, tq, d = q.shape
+    b, h, tq, d = q.shape
     ke, ve = k.expand(-1, h, -1, -1), v.expand(-1, h, -1, -1)
-    qf = q.transpose(1, 2).reshape(1, 1, tq * h, d)
+    qf = q.transpose(1, 2).reshape(b, 1, tq * h, d)
     mf = mask.repeat_interleave(h, dim=2)
     return {
         "expand": lambda: F.scaled_dot_product_attention(
             q, ke, ve, attn_mask=mask, scale=MLA_SCALE),
         "folded": lambda: F.scaled_dot_product_attention(
             qf, k, v, attn_mask=mf, scale=MLA_SCALE).reshape(
-                1, tq, h, v.shape[-1]).transpose(1, 2)}
+                b, tq, h, v.shape[-1]).transpose(1, 2)}
 
 
 def phase_timing(torch, np, dev, K, paged):
@@ -2174,16 +2532,24 @@ def phase_timing(torch, np, dev, K, paged):
     # The last row is low-rank scoring (score_proj_dim = 32): the kernel at
     # d = 32 on the projected cache, mid-prefill.
     # The d576 row is deepseek-v3's latent (one KV head, d = 576) at its
-    # last prefill chunk.
+    # last prefill chunk; the d120 row h2o-danube-3-4b's wrapped ring (n_kv
+    # 8, d 120, T 4096) at a mid-prefill chunk.
     for key, n_q, start, rank, n_kv, d in (
             ("prefill", 16, 4096, 0, 8, 128),
             ("last_chunk", 16, PROMPT, 0, 8, 128),
             ("decode", 1, PROMPT, 0, 8, 128),
             ("proj32", 16, 4096, 32, 8, 128),
-            ("d576", 16, PROMPT, 0, 1, MLA_D)):
-        qb, kt, valid = score_inputs(torch, dev, n_q, start, n_kv=n_kv,
-                                     d=d) if not rank \
-            else projected_score_inputs(torch, dev, n_q, rank, start)
+            ("d576", 16, PROMPT, 0, 1, MLA_D),
+            ("d120_ring", 16, RING_START, 0, 8, RING_D)):
+        if rank:
+            qb, kt, valid = projected_score_inputs(torch, dev, n_q, rank,
+                                                   start)
+        elif key == "d120_ring":
+            qb, kt, valid = ring_score_inputs(torch, dev, n_q,
+                                              torch.bfloat16)
+        else:
+            qb, kt, valid = score_inputs(torch, dev, n_q, start, n_kv=n_kv,
+                                         d=d)
         d = kt.shape[-1]
         copies = [kt.transpose(1, 2).clone().transpose(1, 2)
                   for _ in range(20)]
@@ -2357,8 +2723,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the MoE and MLA slice: olmoe-1b-7b, then deepseek-v3 cut to 4 layers
     oneshot["olmoe-1b-7b"], olmoe = phase_olmoe(torch, np, K)
-    deepseek = phase_deepseek(torch, np, K)
+    deepseek, ds_model = phase_deepseek(torch, np, K)
     oneshot["deepseek-v3 (4 layers)"] = {"staged": deepseek}
+    # the sliding-window and latent-pool slice: deepseek-v3 served on
+    # phase 18's model, h2o-danube-3-4b, the smoke window models, then
+    # gemma3-27b (51 GiB of weights) last, on an otherwise empty card
+    ds_serve, ds_rows = phase_deepseek_serve(torch, np, K, ds_model)
+    timing["flash_attention"].update(ds_rows)
+    del ds_model
+    torch.cuda.empty_cache()
+    danube, oneshot["h2o-danube-3-4b"] = phase_oneshot(
+        torch, np, K, "h2o-danube-3-4b", 20)
+    window_traces = {"h2o-danube-3-4b": phase_trace(
+        torch, np, danube, phase="  phase 20")}
+    del danube
+    torch.cuda.empty_cache()
+    phase_window_small(torch, np)
+    torch.cuda.empty_cache()
+    log(f"  before phase 22: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated on the card")
+    gemma, oneshot["gemma3-27b"] = phase_oneshot(torch, np, K, "gemma3-27b",
+                                                 22)
+    # prompt 4096: at 2048 the global layers' cap (2064) is within budget
+    # 2048 + chunk, so they would take the dense bypass, off the main path
+    window_traces["gemma3-27b"] = phase_trace(torch, np, gemma, prompt=4096,
+                                              phase="  phase 22")
+    del gemma
+    torch.cuda.empty_cache()
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -2383,6 +2774,9 @@ def main() -> int:
         for route, r in runs.items():
             for name in meta:
                 paths[name][f"{arch} {route}"] = r["launches"][name]
+    for name in meta:
+        paths[name]["deepseek-v3 (4 layers) serve"] = \
+            ds_serve["launches"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -2398,6 +2792,8 @@ def main() -> int:
                     "serve": serve, "methods": methods,
                     "harness": harness, "oneshot": oneshot,
                     "host_tier": tier, "olmoe": olmoe,
+                    "deepseek_serve": ds_serve,
+                    "window_traces": window_traces,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

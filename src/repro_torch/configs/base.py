@@ -1,6 +1,7 @@
 """Config dataclasses for the port (counterpart of ``repro/configs/base.py``).
 
 Ported block kinds: ``"attn"`` (dense GQA attention + SwiGLU MLP),
+``"attn_local"`` (sliding-window GQA attention + SwiGLU MLP),
 ``"attn_moe"`` (GQA attention + MoE FFN), ``"mla"`` (DeepSeek multi-head
 latent attention + SwiGLU MLP) and ``"mla_moe"`` (MLA + MoE FFN); families
 ``"dense"`` and ``"moe"``.  Field names and defaults match the reference so
@@ -80,7 +81,10 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     use_rope: bool = True
     rope_theta: float = 10_000.0
+    # keys an ``attn_local`` layer attends back (its ring cache's length)
+    sliding_window: Optional[int] = None
     # repeating block pattern; None -> one kind, collapsed to one period
+    # (gemma3: ("attn_local",) * 5 + ("attn",))
     layer_pattern: Optional[Tuple[str, ...]] = None
     # explicit ((period, n_repeats), ...) for non-periodic stacks, e.g.
     # deepseek-v3: ((("mla",), 3), (("mla_moe",), 58))
@@ -143,7 +147,7 @@ class ModelConfig:
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds():
             p = 0
-            if kind in ("attn", "attn_moe"):
+            if kind in ("attn", "attn_local", "attn_moe"):
                 p += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
                     + self.n_heads * hd * d
             if kind in ("mla", "mla_moe"):
@@ -154,7 +158,7 @@ class ModelConfig:
                 p += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim
                                                       + m.v_head_dim)
                 p += self.n_heads * m.v_head_dim * d
-            if kind == "attn":
+            if kind in ("attn", "attn_local"):
                 p += (2 if self.act == "gelu" else 3) * d * self.d_ff
             if kind == "mla":
                 p += 3 * d * self.d_ff
@@ -221,6 +225,8 @@ class ModelConfig:
                                   qk_nope_dim=32, qk_rope_dim=16,
                                   v_head_dim=32)
             ch["head_dim"] = 0
+        if self.sliding_window is not None:
+            ch["sliding_window"] = min(self.sliding_window, 64)
         ch["quoka"] = dataclasses.replace(
             self.quoka, chunk_size=16, budget=32, n_queries=4, keep_first=2)
         ch.update(overrides)
@@ -228,7 +234,8 @@ class ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import (deepseek_v3_671b, granite_3_2b,
+    from repro_torch.configs import (deepseek_v3_671b, gemma3_27b,
+                                     granite_3_2b, h2o_danube_3_4b,
                                      llama3_2_3b, olmoe_1b_7b, qwen3_4b,
                                      stablelm_3b)
     known = {"qwen3-4b": qwen3_4b.get_config,
@@ -236,7 +243,9 @@ def get_config(name: str) -> ModelConfig:
              "llama3-2-3b": llama3_2_3b.get_config,
              "stablelm-3b": stablelm_3b.get_config,
              "olmoe-1b-7b": olmoe_1b_7b.get_config,
-             "deepseek-v3-671b": deepseek_v3_671b.get_config}
+             "deepseek-v3-671b": deepseek_v3_671b.get_config,
+             "gemma3-27b": gemma3_27b.get_config,
+             "h2o-danube-3-4b": h2o_danube_3_4b.get_config}
     key = name.replace("_", "-").replace(".", "-")
     if key not in known:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(known)}")

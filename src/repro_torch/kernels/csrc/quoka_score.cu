@@ -30,6 +30,13 @@
 //     walked in blocks of 16.  The max over queries is a per-thread max over
 //     the accumulator's columns and two quad shuffles per 16-key row group.
 //     Four k-steps' ldmatrix loads are issued before their products.
+//   * Head dims: every multiple of 8 up to 576.  The shared-memory rows
+//     and the k-steps run at dp, the multiple of 16 at or above d (the
+//     mma's k); the columns d .. dp - 1 of the staged keys are zero-filled
+//     (cp.async with source size 0: h2o-danube's d = 120 is a 240-byte row,
+//     fifteen 16-byte chunks read and the sixteenth zero-filled) and those
+//     of q̄ are stored as zeros, so neither a product nor a norm changes:
+//     the scores are the same function of the d real columns.
 //   * Key norms on the tensor cores too: the slice's Gram matrix K K^T has
 //     the squared norms on its diagonal, and ldmatrix gives A's 8x8 blocks
 //     the thread layout of B's, so K^T's B fragments are A's registers
@@ -99,7 +106,10 @@ struct Args {
   const void* k;
   const uint8_t* valid;
   float* out;
-  int n_kv, n_q, nq_pad, T, d, n_chunks;
+  int n_kv, n_q, nq_pad, T;
+  int d;   // the staged width: the multiple of 16 at or above dk
+  int dk;  // the head dim of q̄ and k, a multiple of 8
+  int n_chunks;
   long long sq_b, sq_h, sq_n, sq_d;
   long long sk_b, sk_h, sk_t;
   long long sv_b, sv_t;
@@ -129,12 +139,14 @@ __device__ __forceinline__ void store_q(unsigned char* p, float x, float) {
   *reinterpret_cast<float*>(p) = x;
 }
 
-// 16 rows n0 .. n0 + 15 of one q̄ column (rows past n_q repeat row
-// n_q - 1: the edge pad), all loads in flight at once
+// 16 rows n0 .. n0 + 15 of q̄ column e (rows past n_q repeat row
+// n_q - 1: the edge pad), all loads in flight at once; zeros for a column
+// past the head dim (e >= dk: the staged width's padding)
 __device__ __forceinline__ void load_q(float (&v)[NB], const float* col,
-                                       int n0, const Args& a) {
+                                       int e, int n0, const Args& a) {
 #pragma unroll
-  for (int i = 0; i < NB; ++i) v[i] = col[min(n0 + i, a.n_q - 1) * a.sq_n];
+  for (int i = 0; i < NB; ++i)
+    v[i] = e < a.dk ? col[min(n0 + i, a.n_q - 1) * a.sq_n] : 0.f;
 }
 // ... and into shared memory, rounded to T
 template <typename T>
@@ -283,9 +295,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) score_kernel(Args a) {
 
   // this lane's chunks of a slice: 16 rows x CH chunks, 32 at a time, so
   // each lane copies CH / 2 of them (CH is even); row r0, chunk c0 first,
-  // then dr rows and dc chunks on per copy, one row more on a wrap
+  // then dr rows and dc chunks on per copy, one row more on a wrap.
+  // Chunks c >= CK lie past the head dim: zero-filled, never read
   constexpr int EPC = 16 / sizeof(T);  // elements per chunk
-  const int CH = a.d / EPC;
+  const int CH = a.d / EPC, CK = a.dk / EPC;
   const int r0 = lane / CH, c0 = lane % CH, dr = 32 / CH, dc = 32 % CH;
   const long long src_step = dr * a.sk_t + dc * EPC;
   const long long src_wrap = a.sk_t - CH * EPC;
@@ -329,7 +342,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) score_kernel(Args a) {
             smem_u32(ring + (j % R) * KEYS * rs) + r0 * rs + c0 * 16;
         int r = r0, c = c0;
         for (int u = 0; u < CH / 2; ++u) {
-          const bool live = (m >> r) & 1;
+          const bool live = ((m >> r) & 1) && c < CK;
           cp_async16(dst, live ? src : kb, live);
           src += src_step;
           dst += dst_step;
@@ -351,13 +364,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) score_kernel(Args a) {
   // the copies of the first R slices, then q̄ into shared memory (its
   // other row blocks and columns, if any, after)
   float q0[NB];
-  if (tid < a.d) load_q(q0, qcol, 0, a);
+  if (tid < a.d) load_q(q0, qcol, tid, 0, a);
   for (int j = 0; j < R; ++j) load(j);
   for (int e = tid; e < a.d; e += blockDim.x) {
     unsigned char* dst = qs + e * static_cast<int>(sizeof(T));
     for (int n0 = 0; n0 < a.nq_pad; n0 += NB) {
       if (e != tid || n0 != 0)
-        load_q(q0, qcol + (e - tid) * a.sq_d, n0, a);
+        load_q(q0, qcol + (e - tid) * a.sq_d, e, n0, a);
       store_q_rows<T>(dst + n0 * qrs, q0, qrs);
     }
   }
@@ -426,8 +439,9 @@ static cudaError_t run(const Args& a, int b, int warps, int stages,
                        cudaStream_t s) {
   const int tile_keys = warps * KEYS;
   const int n_tiles = (a.T + tile_keys - 1) / tile_keys;
-  if (b < 1 || a.n_kv < 1 || a.T < 1 || a.d % 16 || a.d < 16 ||
-      a.d > MAX_D || a.n_q < 1 || a.nq_pad < a.n_q || a.nq_pad % NB ||
+  if (b < 1 || a.n_kv < 1 || a.T < 1 || a.dk % 8 || a.dk < 8 ||
+      a.d != (a.dk + 15) / 16 * 16 || a.d > MAX_D || a.n_q < 1 ||
+      a.nq_pad < a.n_q || a.nq_pad % NB ||
       warps < 1 || warps > MAX_WARPS || a.n_chunks < 1 ||
       a.n_chunks > n_tiles)
     return cudaErrorInvalidValue;
@@ -438,8 +452,9 @@ static cudaError_t run(const Args& a, int b, int warps, int stages,
 
 }  // namespace quoka_score
 
-// dtype: 0 = float32, 1 = bfloat16 (k).  qbar (b, n_kv, n_q, d) fp32 and
-// valid (b, T) are any strided views;
+// dtype: 0 = float32, 1 = bfloat16 (k).  d: the head dim, a multiple of 8
+// up to 576 (staged at the multiple of 16 at or above it).  qbar (b, n_kv,
+// n_q, d) fp32 and valid (b, T) are any strided views;
 // k (b, n_kv, T, d) has a contiguous head dim and 16-byte aligned rows; out
 // (b, n_kv, T) fp32 contiguous.  warps, stages (the ring's slots), n_chunks
 // and nq_pad come from tiling.score_geometry.  Returns cudaGetLastError().
@@ -453,7 +468,8 @@ extern "C" int quoka_score_launch(
   using namespace quoka_score;
   const Args a{static_cast<const float*>(qbar), k,
                static_cast<const uint8_t*>(valid),
-               static_cast<float*>(out), n_kv, n_q, nq_pad, T, d, n_chunks,
+               static_cast<float*>(out), n_kv, n_q, nq_pad, T,
+               (d + 15) / 16 * 16, d, n_chunks,
                sq_b, sq_h, sq_n, sq_d, sk_b, sk_h, sk_t, sv_b, sv_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;

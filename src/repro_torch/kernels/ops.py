@@ -105,7 +105,7 @@ def score(qbar, k, valid, *, proj: Optional[torch.Tensor] = None):
     (``score_proj_dim``): q̄ in fp32, K in its storage dtype (a plain
     product, no fp32 copy of the cache); the unchanged kernel then runs at
     head dim r, so scores are cosines in the projected space.  On the card
-    r must be a multiple of 16 up to 576 (``tiling.score_geometry``).
+    r must be a multiple of 8 up to 576 (``tiling.score_width``).
     """
     if proj is not None:
         qbar = qbar.float() @ proj

@@ -18,8 +18,10 @@ LAUNCHES = 0
 def quoka_score_bhtd(qbar, k, valid):
     """qbar: (b, n_kv, n_q, d) pre-aggregated normalised queries, fp32
     (any strides); k: (b, n_kv, T, d) raw keys (any strides with a
-    contiguous head dim and 16-byte aligned rows; d a multiple of 16 up to
-    576); valid: (b, T) bool.  Returns fp32 scores (b, n_kv, T)."""
+    contiguous head dim and 16-byte aligned rows; d a multiple of 8 up to
+    576, staged at the next multiple of 16 with the columns past d
+    zero-filled: ``tiling.score_width``); valid: (b, T) bool.  Returns
+    fp32 scores (b, n_kv, T)."""
     global LAUNCHES
     if k.device.type == "cpu":
         return ref.score_ref(qbar, k, valid)

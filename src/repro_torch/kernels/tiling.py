@@ -137,12 +137,25 @@ class ScoreGeometry(NamedTuple):
     smem: int       # dynamic shared memory of one block, bytes
 
 
+def score_width(d: int) -> int:
+    """The width the scoring kernel stages head dim ``d`` at: the multiple
+    of 16 at or above it (the mma's k; the columns past ``d`` are
+    zero-filled).  Raises ``ValueError`` before any launch for a head dim
+    it does not take: not a multiple of 8 in [8, SCORE_MAX_D]."""
+    if d % 8 or not 8 <= d <= SCORE_MAX_D:
+        raise ValueError(f"quoka_score: head dim {d} is not a multiple of "
+                         f"8 in [8, {SCORE_MAX_D}]")
+    return -(-d // 16) * 16
+
+
 def score_smem(d: int, elem: int, nq_pad: int, warps: int,
                stages: int) -> int:
-    """Bytes of one scoring block: each warp's ring of ``stages`` slices
-    of 16 key rows (padded by 16 bytes), the resident q̄ (bf16 rows padded
-    by 16 bytes, fp32 rows not) and each slot's valid bits.  Mirrors
+    """Bytes of one scoring block at head dim ``d`` (staged at
+    ``score_width(d)``): each warp's ring of ``stages`` slices of 16 key
+    rows (padded by 16 bytes), the resident q̄ (bf16 rows padded by 16
+    bytes, fp32 rows not) and each slot's valid bits.  Mirrors
     ``smem_bytes`` in ``quoka_score.cu``."""
+    d = score_width(d)
     ring_row = d * elem + 16
     q_row = 2 * d + 16 if elem == 2 else 4 * d
     return (warps * stages * SCORE_KEYS * ring_row + nq_pad * q_row
@@ -158,10 +171,9 @@ def score_geometry(b: int, n_kv: int, n_q: int, T: int, d: int, elem: int,
     per (batch, KV head) that ``SCORE_BLOCKS_PER_SM`` of them (or as many
     as fit) are resident on every SM, at most one per tile.  Raises
     ``ValueError`` for a head dim or query count the kernel does not
-    take."""
-    if d % 16 or not 16 <= d <= SCORE_MAX_D:
-        raise ValueError(f"quoka_score: head dim {d} is not a multiple of "
-                         f"16 in [16, {SCORE_MAX_D}]")
+    take (``score_width``).  A head dim off the 16-grid gets the geometry
+    of the width it is staged at."""
+    score_width(d)
     if n_q < 1:
         raise ValueError(f"quoka_score: n_q = {n_q}")
     nq_pad = -(-n_q // 16) * 16

@@ -26,19 +26,28 @@ scheduler + cross-request prefix caching):
         --continuous --trace multiturn --num-blocks 64 \
         --host-tier-blocks 128 --prefetch-depth 4
 
-MoE and MLA models (olmoe-1b-7b serves one-shot and continuous;
-deepseek-v3-671b one-shot only, since latent caches in the paged pool are
-not ported yet and ``--continuous`` raises for it):
+MoE and MLA models serve one-shot and continuous (deepseek-v3-671b's
+latent caches live in the paged pool and its host tier like K/V):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --prompt-len 8192 --batch 1 [--continuous]
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch deepseek-v3-671b --smoke --device cpu --prompt-len 64
+        --arch deepseek-v3-671b --smoke --device cpu --prompt-len 96 \
+        --continuous --trace multiturn --n-requests 8 --num-blocks 8 \
+        --host-tier-blocks 16 --prefetch-depth 4 --max-decode-batch 1
+
+Sliding-window models (gemma3-27b, h2o-danube-3-4b) serve one-shot only:
+their ring caches wrap at the window, not at a pool block, so the paged
+pool refuses them and ``--continuous`` raises, as in the reference:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-3-4b --prompt-len 8192 --batch 1
 
 ``--arch`` takes every config of ``configs/base.py::get_config`` (qwen3-4b,
-granite-3-2b, llama3-2-3b, stablelm-3b, olmoe-1b-7b, deepseek-v3-671b; the
-last is 671 B parameters at its published depth, so on one card use
-``--smoke`` or a checkpoint of a depth-cut copy).  ``--host-tier-blocks`` puts a
+granite-3-2b, llama3-2-3b, stablelm-3b, olmoe-1b-7b, deepseek-v3-671b,
+gemma3-27b, h2o-danube-3-4b; deepseek-v3-671b is 671 B parameters at its
+published depth, so on one card use ``--smoke`` or a checkpoint of a
+depth-cut copy).  ``--host-tier-blocks`` puts a
 host-memory tier behind the paged pool (pair it with an undersized
 ``--num-blocks`` to make pressure demote blocks there), and
 ``--prefetch-depth`` caps the host blocks staged per step.  Weights are
@@ -66,8 +75,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b",
                     help="qwen3-4b, granite-3-2b, llama3-2-3b, stablelm-3b, "
-                         "olmoe-1b-7b (one-shot and --continuous), "
-                         "deepseek-v3-671b (one-shot; --continuous raises)")
+                         "olmoe-1b-7b, deepseek-v3-671b (one-shot and "
+                         "--continuous), gemma3-27b, h2o-danube-3-4b "
+                         "(one-shot; --continuous raises)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--method", default="quoka", choices=METHODS)

@@ -1,8 +1,9 @@
 """Attention blocks (counterpart of ``repro/models/blocks.py``):
-``AttnBlock`` for kinds ``"attn"`` (GQA + SwiGLU MLP) and ``"attn_moe"``
-(GQA + MoE FFN, ``models/moe.py``), ``MLABlock`` for ``"mla"`` and
-``"mla_moe"`` (DeepSeek multi-head latent attention over a compressed
-``LatentCache``); other kinds are not ported and raise.
+``AttnBlock`` for kinds ``"attn"`` (GQA + SwiGLU MLP), ``"attn_local"``
+(the same over a sliding window, in a ring cache of ``min(cap, window)``
+slots) and ``"attn_moe"`` (GQA + MoE FFN, ``models/moe.py``), ``MLABlock``
+for ``"mla"`` and ``"mla_moe"`` (DeepSeek multi-head latent attention over
+a compressed ``LatentCache``); other kinds are not ported and raise.
 
 ``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
 the layer's KV cache along one of three routes, as in the reference:
@@ -14,6 +15,12 @@ the layer's KV cache along one of three routes, as in the reference:
                   the cache in place;
   * staged        scoring kernel, top-k, materialize, then the flash kernel
                   over [selected budget | chunk].
+
+A windowed layer (``attn_local``) writes its ring modulo the capacity and
+never takes the fused route; QUOKA still scores its ring with the scoring
+kernel, but the attention over [selected | chunk] is the plain masked path,
+since the window bounds each selected key per query (the kernels' contract
+has a static boundary and per-key validity only), as in the reference.
 
 ``MLABlock.apply`` takes the dense bypass or the staged route only (the
 reference's ``fused_route`` never takes MLA): QUOKA scores the latent as
@@ -38,12 +45,14 @@ from repro_torch.core import plan as plan_mod
 from repro_torch.core import selection as sel_mod
 from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
                                         attention_with_positions,
-                                        blocked_attention, position_mask)
+                                        blocked_attention, dense_attention,
+                                        position_mask)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe
 from repro_torch.models.layers import linear, mlp, rmsnorm, rope
 from repro_torch.serving.cache import (KVCache, LatentCache, kv_init,
-                                       kv_write, latent_init, latent_write)
+                                       kv_write, kv_write_ring, latent_init,
+                                       latent_write)
 
 
 def _weight(dt, device):
@@ -85,10 +94,11 @@ def _ffn(blk, x):
 class AttnBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device, kind: str = "attn"):
         super().__init__()
-        if kind not in ("attn", "attn_moe"):
+        if kind not in ("attn", "attn_local", "attn_moe"):
             raise NotImplementedError(f"block kind {kind!r} is not yet ported")
         self.cfg = cfg
         self.kind = kind
+        self.window = cfg.sliding_window if kind == "attn_local" else None
         d, hd = cfg.d_model, cfg.resolved_head_dim
         w = _weight(cfg.compute_dtype, device)
         self.ln1 = _norm(d, device)
@@ -100,7 +110,11 @@ class AttnBlock(nn.Module):
         _ffn_params(self, cfg, device, gated=cfg.act != "gelu")
 
     def init_cache(self, batch: int, cap: int) -> KVCache:
+        """The layer's cache: ``cap`` slots, or a ring of at most ``window``
+        slots for a windowed layer."""
         cfg = self.cfg
+        if self.window is not None:
+            cap = min(cap, self.window)
         return kv_init(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
                        cfg.compute_dtype, self.wq.device)
 
@@ -136,16 +150,19 @@ class AttnBlock(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         q, k, v = self._qkv(rmsnorm(self.ln1, x, cfg.norm_eps), pos)
+        # the chunk's first slot, unmodded: selection compares positions
+        # with it; only a ring's write takes it modulo the capacity
         start = ctx["slot"]
-        kv_write(kv, k, v, start, pos_new=pos)
+        write = kv_write if self.window is None else kv_write_ring
+        write(kv, k, v, start, pos_new=pos)
         method = ctx.get("method", "full")
         qcfg = ctx["qcfg"]
         budget = sel_mod.resolve_budget(qcfg, kv.capacity) \
             if method != "full" else 0
         if method == "full" or kv.capacity <= budget + t:
             att = attention_with_positions(q, kv.k, kv.v, pos, kv.pos,
-                                           causal=True)
-        elif plan_mod.fused_route(qcfg, method, kv.k):
+                                           causal=True, window=self.window)
+        elif plan_mod.fused_route(qcfg, method, kv.k, window=self.window):
             # the chunk's KV was just written into the cache, so the kernel
             # reads it from there rather than from a [budget | chunk] concat
             att, plan = plan_mod.fused_attend_with_ctx(
@@ -162,15 +179,28 @@ class AttnBlock(nn.Module):
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is
         an unconditioned prefix (``boundary``), its padding is masked by a
-        per-KV-head ``k_valid`` (sel.pos == -1), chunk pad slots too."""
+        per-KV-head ``k_valid`` (sel.pos == -1), chunk pad slots too.
+
+        A windowed layer takes the plain masked path instead: a selected
+        key is attendable only inside each query's window, a per-query
+        bound the kernel's contract cannot express (as in the reference)."""
         b, t = q.shape[:2]
         n_kv = k_chunk.shape[2]
         k_cat = torch.cat([sel.k, k_chunk], dim=1)
         v_cat = torch.cat([sel.v, v_chunk], dim=1)
         chunk_valid = (pos >= 0)[:, None, :].expand(b, n_kv, t)
-        k_valid = torch.cat([sel.pos >= 0, chunk_valid], dim=-1)
-        return kops.attention(q, k_cat, v_cat, k_valid, causal=True,
-                              boundary=sel.pos.shape[-1])
+        if self.window is None:
+            k_valid = torch.cat([sel.pos >= 0, chunk_valid], dim=-1)
+            return kops.attention(q, k_cat, v_cat, k_valid, causal=True,
+                                  boundary=sel.pos.shape[-1])
+        qp = pos[:, None, :, None]                          # (b, 1, t, 1)
+        sp = sel.pos[:, :, None, :]                         # (b, n_kv, 1, B)
+        m_sel = ((sp >= 0) & (sp > qp - self.window)).expand(
+            b, n_kv, t, sel.pos.shape[-1])
+        tri = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        m_chunk = tri[None, None] & chunk_valid[:, :, None, :]
+        return dense_attention(q, k_cat, v_cat,
+                               torch.cat([m_sel, m_chunk], dim=-1))
 
 
 class MLABlock(nn.Module):

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import AttnBlock, MLABlock, make_block
+from repro_torch.models.blocks import AttnBlock, make_block
 from repro_torch.models.layers import embed, linear, rmsnorm, unembed
 from repro_torch.models.stack import Cache, Stack
 
@@ -97,11 +97,6 @@ class Model(nn.Module):
 
     def layers(self):
         return [blk for s in self.stacks for blk in s.layers]
-
-    @property
-    def has_latent(self) -> bool:
-        """Does any layer keep an MLA latent cache?"""
-        return any(isinstance(blk, MLABlock) for blk in self.layers())
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":

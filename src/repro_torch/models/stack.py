@@ -6,8 +6,10 @@ The reference scans one compiled block body over a stacked ``(repeats,
 stacked leaves (see ``training/checkpoint.py::from_flat``).  The loop
 threads the cross-layer plan carry and each layer's global index.  A
 period may mix kinds; each layer's cache is a ``KVCache`` (attention
-kinds) or a ``LatentCache`` (MLA), and the plan carry engages only where
-every layer would build a plan of one shape, as in the reference.
+kinds; a ring of ``min(cap, window)`` slots for ``attn_local``, so one
+stack mixes capacities) or a ``LatentCache`` (MLA), and the plan carry
+engages only where every layer would build a plan of one shape, as in the
+reference.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ everywhere derive from positions.  Unlike the reference, which is
 functional (it returns updated arrays), ``kv_write`` writes the chunk into
 the cache tensors IN PLACE: an eager PyTorch program has no buffer
 donation, and a copy of the whole cache per chunk would cost its size in
-memory traffic every layer.  ``latent_write`` does the same for MLA.
+memory traffic every layer.  ``latent_write`` does the same for MLA, and
+``kv_write_ring`` for a sliding-window layer's ring buffer.
 
 ``LatentCache`` keeps the reference's two leaves, the latent ``ckv`` and
 the shared rope key ``krope``, as column views of ONE (b, cap, r + rope)
@@ -69,6 +70,30 @@ def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
     cache.k[:, s:s + t] = k_new
     cache.v[:, s:s + t] = v_new
     cache.pos[:, s:s + t] = pos_new
+    return cache
+
+
+def kv_write_ring(cache: KVCache, k_new, v_new, start,
+                  pos_new=None) -> KVCache:
+    """Append modulo capacity (a sliding-window layer's ring buffer), in
+    place: token ``i`` of the chunk goes to slot ``(start + i) % cap``, so a
+    chunk that wraps is one ``index_put`` per leaf.  ``start`` is an int
+    only: windowed layers are not part of the paged / continuous path.
+    The stored positions are ``start + [0, t)`` unless ``pos_new`` (b, t)
+    overrides them."""
+    if isinstance(start, torch.Tensor) and start.ndim > 0:
+        raise ValueError("kv_write_ring takes one int start: windowed "
+                         "layers are not part of the paged/continuous path")
+    b, t = k_new.shape[:2]
+    start = int(start)
+    dev = cache.pos.device
+    if pos_new is None:
+        pos_new = torch.arange(start, start + t, dtype=torch.int32,
+                               device=dev).expand(b, t)
+    slots = torch.arange(start, start + t, device=dev) % cache.capacity
+    cache.k[:, slots] = k_new.to(cache.k.dtype)
+    cache.v[:, slots] = v_new.to(cache.v.dtype)
+    cache.pos[:, slots] = pos_new.to(torch.int32)
     return cache
 
 

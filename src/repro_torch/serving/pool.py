@@ -2,13 +2,20 @@
 (counterpart of ``repro/serving/pool.py``).
 
 The device-side store is literally ``model.init_cache(num_blocks,
-block_size)``: one ``KVCache`` per layer whose BATCH axis is the
-physical-block axis and whose capacity axis is the within-block slot axis,
-so every leaf is ``(N, block_size, n_kv, d)`` (``pos`` ``(N, block_size)``)
-— the layout the paged selected-attention kernel reads.  Every leaf keeps
+block_size)``: one cache per layer whose BATCH axis is the physical-block
+axis and whose capacity axis is the within-block slot axis.  An attention
+layer's ``KVCache`` leaves are ``(N, block_size, n_kv, d)`` — the layout
+the paged selected-attention kernel reads — and an MLA layer's
+``LatentCache`` holds one ``(N, block_size, r + rope)`` latent buffer (the
+reference's ``[ckv | krope]`` leaves side by side); ``pos`` is
+``(N, block_size)`` for both.  Every helper below treats a layer's payload
+leaves (K and V, or the latent) alike, and every view it returns keeps the
+layer's cache type (a latent view keeps its ``rank``).  Every leaf keeps
 the ``pos``-derived mask semantics of serving/cache.py (``pos == -1`` marks
-an empty/invalid slot).  MLA's latent caches have no pool layout yet: a
-model with one is refused.
+an empty/invalid slot).  As in the reference, a model with a kind whose
+cache does not decompose into blocks over time is refused: recurrent
+states, cross-attention KV and sliding-window rings (which wrap at the
+window, not at a block).
 
 A request's logical cache is the concatenation of its blocks in
 block-table order, materialised per step by ``gather`` (table id -1 reads
@@ -45,9 +52,10 @@ match into a fresh device block, re-registered on the device.  A hash lives
 in exactly one tier.  On the card:
 
   * a slab is one block of every layer packed into one byte row — the K and
-    V rows of each layer, then each layer's positions — so a demotion is
-    one gather on the device and ONE copy; the tier's rows are pinned host
-    memory allocated up front (a pinned allocation that fails raises);
+    V rows (or the latent rows) of each layer, then each layer's positions
+    — so a demotion is one gather on the device and ONE copy; the tier's
+    rows are pinned host memory allocated up front (a pinned allocation
+    that fails raises);
   * demotion copies device -> host with ``non_blocking`` on the compute
     stream and records an event: stream order keeps the copy ahead of the
     stamp and the writes that recycle the block, and whatever later reads
@@ -71,12 +79,17 @@ Not ported yet: mesh placement (asking for it raises).
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.serving.cache import KVCache
+from repro_torch.serving.cache import KVCache, LatentCache
+
+# block kinds whose caches do not decompose into pool blocks over time
+# (the reference's list, with its message on refusal)
+_UNSUPPORTED_KINDS = ("mamba", "mamba_shared_attn", "rwkv", "dec_cross",
+                      "attn_local")
 
 # chain-hash seed for the empty prefix (the reference's value: tuples of
 # ints hash deterministically, unaffected by PYTHONHASHSEED)
@@ -149,19 +162,40 @@ def _chain_hashes(tokens: np.ndarray, block_size: int) -> List[int]:
     return out
 
 
-def _layers(data) -> Iterator[KVCache]:
+def _layers(data) -> Iterator[Union[KVCache, LatentCache]]:
     """Every layer's cache of a pool (or gathered view), in model order."""
     for stack in data:
         yield from stack
 
 
+def _payload(c) -> List[torch.Tensor]:
+    """A layer cache's payload leaves: K and V, or MLA's latent buffer."""
+    return [c.latent] if isinstance(c, LatentCache) else [c.k, c.v]
+
+
+def _leaves(c) -> List[torch.Tensor]:
+    """Every tensor leaf of a layer cache: its payload, then ``pos``."""
+    return _payload(c) + [c.pos]
+
+
+def _like(c, f):
+    """A cache of ``c``'s type whose tensors are ``f(leaf, fill)``, with
+    ``fill`` what an empty slot of that leaf reads (-1 positions, zero
+    payload)."""
+    if isinstance(c, LatentCache):
+        return LatentCache(latent=f(c.latent, 0), pos=f(c.pos, -1),
+                           rank=c.rank)
+    return KVCache(k=f(c.k, 0), v=f(c.v, 0), pos=f(c.pos, -1))
+
+
 def _slab_leaves(data) -> List[torch.Tensor]:
-    """A slab's leaves in their packed order: every layer's K and V, then
-    every layer's positions (so each leaf starts on an aligned byte
-    offset: the int32 rows follow K/V rows of an even number of bytes)."""
+    """A slab's leaves in their packed order: every layer's payload (K and
+    V, or the latent), then every layer's positions (so each leaf starts on
+    an aligned byte offset: the int32 rows follow payload rows of an even
+    number of bytes)."""
     layers = list(_layers(data))
-    return [x for kv in layers for x in (kv.k, kv.v)] + \
-        [kv.pos for kv in layers]
+    return [x for c in layers for x in _payload(c)] + \
+        [c.pos for c in layers]
 
 
 def _slab_nbytes(data) -> int:
@@ -247,9 +281,12 @@ class PagedKVCache:
         if mesh is not None:
             raise NotImplementedError("paged pool on a mesh is not yet "
                                       "ported")
-        if model.has_latent:
-            raise NotImplementedError("latent caches in the paged pool are "
-                                      "not yet ported")
+        kinds = [k for s in model.stacks for k in s.period]
+        bad = sorted(set(k for k in kinds if k in _UNSUPPORTED_KINDS))
+        if bad:
+            raise ValueError(
+                f"paged KV pool supports attention/MLA caches only; "
+                f"model has unsupported block kinds {bad}")
         self.model = model
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
@@ -379,8 +416,8 @@ class PagedKVCache:
             src, keep = cow
             if cow_host:
                 _write_blocks(self.data, [cow_buf], [rest[0]])
-                for kv in _layers(self.data):
-                    kv.pos[rest[0], keep:] = -1
+                for c in _layers(self.data):
+                    c.pos[rest[0], keep:] = -1
             else:
                 if src not in self._ref and src not in self._lru:
                     raise RuntimeError(f"COW source block {src} not resident")
@@ -769,19 +806,18 @@ class PagedKVCache:
 def _stamp_blocks(data, ids: torch.Tensor) -> None:
     """Set pos = -1 across blocks ``ids``.  Only positions are stamped; KV
     payloads stay in place — the position masks make them unreadable."""
-    for kv in _layers(data):
-        kv.pos.index_fill_(0, ids, -1)
+    for c in _layers(data):
+        c.pos.index_fill_(0, ids, -1)
 
 
 def _cow_block(data, src: int, dst: int, keep: int) -> None:
     """Copy block ``src`` into ``dst`` (copy-on-write of a shared partial
     tail), invalidating slots >= ``keep``: those hold the donor's private
     suffix/decode KV, which the sharer must not see."""
-    for kv in _layers(data):
-        kv.k[dst] = kv.k[src]
-        kv.v[dst] = kv.v[src]
-        kv.pos[dst] = kv.pos[src]
-        kv.pos[dst, keep:] = -1
+    for c in _layers(data):
+        for leaf in _leaves(c):
+            leaf[dst] = leaf[src]
+        c.pos[dst, keep:] = -1
 
 
 def _write_blocks(data, bufs: List[torch.Tensor], dsts: List[int]) -> None:
@@ -816,9 +852,10 @@ def gather(data, table, num_blocks: int, block_size: int):
     """Materialise per-request linear caches from the pool.
 
     table: (b, max_nb) int32 physical block ids, -1 = empty (host array).
-    Returns the pool's nested structure of ``KVCache`` views with leaves
-    (b, max_nb * block_size, ...) — a standard linear cache — where empty
-    blocks read as pos = -1 and zero K/V, so the position-mask machinery
+    Returns the pool's nested structure of cache views (each layer's type:
+    ``KVCache`` or ``LatentCache``) with leaves (b, max_nb * block_size,
+    ...) — a standard linear cache — where empty blocks read as pos = -1
+    and a zero payload, so the position-mask machinery
     needs no special case.  One ``index_select`` per leaf, plus a fill of
     the empty blocks only; the work runs under a ``pool_gather`` profiler
     range (``pool_scatter`` for ``scatter``), the reference's named
@@ -838,8 +875,7 @@ def gather(data, table, num_blocks: int, block_size: int):
         return out.reshape(b, nb * block_size, *leaf.shape[2:])
 
     with torch.profiler.record_function("pool_gather"):
-        return [[KVCache(k=g(kv.k, 0), v=g(kv.v, 0), pos=g(kv.pos, -1))
-                 for kv in stack] for stack in data]
+        return [[_like(c, g) for c in stack] for stack in data]
 
 
 def gather_blocks(data, table, block_ids, num_blocks: int, block_size: int):
@@ -872,9 +908,8 @@ def scatter(data, gathered, table, touched, num_blocks: int,
     src_i = torch.as_tensor(src, device=dev)
     dst_i = torch.as_tensor(flat[src].astype(np.int64), device=dev)
     with torch.profiler.record_function("pool_scatter"):
-        for kv, gv in zip(_layers(data), _layers(gathered)):
-            for pool_leaf, gath_leaf in ((kv.k, gv.k), (kv.v, gv.v),
-                                         (kv.pos, gv.pos)):
+        for c, gc in zip(_layers(data), _layers(gathered)):
+            for pool_leaf, gath_leaf in zip(_leaves(c), _leaves(gc)):
                 blocks = gath_leaf.reshape(b * nb, block_size,
                                            *gath_leaf.shape[2:])
                 pool_leaf.index_copy_(0, dst_i,

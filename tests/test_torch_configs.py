@@ -7,7 +7,8 @@ stacks that cover every layer, and a small ``smoke()`` variant equal to the
 reference's in every dimension the port reads.  The MoE and MLA configs
 (olmoe-1b-7b, deepseek-v3-671b) also match the reference's expert and
 latent geometry, layer groups, active-parameter count and smoke
-reduction.
+reduction; the sliding-window configs (gemma3-27b, h2o-danube-3-4b) their
+window, layer pattern and the smoke window min(window, 64).
 """
 import dataclasses
 
@@ -19,7 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 
 PORTED = ("qwen3-4b", "granite-3-2b", "llama3-2-3b", "stablelm-3b",
-          "olmoe-1b-7b", "deepseek-v3-671b")
+          "olmoe-1b-7b", "deepseek-v3-671b", "gemma3-27b", "h2o-danube-3-4b")
 
 EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
@@ -28,6 +29,8 @@ EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "stablelm-3b": (32, 2560, 32, 32, 80, 6912, 50304),
     "olmoe-1b-7b": (16, 2048, 16, 16, 128, 1024, 50304),
     "deepseek-v3-671b": (61, 7168, 128, 128, 56, 18432, 129280),
+    "gemma3-27b": (62, 5376, 32, 16, 128, 21504, 262144),
+    "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
 }
 
 PARAMS_B = {   # published total parameters (1e9), as a band
@@ -37,6 +40,8 @@ PARAMS_B = {   # published total parameters (1e9), as a band
     "stablelm-3b": (2, 3.5),         # the reference's band
     "olmoe-1b-7b": (6, 8),           # OLMoE-1B-7B: 6.9 B
     "deepseek-v3-671b": (620, 720),  # DeepSeek-V3: 671 B
+    "gemma3-27b": (25, 29),          # the reference's band (27.0 B)
+    "h2o-danube-3-4b": (3, 4.6),     # the reference's band (3.84 B)
 }
 
 
@@ -72,7 +77,7 @@ def test_stacks_cover_all_layers(arch):
     assert sum(len(p) * r for p, r in cfg.stacks()) == cfg.n_layers
     assert list(cfg.stacks()) == list(ref_config(arch).stacks())
     assert {k for p, _ in cfg.stacks() for k in p} <= \
-        {"attn", "attn_moe", "mla", "mla_moe"}
+        {"attn", "attn_local", "attn_moe", "mla", "mla_moe"}
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -95,8 +100,9 @@ def test_get_config_names():
     assert get_config("llama3.2-3b").name == "llama3-2-3b"
     assert get_config("stablelm_3b").name == "stablelm-3b"
     assert get_config("olmoe_1b_7b").name == "olmoe-1b-7b"
+    assert get_config("h2o_danube_3_4b").name == "h2o-danube-3-4b"
     with pytest.raises(KeyError, match="ported"):
-        get_config("gemma3-27b")
+        get_config("zamba2-7b")
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
@@ -131,3 +137,26 @@ def test_moe_and_mla_smoke_reduction_matches_reference(arch):
     assert (s.layer_pattern, s.layer_groups, s.n_layers, s.head_dim) == \
         (rs.layer_pattern, rs.layer_groups, rs.n_layers, rs.head_dim)
     assert list(s.stacks()) == list(rs.stacks())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "h2o-danube-3-4b"])
+def test_window_geometry_matches_reference(arch):
+    """The window, the layer pattern and the stacks (gemma3: ten periods of
+    5 local + 1 global and a one-repeat tail of 2 local layers), and the
+    smoke reduction (window min(window, 64), a pattern that keeps one of
+    each kind) equal the reference's."""
+    cfg, rc = get_config(arch), ref_config(arch)
+    assert (cfg.sliding_window, cfg.layer_pattern, cfg.family) == \
+        (rc.sliding_window, rc.layer_pattern, rc.family)
+    assert list(cfg.stacks()) == list(rc.stacks())
+    s, rs = cfg.smoke(), rc.smoke()
+    assert s.sliding_window == rs.sliding_window == min(cfg.sliding_window,
+                                                        64)
+    assert (s.layer_pattern, s.n_layers) == (rs.layer_pattern, rs.n_layers)
+    assert list(s.stacks()) == list(rs.stacks())
+    if arch == "gemma3-27b":
+        assert list(cfg.stacks()) == [
+            (("attn_local",) * 5 + ("attn",), 10),
+            (("attn_local", "attn_local"), 1)]
+        assert s.layer_pattern == ("attn_local", "attn")
+    assert get_config("qwen3-4b").sliding_window is None

@@ -159,12 +159,12 @@ def test_score_call_launches_one_kernel(dev):
 
 
 def test_score_unsupported_shapes_raise(dev):
-    """Head dims that are not a multiple of 16 in [16, 576], more queries
+    """Head dims that are not a multiple of 8 in [8, 576], more queries
     than fit beside the ring, and a q̄ that is not fp32 (the kernel does
     the rounding itself) raise before any launch."""
     n0 = qs_mod.LAUNCHES
     valid = torch.ones((1, 64), dtype=bool, device=dev)
-    for d, nq in ((72, 16), (592, 16), (8, 1), (576, 4096)):
+    for d, nq in ((68, 16), (592, 16), (4, 1), (576, 4096)):
         qb = torch.zeros((1, 2, nq, d), device=dev)
         k = torch.zeros((1, 2, 64, d), device=dev)
         with pytest.raises(ValueError, match="head dim|shared memory"):
@@ -526,7 +526,7 @@ def test_score_kernel_at_projected_dims(dev, r, nq, dtype):
 
 
 def test_score_projection_rank_the_kernel_cannot_take_raises(dev):
-    """r = 24 is no multiple of 16: the card raises (the CPU's plain
+    """r = 20 is no multiple of 8: the card raises (the CPU's plain
     version takes any r)."""
     from repro_torch.kernels import ops
     qb = torch.randn((1, 4, 2, 64), device=dev)
@@ -534,10 +534,10 @@ def test_score_projection_rank_the_kernel_cannot_take_raises(dev):
     valid = torch.ones((1, 100), dtype=torch.bool, device=dev)
     n0 = qs_mod.LAUNCHES
     with pytest.raises(ValueError, match="head dim"):
-        ops.score(qb, k, valid, proj=ops.score_projection(64, 24, dev))
+        ops.score(qb, k, valid, proj=ops.score_projection(64, 20, dev))
     assert qs_mod.LAUNCHES == n0
     ops.score(qb.cpu(), k.cpu(), valid.cpu(),
-              proj=ops.score_projection(64, 24))
+              proj=ops.score_projection(64, 20))
 
 
 HARNESS_METHODS = ("quoka", "sample_attention", "sparq", "loki",
@@ -705,3 +705,169 @@ def test_moe_capacity_layer_on_the_card_matches_cpu(dev, arch):
     assert torch.equal(keep_g.cpu(), keep_c) and not bool(keep_c.all())
     rel = _err(got.cpu(), want) / float(want.abs().max())
     assert rel <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the sliding-window slice: scoring off the 16-grid (h2o-danube's d = 120),
+# gemma3's global attention shapes, MLA's latent slabs in the host tier,
+# and the two windowed models end to end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 40, 56, 72, 88, 104, 120, 136, 568])
+@pytest.mark.parametrize("nq", [16, 1, 20])
+def test_score_kernel_at_widths_off_the_16_grid(dev, d, nq, dtype):
+    """Head dims that are a multiple of 8 but not of 16 are staged at the
+    next multiple of 16 with the missing columns of K's ring and of q̄
+    zero-filled: the scores equal the plain version's; a row with no valid
+    slot is exactly NEG_INF."""
+    b, nkv, t = 3, 2, 300
+    g = torch.Generator(device=dev).manual_seed(d + nq)
+    qb = torch.randn((b, nq, nkv, d), generator=g, device=dev).transpose(1, 2)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((b, t, nkv, d), generator=g, device=dev).to(dtype)
+    valid = torch.rand((b, t), generator=g, device=dev) < 0.8
+    valid[1] = False
+    kt = k.transpose(1, 2)
+    n0 = qs_mod.LAUNCHES
+    got = qs_mod.quoka_score_bhtd(qb, kt, valid)
+    torch.cuda.synchronize()
+    assert qs_mod.LAUNCHES == n0 + 1
+    want = ref.score_ref(qb, kt, valid)
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-4)
+    assert bool((got[1] == ref.NEG_INF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [16, 1])
+def test_score_kernel_on_a_wrapped_ring_at_d120(dev, nq, dtype):
+    """h2o-danube-3-4b's scoring call: a ring of 4096 slots (n_kv 8,
+    d 120) whose positions wrap mid-ring, the chunk's own 128 slots
+    invalid, against the plain version."""
+    T, start = 4096, 6016
+    g = torch.Generator(device=dev).manual_seed(nq)
+    qb = torch.randn((1, 8, nq, 120), generator=g, device=dev)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((1, T, 8, 120), generator=g, device=dev).to(dtype)
+    last = start + 127
+    pos = last - (last - torch.arange(T, device=dev)) % T
+    valid = ((pos >= 0) & (pos < start))[None]
+    kt = k.transpose(1, 2)
+    got = qs_mod.quoka_score_bhtd(qb, kt, valid)
+    want = ref.score_ref(qb, kt, valid)
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-4)
+    assert bool((got[:, :, ~valid[0]] == ref.NEG_INF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [128, 1])
+def test_attention_at_gemma3_global_shapes(dev, tq, dtype):
+    """gemma3-27b's global layers: 32 query heads over 16 KV heads (GQA
+    group 2), a budget of 2048: flash over [2048 | tq] keys (2176 at a
+    prefill chunk) and selected attention through 128 plan blocks of 16,
+    each against its plain version."""
+    h, n_kv, d, B = 32, 16, 128, 2048
+    g = torch.Generator(device=dev).manual_seed(tq)
+    q = torch.randn((1, tq, h, d), generator=g, device=dev).to(dtype)
+    tk = B + tq
+    k = torch.randn((1, tk, n_kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, tk, n_kv, d), generator=g, device=dev).to(dtype)
+    valid = torch.rand((1, n_kv, tk), generator=g, device=dev) < 0.9
+    valid[:, :, B:] = True
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = fa_mod.flash_attention_bhtd(qt, kt, vt, valid, causal=True,
+                                      boundary=B)
+    want = ref.flash_attention_ref(qt, kt, vt, causal=True, boundary=B,
+                                   k_valid=valid)
+    assert _err(got, want) <= _tol(want, dtype)
+    T, start = 8224, 4096 if tq > 1 else 8197
+    rng = np.random.default_rng(tq)
+    k = torch.randn((1, T, n_kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, T, n_kv, d), generator=g, device=dev).to(dtype)
+    key_pos = torch.arange(T, dtype=torch.int32, device=dev)[None].clone()
+    key_pos[:, start + tq:] = -1
+    idx = torch.as_tensor(_plan(rng, 16, 1, n_kv, T, start, B // 16),
+                          device=dev)
+    got = sa_mod.selected_attention_bhtd(qt, k.transpose(1, 2),
+                                         v.transpose(1, 2), key_pos, idx,
+                                         start, granularity=16)
+    want = ref.selected_ref(q, k, v, key_pos, idx, start, 16).transpose(1, 2)
+    assert idx.shape == (1, 128)
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+def test_host_tier_latent_slab_round_trip(dev):
+    """deepseek-v3's latent caches in the pool on the card: a latent block
+    is demoted into a pinned slab (latent rows, then positions), staged
+    back on the side stream and promoted bit for bit; an unstaged
+    promotion too."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.cache import LatentCache
+    from repro_torch.serving.pool import PagedKVCache
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b").smoke(),
+                              dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev)
+    pool = PagedKVCache(model, num_blocks=3, block_size=16,
+                        host_tier_blocks=4)
+    assert pool.host.store.is_pinned()
+    assert all(isinstance(c, LatentCache) for st in pool.data for c in st)
+    toks = np.arange(32, dtype=np.int32) + 3
+    pool.alloc(0, 2)
+    donor = list(pool.table(0))
+    g = torch.Generator(device=dev).manual_seed(0)
+    for st in pool.data:
+        for c in st:
+            c.latent[donor] = torch.randn(c.latent[donor].shape, generator=g,
+                                          device=dev).to(c.latent.dtype)
+            c.pos[donor] = torch.arange(32, dtype=torch.int32,
+                                        device=dev).view(2, 16)
+    pool.register_prefix(0, toks)
+    want = [leaf[donor].clone() for st in pool.data for c in st
+            for leaf in (c.latent, c.pos)]
+    pool.free(0)
+    pool.alloc(1, 3)                         # demotes both blocks
+    pool.free(1)
+    fulls, _ = pool.match_prefix(toks)
+    assert all(isinstance(e, tuple) for e in fulls) and pool.demoted == 2
+    assert pool.stage(fulls[0][1]) == 1
+    table = pool.alloc_prefix(2, 3, shared=fulls)
+    torch.cuda.synchronize()
+    assert pool.promoted == 2 and pool.staged_used == 1
+    got = [leaf[table[:2]] for st in pool.data for c in st
+           for leaf in (c.latent, c.pos)]
+    for w, x in zip(want, got):
+        assert torch.equal(w, x)
+    pool.check_invariants()
+
+
+@pytest.mark.parametrize("route", ["staged_g1", "fused_g16"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "h2o-danube-3-4b"])
+def test_window_models_on_the_card_match_cpu(dev, arch, route):
+    """The smoke configs (window 64) in fp32 at prompt 160, so every ring
+    wraps: the card (scoring kernel; flash or selected attention on
+    gemma3's global layer) gives the CPU's prefill logits within 1e-4 and
+    its greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.engine import Engine
+    base = get_config(arch).smoke()
+    qover = {} if route == "staged_g1" else dict(granularity=16,
+                                                 fused_select_attn=True)
+    cfg = dataclasses.replace(base, quoka=dataclasses.replace(base.quoka,
+                                                              **qover))
+    cpu = build_model(cfg, device="cpu", seed=3)
+    gpu = Model(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(3).integers(3, cfg.vocab,
+                                             (2, 160)).astype(np.int32)
+    n0 = qs_mod.LAUNCHES
+    lg, _ = gpu.prefill({"tokens": toks}, gpu.init_cache(2, 176))
+    lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, 176))
+    assert qs_mod.LAUNCHES > n0
+    assert _err(lg.cpu(), lc) <= 1e-4
+    tg = Engine(gpu).generate({"tokens": toks}, 8).tokens
+    tc = Engine(cpu, device="cpu").generate({"tokens": toks}, 8).tokens
+    np.testing.assert_array_equal(tg, tc)

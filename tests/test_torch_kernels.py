@@ -152,6 +152,51 @@ def test_score_plain_matches_reference(case):
                           jval, block_t=128))
 
 
+@pytest.mark.parametrize("d", [8, 24, 40, 56, 72, 88, 104, 112, 120])
+def test_score_plain_at_widths_off_the_16_grid_matches_reference(d):
+    """Head dims the scoring kernel stages at the next multiple of 16
+    (h2o-danube's 120 among them), over a wrapped ring's validity (the
+    chunk's own slots mid-ring invalid, one row with no valid slot): the
+    plain version equals the reference's xla oracle and its interpret-mode
+    Pallas kernel within 2e-5."""
+    b, nkv, nq, t = 2, 2, 16, 256
+    rng = np.random.default_rng(d)
+    qb = rng.standard_normal((b, nq, nkv, d), np.float32)
+    qb /= np.linalg.norm(qb, axis=-1, keepdims=True)
+    k = rng.standard_normal((b, t, nkv, d), np.float32)
+    last = 200 + 15                      # a 16-token chunk at 200, mid-ring
+    pos = last - (last - np.arange(t)) % t
+    valid = np.broadcast_to((pos >= 0) & (pos < 200), (b, t)).copy()
+    valid[1] = False
+    (jqb, tqb), (jk, tk_), (jval, tval) = map(_both, (qb, k, valid))
+    got = ops.score(tqb, tk_, tval)
+    _close(got, ref_ops._score_xla(jqb, jk, jval))
+    _close(got, ref_score(jqb.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+                          jval, block_t=128))
+    assert bool((got[1] == -1e30).all())
+
+
+@pytest.mark.parametrize("d", [24, 120])
+def test_score_zero_columns_leave_scores_unchanged(d):
+    """The kernel's staging of d = 120 at 128: zero columns appended to q̄
+    and K change neither a product nor a key's norm, so the plain
+    version's scores at the staged width equal those at d within 1e-6
+    (the extra terms are exact zeros; only fp32 summation over another
+    length differs)."""
+    from repro_torch.kernels import tiling
+    dp = tiling.score_width(d)
+    assert dp == -(-d // 16) * 16 and dp > d
+    rng = np.random.default_rng(d + 1)
+    qb = torch.as_tensor(rng.standard_normal((1, 4, 3, d), np.float32))
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.as_tensor(rng.standard_normal((1, 100, 3, d), np.float32))
+    valid = torch.as_tensor(rng.random((1, 100)) < 0.7)
+    pad = torch.nn.functional.pad
+    np.testing.assert_allclose(
+        ops.score(pad(qb, (0, dp - d)), pad(k, (0, dp - d)), valid).numpy(),
+        ops.score(qb, k, valid).numpy(), atol=1e-6, rtol=0)
+
+
 def test_score_plain_rounds_qbar_to_key_dtype():
     """bf16 keys with an fp32 q̄ (the main path's types): the plain version
     rounds q̄ to bf16 before the products, as the reference's production
@@ -436,6 +481,8 @@ SCORE_GEOMETRIES = [
     (4, 8, 16, 8320, 128, 2), (4, 8, 1, 8320, 128, 2),   # serve step
     (1, 1, 16, 300, 576, 2), (1, 1, 16, 300, 576, 4),    # MLA latent
     (2, 2, 5, 100, 80, 2), (2, 2, 5, 100, 80, 4),
+    (1, 8, 16, 4096, 120, 2), (1, 8, 1, 4096, 120, 2),   # h2o-danube ring
+    (1, 16, 16, 8224, 128, 2),                            # gemma3 global
     (1, 8, 20, 1000, 64, 4), (2, 4, 16, 512, 64, 4), (1, 8, 1, 17, 16, 2),
     (64, 32, 16, 65536, 128, 2),                          # more blocks than SMs
 ]
@@ -467,15 +514,19 @@ def test_score_geometry_covers_every_tile(shape):
 
 @pytest.mark.parametrize("elem", [2, 4])
 def test_score_ring_fits_every_head_dim(elem):
-    """Every head dim the kernel takes (multiples of 16 up to 576, MLA's
-    latent) gets a ring of at least two stages within one block's shared
-    memory; other head dims are refused before any launch."""
+    """Every head dim the kernel takes (multiples of 8 up to 576, MLA's
+    latent; one off the 16-grid staged at the next multiple of 16, with
+    that width's geometry) gets a ring of at least two stages within one
+    block's shared memory; other head dims are refused before any
+    launch."""
     from repro_torch.kernels import tiling
-    for d in range(16, tiling.SCORE_MAX_D + 1, 16):
+    for d in range(8, tiling.SCORE_MAX_D + 1, 8):
         for n_q in (1, 5, 16, 20):
             g = tiling.score_geometry(1, 8, n_q, 8224, d, elem, N_SM)
             assert g.stages >= 2 and g.smem <= tiling.SMEM_PER_BLOCK
-    for d in (0, 8, 24, 72, 592, 1024):
+            assert g == tiling.score_geometry(1, 8, n_q, 8224,
+                                              -(-d // 16) * 16, elem, N_SM)
+    for d in (0, 4, 12, 100, 580, 592, 1024):
         with pytest.raises(ValueError, match="head dim"):
             tiling.score_geometry(1, 8, 16, 8224, d, elem, N_SM)
 

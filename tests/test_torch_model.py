@@ -136,7 +136,8 @@ def test_top_p_degenerate_cutoff_keeps_argmax():
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "olmoe-1b-7b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "gemma3-27b",
+                                  "h2o-danube-3-4b"])
 def test_restore_reads_reference_checkpoint(tmp_path, arch):
     """``restore`` loads the reference's npz checkpoint into the same
     weights as ``from_flat`` (linear weights once in the compute dtype),

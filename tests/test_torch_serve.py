@@ -6,7 +6,9 @@ through the weight bridge (``training/checkpoint.py::from_flat``).  Greedy
 tokens of the port's ``serve`` must equal the reference's ``serve`` and the
 port's own per-request ``generate``, for dense attention, QUOKA through the
 staged route and QUOKA g = 16 through the fused route, on granite-3-2b,
-qwen3-4b, llama3-2-3b and stablelm-3b (MHA); the step counts and prefix hits must be the reference's too.
+qwen3-4b, llama3-2-3b, stablelm-3b (MHA) and olmoe-1b-7b; the step
+counts and prefix hits must be the reference's too (deepseek-v3's latent
+caches: ``test_torch_latent_pool.py``).
 Also covered: a prefix-cache hit, a COW tail, a pool small enough to
 queue, a ragged tail chunk, EOS, suspend/resume with no host tier, the
 streaming front end, and the options that are not ported yet.
@@ -368,16 +370,21 @@ def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
 
 
 def test_latent_cache_serve_raises_and_generate_runs():
-    """deepseek-v3 (MLA's latent caches) has no paged-pool layout yet:
-    continuous serving is refused explicitly, with no fallback, while the
-    one-shot ``generate`` serves it with the reference's tokens."""
+    """deepseek-v3's latent caches now have a paged-pool layout: ``serve``
+    runs and gives each request its own ``generate``'s tokens (the
+    reference's serve is matched in ``test_torch_latent_pool.py``); what
+    still raises is a pool on a mesh (not yet ported), explicitly and with
+    no fallback; the one-shot ``generate`` keeps the reference's tokens."""
     rm, params, pm = _pair("deepseek-v3-671b")
     prompts = _prompts(7, (64, 48), pm.cfg.vocab)
     eng = Engine(pm, method="quoka", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="latent caches in the paged pool are not yet "
-                             "ported"):
-        eng.serve(make_requests(prompts, 4), block_size=BS)
+    from repro_torch.serving.pool import PagedKVCache
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        PagedKVCache(pm, num_blocks=8, block_size=BS, mesh=object())
+    got = eng.serve(make_requests(prompts, 4), block_size=BS)
+    for i, pr in enumerate(prompts):
+        np.testing.assert_array_equal(
+            got.tokens[i], eng.generate({"tokens": pr[None]}, 4).tokens[0])
     toks = np.stack([prompts[0], prompts[0][::-1]])
     want = RefEngine(rm, params, method="quoka").generate(
         {"tokens": jnp.asarray(toks)}, 4).tokens
