@@ -23,7 +23,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      ring (n_kv 8, d 120 staged at 128, T 4096, n_q 16 and 1, bf16 and
      fp32, a row with no valid slot exactly NEG_INF), and flash and
      selected attention at gemma3-27b's global layers (h 32 / 16, budget
-     2048: [2048 | 128] keys, 128 plan blocks; prefill and decode);
+     2048: [2048 | 128] keys, 128 plan blocks; prefill and decode), and
+     scoring (n_q 16 and 1), flash and selected attention (g 16 and 1) at
+     zamba2-7b's shared block (MHA 32 / 32, d 112);
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -44,8 +46,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      per launch and, for attention, the split count S); flash and selected
      attention also at stablelm-3b's shapes (d = 80, MHA) and gemma3-27b's
      (group 2, budget 2048), flash at deepseek-v3's (d 576, beside SDPA
-     and the backend SDPA took), scoring at its latent (n_kv 1, d 576) and
-     at h2o-danube-3-4b's ring (d 120);
+     and the backend SDPA took), scoring at its latent (n_kv 1, d 576), at
+     h2o-danube-3-4b's ring (d 120) and at zamba2-7b's shared block (n_kv
+     32, d 112; mid-prefill and decode), flash and selected attention at
+     that block's shapes too;
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -70,9 +74,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      serves the same trace on the card and on the CPU, and the tokens
      equal each other and each request's own ``generate``;
  11. every selection method through ``Engine.generate`` at qwen3-4b full
-     width (prompt 4096, 8 new tokens): ``full``, ``quoka``, the six
-     baselines, ``quoka`` with plan reuse (interval 4, corrections 0 and
-     35) and with ``score_proj_dim`` 32, staged; two baselines fused;
+     width cut in depth to 12 of its 36 layers, to keep the run inside
+     its time limit (prompt 4096, 8 new tokens): ``full``, ``quoka``, the
+     six baselines, ``quoka`` with plan reuse (interval 4, corrections 0
+     and 11) and with ``score_proj_dim`` 32, staged; two baselines fused;
      TTFT, decode rate, greedy tokens and exact launch counts for each;
  12. the chunked-prefill harness on the card: output error, key recall and
      critical key recall of every method, staged and fused, at qwen3-4b's
@@ -126,13 +131,28 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
  21. gemma3-27b's and h2o-danube-3-4b's smoke configs (window 64) at
      prompt 160, card (kernels) vs CPU (plain versions): logits within
      1e-4, greedy tokens equal, staged and g = 16;
- 22. gemma3-27b (62 layers, d_model 5376, 32 / 16 heads, 5 local (window
-     1024) : 1 global, budget 2048) at full width and depth, last, on an
-     otherwise empty card: ``Engine.generate`` staged and fused (g = 16)
-     with exact launch counts (10 global layers x 95; the local layers'
-     1024-slot rings take the dense bypass), and a trace of the fused
-     route as phase 7's at prompt 4096 (at 2048 every layer would take
-     the dense bypass).
+ 22. gemma3-27b (d_model 5376, 32 / 16 heads, 5 local (window 1024) : 1
+     global, budget 2048) at full width, cut in depth to two of its ten
+     periods (12 of 62 layers) to keep the run inside its time limit:
+     ``Engine.generate`` staged and fused (g = 16) with exact launch
+     counts (2 global layers x 95; the local layers' 1024-slot rings take
+     the dense bypass), and a trace of the fused route as phase 7's at
+     prompt 4096 (at 2048 every layer would take the dense bypass);
+ 23. zamba2-7b (81 layers: 13 x (5 Mamba2 + 1 Mamba2 followed by the ONE
+     shared attention block, MHA 32 / 32 at d 112) + 3 Mamba2; d_model
+     3584) at full width and depth: ``Engine.generate`` staged and fused
+     (g = 16) with exact launch counts (13 shared-block uses x 95 per
+     kernel and route; the Mamba2 layers launch nothing), and a trace of
+     the fused route as phase 7's with the device time of the SSD scan,
+     the causal convolution, the shared block (its kernels apart) and the
+     products;
+ 24. rwkv6-1.6b (24 RWKV6 layers, d_model 2048, no KV cache) at full
+     width and depth: ``Engine.generate`` with QUOKA asked for and 0
+     launches of every kernel (nothing to select), and a trace with the
+     wkv scan's device time;
+ 25. zamba2-7b's smoke config (staged and g = 16) and rwkv6-1.6b's in
+     fp32 at prompt 160, card (kernels) vs CPU (plain versions): logits
+     within 1e-4, greedy tokens equal.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -562,10 +582,11 @@ def mla_flash_parity(torch, dev, K):
     return e
 
 
-# (h, n_kv, d) of the slice's other models (phases 14, 15, 17, 20, 22)
+# (h, n_kv, d) of the other models (phases 14, 15, 17, 20, 22, 23;
+# zamba2-7b's: its shared attention block)
 ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80),
                "olmoe-1b-7b": (16, 16, 128), "gemma3-27b": (32, 16, 128),
-               "h2o-danube-3-4b": (32, 8, 120)}
+               "h2o-danube-3-4b": (32, 8, 120), "zamba2-7b": (32, 32, 112)}
 GEMMA_BUDGET = 2048                   # gemma3-27b's QUOKA budget
 SWEEP_DIMS = (8, 32, 80, 112, 120)
 SWEEP_HEADS = ((4, 4), (6, 2), (14, 2))      # GQA groups 1, 3 and 7
@@ -1204,13 +1225,15 @@ def phase_small_serve(torch, np):
 BASELINES = ("sample_attention", "sparq", "loki", "less_is_more", "snapkv",
              "keydiff")
 METHOD_PROMPT, METHOD_NEW = 4096, 8          # phase 11
-REUSE = dict(reuse_interval=4, correction_layers=(0, 35))
+METHOD_LAYERS = 12                           # phase 11's cut of 36 layers
+REUSE = dict(reuse_interval=4, correction_layers=(0, METHOD_LAYERS - 1))
 
 
 def method_runs():
     """Phase 11's runs: (label, method, QuokaConfig overrides)."""
     runs = [(m, m, {}) for m in ("full", "quoka") + BASELINES]
-    runs += [("quoka reuse 4, corrections (0, 35)", "quoka", REUSE),
+    runs += [(f"quoka reuse 4, corrections {REUSE['correction_layers']}",
+              "quoka", REUSE),
              ("quoka score_proj_dim 32", "quoka", {"score_proj_dim": 32})]
     runs += [(f"{m} fused g=16", m, {"granularity": 16,
                                      "fused_select_attn": True})
@@ -1241,14 +1264,16 @@ def expected_launches(cfg, method, qover, steps):
 
 def phase_methods(torch, np, K, model, card):
     """Phase 11: every selection method through ``Engine.generate`` at
-    qwen3-4b full width, prompt 4096, 8 new tokens, batch 1.  Each run: a
+    qwen3-4b full width (``model`` cut to ``METHOD_LAYERS`` layers), prompt
+    4096, 8 new tokens, batch 1.  Each run: a
     first ``generate`` warms its signature, then the counts are set to 0
     just before the measured one and read just after; they must equal
     ``expected_launches``."""
     from repro_torch.serving.engine import Engine
     cfg = model.cfg
-    log(f"== phase 11: every method, qwen3-4b full width, prompt "
-        f"{METHOD_PROMPT}, {METHOD_NEW} new tokens, batch 1 [{card}]")
+    log(f"== phase 11: every method, qwen3-4b full width, "
+        f"{cfg.n_layers} layers, prompt {METHOD_PROMPT}, {METHOD_NEW} new "
+        f"tokens, batch 1 [{card}]")
     toks = np.random.default_rng(11).integers(
         3, cfg.vocab, (1, METHOD_PROMPT)).astype(np.int32)
     steps = METHOD_PROMPT // cfg.quoka.chunk_size + METHOD_NEW - 1
@@ -1422,7 +1447,9 @@ def oneshot_launches(cfg):
     (else it takes the dense bypass: no kernel); a selecting layer launches
     scoring once, then flash (staged) or selected attention (fused), except
     a windowed layer, which attends [selected | chunk] on the plain masked
-    path (as the reference)."""
+    path (as the reference).  A recurrent layer (``mamba``, ``rwkv``) has
+    no KV cache and launches nothing; a ``mamba_shared_attn`` layer's
+    shared attention block launches as an ``attn`` layer."""
     from repro_torch.core.plan import resolve_budget
     q = cfg.quoka
     cap = PROMPT + MAX_NEW
@@ -1431,6 +1458,8 @@ def oneshot_launches(cfg):
     chunk = q.chunk_size
     score = attn = 0
     for kind in cfg.layer_kinds():
+        if kind in ("mamba", "rwkv"):
+            continue
         c = min(cap, cfg.sliding_window) if kind == "attn_local" else cap
         bud = resolve_budget(q, c)
         n = (PROMPT // chunk) * (c > bud + chunk) + \
@@ -1444,22 +1473,35 @@ def oneshot_launches(cfg):
             "selected_attention_paged": 0}
 
 
-def phase_oneshot(torch, np, K, arch, phase):
+ROUTES = (("staged", {}),
+          ("fused", dict(granularity=16, fused_select_attn=True)))
+
+
+GEMMA_LAYERS = 12        # phase 22's cut: two periods of 5 local + 1 global
+
+
+def phase_oneshot(torch, np, K, arch, phase, routes=ROUTES, layers=None):
     """Phases 14 (llama3-2-3b), 15 (stablelm-3b), 20 (h2o-danube-3-4b) and
     22 (gemma3-27b): ``Engine.generate`` at the published width from
     random weights (seed 0), staged then g = 16 with the fused route on,
     with exact launch counts (``oneshot_launches``): on a dense model one
     score and one attention launch per layer per chunk and per decode
     step; gemma3-27b's local layers (a 1024-slot ring, within budget 2048
-    + chunk) take the dense bypass, so only its 10 global layers launch;
-    h2o-danube-3-4b's windowed layers launch scoring only.  Returns (the
-    model, on the last route, and its numbers)."""
+    + chunk) take the dense bypass, so only its global layers launch (it
+    runs cut in depth to ``layers``);
+    h2o-danube-3-4b's windowed layers launch scoring only.  Also phases 23
+    (zamba2-7b) and 24 (rwkv6-1.6b, ``routes`` staged only: it has no KV
+    cache, so no route selects).  Returns (the model, on the last route,
+    and its numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch)
+    depth = cfg.n_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     win = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
     log(f"== phase {phase}: {arch} one-shot at full width ({cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
+        f"of {depth} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}, d {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab}{win}, budget {cfg.quoka.budget}, bf16), prompt "
         f"{PROMPT}, {MAX_NEW} new")
@@ -1470,9 +1512,7 @@ def phase_oneshot(torch, np, K, arch, phase):
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB)")
     out = {}
-    for route, qover in (
-            ("staged", {}),
-            ("fused", dict(granularity=16, fused_select_attn=True))):
+    for route, qover in routes:
         model.cfg = dataclasses.replace(cfg, quoka=dataclasses.replace(
             cfg.quoka, **qover))
         want = oneshot_launches(model.cfg)
@@ -2021,18 +2061,24 @@ def phase_window_small(torch, np):
     and on the CPU (plain versions), at prompt 160 > the window, so every
     ring wraps: staged and g = 16 with the fused route on; prefill logits
     within 1e-4 and greedy tokens equal."""
+    log("== phase 21: sliding-window smoke models, card (kernels) vs CPU "
+        "(plain versions), prompt 160 > window 64")
+    small_card_vs_cpu(torch, np, ("gemma3-27b", "h2o-danube-3-4b"), ROUTES,
+                      seed=21)
+
+
+def small_card_vs_cpu(torch, np, archs, routes, seed):
+    """Phases 21 and 25: each smoke config of ``archs`` in fp32 on each
+    route, the same weights on the card and on the CPU, at prompt 160:
+    prefill logits within 1e-4 and ``generate``'s greedy tokens equal."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, build_model
     from repro_torch.serving.engine import Engine
-    log("== phase 21: sliding-window smoke models, card (kernels) vs CPU "
-        "(plain versions), prompt 160 > window 64")
-    for arch in ("gemma3-27b", "h2o-danube-3-4b"):
+    for arch in archs:
         base = get_config(arch).smoke()
-        toks = np.random.default_rng(21).integers(
+        toks = np.random.default_rng(seed).integers(
             3, base.vocab, (2, 160)).astype(np.int32)
-        for label, qover in (("staged g=1", {}),
-                             ("fused g=16", {"granularity": 16,
-                                             "fused_select_attn": True})):
+        for label, qover in routes:
             cfg = dataclasses.replace(base, quoka=dataclasses.replace(
                 base.quoka, **qover))
             cpu = build_model(cfg, device="cpu", seed=1)
@@ -2052,27 +2098,49 @@ def phase_window_small(torch, np):
             log(f"  {arch} smoke greedy tokens equal, {label}")
 
 
-def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7"):
-    """Phase 7 (and the traces of phases 17-18, 20 and 22): where the time
-    of the model's route goes.  One chunked prefill of ``prompt`` tokens and
-    ``steps`` decode steps, each timed without the profiler (host clock
-    around synchronize) and traced once with ``torch.profiler`` for the
-    device time by kernel.  Device idle share = 1 - device busy time /
-    untraced wall time."""
+TRACE_CHUNKS = 4         # prefill chunks a trace times and profiles
+
+
+def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
+                spans=None):
+    """Phase 7 (and the traces of phases 17-18, 20 and 22-24): where the
+    time of the model's route goes.  A chunked prefill of ``prompt`` tokens
+    and ``steps`` decode steps: the prefill's last ``TRACE_CHUNKS`` chunks
+    (a full cache behind them) and the decode steps are each timed without
+    the profiler (host clock around synchronize) and traced once with
+    ``torch.profiler`` for the device time by kernel (the profiler's cost
+    grows with the ops it records, so the earlier chunks run untraced).
+    Device idle share = 1 - device busy time / untraced wall time.
+    ``spans`` ({label: (owner, attribute)}) wraps those functions in
+    ``record_function`` ranges for the traced run only, and reports each
+    range's device time, with the products' (every GEMM kernel's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    bcp = model.cfg.quoka.chunk_size
+    n_chunks = prompt // bcp
+    k0 = n_chunks - TRACE_CHUNKS
     log(f"{phase}: trace, {model.cfg.name} prefill of {prompt} tokens "
-        f"({prompt // model.cfg.quoka.chunk_size} chunks) + {steps} "
-        f"decode steps")
+        f"({n_chunks} chunks, the last {TRACE_CHUNKS} timed and traced) + "
+        f"{steps} decode steps")
     toks = np.random.default_rng(7).integers(
         3, model.cfg.vocab, (1, prompt)).astype(np.int32)
     g = model.cfg.quoka.granularity     # a block plan's cap is on its grid
     cap = -(-(prompt + steps) // g) * g
 
-    def prefill():
+    def chunks(cache, lo, hi):
+        for c in range(lo, hi):
+            last, cache = model.prefill_chunk(
+                {"tokens": toks[:, c * bcp:(c + 1) * bcp]}, c * bcp, cache)
+        return last, cache
+
+    def prefix():
         cache = model.init_cache(1, cap)
-        lg, cache = model.prefill({"tokens": toks}, cache)
-        return lg.argmax(-1), cache
+        chunks(cache, 0, k0)
+        return cache
+
+    def prefill(cache):
+        last, cache = chunks(cache, k0, n_chunks)
+        return model._readout(last[:, None])[:, 0].argmax(-1), cache
 
     def decode(tok, cache):
         for i in range(steps):
@@ -2082,10 +2150,11 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7"):
 
     def busy_us(prof):
         # device-side events only (kernels, memcpy, memset): the CPU ops
-        # that launched them carry the same time and would count it twice
+        # that launched them carry the same time and would count it twice,
+        # and a span's device-side annotation covers its kernels again
         total, by_name = 0.0, {}
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
+            if e.device_type != DeviceType.CUDA or e.key in (spans or {}):
                 continue
             us = e.self_device_time_total
             if us > 0:
@@ -2094,50 +2163,137 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7"):
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         score = [sum(v[i] for k, v in by_name.items() if SCORE_KERNELS[0] in k)
                  for i in (0, 1)]
-        return total, top, score
+        attn = [sum(v[i] for k, v in by_name.items()
+                    if any(a in k for a in ATTN_KERNELS)) for i in (0, 1)]
+        return total, top, score, attn
 
     out = {}
-    tok, cache = prefill()                     # warm
+    tok, cache = prefill(prefix())             # warm
     decode(tok, cache)
     for label in ("prefill", "decode"):
-        torch.cuda.synchronize()
         if label == "prefill":
-            t0 = time.perf_counter()
-            tok, cache = prefill()
+            cache = prefix()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "prefill":
+            tok, cache = prefill(cache)
         else:
-            t0 = time.perf_counter()
             decode(tok, cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if label == "prefill":
+            cache = prefix()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                traced_spans(torch, spans or {}):
             if label == "prefill":
-                tok, cache = prefill()
+                tok, cache = prefill(cache)
             else:
                 decode(tok, cache)
             torch.cuda.synchronize()
-        busy, top, (score_us, score_n) = busy_us(prof)
+        busy, top, (score_us, score_n), (attn_us, attn_n) = busy_us(prof)
         idle = 1.0 - busy * 1e-6 / wall
         # host work: torch ops issued per layer call (outermost aten ops)
         n_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
                     and (e.cpu_parent is None
                          or not e.cpu_parent.name.startswith("aten::")))
         calls = model.cfg.n_layers * (
-            prompt // model.cfg.quoka.chunk_size if label == "prefill"
-            else steps)
+            TRACE_CHUNKS if label == "prefill" else steps)
         log(f"  {label}: wall {wall * 1e3:.1f} ms untraced, device busy "
             f"{busy / 1e3:.1f} ms, idle share {idle:.3f}, "
             f"{n_ops / calls:.0f} torch ops per layer call")
         for name, (us, n) in top:
             log(f"    {us / 1e3:9.2f} ms  {n:5d} calls  {name[:90]}")
         log(f"    scoring: {score_us / 1e3:.2f} ms device in {score_n} calls "
-            f"({score_us / max(score_n, 1) / 1e3:.4f} ms per call)")
+            f"({score_us / max(score_n, 1) / 1e3:.4f} ms per call); "
+            f"attention kernels (main + merge): {attn_us / 1e3:.2f} ms in "
+            f"{attn_n} launches")
         out[label] = dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3,
                           idle_share=idle, ops_per_layer_call=n_ops / calls,
                           score_ms=score_us / 1e3, score_calls=score_n,
+                          attn_kernel_ms=attn_us / 1e3,
+                          attn_kernel_launches=attn_n,
                           top=[[nm[:90], us / 1e3, n]
                                for nm, (us, n) in top])
+        if spans:
+            got = range_device_ms(prof, set(spans))
+            gemm = [(e.self_device_time_total, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and any(w in e.key.lower() for w in (
+                        "gemm", "gemv", "cutlass", "xmma", "nvjet"))]
+            got["products (GEMM kernels)"] = (
+                sum(us for us, _ in gemm) / 1e3, sum(n for _, n in gemm))
+            for name, (ms, n) in got.items():
+                log(f"    span {name}: {ms:.2f} ms device in {n} calls")
+            out[label]["spans_ms"] = {k: v[0] for k, v in got.items()}
     return out
+
+
+class traced_spans:
+    """For one ``with`` block, each ``spans`` entry {label: (owner,
+    attribute)} runs inside a ``record_function(label)`` range (the owner
+    is a module or a class; module globals are looked up at call time)."""
+
+    def __init__(self, torch, spans):
+        self.torch, self.spans, self.saved = torch, spans, {}
+
+    def __enter__(self):
+        for label, (owner, attr) in self.spans.items():
+            fn = getattr(owner, attr)
+            self.saved[label] = (owner, attr, fn)
+            setattr(owner, attr, self._wrap(label, fn))
+        return self
+
+    def _wrap(self, label, fn):
+        rf = self.torch.profiler.record_function
+
+        def wrapped(*a, **k):
+            with rf(label):
+                return fn(*a, **k)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved.values():
+            setattr(owner, attr, fn)
+        return False
+
+
+def phase_recurrent(torch, np, K):
+    """Phases 23-25: zamba2-7b (staged and fused) and rwkv6-1.6b one-shot
+    at full width and depth with exact launch counts, a trace of each
+    with the device time of its recurrent scans, convolution, shared
+    attention block and products, then both smoke configs card vs CPU.
+    Returns ({arch: one-shot numbers}, {arch: trace})."""
+    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models.blocks import AttnBlock
+    oneshot, traces = {}, {}
+    zamba, oneshot["zamba2-7b"] = phase_oneshot(torch, np, K, "zamba2-7b",
+                                                23)
+    traces["zamba2-7b"] = phase_trace(
+        torch, np, zamba, phase="  phase 23", spans={
+            "mamba2 SSD scan": (mamba2, "_ssd_chunked"),
+            "mamba2 causal conv": (mamba2, "_causal_conv"),
+            # its torch ops; its own kernels are bound through ctypes, so
+            # the trace reports them by name (scoring, attention kernels)
+            "shared attention block (torch ops)": (AttnBlock, "apply")})
+    del zamba
+    torch.cuda.empty_cache()
+    rwkv, oneshot["rwkv6-1.6b"] = phase_oneshot(
+        torch, np, K, "rwkv6-1.6b", 24, routes=ROUTES[:1])
+    traces["rwkv6-1.6b"] = phase_trace(
+        torch, np, rwkv, phase="  phase 24", spans={
+            "rwkv6 wkv scan": (rwkv6, "_time_mix_chunked"),
+            "rwkv6 time mix": (rwkv6, "time_mix"),
+            "rwkv6 channel mix": (rwkv6, "channel_mix")})
+    del rwkv
+    torch.cuda.empty_cache()
+    log("== phase 25: recurrent smoke models, card (kernels) vs CPU (plain "
+        "versions), prompt 160")
+    small_card_vs_cpu(torch, np, ("zamba2-7b",), ROUTES, seed=25)
+    small_card_vs_cpu(torch, np, ("rwkv6-1.6b",), ROUTES[:1], seed=25)
+    return oneshot, traces
 
 
 def time_ms(torch, fn, flush, iters=20):
@@ -2205,6 +2361,7 @@ def traced_kernels(torch, call, names, reps):
     a ``torch.profiler`` trace of ``reps`` eager calls (the second of two
     profiler steps; the first warms the profiler up)."""
     from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
@@ -2238,18 +2395,19 @@ def launched(torch, call, names=ATTN_KERNELS, reps=10):
     the bf16 attention kernels n_split the first grid dimension of
     ``attn_mma_kernel`` (else None), and ``traces`` the number of traces
     taken (the kernels line reports it per row).  Fails unless the first
-    kernel is in one of three traces, each ran with one grid and at most
+    kernel is in one of ten traces, each ran with one grid and at most
     once per call, and the attention merge ran exactly when the walk was
     split."""
-    for traces in range(1, 4):
+    for traces in range(1, 11):
         seen = traced_kernels(torch, call, names, reps)
         if names[0] in seen:
             break
         # the profiler sometimes records fewer kernels than ran (8 or 9 of
-        # 10 in some traces, none in one): trace the same calls again
+        # 10 in some traces, none in up to five in a row): trace the same
+        # calls again
         log(f"    (profiler recorded no {names[0]}; tracing again)")
     else:
-        raise AssertionError(f"no {names[0]} in 3 traces: {seen}")
+        raise AssertionError(f"no {names[0]} in 10 traces: {seen}")
     out = {}
     for name, (n, us, grids) in seen.items():
         if n > reps or len(grids) != 1:
@@ -2312,13 +2470,15 @@ def attention_times(torch, np, dev, K, flush):
     """Flash and linear selected attention at the main path's prefill
     (tq = 128) and decode (tq = 1) shapes, qwen3-4b's (h 32 / 8, d 128),
     stablelm-3b's (MHA 32 / 32, d 80) and gemma3-27b's global layers' (h
-    32 / 16, a budget of 2048): device time with L2 warm, with
+    32 / 16, a budget of 2048) and zamba2-7b's shared block's (MHA 32 /
+    32, d 112): device time with L2 warm, with
     L2 flushed and back to back, the plain version, SDPA for flash, the
     bound, and the kernels one call launched (their grids, so the split
     count and the blocks, and their device times), read from a profiler
     trace.  Returns {kernel: row}: qwen3-4b's prefill numbers at the top
     level, its decode ones under "decode", stablelm-3b's under "d80" and
-    "d80_decode", gemma3-27b's under "gemma3" and "gemma3_decode"; "ms" is
+    "d80_decode", gemma3-27b's under "gemma3" and "gemma3_decode",
+    zamba2-7b's under "d112" and "d112_decode"; "ms" is
     the time with L2 as the main path leaves it
     (flash: warm, the tensors just written; selected: flushed, a cache the
     other layers have evicted)."""
@@ -2338,7 +2498,8 @@ def attention_times(torch, np, dev, K, flush):
     for tag, (h, n_kv, d), budget in (
             ("", (32, 8, 128), 1024),
             ("d80", ARCH_SHAPES["stablelm-3b"], 1024),
-            ("gemma3", ARCH_SHAPES["gemma3-27b"], GEMMA_BUDGET)):
+            ("gemma3", ARCH_SHAPES["gemma3-27b"], GEMMA_BUDGET),
+            ("d112", ARCH_SHAPES["zamba2-7b"], 1024)):
         group = h // n_kv
         for tq in (128, 1):
             key = ((tag + "_decode") if tag else "decode") if tq == 1 \
@@ -2533,14 +2694,17 @@ def phase_timing(torch, np, dev, K, paged):
     # d = 32 on the projected cache, mid-prefill.
     # The d576 row is deepseek-v3's latent (one KV head, d = 576) at its
     # last prefill chunk; the d120 row h2o-danube-3-4b's wrapped ring (n_kv
-    # 8, d 120, T 4096) at a mid-prefill chunk.
+    # 8, d 120, T 4096) at a mid-prefill chunk; the d112 rows zamba2-7b's
+    # shared block (n_kv 32, d 112) mid-prefill and at decode.
     for key, n_q, start, rank, n_kv, d in (
             ("prefill", 16, 4096, 0, 8, 128),
             ("last_chunk", 16, PROMPT, 0, 8, 128),
             ("decode", 1, PROMPT, 0, 8, 128),
             ("proj32", 16, 4096, 32, 8, 128),
             ("d576", 16, PROMPT, 0, 1, MLA_D),
-            ("d120_ring", 16, RING_START, 0, 8, RING_D)):
+            ("d120_ring", 16, RING_START, 0, 8, RING_D),
+            ("d112", 16, 4096, 0, 32, 112),
+            ("d112_decode", 1, PROMPT, 0, 32, 112)):
         if rank:
             qb, kt, valid = projected_score_inputs(torch, dev, n_q, rank,
                                                    start)
@@ -2705,7 +2869,8 @@ def main() -> int:
     phase_small_serve(torch, np)
     timing = phase_timing(torch, np, dev, K, paged)
     # the comparison path after phases 1-10, which keep the parent's order
-    methods = phase_methods(torch, np, K, build_model(cfg, seed=0), card)
+    methods = phase_methods(torch, np, K, build_model(dataclasses.replace(
+        cfg, n_layers=METHOD_LAYERS), seed=0), card)
     torch.cuda.empty_cache()
     harness = phase_harness(torch, np, K, card, dev)
     phase_small_baselines(torch, np)
@@ -2727,7 +2892,7 @@ def main() -> int:
     oneshot["deepseek-v3 (4 layers)"] = {"staged": deepseek}
     # the sliding-window and latent-pool slice: deepseek-v3 served on
     # phase 18's model, h2o-danube-3-4b, the smoke window models, then
-    # gemma3-27b (51 GiB of weights) last, on an otherwise empty card
+    # gemma3-27b cut to two periods
     ds_serve, ds_rows = phase_deepseek_serve(torch, np, K, ds_model)
     timing["flash_attention"].update(ds_rows)
     del ds_model
@@ -2742,14 +2907,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"  before phase 22: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB allocated on the card")
-    gemma, oneshot["gemma3-27b"] = phase_oneshot(torch, np, K, "gemma3-27b",
-                                                 22)
+    gemma, oneshot[f"gemma3-27b ({GEMMA_LAYERS} layers)"] = phase_oneshot(
+        torch, np, K, "gemma3-27b", 22, layers=GEMMA_LAYERS)
     # prompt 4096: at 2048 the global layers' cap (2064) is within budget
     # 2048 + chunk, so they would take the dense bypass, off the main path
     window_traces["gemma3-27b"] = phase_trace(torch, np, gemma, prompt=4096,
                                               phase="  phase 22")
     del gemma
     torch.cuda.empty_cache()
+    # the recurrent slice
+    recurrent, recurrent_traces = phase_recurrent(torch, np, K)
+    oneshot.update(recurrent)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -2794,6 +2962,7 @@ def main() -> int:
                     "host_tier": tier, "olmoe": olmoe,
                     "deepseek_serve": ds_serve,
                     "window_traces": window_traces,
+                    "recurrent_traces": recurrent_traces,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,2 +1,3 @@
 from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
-                                     MoEConfig, QuokaConfig, get_config)
+                                     MoEConfig, QuokaConfig, RWKVConfig,
+                                     SSMConfig, get_config)

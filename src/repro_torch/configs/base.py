@@ -3,10 +3,12 @@
 Ported block kinds: ``"attn"`` (dense GQA attention + SwiGLU MLP),
 ``"attn_local"`` (sliding-window GQA attention + SwiGLU MLP),
 ``"attn_moe"`` (GQA attention + MoE FFN), ``"mla"`` (DeepSeek multi-head
-latent attention + SwiGLU MLP) and ``"mla_moe"`` (MLA + MoE FFN); families
-``"dense"`` and ``"moe"``.  Field names and defaults match the reference so
-a test can build the same configuration in both packages; dtypes are torch
-dtypes.
+latent attention + SwiGLU MLP), ``"mla_moe"`` (MLA + MoE FFN), ``"mamba"``
+(Mamba2 SSD block), ``"mamba_shared_attn"`` (Mamba2 then zamba2's one
+shared attention block) and ``"rwkv"`` (RWKV6 time-mix + channel-mix);
+families ``"dense"``, ``"moe"``, ``"hybrid"`` and ``"ssm"``.  Field names
+and defaults match the reference so a test can build the same
+configuration in both packages; dtypes are torch dtypes.
 """
 from __future__ import annotations
 
@@ -37,6 +39,20 @@ class MLAConfig:
     qk_nope_dim: int
     qk_rope_dim: int
     v_head_dim: int
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2             # d_inner = expand * d_model
+    head_dim: int = 64          # mamba2 head dim
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64        # rank of the data-dependent decay LoRA
 
 
 @dataclass(frozen=True)
@@ -71,7 +87,7 @@ class QuokaConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense" | "moe" are ported
+    family: str                    # "dense" | "moe" | "hybrid" | "ssm"
     n_layers: int
     d_model: int
     n_heads: int
@@ -91,6 +107,8 @@ class ModelConfig:
     layer_groups: Optional[Tuple[Tuple[Tuple[str, ...], int], ...]] = None
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     mtp: bool = False              # deepseek multi-token-prediction head
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -142,7 +160,9 @@ class ModelConfig:
         """Weight-matrix parameters (embedding and read-out, attention
         projections, MLP or experts and router; norms left out), counted
         as the reference's ``param_count`` counts them for the ported
-        kinds (the MTP head is not counted there either)."""
+        kinds (the MTP head is not counted there either; for ``rwkv`` and
+        ``mamba`` its own approximate terms, and zamba2's shared block
+        once)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds():
@@ -168,7 +188,15 @@ class ModelConfig:
                 p += e.n_experts * 3 * d * e.d_expert
                 p += e.n_shared * 3 * d * (e.d_expert if self.mla
                                            else self.d_ff)
+            if kind == "rwkv":
+                p += 4 * d * d + d * self.d_ff * 2
+            if kind in ("mamba", "mamba_shared_attn"):
+                di = self.ssm.expand * d
+                p += d * 2 * di + di * d + 2 * di * self.ssm.d_state
             total += p
+        if "mamba_shared_attn" in self.layer_kinds():
+            total += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d + 3 * d * self.d_ff
         return int(total)
 
     def active_param_count(self) -> int:
@@ -225,6 +253,10 @@ class ModelConfig:
                                   qk_nope_dim=32, qk_rope_dim=16,
                                   v_head_dim=32)
             ch["head_dim"] = 0
+        if self.ssm is not None:
+            ch["ssm"] = dataclasses.replace(self.ssm, d_state=16, head_dim=32)
+        if self.rwkv is not None:
+            ch["rwkv"] = RWKVConfig(head_dim=32, decay_lora=16)
         if self.sliding_window is not None:
             ch["sliding_window"] = min(self.sliding_window, 64)
         ch["quoka"] = dataclasses.replace(
@@ -237,7 +269,7 @@ def get_config(name: str) -> ModelConfig:
     from repro_torch.configs import (deepseek_v3_671b, gemma3_27b,
                                      granite_3_2b, h2o_danube_3_4b,
                                      llama3_2_3b, olmoe_1b_7b, qwen3_4b,
-                                     stablelm_3b)
+                                     rwkv6_1_6b, stablelm_3b, zamba2_7b)
     known = {"qwen3-4b": qwen3_4b.get_config,
              "granite-3-2b": granite_3_2b.get_config,
              "llama3-2-3b": llama3_2_3b.get_config,
@@ -245,7 +277,9 @@ def get_config(name: str) -> ModelConfig:
              "olmoe-1b-7b": olmoe_1b_7b.get_config,
              "deepseek-v3-671b": deepseek_v3_671b.get_config,
              "gemma3-27b": gemma3_27b.get_config,
-             "h2o-danube-3-4b": h2o_danube_3_4b.get_config}
+             "h2o-danube-3-4b": h2o_danube_3_4b.get_config,
+             "zamba2-7b": zamba2_7b.get_config,
+             "rwkv6-1-6b": rwkv6_1_6b.get_config}
     key = name.replace("_", "-").replace(".", "-")
     if key not in known:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(known)}")

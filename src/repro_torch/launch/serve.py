@@ -43,11 +43,19 @@ pool refuses them and ``--continuous`` raises, as in the reference:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-3-4b --prompt-len 8192 --batch 1
 
+So do the recurrent families, zamba2-7b (Mamba2 layers and one shared
+attention block, on whose KV caches QUOKA selects) and rwkv6-1.6b (no KV
+cache): their states have no pool layout, so ``--continuous`` raises the
+reference's "... unsupported block kinds" error:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --smoke --device cpu --prompt-len 160 --batch 2 --max-new 4
+
 ``--arch`` takes every config of ``configs/base.py::get_config`` (qwen3-4b,
 granite-3-2b, llama3-2-3b, stablelm-3b, olmoe-1b-7b, deepseek-v3-671b,
-gemma3-27b, h2o-danube-3-4b; deepseek-v3-671b is 671 B parameters at its
-published depth, so on one card use ``--smoke`` or a checkpoint of a
-depth-cut copy).  ``--host-tier-blocks`` puts a
+gemma3-27b, h2o-danube-3-4b, zamba2-7b, rwkv6-1.6b; deepseek-v3-671b is
+671 B parameters at its published depth, so on one card use ``--smoke`` or
+a checkpoint of a depth-cut copy).  ``--host-tier-blocks`` puts a
 host-memory tier behind the paged pool (pair it with an undersized
 ``--num-blocks`` to make pressure demote blocks there), and
 ``--prefetch-depth`` caps the host blocks staged per step.  Weights are
@@ -76,8 +84,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="qwen3-4b",
                     help="qwen3-4b, granite-3-2b, llama3-2-3b, stablelm-3b, "
                          "olmoe-1b-7b, deepseek-v3-671b (one-shot and "
-                         "--continuous), gemma3-27b, h2o-danube-3-4b "
-                         "(one-shot; --continuous raises)")
+                         "--continuous), gemma3-27b, h2o-danube-3-4b, "
+                         "zamba2-7b, rwkv6-1.6b (one-shot; --continuous "
+                         "raises)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--method", default="quoka", choices=METHODS)

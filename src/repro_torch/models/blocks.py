@@ -3,7 +3,10 @@
 (the same over a sliding window, in a ring cache of ``min(cap, window)``
 slots) and ``"attn_moe"`` (GQA + MoE FFN, ``models/moe.py``), ``MLABlock``
 for ``"mla"`` and ``"mla_moe"`` (DeepSeek multi-head latent attention over
-a compressed ``LatentCache``); other kinds are not ported and raise.
+a compressed ``LatentCache``), ``MambaBlock`` for ``"mamba"`` and
+``"mamba_shared_attn"`` (a Mamba2 mixer, ``models/mamba2.py``; the second
+then calls zamba2's shared attention block) and ``RWKVBlock`` for
+``"rwkv"`` (``models/rwkv6.py``); other kinds are not ported and raise.
 
 ``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
 the layer's KV cache along one of three routes, as in the reference:
@@ -27,6 +30,12 @@ reference's ``fused_route`` never takes MLA): QUOKA scores the latent as
 one shared "KV head" and the flash kernel attends the absorbed queries
 over ``[latent | rope]`` keys, 576 wide at deepseek-v3's geometry.
 
+The shared block is ONE ``AttnBlock`` owned by the model and handed to
+every ``mamba_shared_attn`` layer in ``ctx["shared"]`` (as the reference
+closes over its shared parameters): each use attends over the layer's own
+KV cache, so its weights are stored once and its caches 13 times at
+zamba2-7b's depth.  The recurrent blocks update their states in place.
+
 ``ctx`` (dict): ``method``, ``qcfg`` (QuokaConfig), ``slot`` (the
 chunk's cache write slot: an int, or a per-row (b,) tensor under
 continuous batching; distinct from positions, since pad slots carry
@@ -48,11 +57,13 @@ from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
                                         blocked_attention, dense_attention,
                                         position_mask)
 from repro_torch.kernels import ops as kops
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import linear, mlp, rmsnorm, rope
-from repro_torch.serving.cache import (KVCache, LatentCache, kv_init,
+from repro_torch.serving.cache import (KVCache, LatentCache, RWKVCache,
+                                       SharedAttnCache, kv_init,
                                        kv_write, kv_write_ring, latent_init,
-                                       latent_write)
+                                       latent_write, mamba_cache_init,
+                                       rwkv_cache_init, state_write)
 
 
 def _weight(dt, device):
@@ -89,6 +100,20 @@ def _ffn(blk, x):
     if blk.kind.endswith("_moe"):
         return x + moe.moe_apply(blk.moe, h, cfg)
     return x + mlp(blk.mlp, h, cfg.act)
+
+
+def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
+    """Shape of the plan an attention block would build over ``cache`` for
+    a t-token chunk, or None when it never selects there (``full``, the
+    dense bypass, a cache off the selection grid), which disables the
+    cross-layer carry."""
+    b, cap, n_kv = cache.k.shape[:3]
+    budget = sel_mod.resolve_budget(qcfg, cap)
+    if method == "full" or cap <= budget + t:
+        return None
+    if plan_mod.grid(qcfg) > 1 and cap % plan_mod.grid(qcfg):
+        return None
+    return plan_mod.plan_idx_shape(qcfg, b, n_kv, cap, budget)
 
 
 class AttnBlock(nn.Module):
@@ -131,16 +156,7 @@ class AttnBlock(nn.Module):
         return q, k, v
 
     def plan_carry_shape(self, cache: KVCache, t: int, method: str, qcfg):
-        """Shape of the plan this block would build for a t-token chunk, or
-        None when it never selects here (``full``, the dense bypass, a
-        cache off the selection grid), which disables the carry."""
-        b, cap, n_kv = cache.k.shape[:3]
-        budget = sel_mod.resolve_budget(qcfg, cap)
-        if method == "full" or cap <= budget + t:
-            return None
-        if plan_mod.grid(qcfg) > 1 and cap % plan_mod.grid(qcfg):
-            return None
-        return plan_mod.plan_idx_shape(qcfg, b, n_kv, cap, budget)
+        return _kv_plan_shape(cache, t, method, qcfg)
 
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
@@ -349,7 +365,91 @@ class MLABlock(nn.Module):
         return self._decompress(o_lat, q_abs.dtype), plan
 
 
+class MambaBlock(nn.Module):
+    """``x + Mamba2(norm(x))`` (kind ``"mamba"``); kind
+    ``"mamba_shared_attn"`` then applies the model's shared attention
+    block (``ctx["shared"]``) over this layer's own KV cache."""
+
+    def __init__(self, cfg: ModelConfig, device, kind: str = "mamba"):
+        super().__init__()
+        self.cfg = cfg
+        self.kind = kind
+        self.with_shared = kind == "mamba_shared_attn"
+        self.ln = _norm(cfg.d_model, device)
+        self.mamba = mamba2.Mamba2(cfg, device)
+
+    def init_cache(self, batch: int, cap: int):
+        """A ``MambaCache`` or, with the shared block, a
+        ``SharedAttnCache`` that adds a KV cache of ``cap`` slots."""
+        cfg, s = self.cfg, self.cfg.ssm
+        _, nh, ch = mamba2._dims(cfg)
+        dev = self.ln.device
+        mc = mamba_cache_init(batch, s.d_conv, ch, nh, s.head_dim, s.d_state,
+                              cfg.compute_dtype, dev)
+        if not self.with_shared:
+            return mc
+        return SharedAttnCache(mamba=mc, kv=kv_init(
+            batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.compute_dtype, dev))
+
+    def plan_carry_shape(self, cache, t: int, method: str, qcfg):
+        """A plain Mamba2 layer builds no plan, which turns the carry off
+        for any stack that holds one, as in the reference."""
+        if not self.with_shared:
+            return None
+        return _kv_plan_shape(cache.kv, t, method, qcfg)
+
+    def apply(self, x, pos, cache, ctx, plan=None):
+        mc = cache.mamba if self.with_shared else cache
+        y, new = mamba2.mamba_apply(
+            self.mamba, rmsnorm(self.ln, x, self.cfg.norm_eps), mc, self.cfg)
+        state_write(mc, new)
+        x = x + y
+        if self.with_shared:
+            x, plan = ctx["shared"].apply(x, pos, cache.kv, ctx, plan=plan)
+        return x, plan
+
+
+class RWKVBlock(nn.Module):
+    """``x + time_mix(norm1(x))``, then ``x + channel_mix(norm2(x))``."""
+
+    def __init__(self, cfg: ModelConfig, device, kind: str = "rwkv"):
+        super().__init__()
+        self.cfg = cfg
+        self.kind = kind
+        self.ln1 = _norm(cfg.d_model, device)
+        self.ln2 = _norm(cfg.d_model, device)
+        self.tm = rwkv6.TimeMix(cfg, device)
+        self.cm = rwkv6.ChannelMix(cfg, device)
+
+    def init_cache(self, batch: int, cap: int) -> RWKVCache:
+        cfg = self.cfg
+        hd = cfg.rwkv.head_dim
+        return rwkv_cache_init(batch, cfg.d_model, cfg.d_model // hd, hd,
+                               cfg.compute_dtype, self.ln1.device)
+
+    def plan_carry_shape(self, cache, t: int, method: str, qcfg):
+        return None
+
+    def apply(self, x, pos, cache: RWKVCache, ctx, plan=None):
+        cfg = self.cfg
+        y, sh_tm, wkv = rwkv6.time_mix(self.tm, rmsnorm(self.ln1, x,
+                                                        cfg.norm_eps),
+                                       cache.shift_tm, cache.wkv, cfg)
+        x = x + y
+        y, sh_cm = rwkv6.channel_mix(self.cm, rmsnorm(self.ln2, x,
+                                                      cfg.norm_eps),
+                                     cache.shift_cm)
+        state_write(cache, RWKVCache(shift_tm=sh_tm, shift_cm=sh_cm,
+                                     wkv=wkv))
+        return x + y, plan
+
+
 def make_block(cfg: ModelConfig, kind: str, device):
     if kind in ("mla", "mla_moe"):
         return MLABlock(cfg, device, kind)
+    if kind in ("mamba", "mamba_shared_attn"):
+        return MambaBlock(cfg, device, kind)
+    if kind == "rwkv":
+        return RWKVBlock(cfg, device, kind)
     return AttnBlock(cfg, device, kind)

@@ -38,6 +38,16 @@ def rmsnorm(g, x, eps: float = 1e-6):
     return (y * g).to(dt)
 
 
+def groupnorm(x, n_groups: int, eps: float = 1e-5):
+    """Per-head group norm (RWKV6's, no learned affine); fp32 statistics."""
+    dt = x.dtype
+    shp = x.shape
+    xf = x.float().reshape(*shp[:-1], n_groups, shp[-1] // n_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).reshape(shp).to(dt)
+
+
 def _act(name: str, x):
     if name == "silu":
         return F.silu(x)
@@ -72,6 +82,16 @@ def rope(x, positions, theta: float):
     x1, x2 = x.float().split(half, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(dt)
+
+
+def sinusoidal(positions, d: int, dtype=torch.float32):
+    """Whisper-style sinusoidal position embedding (models without rope).
+    positions: (..., T) -> (..., T, d)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-8):

@@ -1,5 +1,11 @@
 """Decoder model: embedding, layer stacks, read-out (counterpart of
-``repro/models/model.py``, families ``"dense"`` and ``"moe"``).
+``repro/models/model.py``, families ``"dense"``, ``"moe"``, ``"hybrid"``
+(zamba2: Mamba2 layers and one shared attention block, ``shared``, which
+the model owns once and hands to its layers in ``ctx["shared"]``) and
+``"ssm"`` (rwkv6)).  A model without rope (rwkv6) adds a sinusoidal
+embedding of each position to its input embeddings (pad slots at
+position -1, as the reference); recurrent blocks see pad embeddings in
+sequence, as the reference's do.
 
 Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
 loop over chunks, each selecting from the KV cache per layer),
@@ -22,8 +28,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import AttnBlock, make_block
-from repro_torch.models.layers import embed, linear, rmsnorm, unembed
+from repro_torch.models.blocks import (AttnBlock, MambaBlock, RWKVBlock,
+                                      make_block)
+from repro_torch.models.layers import (embed, linear, rmsnorm, sinusoidal,
+                                       unembed)
 from repro_torch.models.stack import Cache, Stack
 
 
@@ -72,7 +80,7 @@ class Model(nn.Module):
         """Allocates the parameters (uninitialised) on ``device``; fill them
         with ``init`` or ``training/checkpoint.py::from_flat``."""
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not yet ported")
         dev = resolve_device(device)
@@ -90,6 +98,10 @@ class Model(nn.Module):
             torch.empty((cfg.d_model, cfg.vocab), dtype=torch.float32,
                         device=dev), requires_grad=False)
         self.mtp = MTPHead(cfg, dev) if cfg.mtp else None
+        # zamba2's shared attention block: one set of weights for every
+        # ``mamba_shared_attn`` layer, which passes its own KV cache
+        self.shared = AttnBlock(cfg, dev, "attn") \
+            if "mamba_shared_attn" in cfg.layer_kinds() else None
 
     @property
     def device(self) -> torch.device:
@@ -111,9 +123,21 @@ class Model(nn.Module):
             p.copy_(torch.randn(p.shape, generator=gen, device=self.device,
                                 dtype=torch.float32) * std)
 
+        def uniform_(p, lo, hi):
+            p.copy_(torch.rand(p.shape, generator=gen, device=self.device,
+                               dtype=torch.float32) * (hi - lo) + lo)
+
         normal_(self.embed, 0.02)
         for blk in self.layers():
-            self._init_block(blk, normal_)
+            if isinstance(blk, MambaBlock):
+                blk.mamba.init(normal_, uniform_)
+            elif isinstance(blk, RWKVBlock):
+                blk.tm.init(normal_, cfg)
+                blk.cm.init(normal_, cfg)
+            else:
+                self._init_block(blk, normal_)
+        if self.shared is not None:
+            self._init_block(self.shared, normal_)
         if self.lm_head is not None:
             normal_(self.lm_head, 1.0 / math.sqrt(cfg.d_model))
         if self.mtp is not None:
@@ -146,7 +170,7 @@ class Model(nn.Module):
     def embed_inputs(self, batch: Dict):
         """(x (b, T, d), pos (b, T)); ``batch["pad"]`` (b,) left-pad counts
         turn pad slots into pos = -1 (masked from attention, scoring and
-        the cache)."""
+        the cache; a recurrent block still reads their embeddings)."""
         dev = self.device
         tok = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
         x = embed(self.embed, tok, self.cfg.compute_dtype)
@@ -158,15 +182,26 @@ class Model(nn.Module):
                                   device=dev)
             pos = torch.where(torch.arange(t, device=dev)[None] < pad[:, None],
                               torch.full_like(pos, -1), pos)
-        return x, pos
+        return self._positional(x, pos), pos
+
+    def _positional(self, x, pos):
+        """x plus the sinusoidal embedding of ``pos`` when the model has
+        no rope (rwkv6), else x."""
+        if self.cfg.use_rope:
+            return x
+        return x + sinusoidal(pos, self.cfg.d_model, x.dtype)
 
     def init_cache(self, batch: int, cap: int) -> List[List[Cache]]:
-        """One cache per layer (``KVCache`` or, MLA, ``LatentCache``),
-        grouped by stack."""
+        """One cache per layer (``KVCache``, ``LatentCache`` for MLA, or a
+        recurrent state: ``MambaCache``, ``SharedAttnCache``,
+        ``RWKVCache``), grouped by stack."""
         return [s.init_cache(batch, cap) for s in self.stacks]
 
     def _ctx(self, method: str) -> Dict:
-        return {"method": method, "qcfg": self.cfg.quoka}
+        ctx = {"method": method, "qcfg": self.cfg.quoka}
+        if self.shared is not None:
+            ctx["shared"] = self.shared
+        return ctx
 
     def _apply_stacks(self, x, pos, cache, ctx):
         """All stacks in order, threading the cross-layer plan carry and
@@ -242,6 +277,7 @@ class Model(nn.Module):
             vl = _on(valid_len, dev, torch.int32)
             pos = torch.where(offs[None] < vl[:, None], pos,
                               torch.full_like(pos, -1))
+        x = self._positional(x, pos)
         ctx = dict(self._ctx(method), slot=slot)
         if sel_blocks is not None:
             ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
@@ -272,6 +308,7 @@ class Model(nn.Module):
             slot = int(pos)
             pos2 = torch.full((b, 1), slot, dtype=torch.int32,
                               device=self.device)
+        x = self._positional(x, pos2)
         ctx = dict(self._ctx(method), slot=slot)
         if sel_blocks is not None:
             ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))

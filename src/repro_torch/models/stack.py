@@ -7,9 +7,12 @@ stacked leaves (see ``training/checkpoint.py::from_flat``).  The loop
 threads the cross-layer plan carry and each layer's global index.  A
 period may mix kinds; each layer's cache is a ``KVCache`` (attention
 kinds; a ring of ``min(cap, window)`` slots for ``attn_local``, so one
-stack mixes capacities) or a ``LatentCache`` (MLA), and the plan carry
-engages only where every layer would build a plan of one shape, as in the
-reference.
+stack mixes capacities), a ``LatentCache`` (MLA), a ``MambaCache``
+(``mamba``), a ``SharedAttnCache`` (``mamba_shared_attn``: the Mamba2
+state and the shared block's KV cache) or an ``RWKVCache`` (``rwkv``),
+all updated in place.  The plan carry engages only where every layer
+would build a plan of one shape, as in the reference: a plain ``mamba`` or
+``rwkv`` layer builds none, which turns it off for its stack.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.models.blocks import make_block
-from repro_torch.serving.cache import KVCache, LatentCache
+from repro_torch.serving.cache import (KVCache, LatentCache, MambaCache,
+                                       RWKVCache, SharedAttnCache)
 
-Cache = Union[KVCache, LatentCache]
+Cache = Union[KVCache, LatentCache, MambaCache, SharedAttnCache, RWKVCache]
 
 
 class Stack(nn.Module):
@@ -41,7 +45,7 @@ class Stack(nn.Module):
     def init_cache(self, batch: int, cap: int) -> List[Cache]:
         return [blk.init_cache(batch, cap) for blk in self.layers]
 
-    def _plan_carry0(self, caches: List[Cache], t: int, ctx, plan):
+    def _plan_carry0(self, caches: List[Cache], t: int, ctx, plan, device):
         """The initial plan carry, or None when reuse is off: it engages
         only with ``reuse_interval > 1`` and when every layer would build a
         plan of the same shape (else every layer builds its own).  An
@@ -58,7 +62,7 @@ class Stack(nn.Module):
         if isinstance(plan, plan_mod.PlanCarry) and \
                 tuple(plan.idx.shape) == shapes[0]:
             return plan
-        return plan_mod.empty_carry(shapes[0], caches[0].pos.device)
+        return plan_mod.empty_carry(shapes[0], device)
 
     def apply(self, x, pos, caches: List[Cache], ctx, plan=None):
         """Prefill chunk or decode step through every layer; caches are
@@ -69,7 +73,7 @@ class Stack(nn.Module):
         the (b, n_blocks) int32 sum over this stack's layers of each plan's
         ``pool_block_counts`` (a layer that selected nothing adds zero),
         else None."""
-        carry = self._plan_carry0(caches, x.shape[1], ctx, plan)
+        carry = self._plan_carry0(caches, x.shape[1], ctx, plan, x.device)
         layer0 = int(ctx.get("layer0", 0))
         sel_on = ctx.get("selblk") is not None
         sel = None

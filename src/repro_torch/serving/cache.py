@@ -13,6 +13,14 @@ memory traffic every layer.  ``latent_write`` does the same for MLA, and
 the shared rope key ``krope``, as column views of ONE (b, cap, r + rope)
 buffer: MLA's selection reads ``[ckv | krope]`` per layer call, and the
 buffer is that concatenation already.
+
+The recurrent families keep fixed-size states instead of a cache that
+grows with the sequence: ``MambaCache`` (Mamba2's convolution tail and
+SSD state), ``RWKVCache`` (RWKV6's token-shift carries and wkv state) and,
+for zamba2's ``mamba_shared_attn`` layers, ``SharedAttnCache`` (the Mamba2
+state beside that layer's own ``KVCache`` for the shared attention block).
+``state_write`` overwrites a state's leaves in place, so a caller's cache
+list stays valid across steps as it does for the KV caches.
 """
 from __future__ import annotations
 
@@ -154,3 +162,47 @@ def latent_write(cache: LatentCache, ckv_new, krope_new, start,
     cache.latent[:, s:s + t, r:] = krope_new
     cache.pos[:, s:s + t] = pos_new
     return cache
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor   # (b, d_conv - 1, di + 2 * d_state) trailing inputs
+    ssd: torch.Tensor    # (b, n_heads, head_dim, d_state) fp32 state
+
+
+class RWKVCache(NamedTuple):
+    shift_tm: torch.Tensor  # (b, d) last normed token entering time-mix
+    shift_cm: torch.Tensor  # (b, d) last normed token entering channel-mix
+    wkv: torch.Tensor       # (b, n_heads, head_dim, head_dim) fp32 state
+
+
+class SharedAttnCache(NamedTuple):
+    """A ``mamba_shared_attn`` layer's state: its Mamba2 state and its own
+    KV cache for the shared attention block."""
+    mamba: MambaCache
+    kv: KVCache
+
+
+def mamba_cache_init(batch: int, d_conv: int, channels: int, n_heads: int,
+                     head_dim: int, d_state: int, dtype,
+                     device) -> MambaCache:
+    return MambaCache(
+        conv=torch.zeros((batch, d_conv - 1, channels), dtype=dtype,
+                         device=device),
+        ssd=torch.zeros((batch, n_heads, head_dim, d_state),
+                        dtype=torch.float32, device=device))
+
+
+def rwkv_cache_init(batch: int, d: int, n_heads: int, head_dim: int, dtype,
+                    device) -> RWKVCache:
+    return RWKVCache(
+        shift_tm=torch.zeros((batch, d), dtype=dtype, device=device),
+        shift_cm=torch.zeros((batch, d), dtype=dtype, device=device),
+        wkv=torch.zeros((batch, n_heads, head_dim, head_dim),
+                        dtype=torch.float32, device=device))
+
+
+def state_write(cache, new) -> None:
+    """Copy a recurrent state's new leaves (a ``MambaCache`` or an
+    ``RWKVCache``) into ``cache`` in place, each in its leaf's dtype."""
+    for dst, src in zip(cache, new):
+        dst.copy_(src)

@@ -11,7 +11,12 @@ norm gains stay fp32.  MoE blocks add ``moe/router/w``, the expert stacks
 ``moe/gate``, ``moe/up``, ``moe/down`` and ``moe/shared/*``; MLA blocks
 ``wq_a/w``, ``q_ln/g``, ``wq_b/w``, ``wkv_a/w``, ``kv_ln/g``, ``wk_b``,
 ``wv_b``; an MTP model ``mtp/block/*`` (one unstacked block), ``mtp/ln/g``
-and ``mtp/mix/w``.
+and ``mtp/mix/w``.  Mamba2 blocks hold ``ln/g`` and ``mamba/*`` (the
+projections' ``*/w``, the split convolution's weights and biases,
+``a_log``, ``d_skip``, ``dt_bias``, ``norm/g``), zamba2's one shared
+attention block the top-level ``shared/*`` (unstacked), and RWKV6 blocks
+``ln1/g``, ``ln2/g``, ``tm/*`` and ``cm/*`` (the shift mixes ``mu``, the
+decay ``w0`` / ``wa`` / ``wb``, the bonus ``u``).
 ``load_score_projection`` bridges the one array that is not a parameter:
 the cached low-rank scoring projection.
 """
@@ -24,12 +29,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.blocks import MLABlock
+from repro_torch.models import mamba2, rwkv6
+from repro_torch.models.blocks import MambaBlock, MLABlock, RWKVBlock
 from repro_torch.models.model import Model
+
+
+def _module_leaves(prefix: str, mod, linears) -> Dict[str, torch.Tensor]:
+    """A recurrent mixer's parameters: ``linears`` as ``<name>/w``, a norm
+    gain as ``norm/g``, the rest bare."""
+    return {f"{prefix}/{n}/w" if n in linears else
+            f"{prefix}/{n}/g" if n == "norm" else f"{prefix}/{n}": p
+            for n, p in mod.named_parameters()}
 
 
 def _block_leaves(blk) -> Dict[str, torch.Tensor]:
     """A block's parameters under the reference's key suffixes."""
+    if isinstance(blk, MambaBlock):
+        return {"ln/g": blk.ln, **_module_leaves("mamba", blk.mamba,
+                                                 mamba2.LINEARS)}
+    if isinstance(blk, RWKVBlock):
+        return {"ln1/g": blk.ln1, "ln2/g": blk.ln2,
+                **_module_leaves("tm", blk.tm, rwkv6.TM_LINEARS),
+                **_module_leaves("cm", blk.cm, rwkv6.CM_LINEARS)}
     out = {"ln1/g": blk.ln1, "ln2/g": blk.ln2, "wo/w": blk.wo}
     if isinstance(blk, MLABlock):
         out.update({"wq_a/w": blk.wq_a, "q_ln/g": blk.q_ln,
@@ -66,6 +87,9 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
         top.update({f"mtp/block/{k}": p
                     for k, p in _block_leaves(model.mtp.block).items()})
         top.update({"mtp/ln/g": model.mtp.ln, "mtp/mix/w": model.mtp.mix})
+    if model.shared is not None:
+        top.update({f"shared/{k}": p
+                    for k, p in _block_leaves(model.shared).items()})
     for key, param in top.items():
         _copy(param, flat[key], key)
     expected = set(top)

@@ -8,7 +8,9 @@ reference's in every dimension the port reads.  The MoE and MLA configs
 (olmoe-1b-7b, deepseek-v3-671b) also match the reference's expert and
 latent geometry, layer groups, active-parameter count and smoke
 reduction; the sliding-window configs (gemma3-27b, h2o-danube-3-4b) their
-window, layer pattern and the smoke window min(window, 64).
+window, layer pattern and the smoke window min(window, 64); the recurrent
+configs (zamba2-7b, rwkv6-1.6b) their SSM / RWKV geometry, layer pattern,
+rope setting and smoke reduction.
 """
 import dataclasses
 
@@ -21,6 +23,7 @@ from repro_torch.models.model import build_model
 
 PORTED = ("qwen3-4b", "granite-3-2b", "llama3-2-3b", "stablelm-3b",
           "olmoe-1b-7b", "deepseek-v3-671b", "gemma3-27b", "h2o-danube-3-4b")
+RECURRENT = ("zamba2-7b", "rwkv6-1.6b")
 
 EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
@@ -31,6 +34,8 @@ EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "deepseek-v3-671b": (61, 7168, 128, 128, 56, 18432, 129280),
     "gemma3-27b": (62, 5376, 32, 16, 128, 21504, 262144),
     "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
+    "zamba2-7b": (81, 3584, 32, 32, 112, 14336, 32000),
+    "rwkv6-1.6b": (24, 2048, 32, 32, 64, 7168, 65536),
 }
 
 PARAMS_B = {   # published total parameters (1e9), as a band
@@ -42,6 +47,8 @@ PARAMS_B = {   # published total parameters (1e9), as a band
     "deepseek-v3-671b": (620, 720),  # DeepSeek-V3: 671 B
     "gemma3-27b": (25, 29),          # the reference's band (27.0 B)
     "h2o-danube-3-4b": (3, 4.6),     # the reference's band (3.84 B)
+    "zamba2-7b": (5.5, 8.5),         # the reference's band (6.64 B)
+    "rwkv6-1.6b": (0.9, 2.0),        # the reference's band (1.24 B)
 }
 
 
@@ -50,7 +57,7 @@ def _dims(cfg):
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT)
 def test_published_dimensions_and_source(arch):
     cfg, rc = get_config(arch), ref_config(arch)
     assert cfg.name == arch
@@ -63,7 +70,7 @@ def test_published_dimensions_and_source(arch):
         (rc.quoka.chunk_size, rc.quoka.budget, rc.quoka.n_queries)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT)
 def test_param_counts_in_band(arch):
     lo, hi = PARAMS_B[arch]
     n = get_config(arch).param_count()
@@ -71,13 +78,14 @@ def test_param_counts_in_band(arch):
     assert lo <= n / 1e9 <= hi, f"{arch}: {n / 1e9:.2f}B outside [{lo}, {hi}]"
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT)
 def test_stacks_cover_all_layers(arch):
     cfg = get_config(arch)
     assert sum(len(p) * r for p, r in cfg.stacks()) == cfg.n_layers
     assert list(cfg.stacks()) == list(ref_config(arch).stacks())
     assert {k for p, _ in cfg.stacks() for k in p} <= \
-        {"attn", "attn_local", "attn_moe", "mla", "mla_moe"}
+        {"attn", "attn_local", "attn_moe", "mla", "mla_moe", "mamba",
+         "mamba_shared_attn", "rwkv"}
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -101,8 +109,10 @@ def test_get_config_names():
     assert get_config("stablelm_3b").name == "stablelm-3b"
     assert get_config("olmoe_1b_7b").name == "olmoe-1b-7b"
     assert get_config("h2o_danube_3_4b").name == "h2o-danube-3-4b"
+    assert get_config("zamba2_7b").name == "zamba2-7b"
+    assert get_config("rwkv6_1.6b").name == "rwkv6-1.6b"
     with pytest.raises(KeyError, match="ported"):
-        get_config("zamba2-7b")
+        get_config("whisper-small")
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
@@ -160,3 +170,42 @@ def test_window_geometry_matches_reference(arch):
             (("attn_local", "attn_local"), 1)]
         assert s.layer_pattern == ("attn_local", "attn")
     assert get_config("qwen3-4b").sliding_window is None
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_geometry_and_smoke_match_reference(arch):
+    """The SSM / RWKV geometry, family, layer pattern and rope setting equal
+    the reference's (zamba2: stacks of 13 periods of 5 mamba + 1
+    mamba_shared_attn and a one-repeat tail of 3 mamba; rwkv6: no rope,
+    squared ReLU), and so do the smoke reductions (d_state 16 and head dim
+    32; RWKVConfig(32, 16); a pattern that keeps one of each kind) and
+    their parameter counts, the shared block counted once."""
+    cfg, rc = get_config(arch), ref_config(arch)
+    for c, r in ((cfg, rc), (cfg.smoke(), rc.smoke())):
+        assert (dataclasses.asdict(c.ssm) if c.ssm else None) == \
+            (dataclasses.asdict(r.ssm) if r.ssm else None)
+        assert (dataclasses.asdict(c.rwkv) if c.rwkv else None) == \
+            (dataclasses.asdict(r.rwkv) if r.rwkv else None)
+        assert (c.family, c.layer_pattern, c.use_rope, c.act, c.n_layers) \
+            == (r.family, r.layer_pattern, r.use_rope, r.act, r.n_layers)
+        assert list(c.stacks()) == list(r.stacks())
+        assert c.param_count() == r.param_count()
+    s = cfg.smoke()
+    assert _dims(s) == _dims(rc.smoke()) and s.dtype == torch.float32
+    if arch == "zamba2-7b":
+        assert (cfg.family, cfg.ssm.d_state, cfg.ssm.head_dim) == \
+            ("hybrid", 64, 64)
+        assert list(cfg.stacks()) == [
+            (("mamba",) * 5 + ("mamba_shared_attn",), 13),
+            (("mamba",) * 3, 1)]
+        assert (s.ssm.d_state, s.ssm.head_dim) == (16, 32)
+        assert s.layer_pattern == ("mamba", "mamba_shared_attn")
+        # the shared block once: its attention and MLP terms
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        shared = d * hd * 3 * 32 + 32 * hd * d + 3 * d * cfg.d_ff
+        unshared = dataclasses.replace(
+            cfg, layer_pattern=("mamba",)).param_count()
+        assert cfg.param_count() == unshared + shared
+    else:
+        assert (cfg.family, cfg.use_rope, cfg.act) == ("ssm", False, "relu2")
+        assert (s.rwkv.head_dim, s.rwkv.decay_lora) == (32, 16)

@@ -137,12 +137,15 @@ def test_top_p_degenerate_cutoff_keeps_argmax():
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "olmoe-1b-7b",
                                   "deepseek-v3-671b", "gemma3-27b",
-                                  "h2o-danube-3-4b"])
+                                  "h2o-danube-3-4b", "zamba2-7b",
+                                  "rwkv6-1.6b"])
 def test_restore_reads_reference_checkpoint(tmp_path, arch):
     """``restore`` loads the reference's npz checkpoint into the same
     weights as ``from_flat`` (linear weights once in the compute dtype),
     every key of it (MoE experts and router; MLA leaves, ``lm_head`` and
-    ``mtp/*`` for deepseek), and refuses one the port does not hold."""
+    ``mtp/*`` for deepseek; Mamba2 leaves and the one ``shared/*`` block
+    for zamba2; ``tm/*`` and ``cm/*`` for rwkv6), and refuses one the port
+    does not hold."""
     rm, params, pm = _pair(arch, {})
     path = str(tmp_path / "ckpt")
     ref_save(path, params)
@@ -157,3 +160,15 @@ def test_restore_reads_reference_checkpoint(tmp_path, arch):
     flat["stacks/0/0/unknown/w"] = np.zeros((1, 2))
     with pytest.raises(ValueError, match="does not hold"):
         from_flat(flat, pm.cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_recurrent_arch_one_shot_cli(arch, capsys):
+    """``launch/serve.py --arch <recurrent> --smoke --device cpu`` runs
+    ``generate`` (zamba2's shared block selects with QUOKA; rwkv6 has
+    nothing to select) and prints its line."""
+    from repro_torch.launch import serve
+    r = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--prompt-len", "64", "--batch", "1", "--max-new", "3"])
+    assert r.tokens.shape == (1, 3) and r.device == "cpu"
+    assert "TTFT" in capsys.readouterr().out

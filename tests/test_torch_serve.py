@@ -390,3 +390,20 @@ def test_latent_cache_serve_raises_and_generate_runs():
         {"tokens": jnp.asarray(toks)}, 4).tokens
     np.testing.assert_array_equal(eng.generate({"tokens": toks}, 4).tokens,
                                   np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_recurrent_arch_continuous_cli_raises_like_reference(arch):
+    """``--continuous`` on a recurrent arch raises the paged pool's
+    refusal, with the reference's message (its recurrent states have no
+    pool layout), before any request is served."""
+    from repro_torch.launch import serve
+    kinds = "['mamba', 'mamba_shared_attn']" if arch == "zamba2-7b" else \
+        "['rwkv']"
+    with pytest.raises(ValueError) as err:
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--continuous", "--prompt-len", "32", "--n-requests",
+                    "2", "--max-new", "2"])
+    assert str(err.value) == (
+        "paged KV pool supports attention/MLA caches only; model has "
+        f"unsupported block kinds {kinds}")
