@@ -25,7 +25,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      selected attention at gemma3-27b's global layers (h 32 / 16, budget
      2048: [2048 | 128] keys, 128 plan blocks; prefill and decode), and
      scoring (n_q 16 and 1), flash and selected attention (g 16 and 1) at
-     zamba2-7b's shared block (MHA 32 / 32, d 112);
+     zamba2-7b's shared block (MHA 32 / 32, d 112), at whisper-small's
+     decoder self-attention (MHA 12 / 12, d 64, budget 512: [512 | tq]
+     keys, 32 plan blocks) and at internvl2-1b's LM (GQA 14 / 2, a group
+     of 7, d 64);
   3. main path, staged route: qwen3-4b at full width (random weights from a
      seed), ``Engine.generate`` with QUOKA, batch 1, prompt 8192, 32 new
      tokens; launch counts must match the path's shape exactly;
@@ -49,7 +52,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      and the backend SDPA took), scoring at its latent (n_kv 1, d 576), at
      h2o-danube-3-4b's ring (d 120) and at zamba2-7b's shared block (n_kv
      32, d 112; mid-prefill and decode), flash and selected attention at
-     that block's shapes too;
+     that block's shapes too, and all three at whisper-small's decoder
+     (MHA 12 / 12, d 64, budget 512) and internvl2-1b's LM (GQA 14 / 2, d
+     64), prefill and decode;
   7. a ``torch.profiler`` trace of a shorter staged prefill and a few
      decode steps: device busy time by kernel and the device idle share;
   8. continuous batching at full width: qwen3-4b on the fused route serves
@@ -86,15 +91,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      QUOKA's key recall beats SampleAttention's;
  13. every baseline serves a smoke-size model on the card and on the CPU
      with equal tokens;
- 14. llama3-2-3b (28 layers, d_model 3072, 24 / 8 heads, d 128) at full
-     width from random weights: ``Engine.generate`` staged and fused at
-     prompt 8192, 32 new tokens, with exact launch counts (28 x 95 per
+ 14. llama3-2-3b (d_model 3072, 24 / 8 heads, d 128) at full width from
+     random weights, cut in depth to 4 of its 28 layers to keep the run
+     inside its time limit: ``Engine.generate`` staged and fused at
+     prompt 8192, 32 new tokens, with exact launch counts (4 x 95 per
      kernel and run);
- 15. stablelm-3b (32 layers, d_model 2560, 32 / 32 heads, d 80) the same
-     way (32 x 95), run last;
+ 15. stablelm-3b (d_model 2560, 32 / 32 heads, d 80) the same way, cut to
+     4 of its 32 layers (4 x 95);
  16. the host-memory tier on llama3-2-3b ``serve`` (fused g = 16; block
      128, a 64-block device pool, a 128-block pinned host tier, prefetch
-     depth 4, one decode row; run after phase 14 on its model): A (6144
+     depth 4, one decode row; run after phase 14 on its 4-layer model): A (6144
      tokens), then B (6144 other tokens) whose pressure demotes most of A,
      then [B, A], where A's host blocks are staged during B's steps and
      promoted at A's admission; greedy tokens equal a 256-block pool with
@@ -121,7 +127,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      exact launch counts, every request's tokens equal its ``generate``,
      every slab of A byte-exact through demotion and promotion, TTFT per
      request; the serve step's last prefill and decode flash calls held to
-     the plain version and timed beside SDPA;
+     the plain version and timed beside SDPA, each timed call held to one
+     launch of the flash kernel by its launch counter (the profiler does
+     not record them reliably here);
  20. h2o-danube-3-4b (24 layers, d_model 3840, 32 / 8 heads, d 120, every
      layer windowed at 4096) at full width: ``Engine.generate`` at prompt
      8192 (every ring wraps), staged and g = 16, with exact launch counts
@@ -152,7 +160,26 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      wkv scan's device time;
  25. zamba2-7b's smoke config (staged and g = 16) and rwkv6-1.6b's in
      fp32 at prompt 160, card (kernels) vs CPU (plain versions): logits
-     within 1e-4, greedy tokens equal.
+     within 1e-4, greedy tokens equal;
+ 26. whisper-small (12 decoder layers: causal self-attention, MHA 12 /
+     12 at d 64 with budget 512, cross-attention and a gelu MLP, all with
+     LayerNorm; a 12-layer encoder over 1500 frames drawn from a numpy
+     seed) at full width and depth: ``Engine.generate`` at prompt 8192
+     (beyond whisper's published 448-token context: at 448 + 32 every
+     layer takes the dense bypass), staged and fused (g = 16), with exact
+     launch counts (12 x 95 per kernel and route; the encoder and
+     cross-attention launch nothing), TTFT with the encoder, decode rate,
+     peak memory, and a trace of the fused route with the device time of
+     the encoder, the cross-KV build and the cross-attention;
+ 27. internvl2-1b (24 layers, d_model 896, GQA 14 / 2, d 64; a projector
+     of 256 patches of d 1024 ahead of 7936 tokens: 8192 positions) the
+     same way (24 x 95), its trace (the prefill through ``embed_inputs``,
+     the patches ahead of the tokens) with the projector's device time,
+     which CUDA events also time outside the profiler;
+ 28. both smoke configs in fp32 (whisper at prompt 160 over 64 frames,
+     internvl2 at 16 patches + 144 tokens), staged and g = 16, card
+     (kernels) vs CPU (plain versions): logits within 1e-4, greedy tokens
+     equal.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -276,10 +303,17 @@ def ring_score_inputs(torch, dev, n_q, dtype, b=1):
     return qb, k.transpose(1, 2), valid
 
 
-def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128, B=1024):
+def empty_head(n_kv) -> int:
+    """The KV head ``flash_inputs`` leaves with no valid key for query row
+    0: head 3, or the last where there are fewer."""
+    return min(3, n_kv - 1)
+
+
+def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128, B=1024, empty=True):
     """[selected budget B | chunk tq]: per-KV-head budget validity with
-    -1 padding; KV head 3 selected nothing and its chunk key 0 is a pad
-    slot, so query row 0 of that head group attends nothing."""
+    -1 padding; with ``empty``, KV head ``empty_head(n_kv)`` selected
+    nothing and its chunk key 0 is a pad slot, so query row 0 of that head
+    group attends nothing."""
     tk = B + tq
     g = torch.Generator(device=dev).manual_seed(20 + tq)
     q = torch.randn((1, tq, h, d), generator=g, device=dev)
@@ -287,8 +321,8 @@ def flash_inputs(torch, dev, tq, h=32, n_kv=8, d=128, B=1024):
     v = torch.randn((1, tk, n_kv, d), generator=g, device=dev)
     valid = torch.rand((1, n_kv, tk), generator=g, device=dev) < 0.9
     valid[:, :, B:] = True
-    valid[:, 3, :B] = False
-    valid[:, 3, B] = False
+    if empty:
+        valid[:, empty_head(n_kv), :B + 1] = False
     bf = torch.bfloat16
     return (q.to(bf).transpose(1, 2), k.to(bf).transpose(1, 2),
             v.to(bf).transpose(1, 2), valid, B)
@@ -435,11 +469,14 @@ def phase_parity(torch, np, dev, K):
               "rounding each")
         e = max(e, err)
     errs["selected_attention"] = e
-    # the slice's other main paths at their shapes: llama3-2-3b (GQA group
-    # 3, d = 128), stablelm-3b (MHA 32 / 32, d = 80) and olmoe-1b-7b (MHA
-    # 16 / 16, d = 128)
+    # the other main paths at their shapes: llama3-2-3b (GQA group 3, d =
+    # 128), stablelm-3b (MHA 32 / 32, d = 80), olmoe-1b-7b (MHA 16 / 16, d
+    # = 128), ..., whisper-small (MHA 12 / 12, d = 64, budget 512) and
+    # internvl2-1b (GQA 14 / 2, a group of 7, d = 64)
     for arch, (h, n_kv, d) in ARCH_SHAPES.items():
         group = h // n_kv
+        hz = empty_head(n_kv)
+        budget = ARCH_BUDGETS.get(arch, 1024)
         for n_q in (16, 1):
             qb, kt, valid = score_inputs(torch, dev, n_q, n_kv=n_kv, d=d)
             err = max_err(qs.quoka_score_bhtd(qb, kt, valid),
@@ -448,29 +485,32 @@ def phase_parity(torch, np, dev, K):
                   "fp32 scores of bf16 products, summation order differs")
             errs["quoka_score"] = max(errs["quoka_score"], err)
         for tq in (128, 1):
-            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d)
+            q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d,
+                                             B=budget)
             got = fa.flash_attention_bhtd(q, k, v, valid, causal=True,
                                           boundary=B)
             want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
                                            k_valid=valid)
-            if float(got[:, 3 * group:4 * group, 0].abs().max()) != 0.0:
+            if float(got[:, hz * group:(hz + 1) * group, 0].abs().max()) \
+                    != 0.0:
                 raise AssertionError(f"{arch} flash_attention: fully-masked "
                                      "row not zero")
             err = max_err(got, want)
-            check(f"{arch} flash_attention tq={tq} h={h}/{n_kv} d={d}",
-                  err, bf16_ulp(want), "1 bf16 ulp of the output")
+            check(f"{arch} flash_attention tq={tq} tk={B + tq} h={h}/{n_kv} "
+                  f"d={d}", err, bf16_ulp(want), "1 bf16 ulp of the output")
             errs["flash_attention"] = max(errs["flash_attention"], err)
-        for g, t, start in ((16, 128, 4096), (16, 1, 8197), (1, 128, 4096)):
+        for g, t, start in ((16, 128, 4096), (16, 1, 8197), (1, 128, 4096),
+                            (1, 1, 8197)):
             q, k, v, key_pos, idx, st = selected_inputs(
-                torch, np, dev, g, t, start, h=h, n_kv=n_kv, d=d)
+                torch, np, dev, g, t, start, B=budget, h=h, n_kv=n_kv, d=d)
             got = sa.selected_attention_bhtd(q, k, v, key_pos, idx, st,
                                              granularity=g)
             want = ref.selected_ref(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), key_pos, idx, st,
                                     g).transpose(1, 2)
             err = max_err(got, want)
-            check(f"{arch} selected_attention g={g} t={t} d={d}", err,
-                  bf16_ulp(want), "1 bf16 ulp of the output")
+            check(f"{arch} selected_attention g={g} t={t} B={budget} d={d}",
+                  err, bf16_ulp(want), "1 bf16 ulp of the output")
             errs["selected_attention"] = max(errs["selected_attention"], err)
     for name, err in window_parity(torch, np, dev, K).items():
         errs[name] = max(errs[name], err)
@@ -516,7 +556,8 @@ def window_parity(torch, np, dev, K):
                                       boundary=B)
         want = ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
                                        k_valid=valid)
-        if float(got[:, 3 * group:4 * group, 0].abs().max()) != 0.0:
+        hz = empty_head(n_kv)
+        if float(got[:, hz * group:(hz + 1) * group, 0].abs().max()) != 0.0:
             raise AssertionError("gemma3 flash_attention: fully-masked row "
                                  "not zero")
         err = max_err(got, want)
@@ -586,8 +627,11 @@ def mla_flash_parity(torch, dev, K):
 # zamba2-7b's: its shared attention block)
 ARCH_SHAPES = {"llama3-2-3b": (24, 8, 128), "stablelm-3b": (32, 32, 80),
                "olmoe-1b-7b": (16, 16, 128), "gemma3-27b": (32, 16, 128),
-               "h2o-danube-3-4b": (32, 8, 120), "zamba2-7b": (32, 32, 112)}
+               "h2o-danube-3-4b": (32, 8, 120), "zamba2-7b": (32, 32, 112),
+               "whisper-small": (12, 12, 64), "internvl2-1b": (14, 2, 64)}
 GEMMA_BUDGET = 2048                   # gemma3-27b's QUOKA budget
+WHISPER_BUDGET = 512                  # whisper-small's
+ARCH_BUDGETS = {"gemma3-27b": GEMMA_BUDGET, "whisper-small": WHISPER_BUDGET}
 SWEEP_DIMS = (8, 32, 80, 112, 120)
 SWEEP_HEADS = ((4, 4), (6, 2), (14, 2))      # GQA groups 1, 3 and 7
 
@@ -723,20 +767,37 @@ def read_counts(K):
             "selected_attention_paged": K["selected"].PAGED_LAUNCHES}
 
 
+def prompt_batch(np, cfg, positions, b=1, seed=0):
+    """A prompt that fills ``positions`` cache positions: token ids and,
+    from a numpy seed, whisper's frames (b, n_ctx, d_model) or a VLM's
+    patches (b, n, d_in), whose n positions come first (the reference's
+    ``dryrun.py`` convention: text = positions - n)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(
+        3, cfg.vocab, (b, positions - cfg.prefix_positions)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32)
+    elif cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.frontend.n_tokens, cfg.frontend.d_in)).astype(np.float32)
+    return batch
+
+
 def phase_main(torch, np, K, model, label):
     """Phases 3/4: one measured ``Engine.generate`` on the card.  A first
     call warms the signature (kernel build, allocator); the counts are set
-    to 0 just before the measured call and read just after it."""
+    to 0 just before the measured call and read just after it.  The
+    prompt fills ``PROMPT`` positions (a VLM's patches among them)."""
     from repro_torch.serving.engine import Engine
     cfg = model.cfg
-    toks = np.random.default_rng(0).integers(
-        3, cfg.vocab, (1, PROMPT)).astype(np.int32)
+    batch = prompt_batch(np, cfg, PROMPT)
     eng = Engine(model, method="quoka")
-    eng.generate({"tokens": toks}, MAX_NEW)
+    eng.generate(batch, MAX_NEW)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(K)
-    r = eng.generate({"tokens": toks}, MAX_NEW)
+    r = eng.generate(batch, MAX_NEW)
     counts = read_counts(K)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if r.tokens.shape != (1, MAX_NEW) or r.tokens.min() < 0 or \
@@ -1440,8 +1501,9 @@ def phase_small_baselines(torch, np):
         log(f"  {m}: serve tokens equal on card and CPU")
 
 
-def oneshot_launches(cfg):
-    """Exact launches of one ``generate`` (PROMPT, MAX_NEW) on ``cfg``'s
+def oneshot_launches(cfg, text):
+    """Exact launches of one ``generate`` (``text`` prompt tokens, MAX_NEW)
+    on ``cfg``'s
     route: a layer selects at a chunk or decode step when its cache (a
     ring of min(cap, window) slots for ``attn_local``) exceeds budget + t
     (else it takes the dense bypass: no kernel); a selecting layer launches
@@ -1449,10 +1511,16 @@ def oneshot_launches(cfg):
     a windowed layer, which attends [selected | chunk] on the plain masked
     path (as the reference).  A recurrent layer (``mamba``, ``rwkv``) has
     no KV cache and launches nothing; a ``mamba_shared_attn`` layer's
-    shared attention block launches as an ``attn`` layer."""
+    shared attention block launches as an ``attn`` layer, and so does a
+    ``dec_cross`` layer's self-attention (whisper's encoder and
+    cross-attention launch nothing).  The cache holds the prompt's tokens
+    and the frontend's positions before them (a VLM's patches), so a
+    prompt of ``text`` tokens prefills ``text + cfg.prefix_positions``
+    positions in chunks."""
     from repro_torch.core.plan import resolve_budget
     q = cfg.quoka
-    cap = PROMPT + MAX_NEW
+    positions = text + cfg.prefix_positions
+    cap = positions + MAX_NEW
     if q.granularity > 1:
         cap = -(-cap // q.granularity) * q.granularity
     chunk = q.chunk_size
@@ -1462,7 +1530,7 @@ def oneshot_launches(cfg):
             continue
         c = min(cap, cfg.sliding_window) if kind == "attn_local" else cap
         bud = resolve_budget(q, c)
-        n = (PROMPT // chunk) * (c > bud + chunk) + \
+        n = (positions // chunk) * (c > bud + chunk) + \
             (MAX_NEW - 1) * (c > bud + 1)
         score += n
         attn += 0 if kind == "attn_local" else n
@@ -1478,6 +1546,9 @@ ROUTES = (("staged", {}),
 
 
 GEMMA_LAYERS = 12        # phase 22's cut: two periods of 5 local + 1 global
+# phases 14-16's cuts in depth (of 28 and 32 layers), for the run's time
+# limit: the whole run took 1225 s on a slow host before them
+LLAMA_LAYERS = STABLELM_LAYERS = 4
 
 
 def phase_oneshot(torch, np, K, arch, phase, routes=ROUTES, layers=None):
@@ -1487,12 +1558,14 @@ def phase_oneshot(torch, np, K, arch, phase, routes=ROUTES, layers=None):
     with exact launch counts (``oneshot_launches``): on a dense model one
     score and one attention launch per layer per chunk and per decode
     step; gemma3-27b's local layers (a 1024-slot ring, within budget 2048
-    + chunk) take the dense bypass, so only its global layers launch (it
-    runs cut in depth to ``layers``);
+    + chunk) take the dense bypass, so only its global layers launch
+    (it, llama3-2-3b and stablelm-3b run cut in depth to ``layers``);
     h2o-danube-3-4b's windowed layers launch scoring only.  Also phases 23
-    (zamba2-7b) and 24 (rwkv6-1.6b, ``routes`` staged only: it has no KV
-    cache, so no route selects).  Returns (the model, on the last route,
-    and its numbers)."""
+    (zamba2-7b), 24 (rwkv6-1.6b, ``routes`` staged only: it has no KV
+    cache, so no route selects), 26 (whisper-small: its decoder's
+    self-attention launches; a prompt of 8192 tokens over 1500 frames)
+    and 27 (internvl2-1b: 7936 tokens after 256 patches, 8192 positions).
+    Returns (the model, on the last route, and its numbers)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch)
@@ -1500,11 +1573,17 @@ def phase_oneshot(torch, np, K, arch, phase, routes=ROUTES, layers=None):
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     win = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
+    front = cfg.prefix_positions
+    text = PROMPT - front               # the tokens ``prompt_batch`` draws
+    prompt = f"{text} tokens + {front} patches" if front else f"{PROMPT}"
+    if cfg.encoder is not None:
+        prompt += (f" over {cfg.encoder.n_ctx} frames ({cfg.encoder.n_layers}"
+                   f"-layer encoder)")
     log(f"== phase {phase}: {arch} one-shot at full width ({cfg.n_layers} "
         f"of {depth} layers, d_model {cfg.d_model}, heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads}, d {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
         f"vocab {cfg.vocab}{win}, budget {cfg.quoka.budget}, bf16), prompt "
-        f"{PROMPT}, {MAX_NEW} new")
+        f"{prompt}, {MAX_NEW} new")
     t0 = time.perf_counter()
     model = build_model(cfg, seed=0)
     torch.cuda.synchronize()
@@ -1515,8 +1594,11 @@ def phase_oneshot(torch, np, K, arch, phase, routes=ROUTES, layers=None):
     for route, qover in routes:
         model.cfg = dataclasses.replace(cfg, quoka=dataclasses.replace(
             cfg.quoka, **qover))
-        want = oneshot_launches(model.cfg)
         r, counts, peak = phase_main(torch, np, K, model, f"{arch} {route}")
+        if r.prompt_len != text:
+            raise AssertionError(f"{arch} {route} prompt {r.prompt_len} "
+                                 f"!= {text} tokens")
+        want = oneshot_launches(model.cfg, text)
         if counts != want:
             raise AssertionError(f"{arch} {route} launches {counts} != "
                                  f"{want}")
@@ -1549,9 +1631,9 @@ def phase_host_tier(torch, np, K, model):
     from repro_torch.serving.request import Request
     cfg = model.cfg
     L = cfg.n_layers
-    log("== phase 16: host tier, llama3-2-3b serve, fused g=16 (block 128, "
-        "device pool 64 blocks, host tier 128 blocks, prefetch depth 4, "
-        "one prefill and one decode row)")
+    log(f"== phase 16: host tier, llama3-2-3b ({L} layers) serve, fused "
+        "g=16 (block 128, device pool 64 blocks, host tier 128 blocks, "
+        "prefetch depth 4, one prefill and one decode row)")
     rng = np.random.default_rng(16)
     a = rng.integers(3, cfg.vocab, (HT_PROMPT,)).astype(np.int32)
     b = rng.integers(3, cfg.vocab, (HT_PROMPT,)).astype(np.int32)
@@ -1996,6 +2078,18 @@ def phase_deepseek_serve(torch, np, K, model):
 
     chain = _chain_hashes(a, pool.block_size)
     r_a, _ = run("A cold", 1, record=True)
+    # these calls have the shapes of phase 6's d576 rows
+    rows = {}
+    junk = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=model.device)
+    for what, key in (("prefill", "d576_serve"),
+                      ("decode", "d576_serve_decode")):
+        (q, k, v, valid), kw = seen[what]
+        B = kw["boundary"]
+        rows[key] = mla_flash_row(
+            torch, K, lambda: junk.fill_(1), q.transpose(1, 2),
+            k.transpose(1, 2), v.transpose(1, 2), valid, B,
+            f"serve {what} (layer {L - 1}, A's last)")
+    del junk
     snap = {h: packed(pool._full[h]) for h in chain}
     r_b, s_b = run("B (A's first 4096 tokens, then 4096 others)", 2)
     if r_b.cached_len[2] != PROMPT // 2:
@@ -2031,17 +2125,6 @@ def phase_deepseek_serve(torch, np, K, model):
                                      f"serve {toks}, generate {gen[rid]}")
     log("  greedy tokens equal: serve == generate, every request and trace")
     promoted_ttft = r_ca.ttft_s[1] - r_ca.latency_s[3]
-    rows = {}
-    junk = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device=model.device)
-    for what, key in (("prefill", "d576_serve"),
-                      ("decode", "d576_serve_decode")):
-        (q, k, v, valid), kw = seen[what]
-        B = kw["boundary"]
-        rows[key] = mla_flash_row(
-            torch, K, lambda: junk.fill_(1), q.transpose(1, 2),
-            k.transpose(1, 2), v.transpose(1, 2), valid, B,
-            f"serve {what} (layer {L - 1}, A's last)")
-    del junk
     return dict(ttft_s={"A cold": r_a.ttft_s[1], "B hit": r_b.ttft_s[2],
                         "C": r_ca.ttft_s[3],
                         "A promoted (from C's completion)": promoted_ttft},
@@ -2068,30 +2151,29 @@ def phase_window_small(torch, np):
 
 
 def small_card_vs_cpu(torch, np, archs, routes, seed):
-    """Phases 21 and 25: each smoke config of ``archs`` in fp32 on each
-    route, the same weights on the card and on the CPU, at prompt 160:
+    """Phases 21, 25 and 28: each smoke config of ``archs`` in fp32 on each
+    route, the same weights on the card and on the CPU, at 160 positions
+    (whisper: 160 tokens over 64 frames; a VLM: 16 patches + 144 tokens):
     prefill logits within 1e-4 and ``generate``'s greedy tokens equal."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, build_model
     from repro_torch.serving.engine import Engine
     for arch in archs:
         base = get_config(arch).smoke()
-        toks = np.random.default_rng(seed).integers(
-            3, base.vocab, (2, 160)).astype(np.int32)
+        toks = prompt_batch(np, base, 160, b=2, seed=seed)
         for label, qover in routes:
             cfg = dataclasses.replace(base, quoka=dataclasses.replace(
                 base.quoka, **qover))
             cpu = build_model(cfg, device="cpu", seed=1)
             gpu = Model(cfg)
             gpu.load_state_dict(cpu.state_dict())
-            lc, _ = cpu.prefill({"tokens": toks}, cpu.init_cache(2, 176))
-            lg, _ = gpu.prefill({"tokens": toks}, gpu.init_cache(2, 176))
+            lc, _ = cpu.prefill(toks, cpu.init_cache(2, 176))
+            lg, _ = gpu.prefill(toks, gpu.init_cache(2, 176))
             check(f"{arch} smoke prefill logits, {label}",
                   max_err(lg.cpu(), lc), 1e-4,
                   "fp32 everywhere, summation order differs")
-            tc = Engine(cpu, device="cpu").generate({"tokens": toks},
-                                                    8).tokens
-            tg = Engine(gpu).generate({"tokens": toks}, 8).tokens
+            tc = Engine(cpu, device="cpu").generate(toks, 8).tokens
+            tg = Engine(gpu).generate(toks, 8).tokens
             if not np.array_equal(tc, tg):
                 raise AssertionError(f"{arch} smoke greedy tokens differ, "
                                      f"{label}: {tc} vs {tg}")
@@ -2102,7 +2184,7 @@ TRACE_CHUNKS = 4         # prefill chunks a trace times and profiles
 
 
 def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
-                spans=None):
+                spans=None, frontend=None, patches=None):
     """Phase 7 (and the traces of phases 17-18, 20 and 22-24): where the
     time of the model's route goes.  A chunked prefill of ``prompt`` tokens
     and ``steps`` decode steps: the prefill's last ``TRACE_CHUNKS`` chunks
@@ -2113,32 +2195,56 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
     Device idle share = 1 - device busy time / untraced wall time.
     ``spans`` ({label: (owner, attribute)}) wraps those functions in
     ``record_function`` ranges for the traced run only, and reports each
-    range's device time, with the products' (every GEMM kernel's)."""
+    range's device time, with the products' (every GEMM kernel's).
+    ``frontend(cache)`` (whisper: the encoder and the cross-attention
+    keys) runs before the untraced chunks and again at the head of the
+    timed and traced ones, so the trace holds one prefill's frontend work
+    beside its last chunks.  A VLM's ``patches`` (1, n, d_in) take the
+    prompt's first n positions: the untraced chunks and the traced ones
+    each embed the whole prompt as ``Model.prefill`` does
+    (``embed_inputs``: the projector, its output ahead of the tokens'
+    embeddings) and run the stacks on their chunks of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     bcp = model.cfg.quoka.chunk_size
     n_chunks = prompt // bcp
     k0 = n_chunks - TRACE_CHUNKS
-    log(f"{phase}: trace, {model.cfg.name} prefill of {prompt} tokens "
+    n_front = 0 if patches is None else patches.shape[1]
+    what = f"{prompt - n_front} tokens after {n_front} patches" if n_front \
+        else f"{prompt} tokens"
+    log(f"{phase}: trace, {model.cfg.name} prefill of {what} "
         f"({n_chunks} chunks, the last {TRACE_CHUNKS} timed and traced) + "
         f"{steps} decode steps")
     toks = np.random.default_rng(7).integers(
-        3, model.cfg.vocab, (1, prompt)).astype(np.int32)
+        3, model.cfg.vocab, (1, prompt - n_front)).astype(np.int32)
     g = model.cfg.quoka.granularity     # a block plan's cap is on its grid
     cap = -(-(prompt + steps) // g) * g
 
     def chunks(cache, lo, hi):
+        if patches is None:
+            for c in range(lo, hi):
+                last, cache = model.prefill_chunk(
+                    {"tokens": toks[:, c * bcp:(c + 1) * bcp]}, c * bcp,
+                    cache)
+            return last, cache
+        x, pos = model.embed_inputs({"tokens": toks, "patches": patches})
+        ctx = model._ctx(model.cfg.quoka.method)
         for c in range(lo, hi):
-            last, cache = model.prefill_chunk(
-                {"tokens": toks[:, c * bcp:(c + 1) * bcp]}, c * bcp, cache)
-        return last, cache
+            s = slice(c * bcp, (c + 1) * bcp)
+            h, _ = model._apply_stacks(x[:, s], pos[:, s], cache,
+                                       dict(ctx, slot=c * bcp))
+        return h[:, -1], cache
 
     def prefix():
         cache = model.init_cache(1, cap)
+        if frontend is not None:
+            frontend(cache)
         chunks(cache, 0, k0)
         return cache
 
     def prefill(cache):
+        if frontend is not None:
+            frontend(cache)
         last, cache = chunks(cache, k0, n_chunks)
         return model._readout(last[:, None])[:, 0].argmax(-1), cache
 
@@ -2296,6 +2402,55 @@ def phase_recurrent(torch, np, K):
     return oneshot, traces
 
 
+def phase_modality(torch, np, K):
+    """Phases 26-28: whisper-small (12 decoder and 12 encoder layers over
+    1500 frames) and internvl2-1b (256 patches + 7936 tokens) one-shot at
+    full width and depth, staged and fused (g = 16), with exact launch
+    counts (whisper: its 12 decoder layers' self-attention x 95; internvl2:
+    24 x 95), TTFT (whisper's encoder and cross-KV build included), decode
+    rate and peak memory, and a trace of each fused route with the device
+    time of the encoder, the cross-KV build and the cross-attention
+    (whisper) or the projector (internvl2; also timed by CUDA events
+    outside the profiler); then both smoke configs card vs CPU.  Returns
+    ({arch: one-shot numbers}, {arch: trace})."""
+    from repro_torch.models.blocks import DecCrossBlock
+    from repro_torch.models.model import Model
+    oneshot, traces = {}, {}
+    whisper, oneshot["whisper-small"] = phase_oneshot(
+        torch, np, K, "whisper-small", 26)
+    frames = prompt_batch(np, whisper.cfg, PROMPT, seed=26)["frames"]
+    traces["whisper-small"] = phase_trace(
+        torch, np, whisper, phase="  phase 26", spans={
+            "encoder": (Model, "encode"),
+            "cross-KV build": (Model, "_build_cross"),
+            "cross-attention": (DecCrossBlock, "_cross")},
+        frontend=lambda cache: whisper._build_cross(
+            cache, whisper.encode(frames)))
+    del whisper
+    torch.cuda.empty_cache()
+    internvl, oneshot["internvl2-1b"] = phase_oneshot(
+        torch, np, K, "internvl2-1b", 27)
+    patches = prompt_batch(np, internvl.cfg, PROMPT, seed=27)["patches"]
+    traces["internvl2-1b"] = phase_trace(
+        torch, np, internvl, phase="  phase 27",
+        spans={"projector": (Model, "project")}, patches=patches)
+    # the projector's device time outside any profiler session too: late
+    # in a run the profiler may attribute none of its kernels to its range
+    pt = torch.as_tensor(patches, dtype=internvl.cfg.compute_dtype,
+                         device=internvl.device)
+    proj = time_ms(torch, lambda: internvl.project(pt), None)
+    log(f"  projector of {pt.shape[1]} patches, patches on the card: "
+        f"{fmt(proj)}")
+    traces["internvl2-1b"]["projector_ms"] = proj["device"]
+    del internvl
+    torch.cuda.empty_cache()
+    log("== phase 28: modality smoke models, card (kernels) vs CPU (plain "
+        "versions), 160 positions")
+    small_card_vs_cpu(torch, np, ("whisper-small", "internvl2-1b"), ROUTES,
+                      seed=28)
+    return oneshot, traces
+
+
 def time_ms(torch, fn, flush, iters=20):
     """Times of one ``fn`` call in ms, each a mean over ``iters`` calls,
     with ``flush()`` run before each (outside the timed span) unless it is
@@ -2357,34 +2512,36 @@ SCORE_KERNELS = ("score_kernel",)
 
 
 def traced_kernels(torch, call, names, reps):
-    """{kernel: (launches, device us, {grids})} of the kernels ``names`` in
-    a ``torch.profiler`` trace of ``reps`` eager calls (the second of two
-    profiler steps; the first warms the profiler up)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    """({kernel: (launches, device us, {grids})} of the kernels ``names``,
+    the number of kernel events of any name) in a ``torch.profiler`` trace
+    of ``reps`` eager calls, after ``reps`` untraced ones, in one profiler
+    session with no schedule (at phase 19 of a whole run a scheduled
+    session recorded no kernel event in 3 of 3 traces, plain ones in 0 of
+    3)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(reps):
+        call()
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: p.export_chrome_trace(path)
-                     ) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    call()
-                torch.cuda.synchronize()
-                prof.step()
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     seen = {}
-    for e in events:
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    for e in kernels:
         name = next((k for k in names if k in e.get("name", "")), None)
-        if name is None or e.get("cat") != "kernel":
+        if name is None:
             continue
         grid = tuple(e["args"]["grid"])
         n, us, grids = seen.get(name, (0, 0.0, set()))
         seen[name] = (n + 1, us + float(e["dur"]), grids | {grid})
-    return seen
+    return seen, len(kernels)
 
 
 def launched(torch, call, names=ATTN_KERNELS, reps=10):
@@ -2394,20 +2551,24 @@ def launched(torch, call, names=ATTN_KERNELS, reps=10):
     recorded)}, traces)`` with blocks summed over the kernels' grids, for
     the bf16 attention kernels n_split the first grid dimension of
     ``attn_mma_kernel`` (else None), and ``traces`` the number of traces
-    taken (the kernels line reports it per row).  Fails unless the first
-    kernel is in one of ten traces, each ran with one grid and at most
-    once per call, and the attention merge ran exactly when the walk was
-    split."""
+    taken (the kernels line reports it per row).  Fails unless each
+    kernel recorded ran with one grid and at most once per call, and the
+    attention merge ran exactly when the walk was split.  When ten
+    traces record no ``names[0]`` (the profiler drops kernel records in
+    some sessions, more often late in a run: PERF.md section 7), returns
+    ``(None, None, {}, 10)``; the caller's ``LaunchCheck`` is then what
+    shows the kernel ran."""
     for traces in range(1, 11):
-        seen = traced_kernels(torch, call, names, reps)
+        seen, n_kernels = traced_kernels(torch, call, names, reps)
         if names[0] in seen:
             break
-        # the profiler sometimes records fewer kernels than ran (8 or 9 of
-        # 10 in some traces, none in up to five in a row): trace the same
-        # calls again
-        log(f"    (profiler recorded no {names[0]}; tracing again)")
+        # the profiler drops kernel records in some sessions (8 or 9 of
+        # 10 recorded; late in a run often none, session after session,
+        # which Kineto's log counts as out of range): trace again
+        log(f"    (profiler recorded no {names[0]} among {n_kernels} kernel "
+            f"events; tracing again)")
     else:
-        raise AssertionError(f"no {names[0]} in 10 traces: {seen}")
+        return None, None, {}, traces
     out = {}
     for name, (n, us, grids) in seen.items():
         if n > reps or len(grids) != 1:
@@ -2424,6 +2585,8 @@ def launched(torch, call, names=ATTN_KERNELS, reps=10):
 
 
 def fmt_launched(n_split, blocks, kernels, traces) -> str:
+    if not kernels:
+        return f"not recorded by the profiler in {traces} traces"
     parts = [f"{k} grid {g} {ms:.4f} ms ({n} recorded)"
              for k, (g, ms, n) in kernels.items()]
     split = "" if n_split is None else f"S={n_split}, "
@@ -2431,17 +2594,45 @@ def fmt_launched(n_split, blocks, kernels, traces) -> str:
             f"{traces} trace{'s' if traces > 1 else ''})")
 
 
-def time_row(torch, flush, label, call, plain, b_ms, b_by, lib_ms=None,
-             warm_main=True, names=ATTN_KERNELS, b2b=None, traced=None):
+class LaunchCheck:
+    """``call`` that counts its calls, and ``check`` that holds the kernel
+    wrapper's launch counter ``count()`` to one launch per call since the
+    check was made: the proof, independent of the profiler, that the
+    timed calls ran the hand-written kernel (a graph capture counts as a
+    call; its replays call nothing)."""
+
+    def __init__(self, call, count):
+        self.call, self.count = call, count
+        self.calls, self.n0 = 0, count()
+
+    def __call__(self):
+        self.calls += 1
+        return self.call()
+
+    def check(self, label) -> str:
+        n = self.count() - self.n0
+        if n != self.calls:
+            raise AssertionError(f"{label}: {n} kernel launches in "
+                                 f"{self.calls} calls")
+        return f"{n} kernel launches in {self.calls} calls"
+
+
+def time_row(torch, flush, label, call, plain, b_ms, b_by, count,
+             lib_ms=None, warm_main=True, names=ATTN_KERNELS, b2b=None,
+             traced=None):
     """One kernel row of phase 6: device time with L2 warm, with L2
     flushed and back to back (``b2b``: 20 calls captured in one graph, by
     default ``call`` 20 times), the plain version, a library call's time
     where one exists, the bound, and the kernels a call of ``traced``
     (default ``call``) launched (grids, blocks, device times), read from
-    a profiler trace.  "ms" is the time with L2 as the main path leaves
+    a profiler trace.  ``count()`` (the kernel wrapper's launch counter)
+    must rise by one for each ``call`` the warm and flushed timings make,
+    else the row fails.  "ms" is the time with L2 as the main path leaves
     it: warm when ``warm_main``, else flushed."""
-    warm = time_ms(torch, call, None)
-    cold = time_ms(torch, call, flush)
+    timed = LaunchCheck(call, count)
+    warm = time_ms(torch, timed, None)
+    cold = time_ms(torch, timed, flush)
+    counted = timed.check(label)
     # 20 calls back to back in one graph: the per-call device time
     # without the fixed cost of launching a graph for a single call
     b2b_ms = time_ms(torch, b2b or (lambda: [call() for _ in range(20)]),
@@ -2451,10 +2642,11 @@ def time_row(torch, flush, label, call, plain, b_ms, b_by, lib_ms=None,
     n_split, blocks, kernels, traces = launched(torch, traced or call,
                                                 names)
     lib = f"  sdpa {fmt(lib_ms)}" if lib_ms else ""
+    seen = f"{counted}; {fmt_launched(n_split, blocks, kernels, traces)}"
     log(f"  {label}: {fmt(main)}  L2-warm {warm['device']:.4f}  "
         f"L2-flushed {cold['device']:.4f}  back-to-back {b2b_ms:.4f}  "
         f"plain {fmt(p_ms)}{lib}  bound {b_ms:.4f} ({b_by})  "
-        f"{fmt_launched(n_split, blocks, kernels, traces)}")
+        f"{seen}")
     r = dict(ms=main["device"], warm_ms=warm["device"],
              cold_ms=cold["device"], b2b_ms=b2b_ms, plain_ms=p_ms["device"],
              bound_ms=b_ms, bound_by=b_by,
@@ -2471,14 +2663,18 @@ def attention_times(torch, np, dev, K, flush):
     (tq = 128) and decode (tq = 1) shapes, qwen3-4b's (h 32 / 8, d 128),
     stablelm-3b's (MHA 32 / 32, d 80) and gemma3-27b's global layers' (h
     32 / 16, a budget of 2048) and zamba2-7b's shared block's (MHA 32 /
-    32, d 112): device time with L2 warm, with
+    32, d 112), whisper-small's decoder self-attention (MHA 12 / 12, d 64,
+    a budget of 512) and internvl2-1b's (GQA 14 / 2, d 64): device time
+    with L2 warm, with
     L2 flushed and back to back, the plain version, SDPA for flash, the
     bound, and the kernels one call launched (their grids, so the split
     count and the blocks, and their device times), read from a profiler
     trace.  Returns {kernel: row}: qwen3-4b's prefill numbers at the top
     level, its decode ones under "decode", stablelm-3b's under "d80" and
     "d80_decode", gemma3-27b's under "gemma3" and "gemma3_decode",
-    zamba2-7b's under "d112" and "d112_decode"; "ms" is
+    zamba2-7b's under "d112" and "d112_decode", whisper-small's and
+    internvl2-1b's under "whisper", "whisper_decode", "internvl2" and
+    "internvl2_decode"; "ms" is
     the time with L2 as the main path leaves it
     (flash: warm, the tensors just written; selected: flushed, a cache the
     other layers have evicted)."""
@@ -2486,10 +2682,13 @@ def attention_times(torch, np, dev, K, flush):
     fa, sa, ref = K["flash"], K["selected"], K["ref"]
     out = {"flash_attention": {}, "selected_attention": {}}
 
+    count = {"flash_attention": lambda: fa.LAUNCHES,
+             "selected_attention": lambda: sa.LAUNCHES}
+
     def row(name, key, label, call, plain, b_ms, b_by, lib_ms=None,
             warm_main=True):
         r = time_row(torch, flush, f"{name} {label}", call, plain, b_ms,
-                     b_by, lib_ms, warm_main)
+                     b_by, count[name], lib_ms, warm_main)
         if key is None:
             out[name].update(r)
         else:
@@ -2499,13 +2698,17 @@ def attention_times(torch, np, dev, K, flush):
             ("", (32, 8, 128), 1024),
             ("d80", ARCH_SHAPES["stablelm-3b"], 1024),
             ("gemma3", ARCH_SHAPES["gemma3-27b"], GEMMA_BUDGET),
-            ("d112", ARCH_SHAPES["zamba2-7b"], 1024)):
+            ("d112", ARCH_SHAPES["zamba2-7b"], 1024),
+            ("whisper", ARCH_SHAPES["whisper-small"], WHISPER_BUDGET),
+            ("internvl2", ARCH_SHAPES["internvl2-1b"], 1024)):
         group = h // n_kv
         for tq in (128, 1):
             key = ((tag + "_decode") if tag else "decode") if tq == 1 \
                 else (tag or None)
+            # an empty KV head is half the work at n_kv 2 (internvl2), far
+            # from the main path's: time such a geometry with none
             q, k, v, valid, B = flash_inputs(torch, dev, tq, h, n_kv, d,
-                                             B=budget)
+                                             B=budget, empty=n_kv >= 8)
             tk = k.shape[2]
             i = torch.arange(tq, device=dev)[:, None]
             j = torch.arange(tk, device=dev)[None, :]
@@ -2565,14 +2768,22 @@ def attention_times(torch, np, dev, K, flush):
 def sdpa_backend(torch, call) -> str:
     """The backend one ``scaled_dot_product_attention`` call took, read off
     the names of the kernels a profiler trace of it records: flash,
-    efficient (cutlass fmha), cudnn, else math (the plain products)."""
+    efficient (cutlass fmha), cudnn, else math (the plain products), or
+    "not recorded" when the trace holds no kernel at all."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # CPU and CUDA, as ``traced_kernels``: late in a run a CUDA-only
+    # session mostly records no kernel
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages()).lower()
+    names = " ".join(e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA).lower()
+    if not names:
+        return "not recorded"
     for tag, backend in (("flash", "flash"), ("fmha", "efficient"),
                          ("efficient", "efficient"), ("cudnn", "cudnn")):
         if tag in names:
@@ -2644,7 +2855,7 @@ def mla_flash_row(torch, K, flush, q, k, v, valid, B, what):
                                         boundary=B, scale=MLA_SCALE),
         lambda: ref.flash_attention_ref(q, k, v, causal=True, boundary=B,
                                         k_valid=valid, scale=MLA_SCALE),
-        b_ms, b_by, sdpa[best][0])
+        b_ms, b_by, lambda: fa.LAUNCHES, sdpa[best][0])
     r.update(sdpa_form=best, sdpa_backend=sdpa[best][1],
              sdpa_ms={f: t["device"] for f, (t, _) in sdpa.items()},
              sdpa_backends={f: be for f, (_, be) in sdpa.items()})
@@ -2695,7 +2906,9 @@ def phase_timing(torch, np, dev, K, paged):
     # The d576 row is deepseek-v3's latent (one KV head, d = 576) at its
     # last prefill chunk; the d120 row h2o-danube-3-4b's wrapped ring (n_kv
     # 8, d 120, T 4096) at a mid-prefill chunk; the d112 rows zamba2-7b's
-    # shared block (n_kv 32, d 112) mid-prefill and at decode.
+    # shared block (n_kv 32, d 112) mid-prefill and at decode; the whisper
+    # rows whisper-small's decoder (n_kv 12, d 64), the internvl2 rows
+    # internvl2-1b's LM (n_kv 2, d 64), mid-prefill and at decode.
     for key, n_q, start, rank, n_kv, d in (
             ("prefill", 16, 4096, 0, 8, 128),
             ("last_chunk", 16, PROMPT, 0, 8, 128),
@@ -2704,7 +2917,11 @@ def phase_timing(torch, np, dev, K, paged):
             ("d576", 16, PROMPT, 0, 1, MLA_D),
             ("d120_ring", 16, RING_START, 0, 8, RING_D),
             ("d112", 16, 4096, 0, 32, 112),
-            ("d112_decode", 1, PROMPT, 0, 32, 112)):
+            ("d112_decode", 1, PROMPT, 0, 32, 112),
+            ("whisper", 16, 4096, 0, 12, 64),
+            ("whisper_decode", 1, PROMPT, 0, 12, 64),
+            ("internvl2", 16, 4096, 0, 2, 64),
+            ("internvl2_decode", 1, PROMPT, 0, 2, 64)):
         if rank:
             qb, kt, valid = projected_score_inputs(torch, dev, n_q, rank,
                                                    start)
@@ -2732,7 +2949,7 @@ def phase_timing(torch, np, dev, K, paged):
             f"{n_valid}/{kt.shape[2]}",
             lambda: qs.quoka_score_bhtd(qb, kt, valid),
             lambda: ref.score_ref(qb, kt, valid), b_ms, b_by,
-            warm_main=False, names=SCORE_KERNELS,
+            lambda: qs.LAUNCHES, warm_main=False, names=SCORE_KERNELS,
             b2b=lambda: [qs.quoka_score_bhtd(qb, c, valid) for c in copies],
             traced=rotating)
         if key == "prefill":
@@ -2771,15 +2988,16 @@ def phase_timing(torch, np, dev, K, paged):
                            + 4 * (idx.numel() * g + b * t), 4 * d * pairs)
         qt = q.transpose(1, 2)
 
-        def call():
-            return sa.selected_attention_paged(
-                qt, kp, vp, pos, idx, st, tab, granularity=g, block_size=bs)
+        call = LaunchCheck(lambda: sa.selected_attention_paged(
+            qt, kp, vp, pos, idx, st, tab, granularity=g, block_size=bs),
+            lambda: sa.PAGED_LAUNCHES)
         ms = time_ms(torch, call, flush)
+        counted = call.check(f"selected_attention_paged rows={b}")
         p_ms = time_ms(torch, lambda: ref.selected_paged_ref(
             q, kp, vp, pos, idx, st, tab, g), flush)
-        seen = launched(torch, call)
+        seen = launched(torch, call.call)
         log(f"  selected_attention_paged g={g} t={t} rows={b}: {fmt(ms)}  "
-            f"plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})  "
+            f"plain {fmt(p_ms)}  bound {b_ms:.4f} ({b_by})  {counted}; "
             f"{fmt_launched(*seen)}")
         if b == 1:
             rows["selected_attention_paged"] = dict(
@@ -2877,13 +3095,15 @@ def main() -> int:
     # the slice's paths: llama3-2-3b one-shot, its serve over the host
     # tier (on the same model), stablelm-3b one-shot
     torch.cuda.empty_cache()
-    llama, oneshot = phase_oneshot(torch, np, K, "llama3-2-3b", 14)
-    oneshot = {"llama3-2-3b": oneshot}
+    llama, oneshot = phase_oneshot(torch, np, K, "llama3-2-3b", 14,
+                                   layers=LLAMA_LAYERS)
+    oneshot = {f"llama3-2-3b ({LLAMA_LAYERS} layers)": oneshot}
     tier = phase_host_tier(torch, np, K, llama)
     del llama
     torch.cuda.empty_cache()
-    stablelm, oneshot["stablelm-3b"] = phase_oneshot(torch, np, K,
-                                                     "stablelm-3b", 15)
+    stablelm, oneshot[f"stablelm-3b ({STABLELM_LAYERS} layers)"] = \
+        phase_oneshot(torch, np, K, "stablelm-3b", 15,
+                      layers=STABLELM_LAYERS)
     del stablelm
     torch.cuda.empty_cache()
     # the MoE and MLA slice: olmoe-1b-7b, then deepseek-v3 cut to 4 layers
@@ -2918,6 +3138,10 @@ def main() -> int:
     # the recurrent slice
     recurrent, recurrent_traces = phase_recurrent(torch, np, K)
     oneshot.update(recurrent)
+    torch.cuda.empty_cache()
+    # the modality slice
+    modality, modality_traces = phase_modality(torch, np, K)
+    oneshot.update(modality)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -2963,6 +3187,7 @@ def main() -> int:
                     "deepseek_serve": ds_serve,
                     "window_traces": window_traces,
                     "recurrent_traces": recurrent_traces,
+                    "modality_traces": modality_traces,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

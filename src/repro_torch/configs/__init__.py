@@ -1,3 +1,4 @@
-from repro_torch.configs.base import (MLAConfig, ModelConfig,  # noqa: F401
+from repro_torch.configs.base import (EncoderConfig,  # noqa: F401
+                                     FrontendConfig, MLAConfig, ModelConfig,
                                      MoEConfig, QuokaConfig, RWKVConfig,
                                      SSMConfig, get_config)

@@ -5,8 +5,13 @@ Ported block kinds: ``"attn"`` (dense GQA attention + SwiGLU MLP),
 ``"attn_moe"`` (GQA attention + MoE FFN), ``"mla"`` (DeepSeek multi-head
 latent attention + SwiGLU MLP), ``"mla_moe"`` (MLA + MoE FFN), ``"mamba"``
 (Mamba2 SSD block), ``"mamba_shared_attn"`` (Mamba2 then zamba2's one
-shared attention block) and ``"rwkv"`` (RWKV6 time-mix + channel-mix);
-families ``"dense"``, ``"moe"``, ``"hybrid"`` and ``"ssm"``.  Field names
+shared attention block), ``"rwkv"`` (RWKV6 time-mix + channel-mix),
+``"enc_attn"`` (bidirectional attention + MLP: whisper's encoder) and
+``"dec_cross"`` (causal self-attention, cross-attention over the
+encoder's output, then the MLP: whisper's decoder); families
+``"dense"``, ``"moe"``, ``"hybrid"``, ``"ssm"``, ``"audio"`` (whisper:
+an encoder over stub frame embeddings) and ``"vlm"`` (internvl2: a
+projector of stub patch embeddings).  Field names
 and defaults match the reference so a test can build the same
 configuration in both packages; dtypes are torch dtypes.
 """
@@ -56,6 +61,25 @@ class RWKVConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Whisper-style encoder over a (stubbed) conv/mel frontend: its
+    frames are ``(b, n_ctx, d_model)`` and its layers have the decoder's
+    width and heads (the reference's ``d_model`` / ``n_heads`` overrides,
+    which nothing reads, are left out)."""
+    n_layers: int
+    n_ctx: int = 1500           # frames after the conv frontend
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """A VLM's stub vision frontend: the batch brings its patch
+    embeddings, which take ``n_tokens`` positions ahead of the prompt's.
+    (Whisper's frames are the encoder's: ``EncoderConfig``.)"""
+    n_tokens: int               # patches
+    d_in: int                   # embedding dim the stub produces
+
+
+@dataclass(frozen=True)
 class QuokaConfig:
     """Paper Algorithm 1/2 hyper-parameters."""
     chunk_size: int = 128          # B_CP
@@ -87,7 +111,8 @@ class QuokaConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense" | "moe" | "hybrid" | "ssm"
+    # "dense" | "moe" | "hybrid" | "ssm" | "audio" | "vlm"
+    family: str
     n_layers: int
     d_model: int
     n_heads: int
@@ -109,6 +134,8 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[FrontendConfig] = None
     mtp: bool = False              # deepseek multi-token-prediction head
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -124,6 +151,12 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.dtype
+
+    @property
+    def prefix_positions(self) -> int:
+        """Cache positions the frontend puts before the prompt's tokens: a
+        VLM's patches (whisper's frames go to its encoder, not the cache)."""
+        return self.frontend.n_tokens if self.frontend is not None else 0
 
     @property
     def pattern(self) -> Tuple[str, ...]:
@@ -159,17 +192,22 @@ class ModelConfig:
     def param_count(self) -> int:
         """Weight-matrix parameters (embedding and read-out, attention
         projections, MLP or experts and router; norms left out), counted
-        as the reference's ``param_count`` counts them for the ported
-        kinds (the MTP head is not counted there either; for ``rwkv`` and
-        ``mamba`` its own approximate terms, and zamba2's shared block
-        once)."""
+        as the reference's ``param_count`` counts them, quirks included:
+        the MTP head, whisper's encoder and internvl2's projector are not
+        counted; an MLP counts three matrices even where it has two (an
+        ungated gelu MLP), and a ``dec_cross`` layer counts two attention
+        blocks (self and cross); ``rwkv`` and ``mamba`` have their own
+        approximate terms, and zamba2's shared block counts once."""
         d, hd = self.d_model, self.resolved_head_dim
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for kind in self.layer_kinds():
             p = 0
             if kind in ("attn", "attn_local", "attn_moe"):
-                p += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-                    + self.n_heads * hd * d
+                p += attn
+            if kind == "dec_cross":
+                p += 2 * attn
             if kind in ("mla", "mla_moe"):
                 m = self.mla
                 qk = m.qk_nope_dim + m.qk_rope_dim
@@ -178,9 +216,7 @@ class ModelConfig:
                 p += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim
                                                       + m.v_head_dim)
                 p += self.n_heads * m.v_head_dim * d
-            if kind in ("attn", "attn_local"):
-                p += (2 if self.act == "gelu" else 3) * d * self.d_ff
-            if kind == "mla":
+            if kind in ("attn", "attn_local", "mla", "dec_cross"):
                 p += 3 * d * self.d_ff
             if kind in ("attn_moe", "mla_moe"):
                 e = self.moe
@@ -195,8 +231,7 @@ class ModelConfig:
                 p += d * 2 * di + di * d + 2 * di * self.ssm.d_state
             total += p
         if "mamba_shared_attn" in self.layer_kinds():
-            total += d * hd * (self.n_heads + 2 * self.n_kv_heads) \
-                + self.n_heads * hd * d + 3 * d * self.d_ff
+            total += attn + 3 * d * self.d_ff
         return int(total)
 
     def active_param_count(self) -> int:
@@ -257,6 +292,12 @@ class ModelConfig:
             ch["ssm"] = dataclasses.replace(self.ssm, d_state=16, head_dim=32)
         if self.rwkv is not None:
             ch["rwkv"] = RWKVConfig(head_dim=32, decay_lora=16)
+        if self.encoder is not None:
+            ch["encoder"] = dataclasses.replace(self.encoder, n_layers=2,
+                                                n_ctx=64)
+        if self.frontend is not None:
+            ch["frontend"] = dataclasses.replace(
+                self.frontend, n_tokens=16, d_in=min(self.frontend.d_in, 128))
         if self.sliding_window is not None:
             ch["sliding_window"] = min(self.sliding_window, 64)
         ch["quoka"] = dataclasses.replace(
@@ -268,8 +309,9 @@ class ModelConfig:
 def get_config(name: str) -> ModelConfig:
     from repro_torch.configs import (deepseek_v3_671b, gemma3_27b,
                                      granite_3_2b, h2o_danube_3_4b,
-                                     llama3_2_3b, olmoe_1b_7b, qwen3_4b,
-                                     rwkv6_1_6b, stablelm_3b, zamba2_7b)
+                                     internvl2_1b, llama3_2_3b, olmoe_1b_7b,
+                                     qwen3_4b, rwkv6_1_6b, stablelm_3b,
+                                     whisper_small, zamba2_7b)
     known = {"qwen3-4b": qwen3_4b.get_config,
              "granite-3-2b": granite_3_2b.get_config,
              "llama3-2-3b": llama3_2_3b.get_config,
@@ -279,7 +321,9 @@ def get_config(name: str) -> ModelConfig:
              "gemma3-27b": gemma3_27b.get_config,
              "h2o-danube-3-4b": h2o_danube_3_4b.get_config,
              "zamba2-7b": zamba2_7b.get_config,
-             "rwkv6-1-6b": rwkv6_1_6b.get_config}
+             "rwkv6-1-6b": rwkv6_1_6b.get_config,
+             "whisper-small": whisper_small.get_config,
+             "internvl2-1b": internvl2_1b.get_config}
     key = name.replace("_", "-").replace(".", "-")
     if key not in known:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(known)}")

@@ -55,7 +55,9 @@ reference's "... unsupported block kinds" error:
 granite-3-2b, llama3-2-3b, stablelm-3b, olmoe-1b-7b, deepseek-v3-671b,
 gemma3-27b, h2o-danube-3-4b, zamba2-7b, rwkv6-1.6b; deepseek-v3-671b is
 671 B parameters at its published depth, so on one card use ``--smoke`` or
-a checkpoint of a depth-cut copy).  ``--host-tier-blocks`` puts a
+a checkpoint of a depth-cut copy) but whisper-small and internvl2-1b: the
+launcher feeds token ids only, as the reference's does, and those two
+need their frames or patches in the batch (``Engine.generate``).  ``--host-tier-blocks`` puts a
 host-memory tier behind the paged pool (pair it with an undersized
 ``--num-blocks`` to make pressure demote blocks there), and
 ``--prefetch-depth`` caps the host blocks staged per step.  Weights are

@@ -6,7 +6,12 @@ for ``"mla"`` and ``"mla_moe"`` (DeepSeek multi-head latent attention over
 a compressed ``LatentCache``), ``MambaBlock`` for ``"mamba"`` and
 ``"mamba_shared_attn"`` (a Mamba2 mixer, ``models/mamba2.py``; the second
 then calls zamba2's shared attention block) and ``RWKVBlock`` for
-``"rwkv"`` (``models/rwkv6.py``); other kinds are not ported and raise.
+``"rwkv"`` (``models/rwkv6.py``), and ``DecCrossBlock`` for whisper's
+decoder layers, ``"dec_cross"``.  ``AttnBlock`` kind ``"enc_attn"`` is
+whisper's encoder layer: bidirectional, one full-sequence pass
+(``full_forward``), no cache, never selects.  Every block norm of the
+``"audio"`` family is LayerNorm with a bias (``ln1_b``, ...), as the
+reference's ``_norm_fns``; every other family's is RMSNorm.
 
 ``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
 the layer's KV cache along one of three routes, as in the reference:
@@ -29,6 +34,12 @@ has a static boundary and per-key validity only), as in the reference.
 reference's ``fused_route`` never takes MLA): QUOKA scores the latent as
 one shared "KV head" and the flash kernel attends the absorbed queries
 over ``[latent | rope]`` keys, 576 wide at deepseek-v3's geometry.
+
+``DecCrossBlock.apply`` runs its self-attention along the same three
+routes (``AttnBlock._attend``, without the MLP), then cross-attention
+over the layer's ``CrossKV`` (the encoder's keys and values), then the
+self-attention block's MLP.  Cross-attention and the encoder's attention
+stay plain dense attention, as the reference's: no kernel is on either.
 
 The shared block is ONE ``AttnBlock`` owned by the model and handed to
 every ``mamba_shared_attn`` layer in ``ctx["shared"]`` (as the reference
@@ -58,9 +69,11 @@ from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
                                         position_mask)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mamba2, moe, rwkv6
-from repro_torch.models.layers import linear, mlp, rmsnorm, rope
-from repro_torch.serving.cache import (KVCache, LatentCache, RWKVCache,
-                                       SharedAttnCache, kv_init,
+from repro_torch.models.layers import (layernorm, linear, mlp, rmsnorm,
+                                       rope)
+from repro_torch.serving.cache import (CrossCache, CrossKV, KVCache,
+                                       LatentCache, RWKVCache,
+                                       SharedAttnCache, cross_init, kv_init,
                                        kv_write, kv_write_ring, latent_init,
                                        latent_write, mamba_cache_init,
                                        rwkv_cache_init, state_write)
@@ -76,6 +89,26 @@ def _weight(dt, device):
 def _norm(d, device):
     return nn.Parameter(torch.ones(d, dtype=torch.float32, device=device),
                         requires_grad=False)
+
+
+def _norm_params(blk, names, cfg: ModelConfig, device) -> None:
+    """Each block norm of ``names``: its gain and, in the ``"audio"``
+    family (whisper's LayerNorm), a bias ``<name>_b``."""
+    for name in names:
+        setattr(blk, name, _norm(cfg.d_model, device))
+        if cfg.family == "audio":
+            setattr(blk, name + "_b", nn.Parameter(
+                torch.zeros(cfg.d_model, dtype=torch.float32, device=device),
+                requires_grad=False))
+
+
+def _block_norm(blk, name, x):
+    """A block norm: LayerNorm (eps 1e-5) with a bias in the ``"audio"``
+    family, else RMSNorm at the config's eps."""
+    cfg = blk.cfg
+    if cfg.family == "audio":
+        return layernorm(getattr(blk, name), getattr(blk, name + "_b"), x)
+    return rmsnorm(getattr(blk, name), x, cfg.norm_eps)
 
 
 def _ffn_params(blk, cfg: ModelConfig, device, gated: bool) -> None:
@@ -96,7 +129,7 @@ def _ffn(blk, x):
     """x + FFN(norm2(x)): the MLP, or the MoE with no aux loss (inference;
     ``moe.moe_apply`` takes a ctx to accumulate it)."""
     cfg = blk.cfg
-    h = rmsnorm(blk.ln2, x, cfg.norm_eps)
+    h = _block_norm(blk, "ln2", x)
     if blk.kind.endswith("_moe"):
         return x + moe.moe_apply(blk.moe, h, cfg)
     return x + mlp(blk.mlp, h, cfg.act)
@@ -119,19 +152,18 @@ def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
 class AttnBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device, kind: str = "attn"):
         super().__init__()
-        if kind not in ("attn", "attn_local", "attn_moe"):
+        if kind not in ("attn", "attn_local", "attn_moe", "enc_attn"):
             raise NotImplementedError(f"block kind {kind!r} is not yet ported")
         self.cfg = cfg
         self.kind = kind
         self.window = cfg.sliding_window if kind == "attn_local" else None
         d, hd = cfg.d_model, cfg.resolved_head_dim
         w = _weight(cfg.compute_dtype, device)
-        self.ln1 = _norm(d, device)
+        _norm_params(self, ("ln1", "ln2"), cfg, device)
         self.wq = w(d, cfg.n_heads * hd)
         self.wk = w(d, cfg.n_kv_heads * hd)
         self.wv = w(d, cfg.n_kv_heads * hd)
         self.wo = w(cfg.n_heads * hd, d)
-        self.ln2 = _norm(d, device)
         _ffn_params(self, cfg, device, gated=cfg.act != "gelu")
 
     def init_cache(self, batch: int, cap: int) -> KVCache:
@@ -158,14 +190,35 @@ class AttnBlock(nn.Module):
     def plan_carry_shape(self, cache: KVCache, t: int, method: str, qcfg):
         return _kv_plan_shape(cache, t, method, qcfg)
 
+    def full_forward(self, x, pos):
+        """One full-sequence pass with no cache (the reference's ``train``
+        for this kind): bidirectional attention over positions ``pos``
+        (the plain path: dense, or blocked above ``BLOCKED_THRESHOLD``
+        keys), then the MLP.  Ported for the encoder's ``enc_attn`` only;
+        the causal kinds' training forward is not yet ported."""
+        if self.kind != "enc_attn":
+            raise NotImplementedError(f"the full-sequence (training) forward "
+                                      f"of block kind {self.kind!r} is not "
+                                      f"yet ported")
+        b, t, _ = x.shape
+        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
+        att = attention_with_positions(q, k, v, pos, pos, causal=False)
+        x = x + linear(self.wo, att.reshape(b, t, -1))
+        return _ffn(self, x)
+
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
         ``kv`` in place.  ``plan`` is the cross-layer ``PlanCarry`` (None:
         no reuse).  Returns (block output, updated carry); the dense bypass
         leaves the carry as it came."""
-        cfg = self.cfg
+        x, plan = self._attend(x, pos, kv, ctx, plan)
+        return _ffn(self, x), plan
+
+    def _attend(self, x, pos, kv: KVCache, ctx, plan=None):
+        """x plus the attention sub-block's output, along the route the
+        method and the cache give (no MLP).  Returns (x, plan carry)."""
         b, t, _ = x.shape
-        q, k, v = self._qkv(rmsnorm(self.ln1, x, cfg.norm_eps), pos)
+        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
         # the chunk's first slot, unmodded: selection compares positions
         # with it; only a ring's write takes it modulo the capacity
         start = ctx["slot"]
@@ -189,8 +242,7 @@ class AttnBlock(nn.Module):
                 ctx, plan, method, q, kv.k, kv.v, kv.pos, start, qcfg,
                 budget=budget, q_valid=pos >= 0)
             att = self._selected_attention(q, k, v, pos, sel)
-        x = x + linear(self.wo, att.reshape(b, t, -1))
-        return _ffn(self, x), plan
+        return x + linear(self.wo, att.reshape(b, t, -1)), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is
@@ -445,6 +497,68 @@ class RWKVBlock(nn.Module):
         return x + y, plan
 
 
+class DecCrossBlock(nn.Module):
+    """Whisper's decoder layer (kind ``"dec_cross"``), in the reference's
+    order: causal self-attention with its residual (``self_attn``, an
+    ``AttnBlock`` whose MLP runs last), cross-attention with its residual
+    (queries from ``ln_x``; ``xq``, ``xk``, ``xv``, ``xo`` carry no bias;
+    plain dense attention over the encoder's keys with no mask, as the
+    reference's ``_cross``), then ``self_attn``'s MLP on ``self_attn``'s
+    ``ln2`` of the post-cross stream."""
+
+    def __init__(self, cfg: ModelConfig, device, kind: str = "dec_cross"):
+        super().__init__()
+        self.cfg = cfg
+        self.kind = kind
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        w = _weight(cfg.compute_dtype, device)
+        self.self_attn = AttnBlock(cfg, device, "attn")
+        _norm_params(self, ("ln_x",), cfg, device)
+        self.xq = w(d, cfg.n_heads * hd)
+        self.xk = w(d, cfg.n_kv_heads * hd)
+        self.xv = w(d, cfg.n_kv_heads * hd)
+        self.xo = w(cfg.n_heads * hd, d)
+
+    def init_cache(self, batch: int, cap: int) -> CrossCache:
+        """The self-attention's ``cap``-slot KV cache and an empty
+        ``CrossKV`` of ``encoder.n_ctx`` rows (``Model._build_cross``
+        fills it)."""
+        cfg = self.cfg
+        return CrossCache(
+            kv=self.self_attn.init_cache(batch, cap),
+            cross=cross_init(batch, cfg.encoder.n_ctx, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, cfg.compute_dtype,
+                             self.xq.device))
+
+    def build_cross(self, enc_out) -> CrossKV:
+        """The cross-attention keys and values of the encoder's output
+        (b, n_ctx, d)."""
+        cfg = self.cfg
+        b, s, _ = enc_out.shape
+        hd = cfg.resolved_head_dim
+        return CrossKV(
+            k=linear(self.xk, enc_out).reshape(b, s, cfg.n_kv_heads, hd),
+            v=linear(self.xv, enc_out).reshape(b, s, cfg.n_kv_heads, hd))
+
+    def _cross(self, x, cross: CrossKV):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h = _block_norm(self, "ln_x", x)
+        q = linear(self.xq, h).reshape(b, t, cfg.n_heads,
+                                       cfg.resolved_head_dim)
+        att = dense_attention(q, cross.k, cross.v)          # non-causal
+        return x + linear(self.xo, att.reshape(b, t, -1))
+
+    def plan_carry_shape(self, cache: CrossCache, t: int, method: str,
+                         qcfg):
+        return self.self_attn.plan_carry_shape(cache.kv, t, method, qcfg)
+
+    def apply(self, x, pos, cache: CrossCache, ctx, plan=None):
+        x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan)
+        x = self._cross(x, cache.cross)
+        return _ffn(self.self_attn, x), plan
+
+
 def make_block(cfg: ModelConfig, kind: str, device):
     if kind in ("mla", "mla_moe"):
         return MLABlock(cfg, device, kind)
@@ -452,4 +566,6 @@ def make_block(cfg: ModelConfig, kind: str, device):
         return MambaBlock(cfg, device, kind)
     if kind == "rwkv":
         return RWKVBlock(cfg, device, kind)
+    if kind == "dec_cross":
+        return DecCrossBlock(cfg, device, kind)
     return AttnBlock(cfg, device, kind)

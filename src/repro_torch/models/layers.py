@@ -38,6 +38,16 @@ def rmsnorm(g, x, eps: float = 1e-6):
     return (y * g).to(dt)
 
 
+def layernorm(g, b, x, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics, an affine gain ``g`` and bias ``b``,
+    cast back to x's dtype (whisper's block norms)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * g + b).to(dt)
+
+
 def groupnorm(x, n_groups: int, eps: float = 1e-5):
     """Per-head group norm (RWKV6's, no learned affine); fp32 statistics."""
     dt = x.dtype
@@ -51,8 +61,8 @@ def groupnorm(x, n_groups: int, eps: float = 1e-5):
 def _act(name: str, x):
     if name == "silu":
         return F.silu(x)
-    if name == "gelu":
-        return F.gelu(x)
+    if name == "gelu":       # the tanh form, as ``jax.nn.gelu``'s default
+        return F.gelu(x, approximate="tanh")
     if name == "relu2":
         r = F.relu(x)
         return r * r

@@ -1,11 +1,25 @@
 """Decoder model: embedding, layer stacks, read-out (counterpart of
 ``repro/models/model.py``, families ``"dense"``, ``"moe"``, ``"hybrid"``
 (zamba2: Mamba2 layers and one shared attention block, ``shared``, which
-the model owns once and hands to its layers in ``ctx["shared"]``) and
-``"ssm"`` (rwkv6)).  A model without rope (rwkv6) adds a sinusoidal
-embedding of each position to its input embeddings (pad slots at
-position -1, as the reference); recurrent blocks see pad embeddings in
-sequence, as the reference's do.
+the model owns once and hands to its layers in ``ctx["shared"]``),
+``"ssm"`` (rwkv6), ``"audio"`` (whisper) and ``"vlm"`` (internvl2)).  A
+model without rope (rwkv6, whisper) adds a sinusoidal embedding of each
+position to its input embeddings (pad slots at position -1, as the
+reference); recurrent blocks see pad embeddings in sequence, as the
+reference's do.
+
+The modality frontends are stubs, as in the reference: the batch brings
+their embeddings.  Whisper (``"audio"``) runs its encoder (``enc``:
+``enc_attn`` layers, one bidirectional pass over ``batch["frames"]`` (b,
+n_ctx, d) plus their sinusoidal positions, then RMSNorm ``enc_ln``, as
+the reference's ``rmsnorm`` there although its blocks use LayerNorm) at
+the start of ``prefill``, and writes every ``dec_cross`` layer's
+cross-attention keys and values of its output into that layer's cache
+(``_build_cross``), which ``prefill_chunk`` and ``decode_step`` then
+read.  Internvl2 (``"vlm"``) projects ``batch["patches"]`` (b, n, d_in)
+with ``proj`` (gelu(tanh) of ``fc1``, then ``fc2``, both with bias) and
+puts them before the token embeddings; positions run over the whole
+sequence, so decode starts at n + T.
 
 Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
 loop over chunks, each selecting from the KV cache per layer),
@@ -28,10 +42,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import (AttnBlock, MambaBlock, RWKVBlock,
+from repro_torch.models.blocks import (AttnBlock, DecCrossBlock,
+                                      MambaBlock, RWKVBlock, _weight,
                                       make_block)
-from repro_torch.models.layers import (embed, linear, rmsnorm, sinusoidal,
-                                       unembed)
+from repro_torch.models.layers import (_act, embed, linear, rmsnorm,
+                                       sinusoidal, unembed)
 from repro_torch.models.stack import Cache, Stack
 
 
@@ -80,9 +95,14 @@ class Model(nn.Module):
         """Allocates the parameters (uninitialised) on ``device``; fill them
         with ``init`` or ``training/checkpoint.py::from_flat``."""
         super().__init__()
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio",
+                              "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not yet ported")
+        if (cfg.encoder is not None) != (cfg.family == "audio") or \
+                (cfg.frontend is not None) != (cfg.family == "vlm"):
+            raise ValueError(f"{cfg.name}: an encoder belongs to family "
+                             f"'audio' and a frontend to family 'vlm' only")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -102,6 +122,22 @@ class Model(nn.Module):
         # ``mamba_shared_attn`` layer, which passes its own KV cache
         self.shared = AttnBlock(cfg, dev, "attn") \
             if "mamba_shared_attn" in cfg.layer_kinds() else None
+        # whisper's encoder: its stack of enc_attn layers and the final
+        # norm (RMSNorm, as the reference's)
+        self.enc = self.enc_ln = None
+        if cfg.family == "audio":
+            self.enc = Stack(cfg, ("enc_attn",), cfg.encoder.n_layers, dev)
+            self.enc_ln = nn.Parameter(
+                torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
+                requires_grad=False)
+        # internvl2's projector of patch embeddings into the LM's space
+        self.proj = None
+        if cfg.family == "vlm":
+            d, d_in = cfg.d_model, cfg.frontend.d_in
+            w = _weight(cfg.compute_dtype, dev)
+            self.proj = nn.ParameterDict({
+                "fc1_w": w(d_in, d), "fc1_b": w(d),
+                "fc2_w": w(d, d), "fc2_b": w(d)})
 
     @property
     def device(self) -> torch.device:
@@ -128,14 +164,24 @@ class Model(nn.Module):
                                dtype=torch.float32) * (hi - lo) + lo)
 
         normal_(self.embed, 0.02)
-        for blk in self.layers():
+        enc = list(self.enc.layers) if self.enc is not None else []
+        for blk in self.layers() + enc:
             if isinstance(blk, MambaBlock):
                 blk.mamba.init(normal_, uniform_)
             elif isinstance(blk, RWKVBlock):
                 blk.tm.init(normal_, cfg)
                 blk.cm.init(normal_, cfg)
+            elif isinstance(blk, DecCrossBlock):
+                self._init_block(blk.self_attn, normal_)
+                for p in (blk.xq, blk.xk, blk.xv, blk.xo):
+                    normal_(p, 1.0 / math.sqrt(p.shape[0]))
             else:
                 self._init_block(blk, normal_)
+        if self.proj is not None:
+            for name in ("fc1", "fc2"):
+                wt = self.proj[name + "_w"]
+                normal_(wt, 1.0 / math.sqrt(wt.shape[0]))
+                self.proj[name + "_b"].zero_()
         if self.shared is not None:
             self._init_block(self.shared, normal_)
         if self.lm_head is not None:
@@ -170,11 +216,17 @@ class Model(nn.Module):
     def embed_inputs(self, batch: Dict):
         """(x (b, T, d), pos (b, T)); ``batch["pad"]`` (b,) left-pad counts
         turn pad slots into pos = -1 (masked from attention, scoring and
-        the cache; a recurrent block still reads their embeddings)."""
+        the cache; a recurrent block still reads their embeddings).  A
+        VLM's projected ``batch["patches"]`` come first (T counts them);
+        it takes no padding, as the reference."""
         dev = self.device
         tok = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
         x = embed(self.embed, tok, self.cfg.compute_dtype)
-        b, t = tok.shape
+        if self.proj is not None:
+            if batch.get("pad") is not None:
+                raise ValueError("left-padding unsupported for VLM inputs")
+            x = torch.cat([self.project(batch["patches"]), x], dim=1)
+        b, t = x.shape[:2]
         pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t)
         pad = batch.get("pad")
         if pad is not None:
@@ -184,17 +236,50 @@ class Model(nn.Module):
                               torch.full_like(pos, -1), pos)
         return self._positional(x, pos), pos
 
+    def project(self, patches):
+        """The VLM projector: patch embeddings (b, n, d_in) -> (b, n, d):
+        gelu(tanh) of ``fc1``, then ``fc2``, in the compute dtype."""
+        p = self.proj
+        pe = _on(patches, self.device, self.cfg.compute_dtype)
+        h = _act("gelu", linear(p["fc1_w"], pe, p["fc1_b"]))
+        return linear(p["fc2_w"], h, p["fc2_b"])
+
+    def encode(self, frames):
+        """Whisper's encoder over stub frame embeddings (b, n_ctx, d): the
+        frames plus their sinusoidal positions, one bidirectional pass
+        through the ``enc_attn`` stack, then ``enc_ln`` (RMSNorm)."""
+        dt = self.cfg.compute_dtype
+        x = _on(frames, self.device, dt)
+        b, s = x.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=self.device).expand(b, s)
+        x = self.enc.full_forward(x + sinusoidal(pos, self.cfg.d_model, dt),
+                                  pos)
+        return rmsnorm(self.enc_ln, x, self.cfg.norm_eps)
+
+    def _build_cross(self, cache, enc_out) -> None:
+        """Write every ``dec_cross`` layer's cross-attention keys and
+        values of ``enc_out`` into its cache's ``CrossKV``, in place, in
+        the compute dtype."""
+        for s, sc in zip(self.stacks, cache):
+            for blk, c in zip(s.layers, sc):
+                if isinstance(blk, DecCrossBlock):
+                    new = blk.build_cross(enc_out)
+                    c.cross.k.copy_(new.k)
+                    c.cross.v.copy_(new.v)
+
     def _positional(self, x, pos):
         """x plus the sinusoidal embedding of ``pos`` when the model has
-        no rope (rwkv6), else x."""
+        no rope (rwkv6, whisper), else x."""
         if self.cfg.use_rope:
             return x
         return x + sinusoidal(pos, self.cfg.d_model, x.dtype)
 
     def init_cache(self, batch: int, cap: int) -> List[List[Cache]]:
-        """One cache per layer (``KVCache``, ``LatentCache`` for MLA, or a
-        recurrent state: ``MambaCache``, ``SharedAttnCache``,
-        ``RWKVCache``), grouped by stack."""
+        """One cache per layer (``KVCache``, ``LatentCache`` for MLA,
+        ``CrossCache`` for whisper's decoder, or a recurrent state:
+        ``MambaCache``, ``SharedAttnCache``, ``RWKVCache``), grouped by
+        stack.  A VLM's ``cap`` counts its patch positions."""
         return [s.init_cache(batch, cap) for s in self.stacks]
 
     def _ctx(self, method: str) -> Dict:
@@ -226,9 +311,14 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict, cache, method: Optional[str] = None):
         """Chunked prefill of the whole prompt; the cache fills in place.
-        Returns (last-position logits (b, V) fp32, cache)."""
+        Whisper first runs its encoder over ``batch["frames"]`` and builds
+        the cross-attention keys and values (so its TTFT includes the
+        encoder, as the reference's).  Returns (last-position logits (b, V)
+        fp32, cache)."""
         cfg = self.cfg
         method = method or cfg.quoka.method
+        if self.enc is not None:
+            self._build_cross(cache, self.encode(batch["frames"]))
         x_all, pos_all = self.embed_inputs(batch)
         t = x_all.shape[1]
         bcp = min(cfg.quoka.chunk_size, t)

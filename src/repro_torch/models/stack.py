@@ -9,8 +9,11 @@ period may mix kinds; each layer's cache is a ``KVCache`` (attention
 kinds; a ring of ``min(cap, window)`` slots for ``attn_local``, so one
 stack mixes capacities), a ``LatentCache`` (MLA), a ``MambaCache``
 (``mamba``), a ``SharedAttnCache`` (``mamba_shared_attn``: the Mamba2
-state and the shared block's KV cache) or an ``RWKVCache`` (``rwkv``),
-all updated in place.  The plan carry engages only where every layer
+state and the shared block's KV cache), an ``RWKVCache`` (``rwkv``) or
+a ``CrossCache`` (``dec_cross``: the self-attention's KV cache and the
+cross-attention's keys and values of the encoder's output), all updated
+in place.  ``full_forward`` is the full-sequence pass with no cache that
+whisper's encoder stack (``enc_attn`` layers) runs.  The plan carry engages only where every layer
 would build a plan of one shape, as in the reference: a plain ``mamba`` or
 ``rwkv`` layer builds none, which turns it off for its stack.
 """
@@ -24,10 +27,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.models.blocks import make_block
-from repro_torch.serving.cache import (KVCache, LatentCache, MambaCache,
-                                       RWKVCache, SharedAttnCache)
+from repro_torch.serving.cache import (CrossCache, KVCache, LatentCache,
+                                       MambaCache, RWKVCache, SharedAttnCache)
 
-Cache = Union[KVCache, LatentCache, MambaCache, SharedAttnCache, RWKVCache]
+Cache = Union[KVCache, LatentCache, MambaCache, SharedAttnCache, RWKVCache,
+              CrossCache]
 
 
 class Stack(nn.Module):
@@ -41,6 +45,15 @@ class Stack(nn.Module):
         self.layers = nn.ModuleList(
             make_block(cfg, kind, device) for _ in range(repeats)
             for kind in self.period)
+
+    def full_forward(self, x, pos):
+        """Every layer's full-sequence pass with no cache and no plan carry
+        (the part of the reference's ``Stack.train`` the encoder needs;
+        ``AttnBlock.full_forward`` raises for the kinds it does not
+        port)."""
+        for blk in self.layers:
+            x = blk.full_forward(x, pos)
+        return x
 
     def init_cache(self, batch: int, cap: int) -> List[Cache]:
         return [blk.init_cache(batch, cap) for blk in self.layers]

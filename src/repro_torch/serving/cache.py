@@ -21,6 +21,11 @@ for zamba2's ``mamba_shared_attn`` layers, ``SharedAttnCache`` (the Mamba2
 state beside that layer's own ``KVCache`` for the shared attention block).
 ``state_write`` overwrites a state's leaves in place, so a caller's cache
 list stays valid across steps as it does for the KV caches.
+
+Whisper's ``dec_cross`` layers keep a ``CrossCache``: the self-attention's
+``KVCache`` beside a ``CrossKV``, the cross-attention's keys and values of
+the encoder's output, written once per prompt (``Model._build_cross``)
+and only read after.
 """
 from __future__ import annotations
 
@@ -180,6 +185,27 @@ class SharedAttnCache(NamedTuple):
     KV cache for the shared attention block."""
     mamba: MambaCache
     kv: KVCache
+
+
+class CrossKV(NamedTuple):
+    """Encoder-derived cross-attention keys and values (whisper), in the
+    compute dtype; computed once per prompt."""
+    k: torch.Tensor      # (b, n_ctx, n_kv, hd)
+    v: torch.Tensor      # (b, n_ctx, n_kv, hd)
+
+
+class CrossCache(NamedTuple):
+    """A ``dec_cross`` layer's cache: the self-attention's KV cache and
+    the cross-attention's ``CrossKV``."""
+    kv: KVCache
+    cross: CrossKV
+
+
+def cross_init(batch: int, n_ctx: int, n_kv: int, hd: int, dtype,
+               device) -> CrossKV:
+    return CrossKV(
+        k=torch.zeros((batch, n_ctx, n_kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, n_ctx, n_kv, hd), dtype=dtype, device=device))
 
 
 def mamba_cache_init(batch: int, d_conv: int, channels: int, n_heads: int,

@@ -154,11 +154,15 @@ class Engine:
                  generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
         """batch["tokens"]: (b, T) prompt with T % chunk_size == 0 (use
-        ``pad_prompt``; its "pad" entry rides along)."""
+        ``pad_prompt``; its "pad" entry rides along).  The modality inputs
+        ride along too: whisper's ``frames`` (b, n_ctx, d) and a VLM's
+        ``patches`` (b, n, d_in), whose n positions come before the
+        prompt's (the cache holds them, and decode starts at n + T)."""
         model, dev = self.model, self.device
         tokens = np.asarray(batch["tokens"])
         b, t = tokens.shape
-        cap = t + max_new
+        positions = t + model.cfg.prefix_positions
+        cap = positions + max_new
         g = model.cfg.quoka.granularity
         if self.method != "full" and g > 1:
             cap = -(-cap // g) * g     # block plans need the cache on the grid
@@ -168,14 +172,16 @@ class Engine:
 
         # first call on a signature: build the kernels and warm every path
         # on a throwaway cache, off the clocks
-        sig = (b, t, cap, max_new > 1, batch.get("pad") is not None)
+        sig = (b, t, cap, max_new > 1,
+               tuple(sorted(k for k in batch if batch[k] is not None)))
         if sig not in self._warmed:
             wgen = torch.Generator(device=dev)
             wcache = model.init_cache(b, cap)
             wl, wcache = model.prefill(batch, wcache, self.method)
             wt = sample(wl, wgen, self.sampler)
             if max_new > 1:
-                wl, wcache = model.decode_step(wt, t, wcache, self.method)
+                wl, wcache = model.decode_step(wt, positions, wcache,
+                                                  self.method)
                 sample(wl, wgen, self.sampler)
             _sync(dev)
             del wcache
@@ -191,7 +197,7 @@ class Engine:
 
         out = [tok]
         t1 = time.perf_counter()
-        pos = t
+        pos = positions
         for _ in range(max_new - 1):
             logits, cache = model.decode_step(tok, pos, cache, self.method)
             tok = sample(logits, generator, self.sampler)

@@ -287,6 +287,8 @@ class PagedKVCache:
             raise ValueError(
                 f"paged KV pool supports attention/MLA caches only; "
                 f"model has unsupported block kinds {bad}")
+        if model.cfg.family == "vlm":
+            raise ValueError("paged KV pool does not support VLM frontends")
         self.model = model
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)

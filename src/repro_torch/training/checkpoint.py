@@ -16,7 +16,12 @@ projections' ``*/w``, the split convolution's weights and biases,
 ``a_log``, ``d_skip``, ``dt_bias``, ``norm/g``), zamba2's one shared
 attention block the top-level ``shared/*`` (unstacked), and RWKV6 blocks
 ``ln1/g``, ``ln2/g``, ``tm/*`` and ``cm/*`` (the shift mixes ``mu``, the
-decay ``w0`` / ``wa`` / ``wb``, the bonus ``u``).
+decay ``w0`` / ``wa`` / ``wb``, the bonus ``u``).  Whisper's LayerNorms add
+a bias ``*/b`` beside each gain; its decoder blocks hold the
+self-attention block under ``self/*`` and ``ln_x/{g,b}``,
+``x{q,k,v,o}/w``, its encoder ``enc/stack/0/*`` (one period position,
+stacked over the encoder's layers) and ``enc/ln/g``; internvl2's
+projector ``proj/fc{1,2}/{w,b}``.
 ``load_score_projection`` bridges the one array that is not a parameter:
 the cached low-rank scoring projection.
 """
@@ -30,7 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mamba2, rwkv6
-from repro_torch.models.blocks import MambaBlock, MLABlock, RWKVBlock
+from repro_torch.models.blocks import (DecCrossBlock, MambaBlock, MLABlock,
+                                      RWKVBlock)
 from repro_torch.models.model import Model
 
 
@@ -51,7 +57,13 @@ def _block_leaves(blk) -> Dict[str, torch.Tensor]:
         return {"ln1/g": blk.ln1, "ln2/g": blk.ln2,
                 **_module_leaves("tm", blk.tm, rwkv6.TM_LINEARS),
                 **_module_leaves("cm", blk.cm, rwkv6.CM_LINEARS)}
-    out = {"ln1/g": blk.ln1, "ln2/g": blk.ln2, "wo/w": blk.wo}
+    if isinstance(blk, DecCrossBlock):
+        return {**{f"self/{k}": p
+                   for k, p in _block_leaves(blk.self_attn).items()},
+                **_norm_leaves(blk, "ln_x"), "xq/w": blk.xq, "xk/w": blk.xk,
+                "xv/w": blk.xv, "xo/w": blk.xo}
+    out = {**_norm_leaves(blk, "ln1"), **_norm_leaves(blk, "ln2"),
+           "wo/w": blk.wo}
     if isinstance(blk, MLABlock):
         out.update({"wq_a/w": blk.wq_a, "q_ln/g": blk.q_ln,
                     "wq_b/w": blk.wq_b, "wkv_a/w": blk.wkv_a,
@@ -67,6 +79,32 @@ def _block_leaves(blk) -> Dict[str, torch.Tensor]:
     else:
         out.update({f"mlp/{k}/w": p for k, p in blk.mlp.items()})
     return out
+
+
+def _norm_leaves(blk, name) -> Dict[str, torch.Tensor]:
+    """A block norm's gain ``<name>/g`` and, for a LayerNorm, its bias
+    ``<name>/b``."""
+    out = {f"{name}/g": getattr(blk, name)}
+    if hasattr(blk, name + "_b"):
+        out[f"{name}/b"] = getattr(blk, name + "_b")
+    return out
+
+
+def _stacked(flat, prefix: str, stack, expected: set) -> None:
+    """Copy a stack's leaves ``<prefix>/<period position>/<suffix>``, each
+    with its leading (repeats, ...) axis, into the stack's layers."""
+    n_period = len(stack.period)
+    for j in range(n_period):
+        for suffix in _block_leaves(stack.layers[j]):
+            key = f"{prefix}/{j}/{suffix}"
+            expected.add(key)
+            arr = flat[key]
+            if arr.shape[0] != stack.repeats:
+                raise ValueError(f"{key}: {arr.shape[0]} repeats, "
+                                 f"expected {stack.repeats}")
+            for r in range(stack.repeats):
+                _copy(_block_leaves(stack.layers[r * n_period + j])[suffix],
+                      arr[r], key)
 
 
 def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
@@ -90,22 +128,18 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
     if model.shared is not None:
         top.update({f"shared/{k}": p
                     for k, p in _block_leaves(model.shared).items()})
+    if model.enc is not None:
+        top["enc/ln/g"] = model.enc_ln
+    if model.proj is not None:
+        top.update({f"proj/{k.replace('_', '/')}": p
+                    for k, p in model.proj.items()})
     for key, param in top.items():
         _copy(param, flat[key], key)
     expected = set(top)
     for si, stack in enumerate(model.stacks):
-        n_period = len(stack.period)
-        for j in range(n_period):
-            for suffix in _block_leaves(stack.layers[j]):
-                key = f"stacks/{si}/{j}/{suffix}"
-                expected.add(key)
-                arr = flat[key]
-                if arr.shape[0] != stack.repeats:
-                    raise ValueError(f"{key}: {arr.shape[0]} repeats, "
-                                     f"expected {stack.repeats}")
-                for r in range(stack.repeats):
-                    _copy(_block_leaves(stack.layers[r * n_period + j])[
-                        suffix], arr[r], key)
+        _stacked(flat, f"stacks/{si}", stack, expected)
+    if model.enc is not None:
+        _stacked(flat, "enc/stack", model.enc, expected)
     extra = set(flat) - expected
     if extra:
         raise ValueError(f"checkpoint has parameters the port does not "

@@ -10,7 +10,11 @@ latent geometry, layer groups, active-parameter count and smoke
 reduction; the sliding-window configs (gemma3-27b, h2o-danube-3-4b) their
 window, layer pattern and the smoke window min(window, 64); the recurrent
 configs (zamba2-7b, rwkv6-1.6b) their SSM / RWKV geometry, layer pattern,
-rope setting and smoke reduction.
+rope setting and smoke reduction; the modality configs (whisper-small,
+internvl2-1b) their encoder and frontend geometry, norms, rope setting and
+smoke reduction, with the reference's parameter count (which leaves out
+the encoder and the projector and counts three MLP matrices where
+whisper's MLP has two).
 """
 import dataclasses
 
@@ -24,6 +28,7 @@ from repro_torch.models.model import build_model
 PORTED = ("qwen3-4b", "granite-3-2b", "llama3-2-3b", "stablelm-3b",
           "olmoe-1b-7b", "deepseek-v3-671b", "gemma3-27b", "h2o-danube-3-4b")
 RECURRENT = ("zamba2-7b", "rwkv6-1.6b")
+MODALITY = ("whisper-small", "internvl2-1b")
 
 EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "qwen3-4b": (36, 2560, 32, 8, 128, 9728, 151936),
@@ -36,6 +41,8 @@ EXACT_DIMS = {  # (n_layers, d_model, n_heads, n_kv, head_dim, d_ff, vocab)
     "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
     "zamba2-7b": (81, 3584, 32, 32, 112, 14336, 32000),
     "rwkv6-1.6b": (24, 2048, 32, 32, 64, 7168, 65536),
+    "whisper-small": (12, 768, 12, 12, 64, 3072, 51865),
+    "internvl2-1b": (24, 896, 14, 2, 64, 4864, 151655),
 }
 
 PARAMS_B = {   # published total parameters (1e9), as a band
@@ -49,6 +56,8 @@ PARAMS_B = {   # published total parameters (1e9), as a band
     "h2o-danube-3-4b": (3, 4.6),     # the reference's band (3.84 B)
     "zamba2-7b": (5.5, 8.5),         # the reference's band (6.64 B)
     "rwkv6-1.6b": (0.9, 2.0),        # the reference's band (1.24 B)
+    "whisper-small": (0.1, 0.35),    # the reference's band (0.181 B)
+    "internvl2-1b": (0.3, 1.2),      # the reference's band (0.494 B)
 }
 
 
@@ -57,7 +66,7 @@ def _dims(cfg):
             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab)
 
 
-@pytest.mark.parametrize("arch", PORTED + RECURRENT)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT + MODALITY)
 def test_published_dimensions_and_source(arch):
     cfg, rc = get_config(arch), ref_config(arch)
     assert cfg.name == arch
@@ -70,7 +79,7 @@ def test_published_dimensions_and_source(arch):
         (rc.quoka.chunk_size, rc.quoka.budget, rc.quoka.n_queries)
 
 
-@pytest.mark.parametrize("arch", PORTED + RECURRENT)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT + MODALITY)
 def test_param_counts_in_band(arch):
     lo, hi = PARAMS_B[arch]
     n = get_config(arch).param_count()
@@ -78,17 +87,32 @@ def test_param_counts_in_band(arch):
     assert lo <= n / 1e9 <= hi, f"{arch}: {n / 1e9:.2f}B outside [{lo}, {hi}]"
 
 
-@pytest.mark.parametrize("arch", PORTED + RECURRENT)
+@pytest.mark.parametrize("arch", PORTED + RECURRENT + MODALITY)
 def test_stacks_cover_all_layers(arch):
     cfg = get_config(arch)
     assert sum(len(p) * r for p, r in cfg.stacks()) == cfg.n_layers
     assert list(cfg.stacks()) == list(ref_config(arch).stacks())
     assert {k for p, _ in cfg.stacks() for k in p} <= \
         {"attn", "attn_local", "attn_moe", "mla", "mla_moe", "mamba",
-         "mamba_shared_attn", "rwkv"}
+         "mamba_shared_attn", "rwkv", "dec_cross"}
 
 
-@pytest.mark.parametrize("arch", PORTED)
+def _uncounted(cfg):
+    """Weight matrices a built model holds beyond ``param_count``, whose
+    reference counts no encoder and no projector and three MLP matrices
+    where whisper's (gelu, ungated) MLP has two."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.family == "audio":
+        attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+            + cfg.n_heads * hd * d
+        return cfg.encoder.n_layers * (attn + 2 * d * cfg.d_ff) \
+            - cfg.n_layers * d * cfg.d_ff
+    if cfg.family == "vlm":
+        return cfg.frontend.d_in * d + d * d
+    return 0
+
+
+@pytest.mark.parametrize("arch", PORTED + MODALITY)
 def test_smoke_variant_is_small_and_the_references(arch):
     s, rs = get_config(arch).smoke(), ref_config(arch).smoke()
     assert s.n_layers <= 2 and s.d_model <= 256 and s.vocab <= 512
@@ -97,11 +121,13 @@ def test_smoke_variant_is_small_and_the_references(arch):
         (get_config(arch).n_heads == get_config(arch).n_kv_heads)
     assert s.dtype == torch.float32
     # the built smoke model holds exactly the counted weights (matrices
-    # and expert / decompression stacks; the MTP head is not counted)
+    # and expert / decompression stacks; the MTP head is not counted) and
+    # those the reference's count leaves out
     model = build_model(s, device="cpu")
     mats = sum(p.numel() for n, p in model.named_parameters()
                if p.ndim >= 2 and not n.startswith("mtp."))
-    assert mats == s.param_count()
+    assert mats == s.param_count() + _uncounted(s)
+    assert (_uncounted(s) != 0) == (arch in MODALITY)
 
 
 def test_get_config_names():
@@ -111,8 +137,10 @@ def test_get_config_names():
     assert get_config("h2o_danube_3_4b").name == "h2o-danube-3-4b"
     assert get_config("zamba2_7b").name == "zamba2-7b"
     assert get_config("rwkv6_1.6b").name == "rwkv6-1.6b"
+    assert get_config("whisper_small").name == "whisper-small"
+    assert get_config("internvl2_1b").name == "internvl2-1b"
     with pytest.raises(KeyError, match="ported"):
-        get_config("whisper-small")
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v3-671b"])
@@ -209,3 +237,56 @@ def test_recurrent_geometry_and_smoke_match_reference(arch):
     else:
         assert (cfg.family, cfg.use_rope, cfg.act) == ("ssm", False, "relu2")
         assert (s.rwkv.head_dim, s.rwkv.decay_lora) == (32, 16)
+
+
+@pytest.mark.parametrize("arch", MODALITY)
+def test_modality_geometry_and_smoke_match_reference(arch):
+    """The encoder and frontend geometry, family, layer pattern, act, rope
+    setting and read-out tie equal the reference's at full and smoke size
+    (the smoke encoder 2 layers over 64 frames; the frontend 16 tokens of
+    d_in min(d_in, 128)), and so do the stacks and parameter counts.  The
+    port holds only the fields it reads: no encoder width or heads (the
+    decoder's), no frontend kind, and no frontend for whisper (its frames
+    are the encoder's n_ctx rows of d_model)."""
+    cfg, rc = get_config(arch), ref_config(arch)
+
+    def fields(port, ref):
+        return None if port is None else [
+            (f.name, getattr(port, f.name), getattr(ref, f.name))
+            for f in dataclasses.fields(port)]
+
+    for c, r in ((cfg, rc), (cfg.smoke(), rc.smoke())):
+        assert (c.encoder is None) == (r.encoder is None)
+        if c.encoder is not None:
+            assert (r.encoder.d_model, r.encoder.n_heads) == (0, 0)
+        assert (c.frontend is None) == (c.family == "audio")
+        for group in (fields(c.encoder, r.encoder),
+                      fields(c.frontend, r.frontend)):
+            for name, mine, theirs in group or ():
+                assert mine == theirs, name
+        assert c.prefix_positions == (
+            r.frontend.n_tokens if r.family == "vlm" else 0)
+        assert (c.family, c.layer_pattern, c.use_rope, c.act, c.n_layers,
+                c.tie_embeddings, c.rope_theta) == \
+            (r.family, r.layer_pattern, r.use_rope, r.act, r.n_layers,
+             r.tie_embeddings, r.rope_theta)
+        assert list(c.stacks()) == list(r.stacks())
+        assert c.param_count() == r.param_count()
+    s = cfg.smoke()
+    assert _dims(s) == _dims(rc.smoke()) and s.dtype == torch.float32
+    if arch == "whisper-small":
+        # the reference's full-size frontend restates the encoder's input
+        assert (rc.frontend.n_tokens, rc.frontend.d_in) == \
+            (cfg.encoder.n_ctx, cfg.d_model)
+        assert cfg.param_count() == 181_390_080
+        assert (cfg.family, cfg.use_rope, cfg.act) == ("audio", False, "gelu")
+        assert (cfg.encoder.n_layers, cfg.encoder.n_ctx) == (12, 1500)
+        assert (s.encoder.n_layers, s.encoder.n_ctx) == (2, 64)
+        assert cfg.quoka.budget == 512
+        assert list(cfg.stacks()) == [(("dec_cross",), 12)]
+    else:
+        assert cfg.param_count() == 493_709_440
+        assert (cfg.family, cfg.encoder) == ("vlm", None)
+        assert (cfg.frontend.n_tokens, cfg.frontend.d_in) == (256, 1024)
+        assert (s.frontend.n_tokens, s.frontend.d_in) == (16, 128)
+        assert cfg.n_heads // cfg.n_kv_heads == 7

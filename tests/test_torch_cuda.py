@@ -948,3 +948,91 @@ def test_recurrent_models_on_the_card_match_cpu(dev, arch, route):
     tg = Engine(gpu).generate({"tokens": toks}, 8).tokens
     tc = Engine(cpu, device="cpu").generate({"tokens": toks}, 8).tokens
     np.testing.assert_array_equal(tg, tc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [128, 1])
+@pytest.mark.parametrize("h,n_kv,B", [(12, 12, 512), (14, 2, 1024)])
+def test_kernels_at_modality_shapes(dev, h, n_kv, B, tq, dtype):
+    """whisper-small's decoder self-attention (MHA 12 / 12, d 64, budget
+    512) and internvl2-1b's LM (GQA 14 / 2, a group of 7, d 64, budget
+    1024) at 8192 + 32 positions: scoring over the 8224-slot cache (n_q 16
+    at a prefill chunk, 1 at decode), flash over [B | tq] keys and
+    selected attention through B / 16 plan blocks, each against its plain
+    version; a KV head whose budget and first chunk key are invalid gives
+    exact zeros in query row 0 of its group."""
+    d, T = 64, 8224
+    group = h // n_kv
+    start = 4096 if tq > 1 else 8197
+    g = torch.Generator(device=dev).manual_seed(64 + h + tq)
+    nq = 16 if tq > 1 else 1
+    qb = torch.randn((1, n_kv, nq, d), generator=g, device=dev)
+    qb = qb / qb.norm(dim=-1, keepdim=True)
+    k = torch.randn((1, T, n_kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, T, n_kv, d), generator=g, device=dev).to(dtype)
+    key_pos = torch.arange(T, dtype=torch.int32, device=dev)[None].clone()
+    key_pos[:, start + tq:] = -1
+    valid = (key_pos >= 0) & (key_pos < start)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    got = qs_mod.quoka_score_bhtd(qb, kt, valid)
+    want = ref.score_ref(qb, kt, valid)
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 1e-4)
+    assert bool((got[:, :, ~valid[0]] == ref.NEG_INF).all())
+    q = torch.randn((1, tq, h, d), generator=g, device=dev).to(dtype)
+    qt = q.transpose(1, 2)
+    kc = torch.randn((1, n_kv, B + tq, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((1, n_kv, B + tq, d), generator=g, device=dev).to(dtype)
+    kv_ok = torch.rand((1, n_kv, B + tq), generator=g, device=dev) < 0.9
+    kv_ok[:, :, B:] = True
+    kv_ok[:, n_kv - 1, :B + 1] = False
+    got = fa_mod.flash_attention_bhtd(qt, kc, vc, kv_ok, causal=True,
+                                      boundary=B)
+    want = ref.flash_attention_ref(qt, kc, vc, causal=True, boundary=B,
+                                   k_valid=kv_ok)
+    assert _err(got, want) <= _tol(want, dtype)
+    assert float(got[:, (n_kv - 1) * group:, 0].abs().max()) == 0.0
+    rng = np.random.default_rng(tq + h)
+    idx = torch.as_tensor(_plan(rng, 16, 1, n_kv, T, start, B // 16),
+                          device=dev)
+    got = sa_mod.selected_attention_bhtd(qt, kt, vt, key_pos, idx, start,
+                                         granularity=16)
+    want = ref.selected_ref(q, k, v, key_pos, idx, start, 16).transpose(1, 2)
+    assert _err(got, want) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("route", ["staged_g1", "fused_g16"])
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_modality_models_on_the_card_match_cpu(dev, arch, route):
+    """The smoke configs in fp32 at 160 positions (whisper: 160 decoder
+    tokens over 64 frames; internvl2: 16 patches + 144 tokens): the card
+    (the decoder's self-attention on the kernels) gives the CPU's prefill
+    logits within 1e-4 and its greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    from repro_torch.serving.engine import Engine
+    base = get_config(arch).smoke()
+    qover = {} if route == "staged_g1" else dict(granularity=16,
+                                                 fused_select_attn=True)
+    cfg = dataclasses.replace(base, quoka=dataclasses.replace(base.quoka,
+                                                              **qover))
+    cpu = build_model(cfg, device="cpu", seed=3)
+    gpu = Model(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    if arch == "whisper-small":
+        batch = {"tokens": rng.integers(3, cfg.vocab, (2, 160)),
+                 "frames": rng.standard_normal((2, 64, cfg.d_model))}
+    else:
+        batch = {"tokens": rng.integers(3, cfg.vocab, (2, 144)),
+                 "patches": rng.standard_normal((2, 16, 128))}
+    batch = {k: v.astype(np.int32 if k == "tokens" else np.float32)
+             for k, v in batch.items()}
+    n0 = qs_mod.LAUNCHES
+    lg, _ = gpu.prefill(batch, gpu.init_cache(2, 176))
+    lc, _ = cpu.prefill(batch, cpu.init_cache(2, 176))
+    assert qs_mod.LAUNCHES > n0
+    assert _err(lg.cpu(), lc) <= 1e-4
+    tg = Engine(gpu).generate(batch, 8).tokens
+    tc = Engine(cpu, device="cpu").generate(batch, 8).tokens
+    np.testing.assert_array_equal(tg, tc)

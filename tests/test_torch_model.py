@@ -138,14 +138,17 @@ def test_top_p_degenerate_cutoff_keeps_argmax():
 @pytest.mark.parametrize("arch", ["granite-3-2b", "olmoe-1b-7b",
                                   "deepseek-v3-671b", "gemma3-27b",
                                   "h2o-danube-3-4b", "zamba2-7b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "whisper-small",
+                                  "internvl2-1b"])
 def test_restore_reads_reference_checkpoint(tmp_path, arch):
     """``restore`` loads the reference's npz checkpoint into the same
     weights as ``from_flat`` (linear weights once in the compute dtype),
     every key of it (MoE experts and router; MLA leaves, ``lm_head`` and
     ``mtp/*`` for deepseek; Mamba2 leaves and the one ``shared/*`` block
-    for zamba2; ``tm/*`` and ``cm/*`` for rwkv6), and refuses one the port
-    does not hold."""
+    for zamba2; ``tm/*`` and ``cm/*`` for rwkv6; whisper's LayerNorm
+    biases, ``self/*``, ``ln_x/*``, ``x{q,k,v,o}/w``, ``enc/stack/0/*`` and
+    ``enc/ln/g``; internvl2's ``proj/*``), and refuses one the port does
+    not hold."""
     rm, params, pm = _pair(arch, {})
     path = str(tmp_path / "ckpt")
     ref_save(path, params)

@@ -407,3 +407,27 @@ def test_recurrent_arch_continuous_cli_raises_like_reference(arch):
     assert str(err.value) == (
         "paged KV pool supports attention/MLA caches only; model has "
         f"unsupported block kinds {kinds}")
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_modality_pool_refuses_like_reference(arch):
+    """The paged pool refuses whisper (its ``dec_cross`` caches) and a VLM
+    frontend with the reference's messages, so ``serve`` raises before any
+    request is admitted; both families are one-shot only, as in the
+    reference."""
+    from repro.serving.pool import PagedKVCache as RefPool
+    from repro_torch.serving.pool import PagedKVCache
+    rm, _, pm = _pair(arch)
+    with pytest.raises(ValueError) as want:
+        RefPool(rm, num_blocks=8, block_size=BS)
+    with pytest.raises(ValueError) as got:
+        PagedKVCache(pm, num_blocks=8, block_size=BS)
+    assert str(got.value) == str(want.value)
+    assert str(got.value) == (
+        "paged KV pool supports attention/MLA caches only; model has "
+        "unsupported block kinds ['dec_cross']" if arch == "whisper-small"
+        else "paged KV pool does not support VLM frontends")
+    prompts = _prompts(12, (32,), pm.cfg.vocab)
+    with pytest.raises(ValueError, match="paged KV pool"):
+        Engine(pm, method="quoka", device="cpu").serve(
+            make_requests(prompts, 2), block_size=BS)
