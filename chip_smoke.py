@@ -179,13 +179,29 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
  28. both smoke configs in fp32 (whisper at prompt 160 over 64 frames,
      internvl2 at 16 patches + 144 tokens), staged and g = 16, card
      (kernels) vs CPU (plain versions): logits within 1e-4, greedy tokens
-     equal.
+     equal;
+ 29. granite-3-2b trained at full width (40 layers, d 2048, GQA 32 / 8,
+     d_ff 8192, vocab 49155; bf16, each layer recomputed in the backward)
+     through ``launch/train.py``, 3 steps of batch 8 x 256: every loss and
+     gradient norm finite, every weight matrix changed; step time (first
+     step off the clock), tokens/s, peak memory, model-FLOP share; then a
+     smoke-width training state saved and restored on the card;
+ 30. one fp32 training step of every family's smoke config (granite,
+     gemma3, olmoe, deepseek-v3 with MTP, zamba2, rwkv6, whisper,
+     internvl2), card vs CPU, remat off and on: loss and gradient norm
+     within 1e-5 relative, gradients within 1e-4 of each leaf's largest
+     magnitude (rwkv6 5e-3).  Training runs on plain torch: no kernel;
+ 31. the retrieval model of the reference's ``tests/test_system.py``
+     trained on the card (250 steps), then read back through chunked
+     prefill: dense accuracy at 97 tokens >= 0.7; at 161 tokens QUOKA
+     >= dense - 0.25 with the scoring and flash kernels launched once per
+     counted chunk call and layer.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
-of every one-shot path), and ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the repository's ``src`` next to it, it exits non-zero
-and prints no result.
+of every one-shot path; the training phases launch none), and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository's ``src`` next to it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -2451,6 +2467,213 @@ def phase_modality(torch, np, K):
     return oneshot, traces
 
 
+TRAIN_BATCH, TRAIN_SEQ = 8, 256    # phase 29: the launcher's defaults
+TRAIN_ARGS = ["--arch", "granite-3-2b", "--steps", "3", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+TRAIN_FAMILIES = ("granite-3-2b", "gemma3-27b", "olmoe-1b-7b",
+                  "deepseek-v3-671b", "zamba2-7b", "rwkv6-1.6b",
+                  "whisper-small", "internvl2-1b")
+
+
+def phase_train_full(torch, np, card):
+    """Phase 29: granite-3-2b trained at its published width (40 layers, d
+    2048, GQA 32 / 8, d_ff 8192, vocab 49155; bf16, remat on) through
+    ``launch/train.py`` for 3 steps of batch 8 x 256 tokens.  Checks: every
+    step's loss and gradient norm finite, every weight matrix changed
+    against the seed-0 draw; reports the step time (first step off the
+    clock), tokens/s, peak memory and the model-FLOP share, and a later
+    step's split into loss + backward and AdamW.  Then a save ->
+    ``restore_state`` round trip of a smoke-width state on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import REF_SEED, lm_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import loop
+    from repro_torch.training import optimizer as opt
+    log("== phase 29: granite-3-2b training at full width, "
+        + " ".join(TRAIN_ARGS))
+    run = launch_train.main(TRAIN_ARGS)
+    if not all(math.isfinite(x) for x in run.losses + run.grad_norms):
+        raise AssertionError(f"phase 29: loss {run.losses} grad norm "
+                             f"{run.grad_norms}")
+    model = run.state.model
+    fresh = build_model(model.cfg, model.device, seed=0)
+    same = [n for (n, p), q in zip(model.named_parameters(),
+                                   fresh.parameters())
+            if p.ndim >= 2 and torch.equal(p.detach(), q)]
+    n_mat = sum(p.ndim >= 2 for p in model.parameters())
+    if same:
+        raise AssertionError(f"phase 29: unchanged weights {same[:5]}")
+    del fresh
+    # where a step's time goes: two more steps, each split by device
+    # synchronisations into loss + backward and AdamW (the second kept)
+    params, ranks = list(model.parameters()), ckpt.leaf_ranks(model)
+    gen = lm_batches(REF_SEED + 1, model.cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+    ostate = run.state.opt
+    for _ in range(2):
+        batch = next(gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = loop.value_and_grad(model, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ostate, _ = opt.apply_updates(params, grads, ostate,
+                                      opt.OptimizerConfig(), ranks)
+        torch.cuda.synchronize()
+        split = {"loss_backward_ms": (t1 - t0) * 1e3,
+                 "adamw_ms": (time.perf_counter() - t1) * 1e3}
+        del grads
+    step, share = run.mean_step_s(), run.flop_share()
+    out = {"params": run.n_params, "tokens_per_step": run.tokens_per_step,
+           "step_ms": [x * 1e3 for x in run.step_s],
+           "step_ms_mean": step * 1e3,
+           "tokens_per_s": run.tokens_per_step / step,
+           "peak_gib": run.peak_gib, "model_flop_share": share,
+           "loss": run.losses, "grad_norm": run.grad_norms, **split,
+           "card": card}
+    log(f"  {n_mat} weight matrices, every one changed; losses "
+        f"{run.losses}, grad norms {run.grad_norms}")
+    log(f"  step {step * 1e3:.1f} ms (steps 2-3; first "
+        f"{run.step_s[0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} tok/s, "
+        f"peak {run.peak_gib:.2f} GiB, model-FLOP share {share:.4f} "
+        f"[{card}]")
+    log(f"  a later step split: loss + backward "
+        f"{split['loss_backward_ms']:.1f} ms, AdamW {split['adamw_ms']:.1f} "
+        f"ms")
+    del model, run, ostate
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-3-2b").smoke()
+    small = build_model(cfg, seed=29)
+    state = loop.init_state(small, None)
+    batch = {"tokens": np.random.default_rng(29).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)}
+    state, _ = loop.make_train_step(small, opt.OptimizerConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10))(state, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        ckpt.save(path, state, {"step": 1})
+        back, ostate = ckpt.restore_state(path, cfg)
+        meta = ckpt.load_meta(path)
+    pairs = list(zip(small.parameters(), back.parameters())) + list(
+        zip(state.opt.mu + state.opt.nu, ostate.mu + ostate.nu))
+    if meta != {"step": 1} or int(ostate.step) != 1 or not all(
+            torch.equal(a.detach(), b) for a, b in pairs):
+        raise AssertionError("phase 29: save -> restore_state round trip")
+    log(f"  smoke state saved and restored on the card: {len(pairs)} "
+        f"tensors equal, step 1")
+    return out
+
+
+def phase_train_families(torch, np):
+    """Phase 30: one fp32 training step of every family's smoke config
+    (96 tokens), card against CPU from the same weights, remat off and on:
+    the loss within 1e-5 relative, the gradient norm within 1e-5
+    relative, every gradient leaf within 1e-4 of its largest magnitude
+    (rwkv6 5e-3 for the norm and the leaves: its wkv recurrence's fp32
+    conditioning, measured in ``tests/test_torch_train_families.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import loop
+    from repro_torch.training import optimizer as opt
+    log("== phase 30: every family's smoke training step, card vs CPU, "
+        "remat off and on")
+    ocfg = opt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        for remat in (False, True):
+            cfg = dataclasses.replace(get_config(arch).smoke(), remat=remat)
+            cpu = build_model(cfg, device="cpu", seed=30)
+            gpu = ckpt.from_flat(ckpt.to_flat(cpu), cfg)
+            batch = prompt_batch(np, cfg, 96 + cfg.prefix_positions, b=2,
+                                 seed=30)
+            res = []
+            for model in (cpu, gpu):
+                state = loop.init_state(model, None)
+                _, grads = loop.value_and_grad(model, batch)
+                index = {p: i for i, p in enumerate(model.parameters())}
+                flat = ckpt.to_flat(model, lambda p: grads[index[p]])
+                _, m = loop.make_train_step(model, ocfg)(state, batch)
+                res.append((float(m["loss"]), float(m["grad_norm"]), flat))
+            (lc, nc, gc), (lg, ng, gg) = res
+            rwkv = arch == "rwkv6-1.6b"
+            tol = 5e-3 if rwkv else 1e-4
+            e_grad = max(float(np.abs(gg[k] - w).max()
+                               / max(np.abs(w).max(), 1e-30))
+                         for k, w in gc.items())
+            label = f"{arch} remat={remat}"
+            check(f"{label} loss", abs(lg - lc) / abs(lc), 1e-5, "relative")
+            check(f"{label} grad norm", abs(ng - nc) / nc,
+                  5e-3 if rwkv else 1e-5, "relative")
+            check(f"{label} gradients", e_grad, tol,
+                  "of each leaf's largest magnitude")
+            out[label] = {"loss": lg, "loss_cpu": lc, "grad_err": e_grad}
+    return out
+
+
+def phase_train_retrieval(torch, np, K):
+    """Phase 31: the retrieval model of the reference's
+    ``tests/test_system.py`` trained on the card (granite smoke, 2 layers,
+    d 128, fp32; 250 steps on the needle task), then read back through
+    chunked prefill: dense accuracy at 97 tokens >= 0.7, and at 161 tokens
+    QUOKA >= dense - 0.25, every chunk of every layer through the scoring
+    and flash kernels (launch counts = counted chunk calls x layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (REF_SEED, needle_accuracy,
+                                            needle_batch, needle_batches)
+    from repro_torch.models.model import build_model
+    from repro_torch.training import loop
+    from repro_torch.training import optimizer as opt
+    log("== phase 31: retrieval model trained on the card, read back "
+        "through QUOKA's kernels")
+    cfg = get_config("granite-3-2b").smoke(
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+        vocab=256)
+    cfg = dataclasses.replace(
+        cfg, quoka=dataclasses.replace(cfg.quoka, chunk_size=32, budget=48,
+                                       n_queries=8, keep_first=4))
+    model = build_model(cfg, seed=0)
+    t0 = time.perf_counter()
+    _, hist = loop.train(
+        model, needle_batches(REF_SEED, cfg.vocab, 16, 97, n_keys=16),
+        steps=250, log_every=50, state=loop.init_state(model, None),
+        ocfg=opt.OptimizerConfig(lr=3e-3, warmup_steps=20, total_steps=250))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    chunk_calls = [0]
+    apply_stacks = model._apply_stacks
+
+    def counted(*a, **kw):
+        chunk_calls[0] += 1
+        return apply_stacks(*a, **kw)
+
+    model._apply_stacks = counted
+    acc = {}
+    runs = (("full", 97, 7), ("full", 161, 11), ("quoka", 161, 11))
+    for method, t, seed in runs:
+        batch = needle_batch(np.random.default_rng(seed), cfg.vocab, 16, t,
+                             n_keys=16)
+        chunk_calls[0] = 0
+        reset_counts(K)
+        acc[f"{method} T={t}"] = needle_accuracy(model, batch, method)
+        counts = read_counts(K)
+        n = chunk_calls[0] * cfg.n_layers if method == "quoka" else 0
+        want = {"quoka_score": n, "flash_attention": n,
+                "selected_attention": 0, "selected_attention_paged": 0}
+        if counts != want or chunk_calls[0] != (t - 1) // 32:
+            raise AssertionError(f"phase 31 {method} T={t}: launches "
+                                 f"{counts} != {want} over {chunk_calls[0]} "
+                                 f"chunk calls")
+        log(f"  {method:6s} T={t}: accuracy {acc[f'{method} T={t}']:.3f}, "
+            f"{chunk_calls[0]} chunk calls, launches {counts}")
+    log(f"  trained 250 steps in {train_s:.1f} s, losses {hist}")
+    if acc["full T=97"] < 0.7 or \
+            acc["quoka T=161"] < acc["full T=161"] - 0.25:
+        raise AssertionError(f"phase 31: accuracies {acc}")
+    return {"train_s": train_s, "losses": hist, "accuracy": acc}
+
+
 def time_ms(torch, fn, flush, iters=20):
     """Times of one ``fn`` call in ms, each a mean over ``iters`` calls,
     with ``flush()`` run before each (outside the timed span) unless it is
@@ -3142,6 +3365,11 @@ def main() -> int:
     # the modality slice
     modality, modality_traces = phase_modality(torch, np, K)
     oneshot.update(modality)
+    torch.cuda.empty_cache()
+    # the training slice
+    training = {"granite-3-2b": phase_train_full(torch, np, card),
+                "families": phase_train_families(torch, np),
+                "retrieval": phase_train_retrieval(torch, np, K)}
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -3188,6 +3416,7 @@ def main() -> int:
                     "window_traces": window_traces,
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
+                    "training": training,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

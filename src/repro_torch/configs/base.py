@@ -143,6 +143,7 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     source: str = ""
     quoka: QuokaConfig = field(default_factory=QuokaConfig)
+    remat: bool = False            # recompute each layer in the backward
 
     @property
     def resolved_head_dim(self) -> int:

@@ -8,10 +8,18 @@ a compressed ``LatentCache``), ``MambaBlock`` for ``"mamba"`` and
 then calls zamba2's shared attention block) and ``RWKVBlock`` for
 ``"rwkv"`` (``models/rwkv6.py``), and ``DecCrossBlock`` for whisper's
 decoder layers, ``"dec_cross"``.  ``AttnBlock`` kind ``"enc_attn"`` is
-whisper's encoder layer: bidirectional, one full-sequence pass
-(``full_forward``), no cache, never selects.  Every block norm of the
-``"audio"`` family is LayerNorm with a bias (``ln1_b``, ...), as the
-reference's ``_norm_fns``; every other family's is RMSNorm.
+whisper's encoder layer: bidirectional, no cache, never selects.  Every
+block norm of the ``"audio"`` family is LayerNorm with a bias (``ln1_b``,
+...), as the reference's ``_norm_fns``; every other family's is RMSNorm.
+
+Every block has ``full_forward(x, pos, ctx)``, the reference's ``train``:
+one full-sequence pass with no cache on the plain attention path (no
+kernel; the reference's ``train`` reaches no Pallas kernel either),
+returning ``(x, aux)`` with the MoE load-balance loss as a value (0.0 for
+the other kinds).  A recurrent block starts from a fresh zero state and
+writes no cache.  ``ctx`` holds ``shared`` (zamba2's shared block) and
+``enc_out`` (whisper's encoder output, for ``dec_cross``).  The name keeps
+clear of ``nn.Module.train(mode)``.
 
 ``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
 the layer's KV cache along one of three routes, as in the reference:
@@ -135,6 +143,17 @@ def _ffn(blk, x):
     return x + mlp(blk.mlp, h, cfg.act)
 
 
+def _ffn_aux(blk, x):
+    """``(_ffn(blk, x), aux)``: a MoE FFN's ``router_aux_coef`` times its
+    load-balance loss, accumulated into a dict of this call's own (so a
+    recomputed forward cannot count it twice), else 0.0."""
+    if not blk.kind.endswith("_moe"):
+        return _ffn(blk, x), 0.0
+    c = {}
+    y = moe.moe_apply(blk.moe, _block_norm(blk, "ln2", x), blk.cfg, c)
+    return x + y, c["aux_loss"]
+
+
 def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
     """Shape of the plan an attention block would build over ``cache`` for
     a t-token chunk, or None when it never selects there (``full``, the
@@ -190,21 +209,22 @@ class AttnBlock(nn.Module):
     def plan_carry_shape(self, cache: KVCache, t: int, method: str, qcfg):
         return _kv_plan_shape(cache, t, method, qcfg)
 
-    def full_forward(self, x, pos):
-        """One full-sequence pass with no cache (the reference's ``train``
-        for this kind): bidirectional attention over positions ``pos``
+    def _self_attend(self, x, pos):
+        """x plus attention over the sequence itself at positions ``pos``
         (the plain path: dense, or blocked above ``BLOCKED_THRESHOLD``
-        keys), then the MLP.  Ported for the encoder's ``enc_attn`` only;
-        the causal kinds' training forward is not yet ported."""
-        if self.kind != "enc_attn":
-            raise NotImplementedError(f"the full-sequence (training) forward "
-                                      f"of block kind {self.kind!r} is not "
-                                      f"yet ported")
+        keys): causal and windowed as the kind says, bidirectional for
+        ``enc_attn``."""
         b, t, _ = x.shape
         q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
-        att = attention_with_positions(q, k, v, pos, pos, causal=False)
-        x = x + linear(self.wo, att.reshape(b, t, -1))
-        return _ffn(self, x)
+        att = attention_with_positions(q, k, v, pos, pos,
+                                       causal=self.kind != "enc_attn",
+                                       window=self.window)
+        return x + linear(self.wo, att.reshape(b, t, -1))
+
+    def full_forward(self, x, pos, ctx=None):
+        """The full-sequence pass: attention over the sequence, then the
+        MLP or the MoE.  Returns (x, aux)."""
+        return _ffn_aux(self, self._self_attend(x, pos))
 
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
@@ -335,19 +355,29 @@ class MLABlock(nn.Module):
                            self.wv_b.float())
         return out.reshape(b, t, -1).to(dtype)
 
-    def _absorbed_full(self, q_abs, q_rope, lat: LatentCache, q_pos):
-        """Position-masked absorbed attention over the whole cache; key
-        blocks stream through ``blocked_attention`` above its threshold,
-        as in the reference."""
-        if lat.capacity > BLOCKED_THRESHOLD:
+    def _absorbed_full(self, q_abs, q_rope, ckv, krope, q_pos, k_pos):
+        """Position-masked absorbed attention over keys ``[ckv | krope]``
+        at ``k_pos`` (the whole cache, or the sequence itself in the
+        full-sequence pass); key blocks stream through
+        ``blocked_attention`` above its threshold, as in the reference."""
+        if ckv.shape[1] > BLOCKED_THRESHOLD:
             qc = torch.cat([q_abs, q_rope], dim=-1)
-            o_lat = blocked_attention(qc, lat.latent[:, :, None],
-                                      lat.ckv[:, :, None], q_pos, lat.pos,
-                                      causal=True, scale=self.scale)
+            kc = torch.cat([ckv, krope], dim=-1)
+            o_lat = blocked_attention(qc, kc[:, :, None], ckv[:, :, None],
+                                      q_pos, k_pos, causal=True,
+                                      scale=self.scale)
             return self._decompress(o_lat, q_abs.dtype)
-        mask = position_mask(q_pos, lat.pos, causal=True)
-        return self._absorbed_attention(q_abs, q_rope, lat.ckv, lat.krope,
-                                        mask)
+        mask = position_mask(q_pos, k_pos, causal=True)
+        return self._absorbed_attention(q_abs, q_rope, ckv, krope, mask)
+
+    def full_forward(self, x, pos, ctx=None):
+        """The full-sequence pass: absorbed attention of the sequence over
+        its own latents, then the MLP or the MoE.  Returns (x, aux)."""
+        h = rmsnorm(self.ln1, x, self.cfg.norm_eps)
+        q_abs, q_rope = self._queries(h, pos)
+        ckv, kr = self._latent_kv(h, pos)
+        att = self._absorbed_full(q_abs, q_rope, ckv, kr, pos, pos)
+        return _ffn_aux(self, x + linear(self.wo, att))
 
     def _absorbed_attention(self, q_abs, q_rope, ckv, krope, mask):
         """Attention entirely in latent space (the MLA deployment trick);
@@ -384,7 +414,8 @@ class MLABlock(nn.Module):
         budget = sel_mod.resolve_budget(ctx["qcfg"], lat.capacity) \
             if method != "full" else 0
         if method == "full" or lat.capacity <= budget + x.shape[1]:
-            att = self._absorbed_full(q_abs, q_rope, lat, pos)
+            att = self._absorbed_full(q_abs, q_rope, lat.ckv, lat.krope,
+                                      pos, lat.pos)
         else:
             att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
                                                  lat, start, ctx, plan)
@@ -451,6 +482,21 @@ class MambaBlock(nn.Module):
             return None
         return _kv_plan_shape(cache.kv, t, method, qcfg)
 
+    def full_forward(self, x, pos, ctx):
+        """The full-sequence pass from a zero state (written nowhere), then
+        the shared block's full-sequence pass.  Returns (x, aux)."""
+        cfg, s = self.cfg, self.cfg.ssm
+        _, nh, ch = mamba2._dims(cfg)
+        zero = mamba_cache_init(x.shape[0], s.d_conv, ch, nh, s.head_dim,
+                                s.d_state, x.dtype, x.device)
+        y, _ = mamba2.mamba_apply(self.mamba, rmsnorm(self.ln, x,
+                                                      cfg.norm_eps),
+                                  zero, cfg)
+        x = x + y
+        if self.with_shared:
+            return ctx["shared"].full_forward(x, pos, ctx)
+        return x, 0.0
+
     def apply(self, x, pos, cache, ctx, plan=None):
         mc = cache.mamba if self.with_shared else cache
         y, new = mamba2.mamba_apply(
@@ -483,7 +529,9 @@ class RWKVBlock(nn.Module):
     def plan_carry_shape(self, cache, t: int, method: str, qcfg):
         return None
 
-    def apply(self, x, pos, cache: RWKVCache, ctx, plan=None):
+    def _run(self, x, cache: RWKVCache):
+        """Both mixes over the segment from ``cache``'s state (read, not
+        written).  Returns (x, the new ``RWKVCache``)."""
         cfg = self.cfg
         y, sh_tm, wkv = rwkv6.time_mix(self.tm, rmsnorm(self.ln1, x,
                                                         cfg.norm_eps),
@@ -492,9 +540,21 @@ class RWKVBlock(nn.Module):
         y, sh_cm = rwkv6.channel_mix(self.cm, rmsnorm(self.ln2, x,
                                                       cfg.norm_eps),
                                      cache.shift_cm)
-        state_write(cache, RWKVCache(shift_tm=sh_tm, shift_cm=sh_cm,
-                                     wkv=wkv))
-        return x + y, plan
+        return x + y, RWKVCache(shift_tm=sh_tm, shift_cm=sh_cm, wkv=wkv)
+
+    def full_forward(self, x, pos, ctx=None):
+        """The full-sequence pass from a zero state (written nowhere).
+        Returns (x, 0.0)."""
+        cfg = self.cfg
+        hd = cfg.rwkv.head_dim
+        zero = rwkv_cache_init(x.shape[0], cfg.d_model, cfg.d_model // hd,
+                               hd, x.dtype, x.device)
+        return self._run(x, zero)[0], 0.0
+
+    def apply(self, x, pos, cache: RWKVCache, ctx, plan=None):
+        x, new = self._run(x, cache)
+        state_write(cache, new)
+        return x, plan
 
 
 class DecCrossBlock(nn.Module):
@@ -552,6 +612,14 @@ class DecCrossBlock(nn.Module):
     def plan_carry_shape(self, cache: CrossCache, t: int, method: str,
                          qcfg):
         return self.self_attn.plan_carry_shape(cache.kv, t, method, qcfg)
+
+    def full_forward(self, x, pos, ctx):
+        """The full-sequence pass: causal self-attention over the sequence,
+        cross-attention over the keys and values of ``ctx["enc_out"]``,
+        then the MLP.  Returns (x, 0.0)."""
+        x = self.self_attn._self_attend(x, pos)
+        x = self._cross(x, self.build_cross(ctx["enc_out"]))
+        return _ffn(self.self_attn, x), 0.0
 
     def apply(self, x, pos, cache: CrossCache, ctx, plan=None):
         x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan)

@@ -25,12 +25,15 @@ Entry points: ``prefill`` (chunked prefill, paper Algorithm 2: a Python
 loop over chunks, each selecting from the KV cache per layer),
 ``prefill_chunk`` (one chunk with per-row starts and valid lengths: the
 continuous-batching unit) and ``decode_step``; the last two can return
-the host tier's prefetch oracle (``sel_blocks``).  The read-out is tied to
-the embedding or, untied, ``lm_head`` (fp32, as the reference applies
-it).  The DeepSeek multi-token-prediction head's parameters are held
-(``mtp``) so a reference checkpoint loads; MTP is a training-time loss and
-runs at no inference entry point.  Training forward, modality frontends
-and the in-step telemetry outputs are not ported yet.
+the host tier's prefetch oracle (``sel_blocks``).  They run under
+``torch.no_grad``.  Training: ``train_logits`` (every stack's
+full-sequence pass, no cache, the plain attention path) and ``loss``
+(next-token cross entropy plus the MoE aux loss and DeepSeek's
+multi-token-prediction loss, ``_mtp_loss``, through the ``mtp`` head);
+the parameters are created with ``requires_grad=False`` and a trainer
+turns them on (``training/loop.py::init_state``).  The read-out is tied
+to the embedding or, untied, ``lm_head`` (fp32, as the reference applies
+it).  The in-step telemetry outputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -74,8 +78,9 @@ def resolve_device(device=None) -> torch.device:
 
 class MTPHead(nn.Module):
     """DeepSeek-V3's multi-token-prediction head: one extra block (MLA
-    when the model has MLA) fed ``mix([norm(h_t); emb(tok_t+1)])``.  Held
-    for the weight bridge; a training-time loss, not run at inference."""
+    when the model has MLA) fed ``mix([norm(h_t); emb(tok_t+1)])``; a
+    training-time loss (``Model._mtp_loss``), run at no inference entry
+    point."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -220,7 +225,7 @@ class Model(nn.Module):
         VLM's projected ``batch["patches"]`` come first (T counts them);
         it takes no padding, as the reference."""
         dev = self.device
-        tok = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
+        tok = _on(batch["tokens"], dev)
         x = embed(self.embed, tok, self.cfg.compute_dtype)
         if self.proj is not None:
             if batch.get("pad") is not None:
@@ -230,8 +235,7 @@ class Model(nn.Module):
         pos = torch.arange(t, dtype=torch.int32, device=dev).expand(b, t)
         pad = batch.get("pad")
         if pad is not None:
-            pad = torch.as_tensor(np.asarray(pad), dtype=torch.int32,
-                                  device=dev)
+            pad = _on(pad, dev, torch.int32)
             pos = torch.where(torch.arange(t, device=dev)[None] < pad[:, None],
                               torch.full_like(pos, -1), pos)
         return self._positional(x, pos), pos
@@ -253,8 +257,8 @@ class Model(nn.Module):
         b, s = x.shape[:2]
         pos = torch.arange(s, dtype=torch.int32,
                            device=self.device).expand(b, s)
-        x = self.enc.full_forward(x + sinusoidal(pos, self.cfg.d_model, dt),
-                                  pos)
+        x, _ = self.enc.full_forward(
+            x + sinusoidal(pos, self.cfg.d_model, dt), pos)
         return rmsnorm(self.enc_ln, x, self.cfg.norm_eps)
 
     def _build_cross(self, cache, enc_out) -> None:
@@ -307,6 +311,62 @@ class Model(nn.Module):
         if self.lm_head is None:
             return unembed(self.embed, x)
         return linear(self.lm_head, x.float())
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def train_logits(self, batch: Dict):
+        """Full-sequence logits (b, T, V) fp32 and the aux loss (fp32
+        scalar: MoE load balance plus MTP).  Whisper first runs its
+        encoder over ``batch["frames"]``; a VLM's T counts its patches."""
+        enc_out = self.encode(batch["frames"]) if self.enc is not None \
+            else None
+        x, pos = self.embed_inputs(batch)
+        ctx = {"shared": self.shared, "enc_out": enc_out}
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for s in self.stacks:
+            x, a = s.full_forward(x, pos, ctx)
+            aux = aux + a
+        logits = self._readout(x)
+        if self.mtp is not None:
+            aux = aux + self._mtp_loss(x, pos, batch, ctx)
+        return logits, aux
+
+    def _mtp_loss(self, hidden, pos, batch: Dict, ctx: Dict):
+        """DeepSeek-V3 multi-token prediction: the ``mtp`` block predicts
+        token t+2 from ``mix([norm(h_t); emb(tok_t+1)])``; weight 0.3, the
+        mean over every position with the last two masked (as the
+        reference, which divides by all b * T)."""
+        cfg = self.cfg
+        tok = _on(batch["tokens"], self.device).long()
+        emb_n = embed(self.embed, torch.roll(tok, -1, dims=1), hidden.dtype)
+        h = rmsnorm(self.mtp.ln, hidden, cfg.norm_eps)
+        h = linear(self.mtp.mix, torch.cat([h, emb_n], dim=-1))
+        h, _ = self.mtp.block.full_forward(h, pos, ctx)
+        logits = self._readout(h)
+        t = tok.shape[1]
+        nll = F.cross_entropy(logits.flatten(0, 1),
+                              torch.roll(tok, -2, dims=1).flatten(),
+                              reduction="none").view(tok.shape)
+        mask = torch.arange(t, device=self.device) < t - 2
+        return 0.3 * (nll * mask[None]).mean()
+
+    def loss(self, batch: Dict):
+        """Next-token cross entropy plus the aux loss, a fp32 scalar.  A
+        VLM's patch positions are dropped from the logits; whisper's loss
+        is over its decoder tokens; ``batch["loss_mask"]`` (b, T) weights
+        the positions (averaged over its sum, at least 1)."""
+        logits, aux = self.train_logits(batch)
+        tok = _on(batch["tokens"], self.device).long()
+        t = tok.shape[1]
+        lg = logits[:, -t:-1] if self.proj is not None else logits[:, :-1]
+        nll = F.cross_entropy(lg.flatten(0, 1), tok[:, 1:].flatten(),
+                              reduction="none").view(tok.shape[0], t - 1)
+        mask = batch.get("loss_mask")
+        if mask is None:
+            return nll.mean() + aux
+        m = _on(mask, self.device, torch.float32)[:, 1:]
+        return (nll * m).sum() / m.sum().clamp(min=1.0) + aux
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache, method: Optional[str] = None):

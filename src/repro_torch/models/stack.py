@@ -12,8 +12,10 @@ stack mixes capacities), a ``LatentCache`` (MLA), a ``MambaCache``
 state and the shared block's KV cache), an ``RWKVCache`` (``rwkv``) or
 a ``CrossCache`` (``dec_cross``: the self-attention's KV cache and the
 cross-attention's keys and values of the encoder's output), all updated
-in place.  ``full_forward`` is the full-sequence pass with no cache that
-whisper's encoder stack (``enc_attn`` layers) runs.  The plan carry engages only where every layer
+in place.  ``full_forward`` is the full-sequence pass with no cache (the
+reference's ``Stack.train``: training, and whisper's encoder), each layer
+recomputed in the backward under ``cfg.remat`` as the reference's
+``jax.checkpoint`` does.  The plan carry engages only where every layer
 would build a plan of one shape, as in the reference: a plain ``mamba`` or
 ``rwkv`` layer builds none, which turns it off for its stack.
 """
@@ -23,6 +25,7 @@ from typing import List, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
@@ -46,14 +49,24 @@ class Stack(nn.Module):
             make_block(cfg, kind, device) for _ in range(repeats)
             for kind in self.period)
 
-    def full_forward(self, x, pos):
-        """Every layer's full-sequence pass with no cache and no plan carry
-        (the part of the reference's ``Stack.train`` the encoder needs;
-        ``AttnBlock.full_forward`` raises for the kinds it does not
-        port)."""
+    def full_forward(self, x, pos, ctx=None):
+        """Every layer's full-sequence pass with no cache and no plan
+        carry.  Returns (x, aux): the layers' aux losses summed in fp32.
+        Under ``cfg.remat`` (with autograd recording) each layer keeps only
+        its input and runs again in the backward."""
+        ctx = {} if ctx is None else ctx
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
-            x = blk.full_forward(x, pos)
-        return x
+            if remat:
+                # the blocks draw no random numbers: no RNG state to keep
+                x, a = checkpoint(blk.full_forward, x, pos, ctx,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = blk.full_forward(x, pos, ctx)
+            aux = aux + a
+        return x, aux
 
     def init_cache(self, batch: int, cap: int) -> List[Cache]:
         return [blk.init_cache(batch, cap) for blk in self.layers]

@@ -1,5 +1,5 @@
-"""Weight bridge from the reference's parameters (counterpart of
-``repro/training/checkpoint.py``).
+"""Checkpoints and the weight bridge to the reference's parameters
+(counterpart of ``repro/training/checkpoint.py``).
 
 The reference flattens its parameter pytree to '/'-joined key paths
 (``embed/emb``, ``ln_f/g``, ``stacks/<stack>/<period position>/wq/w``, ...)
@@ -24,10 +24,22 @@ stacked over the encoder's layers) and ``enc/ln/g``; internvl2's
 projector ``proj/fc{1,2}/{w,b}``.
 ``load_score_projection`` bridges the one array that is not a parameter:
 the cached low-rank scoring projection.
+
+``leaf_map`` is that key map, every parameter of the model under its key;
+``from_flat`` reads a flat dict through it and ``to_flat`` writes one
+(layers re-stacked on the leading axis), which ``save`` puts in an npz
+the reference's ``restore`` reads: a model's parameters, or a training
+state under the reference's ``TrainState`` keys ``params/...``,
+``opt/step``, ``opt/mu/...``, ``opt/nu/...``.  A bf16 leaf is saved as
+fp32 (numpy has no bf16; the reference's leaves are fp32 anyway).  The
+map also gives each parameter the rank of its reference leaf
+(``leaf_ranks``), on which the reference's AdamW decides weight decay.
 """
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.blocks import (DecCrossBlock, MambaBlock, MLABlock,
                                       RWKVBlock)
 from repro_torch.models.model import Model
+from repro_torch.training import optimizer as opt
 
 
 def _module_leaves(prefix: str, mod, linears) -> Dict[str, torch.Tensor]:
@@ -90,34 +103,12 @@ def _norm_leaves(blk, name) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _stacked(flat, prefix: str, stack, expected: set) -> None:
-    """Copy a stack's leaves ``<prefix>/<period position>/<suffix>``, each
-    with its leading (repeats, ...) axis, into the stack's layers."""
-    n_period = len(stack.period)
-    for j in range(n_period):
-        for suffix in _block_leaves(stack.layers[j]):
-            key = f"{prefix}/{j}/{suffix}"
-            expected.add(key)
-            arr = flat[key]
-            if arr.shape[0] != stack.repeats:
-                raise ValueError(f"{key}: {arr.shape[0]} repeats, "
-                                 f"expected {stack.repeats}")
-            for r in range(stack.repeats):
-                _copy(_block_leaves(stack.layers[r * n_period + j])[suffix],
-                      arr[r], key)
-
-
-def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
-    if tuple(arr.shape) != tuple(param.shape):
-        raise ValueError(f"{key}: shape {arr.shape} != {tuple(param.shape)}")
-    param.copy_(torch.from_numpy(np.array(arr)))
-
-
-@torch.no_grad()
-def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-              device=None) -> Model:
-    """Build the port's model from the reference's flat parameter dict."""
-    model = Model(cfg, device)
+def leaf_map(model: Model) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
+    """Every parameter of ``model`` under the reference's flat key:
+    ``key -> (tensors, stacked)``.  A top-level leaf is one tensor; a
+    stacked leaf ``<stack>/<period position>/<suffix>`` lists its layers'
+    tensors in repeat order (the reference's leading ``(repeats, ...)``
+    axis)."""
     top = {"embed/emb": model.embed, "ln_f/g": model.ln_f}
     if model.lm_head is not None:
         top["lm_head/w"] = model.lm_head
@@ -133,18 +124,130 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
     if model.proj is not None:
         top.update({f"proj/{k.replace('_', '/')}": p
                     for k, p in model.proj.items()})
-    for key, param in top.items():
-        _copy(param, flat[key], key)
-    expected = set(top)
-    for si, stack in enumerate(model.stacks):
-        _stacked(flat, f"stacks/{si}", stack, expected)
+    out = {k: ([p], False) for k, p in top.items()}
+    stacks = [(f"stacks/{si}", s) for si, s in enumerate(model.stacks)]
     if model.enc is not None:
-        _stacked(flat, "enc/stack", model.enc, expected)
-    extra = set(flat) - expected
+        stacks.append(("enc/stack", model.enc))
+    for prefix, stack in stacks:
+        n_period = len(stack.period)
+        for j in range(n_period):
+            rows = [_block_leaves(stack.layers[r * n_period + j])
+                    for r in range(stack.repeats)]
+            for suffix in rows[0]:
+                out[f"{prefix}/{j}/{suffix}"] = ([row[suffix] for row in rows],
+                                                 True)
+    return out
+
+
+def leaf_ranks(model: Model) -> List[int]:
+    """The rank of each parameter's reference leaf, in
+    ``model.parameters()`` order: the tensor's own, plus one inside a
+    stack (the reference's ``(repeats, ...)`` axis)."""
+    rank = {}
+    for ts, stacked in leaf_map(model).values():
+        for t in ts:
+            rank[t] = t.ndim + int(stacked)
+    return [rank[p] for p in model.parameters()]
+
+
+def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
+    if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(f"{key}: shape {arr.shape} != {tuple(param.shape)}")
+    param.copy_(torch.from_numpy(np.array(arr)))
+
+
+@torch.no_grad()
+def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
+              device=None) -> Model:
+    """Build the port's model from the reference's flat parameter dict."""
+    model = Model(cfg, device)
+    leaves = leaf_map(model)
+    missing = set(leaves) - set(flat)
+    if missing:
+        raise ValueError(f"checkpoint lacks parameters: {sorted(missing)}")
+    for key, (ts, stacked) in leaves.items():
+        arr = flat[key]
+        if not stacked:
+            _copy(ts[0], arr, key)
+            continue
+        if arr.shape[0] != len(ts):
+            raise ValueError(f"{key}: {arr.shape[0]} repeats, "
+                             f"expected {len(ts)}")
+        for t, row in zip(ts, arr):
+            _copy(t, row, key)
+    extra = set(flat) - set(leaves)
     if extra:
         raise ValueError(f"checkpoint has parameters the port does not "
                          f"hold: {sorted(extra)}")
     return model
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+@torch.no_grad()
+def to_flat(model: Model, pick: Callable = None) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_flat``: the reference's flat dict of numpy
+    arrays.  ``pick(param)`` chooses the tensor saved for each parameter
+    (default the parameter itself; e.g. its gradient or its moment)."""
+    pick = pick or (lambda p: p)
+    out = {}
+    for key, (ts, stacked) in leaf_map(model).items():
+        arrs = [_numpy(pick(t)) for t in ts]
+        out[key] = np.stack(arrs) if stacked else arrs[0]
+    return out
+
+
+def _flat_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays or tensors as '/'-joined keys."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, key + "/"))
+        else:
+            out[key] = _numpy(v) if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
+    return out
+
+
+def state_flat(model: Model, ostate: opt.OptState) -> Dict[str, np.ndarray]:
+    """A training state under the reference's ``TrainState`` keys."""
+    index = {p: i for i, p in enumerate(model.parameters())}
+    out = {f"params/{k}": v for k, v in to_flat(model).items()}
+    out["opt/step"] = _numpy(ostate.step)
+    for name, moments in (("mu", ostate.mu), ("nu", ostate.nu)):
+        out.update({f"opt/{name}/{k}": v for k, v in to_flat(
+            model, lambda p: moments[index[p]]).items()})
+    return out
+
+
+def save(path: str, tree, meta: Dict = None) -> None:
+    """Write ``tree`` with ``np.savez`` under the reference's keys, and
+    ``meta`` (if given) as JSON to ``path + ".meta.json"``.  ``tree`` is a
+    ``Model`` (its parameters), a ``TrainState`` (``training/loop.py``:
+    its model's parameters and optimizer state) or a nested dict of
+    arrays."""
+    if isinstance(tree, Model):
+        flat = to_flat(tree)
+    elif isinstance(tree, dict):
+        flat = _flat_tree(tree)
+    else:
+        flat = state_flat(tree.model, tree.opt)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+    if meta is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f, indent=2)
+
+
+def load_meta(path: str) -> Dict:
+    with open(path + ".meta.json") as f:
+        return json.load(f)
 
 
 def load_score_projection(d: int, r: int, array: np.ndarray) -> None:
@@ -156,9 +259,37 @@ def load_score_projection(d: int, r: int, array: np.ndarray) -> None:
     kops.set_score_projection(d, r, torch.from_numpy(np.array(array)))
 
 
-def restore(path: str, cfg: ModelConfig, device=None) -> Model:
-    """Load a reference npz checkpoint (``training/checkpoint.py::save``)."""
+def _load(path: str) -> Dict[str, np.ndarray]:
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:
-        return from_flat({k: data[k] for k in data.files}, cfg, device)
+        return {k: data[k] for k in data.files}
+
+
+def restore(path: str, cfg: ModelConfig, device=None) -> Model:
+    """A model from an npz of parameters (``save`` of a model, or the
+    reference's ``save`` of its params)."""
+    return from_flat(_load(path), cfg, device)
+
+
+@torch.no_grad()
+def restore_state(path: str, cfg: ModelConfig, device=None
+                  ) -> Tuple[Model, opt.OptState]:
+    """A model and its optimizer state from a saved training state (the
+    port's or the reference's ``TrainState``), each moment in its
+    parameter's dtype.  ``TrainState(*restore_state(...))`` resumes."""
+    flat = _load(path)
+    model = from_flat({k[len("params/"):]: v for k, v in flat.items()
+                       if k.startswith("params/")}, cfg, device)
+    index = {p: i for i, p in enumerate(model.parameters())}
+    moments = {"mu": [None] * len(index), "nu": [None] * len(index)}
+    for key, (ts, stacked) in leaf_map(model).items():
+        for name, out in moments.items():
+            arr = flat[f"opt/{name}/{key}"]
+            for t, row in zip(ts, arr if stacked else [arr]):
+                out[index[t]] = torch.tensor(row, dtype=t.dtype,
+                                             device=t.device)
+    step = torch.as_tensor(flat["opt/step"], dtype=torch.int32,
+                           device=model.device)
+    return model, opt.OptState(step=step, mu=moments["mu"],
+                               nu=moments["nu"])

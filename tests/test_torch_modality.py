@@ -151,11 +151,12 @@ def test_enc_attn_block_full_forward_matches_reference():
     pos = np.tile(np.arange(64, dtype=np.int32), (BATCH, 1))
     want, _ = rblk.train(_row(params["enc"]["stack"][0], 1), jnp.asarray(x),
                          jnp.asarray(pos), {})
-    got = blk.full_forward(_t(x), _t(pos))
+    got, aux = blk.full_forward(_t(x), _t(pos))
     _close(got, want)
+    assert aux == 0.0
     x2 = x.copy()
     x2[:, -1] = _x(x2[:, -1].shape, 5) * 30
-    assert float((blk.full_forward(_t(x2), _t(pos))[:, 0]
+    assert float((blk.full_forward(_t(x2), _t(pos))[0][:, 0]
                   - got[:, 0]).abs().max()) > 1e-3
 
 
