@@ -195,7 +195,30 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      trained on the card (250 steps), then read back through chunked
      prefill: dense accuracy at 97 tokens >= 0.7; at 161 tokens QUOKA
      >= dense - 0.25 with the scoring and flash kernels launched once per
-     counted chunk call and layer.
+     counted chunk call and layer;
+ 32. serve-path telemetry (run right after phase 9, on phase 8's fused
+     qwen3-4b, so no second 4 B model is drawn): one short trace (a
+     4096-token prefix hit beside fresh prompts of 600 and 300 tokens,
+     after a priming request that registers the prefix) served by
+     ``Engine``s with a live ``obs.Registry`` and with none, in the order
+     on, off, off, on, each on a fresh pool of equal geometry: identical
+     greedy tokens, launch
+     counts (score and selected = 36 x step calls, flash and paged 0) and
+     ``Engine.stats``; at every step of both registry-on runs, every
+     selecting layer's kv_fraction at or under its budget fraction (and
+     the ``select/layerNN/*`` gauges so at the end);
+     ``select/plan_refresh`` = 36 x the step calls; telemetry's cached
+     constants unchanged by the second registry-on run; the ``sched/*``
+     counters equal the ``ServeResult`` fields; the Chrome trace of
+     ``obs.export_all`` parses; the wall-time ratio of registry on to off
+     and the mean selected-KV fraction are printed.  Then the cost of
+     ``with_obs`` on one full-width decode step (kernel launches from a
+     CPU-activity profile, host wall), and a smoke-size fp32 model's
+     ``LayerObs`` from ``prefill_chunk`` / ``decode_step(with_obs=True)``,
+     staged and fused (g = 16), reuse interval 2, through
+     ``tests/test_torch_cuda.py``'s ``layer_obs_card_vs_cpu``: card equal
+     to CPU (counts exactly, the score sketch within 2e-5, NaN in the
+     same places).
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -217,8 +240,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12           # dense bf16 tensor-core peak
 PROMPT, MAX_NEW = 8192, 32
 SERVE_NEW = 16                     # new tokens per request in phase 8
 
@@ -859,6 +880,17 @@ def phase_small_agreement(torch, np):
 
 
 POOL_RANGES = ("pool_gather", "pool_scatter")
+# the record_function ranges of the plan's stages and the kernel facade
+PLAN_RANGES = ("plan_scores", "plan_materialize", "ops_attention_cuda",
+               "ops_selected_attention_cuda", "ops_score_cuda")
+
+
+def is_annotation(e, extra=()) -> bool:
+    """Is this profiler event a range's device-side annotation?  It spans
+    its kernels and the gaps between them, so summing it with the kernels
+    would count their time twice."""
+    return bool(getattr(e, "is_user_annotation", False)) or \
+        e.key in POOL_RANGES or e.key in PLAN_RANGES or e.key in extra
 
 
 def range_device_ms(prof, names):
@@ -1125,7 +1157,7 @@ def phase_serve(torch, np, K, model):
     # annotations would count their kernels twice
     dev_ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0 and e.key not in POOL_RANGES]
+              and e.self_device_time_total > 0 and not is_annotation(e)]
     busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
     rng_ms = range_device_ms(prof, POOL_RANGES)
     steps = r4.prefill_steps + r4.decode_steps
@@ -1201,6 +1233,266 @@ def paged_inputs(torch, np, state, kv0, tables, t, starts, g):
     else:
         idx[3, :, 0], idx[3, :, 1] = HOLE * bs + 5, STALE * bs + 7
     return q, pos, torch.as_tensor(tab, device=dev), idx, st, view
+
+
+TEL_BLOCK, TEL_NEW = 128, 8          # phase 32's pool block and new tokens
+
+
+def phase_telemetry(torch, np, K, model, card):
+    """Phase 32: serve-path telemetry on phase 8's fused qwen3-4b (module
+    docstring).  Each engine gets a fresh pool of the same geometry, so
+    all see the same prefix cache and ``Engine.stats`` can be equal; a
+    priming request registers the 4096-token prefix first, and the counts
+    are set to 0 just before the measured trace and read just after it.
+    Returns the numbers."""
+    from repro_torch import obs
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import Request
+    cfg = model.cfg
+    layers = cfg.n_layers
+    log(f"== phase 32: serve-path telemetry, qwen3-4b full width, fused "
+        f"g={cfg.quoka.granularity}, registry on and off")
+    rng = np.random.default_rng(32)
+
+    def toks(n):
+        return rng.integers(3, cfg.vocab, (n,)).astype(np.int32)
+
+    base, tail0, tail1, fresh = toks(4096), toks(128), toks(256), \
+        (toks(600), toks(300))
+
+    def requests():
+        prime = [Request(rid=0, tokens=np.concatenate([base, tail0]),
+                         max_new=4)]
+        trace = [Request(rid=1, tokens=np.concatenate([base, tail1]),
+                         max_new=TEL_NEW)] + \
+            [Request(rid=2 + i, tokens=p, max_new=TEL_NEW)
+             for i, p in enumerate(fresh)]
+        return prime, trace
+
+    # on, off, off, on: the ratio is the two "on" walls over the two
+    # "off" walls, which cancels a drift of the host's speed over the runs
+    runs = []
+    layer_steps = [0]
+
+    def checked(note):
+        """``Engine._note_layer_obs`` that first holds every selecting
+        layer of the step to its budget, kv_fraction <= budget_fraction +
+        1e-6, on the host copy the engine already made.  A step whose view
+        holds no prior context yet (the priming request's first chunk) has
+        no fraction; otherwise every layer has one."""
+        def note_and_check(phase, rows):
+            sel, ctx, bud = rows[0], rows[1], rows[2]
+            with np.errstate(invalid="ignore", divide="ignore"):
+                frac, budf = sel / ctx, bud / ctx
+            on = np.isfinite(frac) & np.isfinite(budf)
+            over = on & ~(frac <= budf + 1e-6)
+            if over.any() or int(on.sum()) not in (0, layers):
+                raise AssertionError(
+                    f"phase 32 {phase} step: kv_fraction {frac} against "
+                    f"budget fraction {budf}: {int(over.sum())} layers "
+                    f"over, {int(on.sum())} of {layers} with a fraction")
+            layer_steps[0] += int(on.sum())
+            note(phase, rows)
+        return note_and_check
+
+    for label in ("on", "off", "off", "on"):
+        reg = obs.Registry() if label == "on" else None
+        eng = Engine(model, method="quoka", registry=reg)
+        if reg is not None:
+            eng._note_layer_obs = checked(eng._note_layer_obs)
+        prime, trace = requests()
+        state = eng.make_serve_state(prime + trace, block_size=TEL_BLOCK,
+                                     max_prefill_tokens=512,
+                                     max_decode_batch=4)
+        r0 = eng.serve(prime, state=state)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        r1 = eng.serve(trace, state=state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(K)
+        steps = r1.prefill_steps + r1.decode_steps
+        want = {"quoka_score": layers * steps, "flash_attention": 0,
+                "selected_attention": layers * steps,
+                "selected_attention_paged": 0}
+        if counts != want:
+            raise AssertionError(f"phase 32 {label}: launches {counts} != "
+                                 f"{want}")
+        if r1.cached_len[1] != 4096:
+            raise AssertionError(f"phase 32 {label}: prefix hit "
+                                 f"{r1.cached_len} != 4096")
+        runs.append(dict(label=label, reg=reg, res=(r0, r1), wall=wall,
+                         counts=counts, stats=dict(eng.stats),
+                         consts=len(plan_mod._CONST)))
+        log(f"  registry {label}: wall {wall * 1e3:.1f} ms for {steps} step "
+            f"calls ({r1.prefill_steps} prefill / {r1.decode_steps} "
+            f"decode), {r1.generated} tokens, launches {counts}")
+        del eng, state
+        torch.cuda.empty_cache()
+    on = runs[0]
+    for other in runs[1:]:
+        for a, b in zip(on["res"], other["res"]):
+            for rid in b.tokens:
+                if not np.array_equal(a.tokens[rid], b.tokens[rid]):
+                    raise AssertionError(
+                        f"phase 32: request {rid} tokens {a.tokens[rid]} "
+                        f"(on) vs {b.tokens[rid]} ({other['label']})")
+        if on["counts"] != other["counts"] or on["stats"] != other["stats"]:
+            raise AssertionError(f"phase 32: runs differ: {on['counts']} "
+                                 f"{other['counts']} {on['stats']} "
+                                 f"{other['stats']}")
+    # telemetry's cached constants: made in the first registry-on run,
+    # none added by the second
+    if runs[3]["consts"] != runs[0]["consts"]:
+        raise AssertionError(f"phase 32: telemetry constants grew "
+                             f"{runs[0]['consts']} -> {runs[3]['consts']}")
+    wall_on = sum(r["wall"] for r in runs if r["label"] == "on")
+    wall_off = sum(r["wall"] for r in runs if r["label"] == "off")
+    reg, res = on["reg"], on["res"]
+    c = {k: v.value for k, v in reg.counters.items()}
+    g = {k: v.value for k, v in reg.gauges.items()}
+    calls = sum(r.prefill_steps + r.decode_steps for r in res)
+    if c.get("select/plan_refresh") != layers * calls:
+        raise AssertionError(f"phase 32: plan_refresh "
+                             f"{c.get('select/plan_refresh')} != "
+                             f"{layers} x {calls}")
+    if layer_steps[0] < 2 * layers * (res[1].prefill_steps
+                                      + res[1].decode_steps):
+        raise AssertionError(f"phase 32: only {layer_steps[0]} layer-steps "
+                             f"held to their budget")
+    kv = [f"select/layer{i:02d}/kv_fraction" for i in range(layers)]
+    for k in kv:
+        bud = g.get(k.replace("kv_fraction", "budget_fraction"))
+        if k not in g or bud is None or not g[k] <= bud + 1e-6:
+            raise AssertionError(f"phase 32: {k} {g.get(k)} over its "
+                                 f"budget fraction {bud}")
+    sched_want = {
+        "sched/submitted": sum(len(r.tokens) for r in res),
+        "sched/admitted": sum(len(r.tokens) for r in res),
+        "sched/finished": sum(len(r.tokens) for r in res),
+        "sched/prefix_hit_requests": sum(
+            sum(1 for v in r.cached_len.values() if v) for r in res),
+        "sched/prefix_hit_tokens": sum(sum(r.cached_len.values())
+                                       for r in res),
+        "sched/preemptions": sum(r.preemptions for r in res),
+        "sched/resumes": sum(r.resumes for r in res),
+        "serve/tokens_generated": sum(r.generated for r in res)}
+    got = {k: c.get(k, 0.0) for k in sched_want}
+    if got != {k: float(v) for k, v in sched_want.items()}:
+        raise AssertionError(f"phase 32: counters {got} != {sched_want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = obs.export_all(reg, tmp, prefix="phase32")
+        with open(paths["trace"]) as f:
+            n_ev = len(json.load(f)["traceEvents"])
+        with open(paths["jsonl"]) as f:
+            n_lines = sum(1 for _ in f)
+    hist = reg.histograms["select/kv_fraction"].summary()
+    ratio = wall_on / wall_off
+    spans = {k: reg.histograms[k].summary() for k in
+             ("engine/prefill_step", "engine/decode_step")}
+    log(f"  tokens, launches and stats equal on and off; plan_refresh "
+        f"{c['select/plan_refresh']:.0f} = {layers} x {calls}; every layer's "
+        f"kv_fraction within its budget fraction at every step "
+        f"({layer_steps[0]} layer-steps, both registry-on runs); "
+        f"{runs[0]['consts']} telemetry constants, none added by the second "
+        f"registry-on run; sched counters equal "
+        f"the ServeResult fields; Chrome trace {n_ev} events, JSONL "
+        f"{n_lines} lines")
+    log(f"  wall registry on / off {ratio:.4f} ({wall_on * 1e3:.1f} / "
+        f"{wall_off * 1e3:.1f} ms, two runs each); selected-KV fraction "
+        f"mean {hist['mean']:.4f} (min {hist['min']:.4f}, max "
+        f"{hist['max']:.4f}, {hist['count']} layer-steps) at budget {cfg.quoka.budget}; step "
+        f"spans p50 prefill {spans['engine/prefill_step']['p50'] * 1e3:.1f} "
+        f"ms, decode {spans['engine/decode_step']['p50'] * 1e3:.1f} ms "
+        f"[{card}]")
+    step_cost = obs_step_cost(torch, np, K, model, rng, card)
+    small = obs_card_vs_cpu(torch, np)
+    return dict(wall_ms={f"{i} {r['label']}": r["wall"] * 1e3
+                         for i, r in enumerate(runs)},
+                ratio=ratio, kv_fraction=hist, plan_refresh=c[
+                    "select/plan_refresh"], step_calls=calls,
+                launches=on["counts"], spans_s=spans,
+                layer_steps_checked=layer_steps[0], step_cost=step_cost,
+                trace_events=n_ev, small=small, card=card)
+
+
+def obs_step_cost(torch, np, K, model, rng, card):
+    """What ``with_obs`` costs one full-width decode step of phase 32's
+    model (one row, 1280 tokens of context, so every layer selects): the
+    kernel launches of one step with it off and on, counted as the
+    runtime's launch calls in a CPU-activity ``torch.profiler`` trace, and
+    the step's host wall (``perf_counter`` around the step and a
+    synchronize), the median of three each, off and on interleaved."""
+    cfg = model.cfg
+    t, n_chunks = cfg.quoka.chunk_size, 10
+    ctx = n_chunks * t
+    cache = model.init_cache(1, ctx + 32)
+    ids = rng.integers(3, cfg.vocab, (1, ctx)).astype(np.int32)
+    for c in range(n_chunks):
+        model.prefill_chunk({"tokens": ids[:, c * t:(c + 1) * t]}, c * t,
+                            cache)
+    tok = torch.tensor([5], device=model.device)
+    pos = [ctx]
+    reset_counts(K)
+
+    def step(with_obs):
+        model.decode_step(tok, pos[0], cache, with_obs=with_obs)
+        pos[0] += 1
+
+    launches, walls = {}, {False: [], True: []}
+    for with_obs in (False, True):
+        step(with_obs)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step(with_obs)
+            torch.cuda.synchronize()
+        launches[with_obs] = sum(
+            1 for e in prof.events()
+            if e.name.startswith(("cudaLaunch", "cuLaunch")))
+    for _ in range(3):
+        for with_obs in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(with_obs)
+            torch.cuda.synchronize()
+            walls[with_obs].append(time.perf_counter() - t0)
+    off_ms, on_ms = (float(np.median(walls[w])) * 1e3 for w in (False, True))
+    n_steps = pos[0] - ctx
+    got = read_counts(K)
+    if got["quoka_score"] != cfg.n_layers * n_steps or \
+            got["selected_attention"] != cfg.n_layers * n_steps:
+        raise AssertionError(f"phase 32: {n_steps} decode steps launched "
+                             f"{got}, not every layer selecting")
+    extra = launches[True] - launches[False]
+    log(f"  one decode step (1 row, {ctx} tokens of context): kernel "
+        f"launches {launches[False]} off / {launches[True]} on ({extra} "
+        f"more, {extra / cfg.n_layers:.1f} per layer call); host wall "
+        f"{off_ms:.2f} / {on_ms:.2f} ms (median of 3) [{card}]")
+    return dict(launches_off=launches[False], launches_on=launches[True],
+                wall_ms_off=off_ms, wall_ms_on=on_ms)
+
+
+def obs_card_vs_cpu(torch, np):
+    """Phase 32's second half: ``tests/test_torch_cuda.py``'s
+    ``layer_obs_card_vs_cpu`` (a smoke-size fp32 qwen3-4b, the same
+    weights on both devices, reuse interval 2, staged and fused at g = 16:
+    the ``LayerObs`` of four prefill chunks and two decode steps, card
+    against CPU), its sketch error held to 2e-5 here."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_cuda import layer_obs_card_vs_cpu
+    out = {}
+    for route, label in (("staged", "staged g=1"), ("fused", "fused g=16")):
+        err, calls, n_nan = layer_obs_card_vs_cpu(
+            torch.device("cuda", torch.cuda.current_device()), route)
+        check(f"LayerObs sketch card vs CPU, {label}", err, 2e-5,
+              "fp32 scores, summation order differs")
+        log(f"  LayerObs card == CPU, {label}: {calls} calls, counts exact, "
+            f"{n_nan} NaN sketches in the same places")
+        out[label] = dict(sketch_err=err, calls=calls, nan_sketches=n_nan)
+    return out
 
 
 def phase_paged(torch, np, K, state, kv0, tables):
@@ -2247,8 +2539,8 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
         ctx = model._ctx(model.cfg.quoka.method)
         for c in range(lo, hi):
             s = slice(c * bcp, (c + 1) * bcp)
-            h, _ = model._apply_stacks(x[:, s], pos[:, s], cache,
-                                       dict(ctx, slot=c * bcp))
+            h, _, _ = model._apply_stacks(x[:, s], pos[:, s], cache,
+                                          dict(ctx, slot=c * bcp))
         return h[:, -1], cache
 
     def prefix():
@@ -2276,7 +2568,8 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
         # and a span's device-side annotation covers its kernels again
         total, by_name = 0.0, {}
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or e.key in (spans or {}):
+            if e.device_type != DeviceType.CUDA or \
+                    is_annotation(e, spans or {}):
                 continue
             us = e.self_device_time_total
             if us > 0:
@@ -2343,6 +2636,7 @@ def phase_trace(torch, np, model, prompt=2048, steps=8, phase="== phase 7",
             gemm = [(e.self_device_time_total, e.count)
                     for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA
+                    and not is_annotation(e, spans)
                     and any(w in e.key.lower() for w in (
                         "gemm", "gemv", "cutlass", "xmma", "nvjet"))]
             got["products (GEMM kernels)"] = (
@@ -2721,8 +3015,11 @@ def fmt(t) -> str:
 
 
 def bound(nbytes, flops):
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOP_PER_S * 1e3
+    """(least time in ms, "bytes" or "operations") at the H100 SXM's
+    data-sheet peaks (``analysis/roofline.py``: 3.35 TB/s, 989 TFLOP/s)."""
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    tb = nbytes / HBM_BW * 1e3
+    tf = flops / PEAK_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -3301,6 +3598,8 @@ def main() -> int:
                                            e_paged)
     paged = (q, kv0.k, kv0.v, pos, tab, idx, st)
     del state
+    torch.cuda.empty_cache()
+    telemetry = phase_telemetry(torch, np, K, model, card)
     model.cfg = cfg
     trace = phase_trace(torch, np, model)
     del model
@@ -3416,7 +3715,7 @@ def main() -> int:
                     "window_traces": window_traces,
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
-                    "training": training,
+                    "training": training, "telemetry": telemetry,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

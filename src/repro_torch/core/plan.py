@@ -18,11 +18,19 @@ correction layer, and reuses the carried indices in between; ``refresh``
 is that decision, taken on the host (layer indices are Python ints), so it
 costs no device sync.
 
-Not ported yet: the ``LayerObs`` telemetry, the prefetch-oracle block
-counts and the tensor-parallel T-local route.
+Telemetry: with ``ctx["obs"]`` set, a selecting layer leaves its
+``LayerObs`` (seven fp32 0-d tensors on the model's device) in
+``ctx["_obs"]`` for ``models/stack.py`` to collect; with it unset the path
+runs exactly the ops it runs without telemetry.  Stages 1 and 3 run under
+``record_function`` ranges named as the reference's ``jax.named_scope``
+labels (``plan_scores``, ``plan_materialize``), so a ``torch.profiler``
+trace attributes their ops (``analysis/trace_ops.py``).
+
+Not ported yet: the tensor-parallel T-local route.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,6 +54,33 @@ class PlanCarry(NamedTuple):
     and whether one was built yet."""
     idx: torch.Tensor
     valid: bool
+
+
+class LayerObs(NamedTuple):
+    """Per-layer selection telemetry: seven fp32 0-d tensors on the
+    model's device (stacked by the model into (n_layers,) leaves).
+
+    NaN means "not applicable": non-attention layers are all-NaN; dense
+    layers have no budget and no sketch; a layer that REUSED a carried plan
+    has a NaN sketch (its scores were never computed).
+
+    sel_tokens    selected valid KV tokens, mean over batch & KV heads
+    ctx_tokens    selectable prior-context tokens, mean over batch
+                  (sel_tokens / ctx_tokens is the live selected-KV
+                  fraction — the paper's "88% fewer key-value pairs" axis)
+    budget_tokens the resolved grid-aligned B_SA
+    refreshed     1.0 if this layer BUILT a plan, 0.0 if it reused one
+    score_lo/score_mean/score_hi
+                  sketch of the raw stage-1 scores over valid slots, taken
+                  BEFORE sink +inf stamping
+    """
+    sel_tokens: torch.Tensor
+    ctx_tokens: torch.Tensor
+    budget_tokens: torch.Tensor
+    refreshed: torch.Tensor
+    score_lo: torch.Tensor
+    score_mean: torch.Tensor
+    score_hi: torch.Tensor
 
 
 def grid(cfg: QuokaConfig) -> int:
@@ -75,13 +110,14 @@ def plan_scores(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
     """Stage 1: fp32 (b, n_kv, T) relevance scores, NEG_INF on invalid
     slots.  ``q_valid`` (b, t) masks pad query rows out of QUOKA's chunk
     statistics."""
-    valid = prior_context_valid(key_pos, chunk_start)
-    if method == "quoka":
-        q = qk.sanitize_queries(q, q_valid)
-        qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
-                                  q_valid=q_valid)
-        return qk.quoka_scores(qs, k, valid, cfg)
-    return sel_scores.compute_scores(method, q, k, valid, cfg)
+    with torch.profiler.record_function("plan_scores"):
+        valid = prior_context_valid(key_pos, chunk_start)
+        if method == "quoka":
+            q = qk.sanitize_queries(q, q_valid)
+            qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
+                                      q_valid=q_valid)
+            return qk.quoka_scores(qs, k, valid, cfg)
+        return sel_scores.compute_scores(method, q, k, valid, cfg)
 
 
 def plan_from_scores(scores, key_pos, cfg: QuokaConfig,
@@ -117,6 +153,12 @@ def materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
     """Stage 3: gather a plan's KV budget from the cache (b, T, n_kv, d)
     into a dense ``Selected``.  Validity is re-derived here: tokens that
     are not prior context get pos == -1."""
+    with torch.profiler.record_function("plan_materialize"):
+        return _materialize(plan, k, v, key_pos, chunk_start, cfg)
+
+
+def _materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
+                 cfg: QuokaConfig) -> Selected:
     b, t, n_kv, d = k.shape
     g = grid(cfg)
     valid = prior_context_valid(key_pos, chunk_start)             # (b, T)
@@ -202,17 +244,38 @@ def refresh(carry: Optional[PlanCarry], layer_idx: int, cfg: QuokaConfig,
     return pln, PlanCarry(idx=pln.idx, valid=True)
 
 
+def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
+                chunk_start, cfg: QuokaConfig, budget, q_valid):
+    """Refresh-or-build this layer's plan: (plan, updated carry, stage-1
+    scores).  The scores are None where the layer reused the carried plan
+    (no scores were computed); they feed only the ``LayerObs`` sketch."""
+    built = []
+
+    def build_fn():
+        built.append(plan_scores(method, q, k, key_pos, chunk_start, cfg,
+                                 q_valid=q_valid))
+        return plan_from_scores(built[0], key_pos, cfg, budget=budget)
+
+    pln, plan = refresh(plan, ctx.get("layer_idx", 0), cfg, build_fn)
+    return pln, plan, (built[0] if built else None)
+
+
 def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
                     key_pos, chunk_start, cfg: QuokaConfig,
                     budget: Optional[int] = None, q_valid=None):
     """The block-facing staged selection: refresh-or-build, then
-    materialize.  Returns (Selected, updated carry)."""
-    pln, plan = refresh(
-        plan, ctx.get("layer_idx", 0), cfg,
-        lambda: build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                      q_valid=q_valid))
+    materialize.  Returns (Selected, updated carry).  With ``ctx["obs"]``
+    set the layer's ``LayerObs`` is left in ``ctx["_obs"]`` (a per-layer
+    ctx copy, see models/stack.py)."""
+    pln, plan, scores = _layer_plan(ctx, plan, method, q, k, key_pos,
+                                    chunk_start, cfg, budget, q_valid)
     _note_block_counts(ctx, pln, cfg)
-    return materialize(pln, k, v, key_pos, chunk_start, cfg), plan
+    sel = materialize(pln, k, v, key_pos, chunk_start, cfg)
+    if ctx.get("obs"):
+        ctx["_obs"] = selected_obs(sel.pos, key_pos, chunk_start,
+                                   _obs_budget(cfg, k.shape[1], budget),
+                                   scores)
+    return sel, plan
 
 
 def _note_block_counts(ctx, pln: SelectionPlan, cfg: QuokaConfig) -> None:
@@ -256,18 +319,134 @@ def fused_route(cfg: QuokaConfig, method: str, k,
     return g > 1 and k.shape[1] % g == 0
 
 
+def plan_selected_pos(plan: SelectionPlan, key_pos, chunk_start,
+                      cfg: QuokaConfig) -> torch.Tensor:
+    """Positions-only twin of ``materialize`` for telemetry: the selected
+    positions (-1 = padding, validity re-derived as materialize derives
+    it) without touching K/V — (b, n_kv, B) at g == 1, (b, 1, B) at g > 1.
+    The fused kernel applies the same masks in-kernel; this keeps
+    ``LayerObs.sel_tokens`` exact while gathering only (b, T) int32
+    positions, not the KV budget the fused route exists to avoid."""
+    b, t = key_pos.shape
+    g = grid(cfg)
+    valid = prior_context_valid(key_pos, chunk_start)
+    if g == 1:
+        top_i = plan.idx                                      # (b, n_kv, B)
+        safe = top_i.clamp(min=0)
+        n_kv = top_i.shape[1]
+        pos = torch.gather(key_pos[:, None, :].expand(b, n_kv, t), 2, safe)
+        ok = torch.gather(valid[:, None, :].expand(b, n_kv, t), 2, safe)
+        return torch.where((top_i >= 0) & ok, pos, torch.full_like(pos, -1))
+    blocks = plan.idx.clamp(min=0)                            # (b, NB)
+    bi = blocks[:, :, None].expand(-1, -1, g)
+    pos_sel = torch.gather(key_pos.reshape(b, t // g, g), 1, bi)
+    ok_sel = torch.gather(valid.reshape(b, t // g, g), 1, bi)
+    good = ok_sel & (plan.idx >= 0)[:, :, None]
+    return torch.where(good, pos_sel,
+                       torch.full_like(pos_sel, -1)).reshape(b, 1, -1)
+
+
 def fused_attend_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q,
                           k, v, key_pos, chunk_start, cfg: QuokaConfig,
                           budget: Optional[int] = None, q_valid=None):
     """Refresh-or-build the plan, then attend straight through its block
     ids with ``ops.selected_attention``: no materialize, no [budget | chunk]
     concat, one kernel launch.  Callers gate on ``fused_route``.  Returns
-    (attention output (b, t, h, d), updated carry)."""
-    pln, plan = refresh(
-        plan, ctx.get("layer_idx", 0), cfg,
-        lambda: build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                      q_valid=q_valid))
+    (attention output (b, t, h, d), updated carry); the obs side channel
+    is ``select_with_ctx``'s, its ``sel_tokens`` from the positions-only
+    ``plan_selected_pos``."""
+    pln, plan, scores = _layer_plan(ctx, plan, method, q, k, key_pos,
+                                    chunk_start, cfg, budget, q_valid)
     att = kops.selected_attention(q, k, v, key_pos, pln.idx, chunk_start,
                                   granularity=grid(cfg))
     _note_block_counts(ctx, pln, cfg)
+    if ctx.get("obs"):
+        ctx["_obs"] = selected_obs(
+            plan_selected_pos(pln, key_pos, chunk_start, cfg), key_pos,
+            chunk_start, _obs_budget(cfg, k.shape[1], budget), scores)
     return att, plan
+
+
+# ----------------------------------------------------------------------------
+# telemetry (the per-layer LayerObs side channel)
+# ----------------------------------------------------------------------------
+
+_CONST: dict = {}
+
+
+def _const(v: float, device) -> torch.Tensor:
+    """A cached read-only fp32 0-d constant on ``device`` (telemetry's
+    budgets, flags and NaN, made once, not per layer call).  NaN is keyed
+    by name: a NaN key never compares equal to itself, so it would miss
+    the cache on every call."""
+    key = ("nan" if math.isnan(v) else v, str(device))
+    t = _CONST.get(key)
+    if t is None:
+        t = _CONST[key] = torch.full((), v, dtype=torch.float32,
+                                     device=device)
+    return t
+
+
+def nan_obs(device) -> LayerObs:
+    """The all-NaN ``LayerObs`` of a layer that never selects (recurrent
+    and encoder blocks), so every layer has one."""
+    n = _const(math.nan, device)
+    return LayerObs(n, n, n, n, n, n, n)
+
+
+def score_sketch(scores) -> torch.Tensor:
+    """(3,) fp32 [min, mean, max] of stage-1 scores over VALID slots.
+
+    Taken on the raw ``plan_scores`` output: ``plan_from_scores`` stamps
+    +inf onto sink slots (through ``torch.where``, not in place, so the
+    tensor here is untouched).  A view with no valid slot (the first
+    chunk) sketches NaN.  Invalid slots hold NEG_INF, below every valid
+    score, so the plain max is the valid slots' max whenever one exists."""
+    ok = scores > NEG_INF / 2
+    n = ok.sum()
+    lo = torch.where(ok, scores, math.inf).amin()
+    mean = (scores * ok).sum() / n
+    sk = torch.stack([lo, mean, scores.amax()])
+    return torch.where(n > 0, sk, math.nan)
+
+
+def _count_mean(mask) -> torch.Tensor:
+    """fp32 mean over the leading axes of the last axis's True count."""
+    return mask.sum(-1, dtype=torch.float32).mean()
+
+
+def dense_obs(key_pos, chunk_start) -> LayerObs:
+    """``LayerObs`` of a dense (no-selection) attention layer: every
+    selectable prior token is attended; no budget, no score pass."""
+    ctxc = _count_mean(prior_context_valid(key_pos, chunk_start))
+    dev = key_pos.device
+    n = _const(math.nan, dev)
+    return LayerObs(sel_tokens=ctxc, ctx_tokens=ctxc, budget_tokens=n,
+                    refreshed=_const(0.0, dev), score_lo=n, score_mean=n,
+                    score_hi=n)
+
+
+def selected_obs(sel_pos, key_pos, chunk_start, budget: int,
+                 scores) -> LayerObs:
+    """``LayerObs`` of a selecting layer, from the budget's positions
+    (``sel_pos == -1`` marks padding, exactly what attention masks, so
+    ``sel_tokens`` counts the KV pairs attended) and the layer's stage-1
+    ``scores``: None where it reused a carried plan, which leaves
+    ``refreshed`` 0 and a NaN sketch, as the reference's ``lax.cond``
+    branch gives."""
+    dev = key_pos.device
+    if scores is None:
+        lo = mean = hi = _const(math.nan, dev)
+    else:
+        lo, mean, hi = score_sketch(scores).unbind()
+    return LayerObs(
+        sel_tokens=_count_mean(sel_pos >= 0),
+        ctx_tokens=_count_mean(prior_context_valid(key_pos, chunk_start)),
+        budget_tokens=_const(float(budget), dev),
+        refreshed=_const(0.0 if scores is None else 1.0, dev),
+        score_lo=lo, score_mean=mean, score_hi=hi)
+
+
+def _obs_budget(cfg: QuokaConfig, t: int, budget: Optional[int]) -> int:
+    return floor_to_grid(min(budget or sel_scores.resolve_budget(cfg, t), t),
+                         grid(cfg))

@@ -4,7 +4,11 @@ Every attention and scoring call of the port goes through the entry points
 here, in the reference's BTHD signatures.  Dispatch is by the
 tensor's device: on the CPU each wrapper runs its plain PyTorch version,
 on a CUDA device it launches its hand-written kernel or raises.  There is
-no backend switch.
+no backend switch.  Each entry point runs under a ``record_function``
+range named as the reference's ``jax.named_scope`` label with the port's
+backend, the tensor's device type: ``ops_attention_cuda`` on the card,
+``ops_attention_cpu`` for the plain version (likewise
+``ops_selected_attention_*`` and ``ops_score_*``).
 """
 from __future__ import annotations
 
@@ -28,10 +32,12 @@ def attention(q, k, v, k_valid=None, *, causal: bool = True,
     widths otherwise); k_valid: bool (b, tk) or (b, h_kv, tk).  The first
     ``boundary`` keys are an unconditioned prefix; the rest are causal in
     chunk-local indices.  Returns (b, tq, h, dv)."""
-    out = flash_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), k_valid, causal=causal,
-                               boundary=boundary, scale=scale)
-    return out.transpose(1, 2)
+    with torch.profiler.record_function(f"ops_attention_{q.device.type}"):
+        out = flash_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), k_valid,
+                                   causal=causal, boundary=boundary,
+                                   scale=scale)
+        return out.transpose(1, 2)
 
 
 def selected_attention(q, k, v, key_pos, plan_idx, chunk_start, *,
@@ -47,16 +53,19 @@ def selected_attention(q, k, v, key_pos, plan_idx, chunk_start, *,
     plan_idx: (b, B//g) block ids at g > 1, (b, n_kv, B) token slots at
     g == 1 (on the logical grid for the paged view); chunk_start: () or
     (b,).  Returns (b, t, h, d)."""
-    if table is not None:
-        out = selected_attention_paged(
-            q.transpose(1, 2), k, v, key_pos, plan_idx, chunk_start, table,
-            granularity=granularity, block_size=block_size, scale=scale)
+    with torch.profiler.record_function(
+            f"ops_selected_attention_{q.device.type}"):
+        if table is not None:
+            out = selected_attention_paged(
+                q.transpose(1, 2), k, v, key_pos, plan_idx, chunk_start,
+                table, granularity=granularity, block_size=block_size,
+                scale=scale)
+        else:
+            out = selected_attention_bhtd(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                key_pos, plan_idx, chunk_start, granularity=granularity,
+                scale=scale)
         return out.transpose(1, 2)
-    out = selected_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), key_pos, plan_idx,
-                                  chunk_start, granularity=granularity,
-                                  scale=scale)
-    return out.transpose(1, 2)
 
 
 _PROJ_SEED = 7
@@ -107,7 +116,9 @@ def score(qbar, k, valid, *, proj: Optional[torch.Tensor] = None):
     head dim r, so scores are cosines in the projected space.  On the card
     r must be a multiple of 8 up to 576 (``tiling.score_width``).
     """
-    if proj is not None:
-        qbar = qbar.float() @ proj
-        k = k @ proj.to(k.dtype)
-    return quoka_score_bhtd(qbar.transpose(1, 2), k.transpose(1, 2), valid)
+    with torch.profiler.record_function(f"ops_score_{k.device.type}"):
+        if proj is not None:
+            qbar = qbar.float() @ proj
+            k = k @ proj.to(k.dtype)
+        return quoka_score_bhtd(qbar.transpose(1, 2), k.transpose(1, 2),
+                                valid)

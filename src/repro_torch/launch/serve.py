@@ -62,13 +62,28 @@ host-memory tier behind the paged pool (pair it with an undersized
 ``--num-blocks`` to make pressure demote blocks there), and
 ``--prefetch-depth`` caps the host blocks staged per step.  Weights are
 random from a seed unless ``--ckpt`` names a reference npz checkpoint;
-latency does not depend on the weights.  Not ported yet: the telemetry
-flags (``--metrics``, ``--trace-dir``) and ``--mesh``.
+latency does not depend on the weights.
+
+Telemetry: ``--metrics`` serves with an ``obs.Registry`` (step spans,
+scheduler and pool counters, the per-layer selected-KV fraction) and
+prints a digest after the run; ``--trace-dir DIR`` (implies
+``--metrics``) also writes the registry's JSONL log, Prometheus text dump
+and Chrome/Perfetto span trace there.  In one-shot mode ``--trace-dir``
+instead captures a ``torch.profiler`` trace (CPU and, on the card, CUDA
+activity) of the measured ``generate`` into
+``DIR/oneshot_<method>.trace.json``; its ``record_function`` ranges
+(``plan_scores``, ``plan_materialize``, ``ops_*``) label the regions.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --continuous --metrics --trace-dir /tmp/serve_trace
+
+Not ported yet: ``--mesh``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 
@@ -157,6 +172,18 @@ def parse_args(argv=None):
                     help="prompt tokens packed per engine step "
                          "(default: 4 * chunk_size)")
     ap.add_argument("--max-decode-batch", type=int, default=8)
+    ap.add_argument("--metrics", action="store_true",
+                    help="serve-path telemetry (obs/): step spans, "
+                         "scheduler/pool counters and the per-layer "
+                         "selected-KV fraction; prints a digest after the "
+                         "run.  Off by default: the metrics-off path runs "
+                         "no telemetry")
+    ap.add_argument("--trace-dir", default=None,
+                    help="export telemetry (implies --metrics) to DIR: "
+                         "JSONL event log, Prometheus text dump and a "
+                         "Chrome/Perfetto trace of the engine's step spans; "
+                         "one-shot mode instead writes a torch.profiler "
+                         "trace of the measured run there")
     return ap.parse_args(argv)
 
 
@@ -218,13 +245,48 @@ def _build_trace(vocab, args, rng):
     return prompts, np.asarray(arrivals), {}
 
 
+def _print_telemetry(reg):
+    """Human-readable digest of the serve registry (full detail goes to the
+    --trace-dir exports)."""
+    snap = reg.snapshot()
+    h, g = snap["histograms"], snap["gauges"]
+    kv = h.get("select/kv_fraction")
+    if kv and kv["count"]:
+        print(f"{'telemetry':10s} selected-KV fraction mean {kv['mean']:.3f} "
+              f"p50 {kv['p50']:.3f} min {kv['min']:.3f} "
+              f"over {kv['count']} layer-steps "
+              f"({100 * (1 - kv['mean']):.0f}% of KV skipped on average)")
+    for nm in ("engine/prefill_step", "engine/decode_step",
+               "sched/admission_wait_s"):
+        s = h.get(nm)
+        if s and s["count"]:
+            print(f"{'telemetry':10s} {nm}: p50 {s['p50'] * 1e3:7.1f} ms  "
+                  f"p99 {s['p99'] * 1e3:7.1f} ms  n {s['count']}")
+    if "pool/occupancy" in g:
+        print(f"{'telemetry':10s} pool occupancy {g['pool/occupancy']:.2f}  "
+              f"cached blocks {g.get('pool/cached_blocks', 0):.0f}")
+
+
+def _export_telemetry(reg, trace_dir, prefix):
+    from repro_torch.obs import export_all
+    paths = export_all(reg, trace_dir, prefix=prefix)
+    for kind, p in sorted(paths.items()):
+        print(f"{'telemetry':10s} {kind} -> {p}")
+    return paths
+
+
 def run_continuous(model, args, device):
     """Trace-driven continuous batching with prefix caching; a first serve
-    of the longest prompt warms the real step geometry off the clocks."""
+    of the longest prompt warms the real step geometry off the clocks.
+    With ``--metrics`` / ``--trace-dir`` the measured serve runs with a
+    fresh registry (the warm-up's samples are dropped)."""
+    from repro_torch.obs import Registry
     rng = np.random.default_rng(0)
     prompts, arrivals, extras = _build_trace(model.cfg.vocab, args, rng)
+    reg = Registry() if args.metrics or args.trace_dir else None
     eng = Engine(model, method=args.method, device=device,
-                 sampler=SamplerConfig(temperature=args.temperature))
+                 sampler=SamplerConfig(temperature=args.temperature),
+                 registry=reg)
     kw = dict(block_size=args.block_size, num_blocks=args.num_blocks,
               max_prefill_tokens=args.max_prefill_tokens,
               max_decode_batch=args.max_decode_batch,
@@ -233,6 +295,10 @@ def run_continuous(model, args, device):
               prefetch_depth=args.prefetch_depth, policy=args.policy)
     longest = max(prompts, key=len)
     eng.serve(make_requests([longest] * 2, args.max_new), **kw)
+    if reg is not None:
+        # each serve builds its state (and scheduler) from
+        # ``eng.registry``, so a fresh one drops the warm-up's samples
+        reg = eng.registry = Registry()
     res = eng.serve(make_requests(prompts, args.max_new, arrivals=arrivals,
                                   **extras), **kw)
     ttft = np.asarray(sorted(res.ttft_s.values()))
@@ -268,6 +334,10 @@ def run_continuous(model, args, device):
               f"({s['staged_used']:.0f} from prefetch staging), "
               f"{s['host_evictions']:.0f} host evictions, "
               f"{s['host_blocks']:.0f} blocks resident")
+    if reg is not None:
+        _print_telemetry(reg)
+        if args.trace_dir:
+            _export_telemetry(reg, args.trace_dir, f"serve_{args.method}")
     return res
 
 
@@ -300,12 +370,35 @@ def main(argv=None):
     for m in [args.method] + (["full"] if args.compare_dense else []):
         eng = Engine(model, method=m, device=device,
                      sampler=SamplerConfig(temperature=args.temperature))
-        r = eng.generate({"tokens": toks}, args.max_new)
+        if args.trace_dir:
+            # warm the signature off the trace, then profile the measured
+            # run (the record_function ranges label its regions)
+            eng.generate({"tokens": toks}, args.max_new)
+            r = _profiled_generate(eng, {"tokens": toks}, args.max_new,
+                                   args.trace_dir, m)
+        else:
+            r = eng.generate({"tokens": toks}, args.max_new)
         print(f"{m:18s} TTFT {r.ttft_s * 1e3:9.1f} ms   "
               f"decode {r.decode_tps:8.1f} tok/s   "
               f"prompt {args.prompt_len} x {args.batch}   device {r.device}")
         runs.append(r)
     return runs[0]                       # the run of ``--method``
+
+
+def _profiled_generate(eng, batch, max_new, trace_dir, method):
+    """``eng.generate`` under ``torch.profiler`` (CPU activity, and CUDA on
+    the card); the Chrome trace goes to ``trace_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        r = eng.generate(batch, max_new)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"oneshot_{method}.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"# torch profiler trace -> {path}")
+    return r
 
 
 if __name__ == "__main__":

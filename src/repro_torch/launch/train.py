@@ -16,8 +16,9 @@ After the steps it prints the step time (host clock between device
 synchronisations, the first step off the clock: it builds cuBLAS state
 and the caching allocator's pools), tokens per second, the device's peak
 memory and, on the card, the model-FLOP share (6 N tokens / time against
-989 TFLOP/s, the H100's dense bf16 peak; N counts every parameter).  Not
-ported yet: ``--host-mesh`` and ``--multi-pod`` (sharded training).
+989 TFLOP/s, the H100's dense bf16 peak from ``analysis/roofline.py``; N
+counts every parameter).  Not ported yet: ``--host-mesh`` and
+``--multi-pod`` (sharded training).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis.roofline import PEAK_FLOPS
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import REF_SEED, lm_batches, needle_batches
 from repro_torch.models.model import build_model, resolve_device
@@ -35,7 +37,7 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import loop as train_loop
 from repro_torch.training import optimizer as opt
 
-BF16_PEAK_FLOP_S = 989e12          # H100 SXM, dense bf16 (data sheet)
+BF16_PEAK_FLOP_S = PEAK_FLOPS          # H100 SXM, dense bf16 (data sheet)
 
 
 class TrainRun(NamedTuple):

@@ -59,7 +59,9 @@ zamba2-7b's depth.  The recurrent blocks update their states in place.
 chunk's cache write slot: an int, or a per-row (b,) tensor under
 continuous batching; distinct from positions, since pad slots carry
 pos == -1) and, under cross-layer plan reuse, ``layer_idx`` (the global
-layer index ``core/plan.py::refresh`` decides on).
+layer index ``core/plan.py::refresh`` decides on).  With ``obs`` set, an
+attention layer leaves its ``LayerObs`` in ``_obs``: ``dense_obs`` at a
+dense bypass, the selecting routes through ``core/plan.py``.
 """
 from __future__ import annotations
 
@@ -251,6 +253,8 @@ class AttnBlock(nn.Module):
         if method == "full" or kv.capacity <= budget + t:
             att = attention_with_positions(q, kv.k, kv.v, pos, kv.pos,
                                            causal=True, window=self.window)
+            if ctx.get("obs"):
+                ctx["_obs"] = plan_mod.dense_obs(kv.pos, start)
         elif plan_mod.fused_route(qcfg, method, kv.k, window=self.window):
             # the chunk's KV was just written into the cache, so the kernel
             # reads it from there rather than from a [budget | chunk] concat
@@ -416,6 +420,8 @@ class MLABlock(nn.Module):
         if method == "full" or lat.capacity <= budget + x.shape[1]:
             att = self._absorbed_full(q_abs, q_rope, lat.ckv, lat.krope,
                                       pos, lat.pos)
+            if ctx.get("obs"):
+                ctx["_obs"] = plan_mod.dense_obs(lat.pos, start)
         else:
             att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
                                                  lat, start, ctx, plan)

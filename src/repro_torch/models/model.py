@@ -33,7 +33,8 @@ multi-token-prediction loss, ``_mtp_loss``, through the ``mtp`` head);
 the parameters are created with ``requires_grad=False`` and a trainer
 turns them on (``training/loop.py::init_state``).  The read-out is tied
 to the embedding or, untied, ``lm_head`` (fp32, as the reference applies
-it).  The in-step telemetry outputs are not ported yet.
+it).  ``prefill_chunk`` and ``decode_step`` can also return the per-layer
+``LayerObs`` (``with_obs``), stacked into (n_layers,) leaves.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plan import LayerObs
 from repro_torch.models.blocks import (AttnBlock, DecCrossBlock,
                                       MambaBlock, RWKVBlock, _weight,
                                       make_block)
@@ -295,16 +297,23 @@ class Model(nn.Module):
     def _apply_stacks(self, x, pos, cache, ctx):
         """All stacks in order, threading the cross-layer plan carry and
         the global layer offset (the reuse schedule spans stacks).
-        Returns (x, sel): ``sel`` sums the stacks' prefetch-oracle counts
-        when ``ctx["selblk"]`` is set, else None."""
+        Returns (x, obs, sel): ``obs`` is the per-layer ``LayerObs`` with
+        (n_layers,) fp32 leaves in global layer order when ``ctx["obs"]``
+        is set (``core/plan.py``), else None; ``sel`` sums the stacks'
+        prefetch-oracle counts when ``ctx["selblk"]`` is set, else None."""
         plan, layer0, sel = None, 0, None
+        obs = [] if ctx.get("obs") else None
         for s, sc in zip(self.stacks, cache):
-            x, plan, ss = s.apply(x, pos, sc, dict(ctx, layer0=layer0),
-                                  plan=plan)
+            x, plan, ob, ss = s.apply(x, pos, sc, dict(ctx, layer0=layer0),
+                                      plan=plan)
+            if obs is not None:
+                obs.extend(ob)
             if ss is not None:
                 sel = ss if sel is None else sel + ss
             layer0 += len(s.layers)
-        return x, sel
+        if obs is not None:
+            obs = LayerObs(*(torch.stack(f) for f in zip(*obs)))
+        return x, obs, sel
 
     def _readout(self, x):
         x = rmsnorm(self.ln_f, x, self.cfg.norm_eps)
@@ -388,7 +397,7 @@ class Model(nn.Module):
         h = x_all
         for c0 in range(0, t, bcp):
             # write SLOT of the chunk — pad slots keep their slot, pos -1
-            h, _ = self._apply_stacks(x_all[:, c0:c0 + bcp],
+            h, _, _ = self._apply_stacks(x_all[:, c0:c0 + bcp],
                                       pos_all[:, c0:c0 + bcp], cache,
                                       dict(base, slot=c0))
         return self._readout(h[:, -1:])[:, 0], cache
@@ -404,13 +413,12 @@ class Model(nn.Module):
         starts at its own offset; it is also the write slot).  ``valid_len``
         (b,) marks how many leading chunk tokens are real: the rest get
         pos = -1 and are masked everywhere.  Returns (last VALID hidden
-        state (b, d), cache); ``sel_blocks = (block_size, n_blocks)``
-        appends the prefetch oracle's output, the (b, n_blocks) int32
+        state (b, d), cache); ``with_obs=True`` appends the per-layer
+        ``LayerObs`` ((n_layers,) fp32 leaves on the device; the selection
+        itself is unchanged), and ``sel_blocks = (block_size, n_blocks)``
+        then appends the prefetch oracle's output, the (b, n_blocks) int32
         selection counts per logical pool block summed over layers
         (``core/plan.py::pool_block_counts``)."""
-        if with_obs:
-            raise NotImplementedError("prefill_chunk: with_obs (the "
-                                      "telemetry outputs) is not yet ported")
         method = method or self.cfg.quoka.method
         dev = self.device
         tok = _on(batch["tokens"], dev)
@@ -428,25 +436,25 @@ class Model(nn.Module):
             pos = torch.where(offs[None] < vl[:, None], pos,
                               torch.full_like(pos, -1))
         x = self._positional(x, pos)
-        ctx = dict(self._ctx(method), slot=slot)
-        if sel_blocks is not None:
-            ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
-        x, sel = self._apply_stacks(x, pos, cache, ctx)
+        ctx = self._step_ctx(method, slot, with_obs, sel_blocks)
+        x, obs, sel = self._apply_stacks(x, pos, cache, ctx)
         if valid_len is None:
             last = x[:, -1]
         else:
             li = (vl.long() - 1).clamp(0, t - 1)
             last = x[torch.arange(b, device=dev), li]
-        return (last, cache) if sel_blocks is None else (last, cache, sel)
+        return _step_out(last, cache, obs, sel)
 
     @torch.no_grad()
     def decode_step(self, tokens, pos, cache,
-                    method: Optional[str] = None, sel_blocks=None):
+                    method: Optional[str] = None, with_obs: bool = False,
+                    sel_blocks=None):
         """One decode step.  tokens (b,) on the model's device; pos an int
         or a per-row (b,) tensor (continuous batching): the slot and
         position of each new token.  Returns (logits (b, V), cache), plus
-        the selection counts when ``sel_blocks`` is set (see
-        ``prefill_chunk``)."""
+        the per-layer ``LayerObs`` when ``with_obs=True`` and the selection
+        counts when ``sel_blocks`` is set (see ``prefill_chunk``; obs
+        first)."""
         cfg = self.cfg
         method = method or cfg.quoka.method
         b = tokens.shape[0]
@@ -459,13 +467,23 @@ class Model(nn.Module):
             pos2 = torch.full((b, 1), slot, dtype=torch.int32,
                               device=self.device)
         x = self._positional(x, pos2)
+        ctx = self._step_ctx(method, slot, with_obs, sel_blocks)
+        x, obs, sel = self._apply_stacks(x, pos2, cache, ctx)
+        return _step_out(self._readout(x)[:, 0], cache, obs, sel)
+
+    def _step_ctx(self, method: str, slot, with_obs: bool, sel_blocks):
         ctx = dict(self._ctx(method), slot=slot)
+        if with_obs:
+            ctx["obs"] = True
         if sel_blocks is not None:
             ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
-        x, sel = self._apply_stacks(x, pos2, cache, ctx)
-        logits = self._readout(x)[:, 0]
-        return (logits, cache) if sel_blocks is None else \
-            (logits, cache, sel)
+        return ctx
+
+
+def _step_out(head, cache, obs, sel):
+    """(head, cache) plus the side outputs that were asked for, obs
+    first, as the reference orders them."""
+    return (head, cache) + tuple(o for o in (obs, sel) if o is not None)
 
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> Model:

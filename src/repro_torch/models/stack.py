@@ -93,21 +93,29 @@ class Stack(nn.Module):
     def apply(self, x, pos, caches: List[Cache], ctx, plan=None):
         """Prefill chunk or decode step through every layer; caches are
         updated in place.  ``ctx["layer0"]`` is this stack's first global
-        layer index.  Returns (x, plan carry, sel): the carry passes through
-        untouched when reuse is off here.  ``sel`` is the prefetch oracle's
-        side channel: with ``ctx["selblk"] = (block_size, n_blocks)`` set,
-        the (b, n_blocks) int32 sum over this stack's layers of each plan's
+        layer index.  Returns (x, plan carry, obs, sel): the carry passes
+        through untouched when reuse is off here.  ``obs``, with
+        ``ctx["obs"]`` set, is one ``LayerObs`` per layer in global layer
+        order (``nan_obs`` for a layer that leaves none: mamba, rwkv),
+        else None.  ``sel`` is the prefetch oracle's side channel: with
+        ``ctx["selblk"] = (block_size, n_blocks)`` set, the (b, n_blocks)
+        int32 sum over this stack's layers of each plan's
         ``pool_block_counts`` (a layer that selected nothing adds zero),
         else None."""
         carry = self._plan_carry0(caches, x.shape[1], ctx, plan, x.device)
         layer0 = int(ctx.get("layer0", 0))
+        obs_on = bool(ctx.get("obs"))
         sel_on = ctx.get("selblk") is not None
+        obs = [] if obs_on else None
         sel = None
         for i, (blk, kv) in enumerate(zip(self.layers, caches)):
             # a per-layer copy when the layer leaves something in it
-            cj = ctx if carry is None and not sel_on else \
+            cj = ctx if carry is None and not obs_on and not sel_on else \
                 dict(ctx, layer_idx=layer0 + i)
             x, carry = blk.apply(x, pos, kv, cj, plan=carry)
+            if obs_on:
+                ob = cj.pop("_obs", None)
+                obs.append(plan_mod.nan_obs(x.device) if ob is None else ob)
             if sel_on:
                 sb = cj.pop("_selblk", None)
                 if sel is None:
@@ -115,4 +123,4 @@ class Stack(nn.Module):
                                       dtype=torch.int32, device=x.device)
                 if sb is not None:
                     sel += sb
-        return x, (plan if carry is None else carry), sel
+        return x, (plan if carry is None else carry), obs, sel

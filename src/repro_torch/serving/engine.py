@@ -28,8 +28,17 @@ the sampled tokens, so both reach the host in the step's one copy.  The
 engine folds them into a decayed hotness per logical block and, while a
 step is dispatched and before that copy, stages the next waiting request's
 hottest host-tier blocks (``_prefetch``): their H2D copies run on a side
-stream under the step's compute.  Not ported yet: the telemetry registry
-and mesh serving (each raises).
+stream under the step's compute.
+
+``Engine(registry=)`` (``obs.Registry``) turns on serve-path telemetry as
+the reference does: step spans bracketing each step function through its
+token fetch, scheduler and pool counters and gauges, and the per-layer
+``LayerObs`` (``core/plan.py``), which the step functions then return
+beside the tokens and the engine fetches in one stacked copy per step
+after the token fetch.  With no registry the step functions run without
+them, exactly as before.  ``Engine.stats`` is a view of the registry
+either way (an ephemeral one when off).  Not ported yet: mesh serving
+(raises).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import torch
 
 from repro_torch.core.selection import METHODS
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.obs import registry as obs_reg
 from repro_torch.serving import pool as pl
 from repro_torch.serving.policy import resolve_policy
 from repro_torch.serving.sampler import SamplerConfig, sample
@@ -81,6 +91,7 @@ class ServeState:
     #: decayed selection counts per logical block, the prefetch ranking
     #: (None: no host tier)
     hot: Optional[np.ndarray] = None
+    host_ctr: Tuple = (0, 0, 0, 0)       # last pool tier counters seen
 
     @property
     def now(self) -> float:
@@ -120,12 +131,11 @@ class Engine:
                  sampler: SamplerConfig = SamplerConfig(), device=None,
                  mesh=None, registry=None):
         """Serves ``model`` on ``device`` — the CUDA card unless the caller
-        passes another; the model must already live there."""
+        passes another; the model must already live there.  ``registry``
+        (``obs.Registry``) turns on serve-path telemetry (module
+        docstring)."""
         if mesh is not None:
             raise NotImplementedError("mesh serving is not yet ported")
-        if registry is not None:
-            raise NotImplementedError("the telemetry registry is not yet "
-                                      "ported")
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, engine on {dev}")
@@ -135,6 +145,8 @@ class Engine:
         if self.method not in METHODS:
             raise ValueError(f"unknown selection method {self.method!r}")
         self.sampler = sampler
+        self.registry = registry if registry is not None else obs_reg.NULL
+        self._obs_on = bool(self.registry.enabled)
         self.stats: Dict[str, float] = {}   # prefix-cache stats of last serve
         self._warmed: set = set()           # warmed generate/serve geometries
 
@@ -226,26 +238,29 @@ class Engine:
         tensors.  Each returns the sampled tokens (rows,) or, with
         ``sel_on`` (host tier), (rows, 1 + max_nb) int64: the tokens, then
         the plans' selection counts per logical block (the prefetch
-        oracle), stacked so one copy brings both to the host.  ``during``
-        (the prefetch hook) runs once the gather is queued and the step's
-        inputs are on the device, before the model: an eager step is
-        dispatched kernel by kernel, so copies started there run under this
-        step's compute (started after the whole step, they would find the
-        card idle), and no copy from pageable memory — which would wait
-        behind them on the copy engine, and hold the host there — comes
-        until the scatter."""
+        oracle), stacked so one copy brings both to the host; called with
+        ``with_obs=True`` each returns (that, the per-layer ``LayerObs``).
+        ``during`` (the prefetch hook) runs once the gather is queued and
+        the step's inputs are on the device, before the model: an eager
+        step is dispatched kernel by kernel, so copies started there run
+        under this step's compute (started after the whole step, they
+        would find the card idle), and no copy from pageable memory —
+        which would wait behind them on the copy engine, and hold the host
+        there — comes until the scatter."""
         model, method, sampler = self.model, self.method, self.sampler
         dev = self.device
         chunk = model.cfg.quoka.chunk_size
         selb = (block_size, max_nb) if sel_on else None
 
-        def out(tok, res):
-            return tok if not sel_on else \
-                torch.cat([tok[:, None], res[2].long()], dim=1)
+        def out(tok, res, with_obs):
+            # res: (head, cache[, obs][, sel])
+            o = tok if not sel_on else \
+                torch.cat([tok[:, None], res[-1].long()], dim=1)
+            return (o, res[2]) if with_obs else o
 
         @torch.no_grad()
         def prefill_step(data, table, tokens, start, vlen, generator,
-                         during=None):
+                         during=None, with_obs=False):
             cache = pl.gather(data, table, num_blocks, block_size)
             inputs = [torch.as_tensor(x, device=dev)
                       for x in (tokens, start, vlen)]
@@ -253,7 +268,7 @@ class Engine:
                 during()
             res = model.prefill_chunk(
                 {"tokens": inputs[0]}, inputs[1], cache, method,
-                valid_len=inputs[2], sel_blocks=selb)
+                valid_len=inputs[2], with_obs=with_obs, sel_blocks=selb)
             logits = model._readout(res[0][:, None, :])[:, 0]
             tok = sample(logits, generator, sampler)
             # the whole chunk is written (pos -1 past valid_len), so a row
@@ -261,21 +276,22 @@ class Engine:
             wrote = np.where(vlen > 0, chunk, 0)
             touched = pl.touched_blocks(start, wrote, max_nb, block_size)
             pl.scatter(data, res[1], table, touched, num_blocks, block_size)
-            return out(tok, res)
+            return out(tok, res, with_obs)
 
         @torch.no_grad()
         def decode_step(data, table, tokens, pos, live, generator,
-                        during=None):
+                        during=None, with_obs=False):
             cache = pl.gather(data, table, num_blocks, block_size)
             inputs = [torch.as_tensor(x, device=dev) for x in (tokens, pos)]
             if during is not None:
                 during()
             res = model.decode_step(inputs[0].long(), inputs[1], cache,
-                                    method, sel_blocks=selb)
+                                    method, with_obs=with_obs,
+                                    sel_blocks=selb)
             tok = sample(res[0], generator, sampler)
             touched = pl.touched_blocks(pos, live, max_nb, block_size)
             pl.scatter(data, res[1], table, touched, num_blocks, block_size)
-            return out(tok, res)
+            return out(tok, res, with_obs)
 
         return prefill_step, decode_step
 
@@ -345,7 +361,8 @@ class Engine:
         grid = 1 if self.method == "full" else max(1, g)
         sched = Scheduler(pool, chunk, max_prefill_tokens, max_decode_batch,
                           prefix_cache=prefix_cache, prefix_align=align,
-                          policy=pol, max_prefill_rows=b_p, token_grid=grid)
+                          registry=self.registry, policy=pol,
+                          max_prefill_rows=b_p, token_grid=grid)
         fns = self._continuous_fns(block_size, max_nb, num_blocks,
                                    sel_on=htb > 0)
         if generator is None:
@@ -428,9 +445,61 @@ class Engine:
         hot = state.hot
         cand.sort(key=lambda c: -(hot[c[0]] if c[0] < hot.shape[0]
                                   else 0.0))
-        with torch.profiler.record_function("pool_h2d_stage"):
-            return pool.stage(*[slot for _, slot in
-                                cand[:state.prefetch_depth]])
+        slots = [slot for _, slot in cand[:state.prefetch_depth]]
+        with self.registry.span("pool/h2d_stage", blocks=len(slots)), \
+                torch.profiler.record_function("pool_h2d_stage"):
+            n = pool.stage(*slots)
+        if n:
+            self.registry.count("pool/staged", float(n))
+        return n
+
+    def _host_counters(self, state: ServeState) -> None:
+        """Registry counters for this step's tier traffic (deltas of the
+        pool's monotonic totals)."""
+        pool = state.pool
+        cur = (pool.demoted, pool.promoted, pool.host_evictions,
+               pool.staged_used)
+        for name, now_v, prev in zip(
+                ("pool/demoted", "pool/promoted", "pool/host_evictions",
+                 "pool/staged_used"), cur, state.host_ctr):
+            if now_v > prev:
+                self.registry.count(name, float(now_v - prev))
+        state.host_ctr = cur
+
+    def _record_layer_obs(self, phase: str, lobs) -> None:
+        """Feed one step's per-layer ``LayerObs`` into the registry: the
+        selected-KV fraction per layer beside the budget ratio, plan
+        refresh / reuse counts, and the score sketch.  NaN marks not
+        applicable (non-selecting layers; budget and sketch of a dense
+        layer; the sketch of a reusing layer) and is skipped.  One stacked
+        device-to-host copy, whose (7, n_layers) rows, in ``LayerObs``
+        field order, go to ``_note_layer_obs``."""
+        self._note_layer_obs(phase, torch.stack(list(lobs)).cpu().numpy())
+
+    def _note_layer_obs(self, phase: str, rows) -> None:
+        reg = self.registry
+        sel, ctx, bud, ref, lo, mean, hi = rows
+        with np.errstate(invalid="ignore", divide="ignore"):
+            frac = sel / ctx
+            budf = bud / ctx
+        for li in range(sel.shape[0]):
+            if not np.isfinite(frac[li]):
+                continue
+            reg.set(f"select/layer{li:02d}/kv_fraction", frac[li])
+            reg.observe("select/kv_fraction", frac[li])
+            reg.observe(f"select/{phase}/kv_fraction", frac[li])
+            if np.isfinite(budf[li]):
+                reg.set(f"select/layer{li:02d}/budget_fraction", budf[li])
+        fin = ref[np.isfinite(ref)]
+        if fin.size:
+            n_ref = float(fin.sum())
+            reg.count("select/plan_refresh", n_ref)
+            reg.count("select/plan_reuse", float(fin.size) - n_ref)
+        for nm, v in (("score_lo", lo), ("score_mean", mean),
+                      ("score_hi", hi)):
+            v = v[np.isfinite(v)]
+            if v.size:
+                reg.observe(f"select/{nm}", float(v.mean()))
 
     def step(self, state: ServeState) -> Tuple[int, int]:
         """One engine step: admit, run a mixed chunk-prefill step over up to
@@ -440,8 +509,23 @@ class Engine:
         filled with this step's emitted (rid, token) pairs — the feed
         ``serve_stream`` yields from."""
         pool, sched = state.pool, state.sched
+        reg, obs = self.registry, self._obs_on
         state.events = []
-        sched.admit(state.now)
+        admitted = sched.admit(state.now)
+        if obs:
+            now = state.now
+            for r in admitted:
+                reg.observe("sched/admission_wait_s",
+                            max(0.0, now - r.arrival_s))
+            reg.set("sched/queue_depth", float(len(sched.waiting)))
+            reg.set("sched/suspended", float(len(sched.suspended)))
+            reg.set("sched/active", float(sched.n_active))
+            reg.set("pool/occupancy", 1.0 - pool.num_free / pool.num_blocks)
+            reg.set("pool/cached_blocks", float(pool.num_cached))
+            if pool.host is not None:
+                reg.set("pool/host_blocks", float(len(pool.host)))
+                self._host_counters(state)
+        kw = {"with_obs": True} if obs else {}
 
         rows = sched.pack_prefill(state.now)
         if rows:
@@ -453,11 +537,18 @@ class Engine:
             table = pool.table_array([r.rid for r, *_ in rows],
                                      state.b_prefill, state.max_nb)
             # host-tier blocks are staged while the step is dispatched,
-            # then comes the step's one sync
-            out = state.fns[0](pool.data, table, tokens, start, vlen,
-                               state.generator,
-                               during=lambda: self._prefetch(state))
-            tok_np = self._note_hot(state, self._fetch(out), len(rows))
+            # then comes the step's one sync; the span brackets the step
+            # through that token fetch
+            with reg.span("engine/prefill_step", rows=len(rows)):
+                out = state.fns[0](pool.data, table, tokens, start, vlen,
+                                   state.generator,
+                                   during=lambda: self._prefetch(state),
+                                   **kw)
+                out, lobs = out if obs else (out, None)
+                tok_np = self._note_hot(state, self._fetch(out), len(rows))
+            if obs:
+                self._record_layer_obs("prefill", lobs)
+                reg.count("engine/prefill_tokens", float(vlen.sum()))
             now = state.now
             for i, (r, ch, st, vl) in enumerate(rows):
                 ev = sched.note_prefilled(r, vl, int(tok_np[i]), now)
@@ -474,10 +565,16 @@ class Engine:
                 tokens[i], pos[i], live[i] = r.out[-1], r.decode_pos, 1
             table = pool.table_array([r.rid for r in drows],
                                      state.b_decode, state.max_nb)
-            out = state.fns[1](pool.data, table, tokens, pos, live,
-                               state.generator,
-                               during=lambda: self._prefetch(state))
-            tok_np = self._note_hot(state, self._fetch(out), len(drows))
+            with reg.span("engine/decode_step", rows=len(drows)):
+                out = state.fns[1](pool.data, table, tokens, pos, live,
+                                   state.generator,
+                                   during=lambda: self._prefetch(state),
+                                   **kw)
+                out, lobs = out if obs else (out, None)
+                tok_np = self._note_hot(state, self._fetch(out), len(drows))
+            if obs:
+                self._record_layer_obs("decode", lobs)
+                reg.count("engine/decode_tokens", float(len(drows)))
             now = state.now
             for i, r in enumerate(drows):
                 state.events.append((r.rid,
@@ -582,22 +679,50 @@ class Engine:
         generated = sum(len(r.out) for r in done)
         hit_tok = pool.hit_tokens - prefix0[2]
         all_tok = pool.prompt_tokens - prefix0[3]
-        self.stats = {
-            "requests": float(pool.lookups - prefix0[0]),
-            "cache_hits": float(pool.hit_requests - prefix0[1]),
-            "hit_tokens": float(hit_tok),
-            "prompt_tokens": float(all_tok),
-            "hit_rate": hit_tok / all_tok if all_tok else 0.0,
-            "evictions": float(pool.evictions - prefix0[4]),
-            "cow_copies": float(pool.cow_copies - prefix0[5]),
-            "cached_blocks": float(pool.num_cached)}
+        # ``Engine.stats`` / ``ServeResult.prefix`` are registry views:
+        # this trace's prefix-cache stats land in gauges under
+        # serve/prefix/ (gauges: they are this trace's deltas, which
+        # counters would add up across serves) and come back as a flat
+        # suffix-keyed dict; with metrics off an ephemeral registry keeps
+        # the same dict
+        preg = self.registry if self._obs_on else obs_reg.Registry()
+        sc = preg.scope("serve/prefix")
+        sc.set("requests", pool.lookups - prefix0[0])
+        sc.set("cache_hits", pool.hit_requests - prefix0[1])
+        sc.set("hit_tokens", hit_tok)
+        sc.set("prompt_tokens", all_tok)
+        sc.set("hit_rate", hit_tok / all_tok if all_tok else 0.0)
+        sc.set("evictions", pool.evictions - prefix0[4])
+        sc.set("cow_copies", pool.cow_copies - prefix0[5])
+        sc.set("cached_blocks", pool.num_cached)
         if pool.host is not None:
-            self.stats.update(
-                demoted=float(pool.demoted - prefix0[6]),
-                promoted=float(pool.promoted - prefix0[7]),
-                host_evictions=float(pool.host_evictions - prefix0[8]),
-                staged_used=float(pool.staged_used - prefix0[9]),
-                host_blocks=float(len(pool.host)))
+            sc.set("demoted", pool.demoted - prefix0[6])
+            sc.set("promoted", pool.promoted - prefix0[7])
+            sc.set("host_evictions", pool.host_evictions - prefix0[8])
+            sc.set("staged_used", pool.staged_used - prefix0[9])
+            sc.set("host_blocks", len(pool.host))
+        self.stats = preg.view("serve/prefix")
+        if self._obs_on:
+            reg = self.registry
+            for r in done:
+                if r.ttft_s is not None:
+                    reg.observe("serve/ttft_s", r.ttft_s)
+                    reg.observe(f"tenant/{r.tenant}/ttft_s", r.ttft_s)
+                dec = len(r.out) - 1
+                if dec > 0 and r.done_s is not None and r.ttft_s is not None:
+                    tpot = (r.done_s - r.arrival_s - r.ttft_s) / dec
+                    reg.observe("serve/tpot_s", tpot)
+                    reg.observe(f"tenant/{r.tenant}/tpot_s", tpot)
+            reg.count("serve/requests_finished", float(len(done)))
+            reg.count("serve/tokens_generated", float(generated))
+            reg.event("serve_done", wall_s=wall, requests=len(done),
+                      generated=generated,
+                      tokens_per_s=generated / wall if wall > 0 else 0.0,
+                      steps=state.steps,
+                      prefill_steps=state.prefill_steps,
+                      decode_steps=state.decode_steps,
+                      method=self.method, device=str(self.device),
+                      **{f"prefix_{k}": v for k, v in self.stats.items()})
         return ServeResult(
             tokens={r.rid: np.asarray(r.out, np.int32) for r in done},
             ttft_s={r.rid: r.ttft_s for r in done},

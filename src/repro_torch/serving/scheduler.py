@@ -1,7 +1,8 @@
 """Continuous-batching scheduler: MECHANICS only — ordering and preemption
 choices live in a pluggable ``SchedPolicy`` (serving/policy.py).
-Counterpart of ``repro/serving/scheduler.py``, host-side Python; the
-telemetry registry is not ported.
+Counterpart of ``repro/serving/scheduler.py``, host-side Python, with the
+reference's ``sched/*``, ``tenant/*`` and ``serve/deadline_*`` counters and
+``sched/suspend`` / ``sched/resume`` spans in an ``obs.Registry``.
 
 Per engine step:
 
@@ -61,6 +62,7 @@ from repro_torch.serving.policy import SchedPolicy, resolve_policy
 from repro_torch.serving.pool import (PagedKVCache, _chain_hashes,
                                       blocks_for_request, blocks_for_resume,
                                       max_blocks_bound)
+from repro_torch.obs import registry as obs_reg
 
 
 def _device_entries(shared: List, cow) -> Tuple[List[int], List[int]]:
@@ -82,9 +84,10 @@ class Scheduler:
                  token_grid: int = 1):
         assert max_prefill_tokens >= chunk_size, \
             "max_prefill_tokens must fit at least one chunk"
-        if registry is not None:
-            raise NotImplementedError("scheduler telemetry (registry) is "
-                                      "not yet ported")
+        # lifecycle counters under sched/ (obs/registry.py): the default
+        # NULL registry makes every count() a no-op; the plain-int twins
+        # below feed ServeResult either way
+        self.reg = registry if registry is not None else obs_reg.NULL
         self.pool = pool
         self.policy: SchedPolicy = resolve_policy(policy)
         self.chunk_size = int(chunk_size)
@@ -106,7 +109,7 @@ class Scheduler:
         self.decoding: List[rq.Request] = []
         self.suspended: List[rq.Request] = []
         self.done: List[rq.Request] = []
-        # plain-int counters (ServeResult fields)
+        # plain-int counters (ServeResult fields; the registry mirrors them)
         self.preemptions = 0
         self.resumes = 0
         self.resume_replays = 0
@@ -152,6 +155,7 @@ class Scheduler:
         self._chain.pop(r.rid, None)       # rid may carry new tokens
         self._rchain.pop(r.rid, None)
         self.waiting.append(r)
+        self.reg.count("sched/submitted")
 
     def pending(self) -> bool:
         return bool(self.waiting or self.prefilling or self.decoding
@@ -259,8 +263,12 @@ class Scheduler:
             # fits cold.
             cached, shared, cow, dev_shared, protect = 0, [], None, [], []
             n = self.blocks_needed(r)
+            self.reg.count("sched/hit_degraded")
         if not pool.can_alloc(n - len(dev_shared), exclude=protect):
             return False
+        n_promote = len(shared) - len(dev_shared)
+        if n_promote:
+            self.reg.count("sched/promoted_blocks", float(n_promote))
         pool.alloc_prefix(r.rid, n, shared, cow)
         pool.lookups += 1
         pool.prompt_tokens += r.prompt_len
@@ -272,6 +280,10 @@ class Scheduler:
         r.status = rq.PREFILL
         self.waiting.remove(r)
         self.prefilling.append(r)
+        self.reg.count("sched/admitted")
+        if cached:
+            self.reg.count("sched/prefix_hit_requests")
+            self.reg.count("sched/prefix_hit_tokens", float(cached))
         return True
 
     # ---- suspend / resume ------------------------------------------------
@@ -284,13 +296,18 @@ class Scheduler:
             f"only decoding requests are preemptible (rid {r.rid} is " \
             f"{r.status})"
         seq_kv = r.seq_tokens()[:r.kv_len]
-        self.pool.suspend(r.rid, seq_kv)
+        with self.reg.span("sched/suspend", rid=r.rid):
+            _, demoted = self.pool.suspend(r.rid, seq_kv)
         self.decoding.remove(r)
         r.status = rq.SUSPENDED
         r.preemptions += 1
         self.suspended.append(r)
         self._rchain.pop(r.rid, None)     # kv grew since any prior suspend
         self.preemptions += 1
+        self.reg.count("sched/preemptions")
+        self.reg.count(f"tenant/{r.tenant}/preemptions")
+        if demoted:
+            self.reg.count("sched/suspend_demoted_blocks", float(demoted))
 
     def _try_resume(self, r: rq.Request, now: float) -> bool:
         """Re-admit a suspended request: match the preserved prompt +
@@ -322,12 +339,15 @@ class Scheduler:
             cached, shared, cow, dev_shared, protect = 0, [], None, [], []
             n = blocks_for_resume(r.kv_len, r.prompt_len, r.max_new,
                                   self.chunk_size, pool.block_size, 0)
+            self.reg.count("sched/hit_degraded")
         if not pool.can_alloc(n - len(dev_shared), exclude=protect):
             return False
-        pool.alloc_prefix(r.rid, n, shared, cow)
+        with self.reg.span("sched/resume", rid=r.rid):
+            pool.alloc_prefix(r.rid, n, shared, cow)
         self._rchain.pop(r.rid, None)
         self.suspended.remove(r)
         self.resumes += 1
+        self.reg.count("sched/resumes")
         if cached >= r.kv_len:
             r.resume_len = 0
             r.n_prefilled = r.prompt_len
@@ -339,6 +359,8 @@ class Scheduler:
             r.status = rq.PREFILL
             self.prefilling.append(r)
             self.resume_replays += 1
+            self.reg.count("sched/resume_replay_tokens",
+                           float(r.kv_len - cached))
         return True
 
     # ------------------------------------------------------------------
@@ -389,8 +411,13 @@ class Scheduler:
         r.status = rq.DECODE
         r.out.append(int(first_token))
         r.ttft_s = now - r.arrival_s
-        if r.ttft_deadline_s is not None and r.ttft_s > r.ttft_deadline_s:
-            self.deadline_misses += 1
+        if r.ttft_deadline_s is not None:
+            if r.ttft_s > r.ttft_deadline_s:
+                self.deadline_misses += 1
+                self.reg.count("serve/deadline_miss")
+                self.reg.count(f"tenant/{r.tenant}/deadline_miss")
+            else:
+                self.reg.count(f"tenant/{r.tenant}/deadline_met")
         self.prefilling.remove(r)
         if r.finished():               # max_new == 1 or instant EOS
             self._finish(r, now)
@@ -414,3 +441,5 @@ class Scheduler:
         r.done_s = now
         self.pool.free(r.rid)      # registered prefix blocks stay resident
         self.done.append(r)
+        self.reg.count("sched/finished")
+        self.reg.count(f"tenant/{r.tenant}/finished")

@@ -1090,3 +1090,66 @@ def test_train_step_on_the_card_matches_cpu(dev, arch, remat):
     for k, want in gc.items():
         top = max(np.abs(want).max(), 1e-30)
         assert np.abs(gg[k] - want).max() <= tol * top, k
+
+
+def layer_obs_card_vs_cpu(dev, route, seed=3):
+    """The per-layer ``LayerObs`` of a smoke qwen3-4b (fp32, the same
+    weights on both devices, reuse interval 2, ``route`` "staged" or
+    "fused" at g = 16) from four prefill chunks (the last ragged on row 1)
+    and two decode steps, card against CPU.  Raises unless the counts are
+    exact on the card and the NaNs lie in the same places, the last decode
+    step's layer 1 (a reusing layer) among them; returns (the score
+    sketch's max error, calls compared, NaN sketches).  ``chip_smoke.py``
+    phase 32 runs this too."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+    base = get_config("qwen3-4b").smoke()
+    qover = {"granularity": 16, "fused_select_attn": True} \
+        if route == "fused" else {}
+    cfg = dataclasses.replace(base, quoka=dataclasses.replace(
+        base.quoka, reuse_interval=2, **qover))
+    cpu = build_model(cfg, device="cpu", seed=seed)
+    gpu = Model(cfg, dev)
+    gpu.load_state_dict(cpu.state_dict())
+    t = cfg.quoka.chunk_size
+    toks = np.random.default_rng(seed).integers(
+        3, cfg.vocab, (2, 4 * t)).astype(np.int32)
+    caches = [m.init_cache(2, 6 * t) for m in (cpu, gpu)]
+    got = []
+    for c in range(4):
+        vl = np.array([t, t - 6 if c == 3 else t], np.int32)
+        got.append([m.prefill_chunk({"tokens": toks[:, c * t:(c + 1) * t]},
+                                    c * t, kc, valid_len=vl,
+                                    with_obs=True)[2]
+                    for m, kc in zip((cpu, gpu), caches)])
+    tok = toks[:, -1]
+    for i in range(2):
+        res = [m.decode_step(torch.as_tensor(tok, device=m.device).long(),
+                             4 * t + i, kc, with_obs=True)
+               for m, kc in zip((cpu, gpu), caches)]
+        got.append([r[2] for r in res])
+        tok = res[0][0].argmax(-1).numpy()
+    err, n_nan = 0.0, 0
+    for oc, og in got:
+        for f in oc._fields:
+            a, b = getattr(oc, f), getattr(og, f)
+            assert b.device.type == "cuda" and b.dtype == torch.float32
+            b = b.cpu()
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), (f, a, b)
+            ok = ~torch.isnan(a)
+            if f.startswith("score_"):
+                err = max(err, _err(a[ok], b[ok]) if ok.any() else 0.0)
+            else:
+                assert torch.equal(a[ok], b[ok]), (f, a, b)
+        n_nan += int(torch.isnan(oc.score_lo).sum())
+    assert bool(torch.isnan(got[-1][0].score_lo[1]))     # layer 1 reused
+    return err, len(got), n_nan
+
+
+@pytest.mark.parametrize("route", ["staged", "fused"])
+def test_layer_obs_on_the_card_match_cpu(dev, route):
+    """Card against CPU (``layer_obs_card_vs_cpu``): counts exact, the
+    score sketch within 2e-5, NaN in the same places."""
+    err, _, _ = layer_obs_card_vs_cpu(dev, route)
+    assert err <= 2e-5

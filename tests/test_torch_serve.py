@@ -351,15 +351,19 @@ def test_serve_state_guards(granite):
 
 
 def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
+    """Mesh serving still raises; the telemetry options it used to refuse
+    with it (``registry=``, ``with_obs``) now run (``test_torch_obs.py``
+    holds them to the reference)."""
+    from repro_torch.obs import Registry
     rm, params, pm = granite
-    for kw in (dict(mesh=object()), dict(registry=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Engine(pm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Engine(pm, device="cpu", mesh=object())
+    assert Engine(pm, device="cpu", registry=Registry())._obs_on
     eng = Engine(pm, method="quoka", device="cpu")
     pr = make_requests(_prompts(1, (16,), pm.cfg.vocab), 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.prefill_chunk({"tokens": np.zeros((1, 16), np.int32)}, 0,
-                         pm.init_cache(1, 32), with_obs=True)
+    _, _, lobs = pm.prefill_chunk({"tokens": np.zeros((1, 16), np.int32)}, 0,
+                                  pm.init_cache(1, 32), with_obs=True)
+    assert lobs.sel_tokens.shape == (pm.cfg.n_layers,)
     for mod in (flash_attention, quoka_score, selected_attention):
         mod.LAUNCHES = 0
     selected_attention.PAGED_LAUNCHES = 0
