@@ -218,7 +218,28 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      staged and fused (g = 16), reuse interval 2, through
      ``tests/test_torch_cuda.py``'s ``layer_obs_card_vs_cpu``: card equal
      to CPU (counts exactly, the score sketch within 2e-5, NaN in the
-     same places).
+     same places);
+ 33. tensor-parallel serving on the ``model`` mesh axis (after phase 31),
+     ranks spawned as child processes sharing the card over gloo (a file
+     rendezvous, no port; the kernels built once, in phase 1): qwen3-4b
+     at ``model=2`` (everything shards; ``generate`` with prompt 1152 and
+     8 new in bf16 at g 1 and in fp32 at g 1 and at g 16 with the fused
+     route asked, which the mesh keeps staged; an fp32 serve with a
+     512-token prefix hit) and llama3-2-3b at ``model=3`` in fp32, prompt
+     1408 (KV
+     heads replicated, GQA groups straddling ranks, a 1416-slot cache: the
+     T-local scoring route on every selecting call), each at full width
+     and depth from seed 0 against the same card's meshless run: the same
+     tokens on every rank, equal to the meshless run's in fp32; the first
+     step's largest logit difference printed (in bf16 beside the meshless
+     run's own bf16-to-fp32 difference, the tokens reported); launches
+     per rank of scoring and flash = counted chunk calls x layers,
+     scoring collectives under a quarter of the K cache's bytes per
+     selecting call, each rank's peak memory and the backend; then the
+     smoke-width check of ``tests/test_torch_cuda.py``
+     (``mesh_smoke_case``: smoke granite at ``model=2``, generate and serve
+     mesh == meshless on the card) and which collectives gloo takes on
+     CUDA tensors.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -2968,6 +2989,361 @@ def phase_train_retrieval(torch, np, K):
     return {"train_s": train_s, "losses": hist, "accuracy": acc}
 
 
+# phase 33: tensor-parallel serving on the ``model`` mesh axis, the ranks
+# sharing the one card over gloo.  Widths and depths are the configs';
+# for the phase's time limit the selection budget is 256 (the configs'
+# is 1024) and the prompts are the shortest on the chunk grid that keep
+# each case: 512 tokens for qwen3-4b (a cache of 520 slots with 8 new
+# tokens exceeds budget + chunk, 384, so every layer call selects, and
+# the last prefill chunk's 384 earlier keys exceed the budget, so its
+# plan drops keys) and 1024 for llama3-2-3b (1032 = 3 x 344 slots split
+# three ways, so its T-local route engages, and each rank's 344-key slice
+# exceeds the budget, so the local top-k truncates before the merge).
+MESH_NEW = 8
+MESH_SERVE_NEW = 4
+MESH_BUDGET = 256
+G16 = dict(granularity=16, fused_select_attn=True)
+# (arch, model axis size, prompt, runs: (label, dtype, quoka overrides)):
+# tokens are held equal in fp32; in bf16 (random-weight logits have top-2
+# margins below the drift of a changed summation order) the first-step
+# logits are held within MESH_BF16_DRIFT times the meshless logits'
+# largest magnitude: a changed summation order moves them by a few
+# hundredths of it, a wrong head mapping (every sharded layer's KV heads
+# reversed, tests/test_torch_cuda.py::test_mesh_bf16_bound_catches_a_
+# wrong_head_mapping) by more than all of it.  The meshless bf16 run's
+# distance from its fp32 twin is no yardstick at budget 256: the two
+# select different keys and part by half the logits' size
+MESH_CASES = (
+    ("qwen3-4b", 2, 512, (("bf16 g1", "bfloat16", {}),
+                          ("fp32 g1", "float32", {}),
+                          ("fp32 g16", "float32", G16))),
+    ("llama3-2-3b", 3, 1024, (("fp32 g1", "float32", {}),)))
+MESH_BF16_DRIFT = 0.25
+MESH_HIT = 256                  # the serve's shared prefix (2 blocks)
+
+
+def mesh_generate(torch, np, K, model, mesh, prompt):
+    """One ``Engine.generate`` (``prompt`` tokens, ``MESH_NEW`` new;
+    its first call on the signature warms it on a throwaway cache inside)
+    with the counts set to 0 just before it: launches, chunk calls of the
+    layer stacks (warm-up and measured run), scoring routes, collective
+    bytes, peak memory, and the measured run's logits at every step (the
+    first step's whole, every step's top-2 margin)."""
+    from repro_torch.core import quoka as qk
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding import comm
+    eng = Engine(model, method="quoka", mesh=mesh)
+    batch = prompt_batch(np, model.cfg, prompt)
+    steps, calls = [], [0]
+    prefill, decode, apply_stacks = (model.prefill, model.decode_step,
+                                     model._apply_stacks)
+
+    def rec(fn):
+        def call(*a, **kw):
+            r = fn(*a, **kw)
+            steps.append(r[0])
+            return r
+        return call
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return apply_stacks(*a, **kw)
+
+    model.prefill, model.decode_step = rec(prefill), rec(decode)
+    model._apply_stacks = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K)
+    comm.reset_counts()
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    try:
+        r = eng.generate(batch, MESH_NEW)
+    finally:
+        del model.prefill, model.decode_step, model._apply_stacks
+    logits = [x[0].float() for x in steps[-MESH_NEW:]]
+    return dict(tokens=r.tokens[0].tolist(), ttft_s=r.ttft_s,
+                decode_tok_s=r.decode_tps, launches=read_counts(K),
+                chunk_calls=calls[0], routes=dict(qk.ROUTES),
+                bytes={"score": comm.bytes_by_kind("score"),
+                       "all": comm.bytes_by_kind()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                logits=logits[0].cpu().numpy(),
+                margins=[float(d[0] - d[1]) for d in
+                         (torch.topk(x, 2).values for x in logits)])
+
+
+def mesh_serve(torch, np, model, mesh):
+    """Phase 33's serve at g 16 (staged): a 512-token request, then one
+    whose prompt shares its first 256 tokens, on one warm pool."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    cfg0 = model.cfg
+    model.cfg = dataclasses.replace(cfg0, quoka=dataclasses.replace(
+        cfg0.quoka, granularity=16, budget=MESH_BUDGET))
+    rng = np.random.default_rng(5)
+    a = rng.integers(3, cfg0.vocab, (512,)).astype(np.int32)
+    b = np.concatenate([a[:MESH_HIT], rng.integers(
+        3, cfg0.vocab, (128,)).astype(np.int32)])
+    eng = Engine(model, method="quoka", mesh=mesh)
+    st = eng.make_serve_state(make_requests([a, b], MESH_SERVE_NEW),
+                              block_size=128, max_decode_batch=2)
+    t0 = time.perf_counter()
+    s1 = eng.serve(make_requests([a], MESH_SERVE_NEW), state=st)
+    s2 = eng.serve(make_requests([b], MESH_SERVE_NEW), state=st)
+    model.cfg = cfg0
+    return dict(tokens=[s1.tokens[0].tolist(), s2.tokens[0].tolist()],
+                hit_tokens=float(eng.stats["hit_tokens"]),
+                wall_s=time.perf_counter() - t0)
+
+
+def mesh_run(torch, np, K, arch, prompt, runs, mesh, dev):
+    """Phase 33's runs of ``arch`` at full width from seed 0, meshless
+    (``mesh`` None, in the parent) or on one rank of a mesh (drawn whole,
+    then sharded by ``Engine(mesh=)``): ``mesh_generate`` per run at
+    budget ``MESH_BUDGET`` (the meshless g16 run takes the staged route,
+    the route a mesh takes whatever is asked), each dtype's model drawn
+    once; qwen3-4b also ``mesh_serve`` in fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    base = get_config(arch)
+    out, model, cfg = {}, None, None
+    for label, dt, qover in runs:
+        if cfg is None or cfg.dtype != getattr(torch, dt):
+            model = None
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(base, dtype=getattr(torch, dt))
+            model = build_model(cfg, dev, seed=0)
+        qover = dict(qover, budget=MESH_BUDGET)
+        if mesh is None:
+            qover["fused_select_attn"] = False
+        model.cfg = dataclasses.replace(cfg, quoka=dataclasses.replace(
+            cfg.quoka, **qover))
+        out[label] = mesh_generate(torch, np, K, model, mesh, prompt)
+        model.cfg = cfg
+    if arch == "qwen3-4b":
+        out["fp32 serve"] = mesh_serve(torch, np, model, mesh)
+    return out
+
+
+def gloo_probe(torch, dev, ax):
+    """Which collectives gloo runs on CUDA tensors here (each called on a
+    4-element card tensor; a refusal is raised by every rank alike)."""
+    import torch.distributed as dist
+    x = torch.full((4,), float(ax.rank + 1), device=dev)
+    ranks = [float(r + 1) for r in range(ax.size)]
+
+    def reduce(op):
+        y = x.clone()
+        dist.all_reduce(y, op=op, group=ax.group)
+        return [float(y[0])]
+
+    def bcast():
+        y = x.clone()
+        dist.broadcast(y, src=dist.get_global_rank(ax.group, 0),
+                       group=ax.group)
+        return [float(y[0])]
+
+    def gather():
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
+        dist.all_gather(parts, x, group=ax.group)
+        return [float(p[0]) for p in parts]
+
+    calls = {"all_reduce": (lambda: reduce(dist.ReduceOp.SUM), [sum(ranks)]),
+             "all_reduce_max": (lambda: reduce(dist.ReduceOp.MAX),
+                                [max(ranks)]),
+             "broadcast": (bcast, [1.0]), "all_gather": (gather, ranks)}
+    out = {}
+    for name, (call, want) in calls.items():
+        try:
+            got = call()
+            torch.cuda.synchronize()
+            out[name] = "ok" if got == want else f"wrong: {got} != {want}"
+        except Exception as e:           # the probe reports, never hides
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def mesh_rank(rank, world, dev, arch, prompt, runs):
+    """One spawned rank of phase 33: ``mesh_run`` on a ``model=world``
+    mesh; at ``model=2`` also the smoke-width check of ``tests/
+    test_torch_cuda.py`` and the gloo probe."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quoka_score as qs
+    from repro_torch.kernels import selected_attention as sa
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.sharding import comm
+    K = {"flash": fa, "score": qs, "selected": sa}
+    mesh = mesh_from_spec(f"model={world}", dev)
+    ax = comm.axis(mesh)
+    out = mesh_run(torch, np, K, arch, prompt, runs, mesh, dev)
+    out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["backend"] = ax.backend
+    torch.cuda.empty_cache()
+    if world == 2:
+        from test_torch_cuda import mesh_smoke_case
+        out["smoke"] = mesh_smoke_case(rank, world, dev)
+        out["probe"] = gloo_probe(torch, dev, ax)
+    return out
+
+
+def mesh_check(np, cfg, prompt, label, runs, ref, yard, want_route):
+    """Phase 33's checks of one run on every rank against the meshless
+    ``ref``: equal tokens across the ranks; launches of scoring and flash
+    = chunk calls x layers, no selected attention; every call on
+    ``want_route``; the scoring collectives under a quarter of the K
+    cache's bytes per call; in fp32 the meshless tokens.  In bf16 the
+    first-step logits, within ``MESH_BF16_DRIFT`` times the meshless
+    logits' largest magnitude (a changed summation order moves them by a
+    few hundredths of it, a wrong head mapping by more than all of it),
+    beside the meshless bf16 run's distance from its fp32 twin (``yard``,
+    reported); the tokens are reported, equal or from which step they
+    differ with the meshless top-2 margin there (random-weight logits can
+    have margins below the drift).  Returns the row for the JSON line."""
+    tokens = runs[0]["tokens"]
+    n = runs[0]["chunk_calls"] * cfg.n_layers
+    want = {"quoka_score": n, "flash_attention": n, "selected_attention": 0,
+            "selected_attention_paged": 0}
+    for i, run in enumerate(runs):
+        if run["tokens"] != tokens:
+            raise AssertionError(f"phase 33 {cfg.name} {label}: rank {i} "
+                                 f"tokens {run['tokens']} != rank 0 {tokens}")
+        if run["launches"] != want or run["chunk_calls"] != \
+                2 * (prompt // cfg.quoka.chunk_size) + MESH_NEW:
+            raise AssertionError(f"phase 33 {cfg.name} {label} rank {i}: "
+                                 f"launches {run['launches']} over "
+                                 f"{run['chunk_calls']} chunk calls")
+    routes = runs[0]["routes"]
+    if routes[want_route] != n or sum(routes.values()) != n:
+        raise AssertionError(f"phase 33 {cfg.name} {label}: routes {routes}, "
+                             f"want {n} {want_route}")
+    cap = prompt + MESH_NEW
+    k_bytes = cap * cfg.n_kv_heads * cfg.resolved_head_dim * \
+        (4 if label.startswith("fp32") else 2)
+    score = sum(runs[0]["bytes"]["score"].values()) / n
+    if score >= k_bytes / 4:
+        raise AssertionError(f"phase 33 {cfg.name} {label}: scoring moves "
+                             f"{score:.0f} B per call, K {k_bytes} B")
+    dlog = max(float(np.abs(r["logits"] - ref["logits"]).max()) for r in runs)
+    equal = tokens == ref["tokens"]
+    first = next((i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+                  if a != b), None)
+    if label.startswith("fp32") and not equal:
+        raise AssertionError(f"phase 33 {cfg.name} {label}: tokens {tokens} "
+                             f"!= meshless {ref['tokens']}")
+    scale = float(np.abs(ref["logits"]).max())
+    if label.startswith("bf16") and dlog > MESH_BF16_DRIFT * scale:
+        raise AssertionError(
+            f"phase 33 {cfg.name} {label}: first-step logits {dlog:.4g} "
+            f"from meshless, over {MESH_BF16_DRIFT} x their largest "
+            f"magnitude {scale:.4g}")
+    row = dict(tokens_equal=equal, first_differing_step=first,
+               meshless_margin_there=None if first is None
+               else ref["margins"][first],
+               max_logit_diff=dlog, bf16_vs_fp32_logit_diff=yard,
+               bf16_drift_bound=MESH_BF16_DRIFT * scale
+               if label.startswith("bf16") else None, max_abs_logit=scale,
+               launches_per_rank=runs[0]["launches"],
+               chunk_calls=runs[0]["chunk_calls"], routes=routes,
+               score_bytes_per_call=score, k_cache_bytes=k_bytes,
+               bytes_by_kind_per_call={
+                   k: v / n for k, v in runs[0]["bytes"]["all"].items()},
+               ttft_s=[r["ttft_s"] for r in runs],
+               decode_tok_s=[r["decode_tok_s"] for r in runs],
+               meshless_ttft_s=ref["ttft_s"],
+               run_peak_gib=[r["peak_gib"] for r in runs])
+    how = "equal" if equal else (
+        f"differ from step {first} (meshless top-2 margin there "
+        f"{row['meshless_margin_there']:.4g})")
+    log(f"  {cfg.name} model={len(runs)} {label}: tokens {how}"
+        f", max first-step logit diff {dlog:.4g}"
+        + (f" (bound {MESH_BF16_DRIFT} x logits' largest {scale:.4g}; bf16 "
+           f"vs fp32 meshless {yard:.4g})" if yard is not None else "")
+        + f", launches/rank {runs[0]['launches']['quoka_score']} + "
+        f"{runs[0]['launches']['flash_attention']} = {runs[0]['chunk_calls']}"
+        f" calls x {cfg.n_layers}, {want_route} {routes[want_route]}, "
+        f"scoring {score:.0f} B/call vs K {k_bytes} B, bytes/call "
+        f"{ {k: round(v) for k, v in row['bytes_by_kind_per_call'].items()} }")
+    return row
+
+
+def phase_mesh(torch, np, K, card, dev):
+    """Phase 33: tensor-parallel serving over the ``model`` axis, ranks
+    sharing the card over gloo (``launch/mesh.py::spawn_ranks``; the
+    kernels are built once, in phase 1, before any rank starts).  Per
+    case the ranks start, the meshless runs (``mesh_run``) run here
+    meanwhile (the ranks wait on the host at every collective, so the
+    card has room; neither run's times are figures), then ``mesh_check``
+    holds the ranks to them; qwen3-4b's fp32 serve with a prefix hit must
+    give the meshless tokens; at ``model=2`` the smoke-width check and
+    the gloo probe."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    log(f"== phase 33: tensor-parallel serving on the model axis, ranks "
+        f"sharing the card over gloo, {MESH_NEW} new tokens "
+        f"[{card}]")
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    out = {}
+    for arch, world, prompt, runs in MESH_CASES:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(spawn_ranks, mesh_rank, world, arch, prompt,
+                              runs, device="cuda", timeout=600)
+            ref = mesh_run(torch, np, K, arch, prompt, runs, None, dev)
+            torch.cuda.empty_cache()
+            ref_s = time.perf_counter() - t0
+            ranks = fut.result()
+        res = {"world": world, "prompt": prompt, "budget": MESH_BUDGET,
+               "backend": ranks[0]["backend"],
+               "meshless_s": ref_s, "ranks_s": time.perf_counter() - t0,
+               "peak_gib": [r["peak_all_gib"] for r in ranks]}
+        yard = float(np.abs(ref["bf16 g1"]["logits"]
+                            - ref["fp32 g1"]["logits"]).max()) \
+            if "bf16 g1" in ref else None
+        route = "kv_heads" if cfg.n_kv_heads % world == 0 else "t_local"
+        for label, dt, _ in runs:
+            res[label] = mesh_check(
+                np, dataclasses.replace(cfg, quoka=dataclasses.replace(
+                    cfg.quoka, **(G16 if "g16" in label else {}))),
+                prompt, label, [r[label] for r in ranks], ref[label],
+                yard if dt == "bfloat16" else None, route)
+        if "fp32 serve" in ref:
+            for i, r in enumerate(ranks):
+                if r["fp32 serve"]["tokens"] != ref["fp32 serve"]["tokens"] \
+                        or r["fp32 serve"]["hit_tokens"] != MESH_HIT:
+                    raise AssertionError(
+                        f"phase 33 {arch} serve rank {i}: {r['fp32 serve']} "
+                        f"vs meshless {ref['fp32 serve']}")
+            res["fp32 serve"] = dict(
+                tokens_equal=True, hit_tokens=MESH_HIT,
+                wall_s=[r["fp32 serve"]["wall_s"] for r in ranks],
+                meshless_wall_s=ref["fp32 serve"]["wall_s"])
+            log(f"  {arch} model={world} fp32 serve: tokens equal, "
+                f"{MESH_HIT}-token prefix hit")
+        if world == 2:
+            smoke = ranks[0]["smoke"]
+            if not smoke["equal"]:
+                raise AssertionError(f"phase 33 smoke: {smoke}")
+            res["smoke"] = smoke
+            res["gloo_cuda"] = ranks[0]["probe"]
+            log(f"  smoke granite model=2 on the card: tokens equal to "
+                f"meshless ({smoke['checked']} arrays); gloo on CUDA "
+                f"tensors: {ranks[0]['probe']}")
+        log(f"  {arch}: backend {res['backend']}, per-rank peak "
+            f"{[round(p, 2) for p in res['peak_gib']]} GiB, meshless runs "
+            f"{ref_s:.1f} s beside the ranks' {res['ranks_s']:.1f} s")
+        out[arch] = res
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 33 took {out['phase_s']:.1f} s")
+    return out
+
+
 def time_ms(torch, fn, flush, iters=20):
     """Times of one ``fn`` call in ms, each a mean over ``iters`` calls,
     with ``flush()`` run before each (outside the timed span) unless it is
@@ -3669,6 +4045,9 @@ def main() -> int:
     training = {"granite-3-2b": phase_train_full(torch, np, card),
                 "families": phase_train_families(torch, np),
                 "retrieval": phase_train_retrieval(torch, np, K)}
+    torch.cuda.empty_cache()
+    # the tensor-parallel slice
+    mesh = phase_mesh(torch, np, K, card, dev)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -3696,6 +4075,10 @@ def main() -> int:
     for name in meta:
         paths[name]["deepseek-v3 (4 layers) serve"] = \
             ds_serve["launches"][name]
+        for arch, world, _, runs in MESH_CASES:
+            for label, _, _ in runs:
+                paths[name][f"{arch} model={world} {label} per rank"] = \
+                    mesh[arch][label]["launches_per_rank"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -3716,6 +4099,7 @@ def main() -> int:
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
                     "training": training, "telemetry": telemetry,
+                    "mesh": mesh,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))

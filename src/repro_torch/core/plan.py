@@ -26,7 +26,16 @@ runs exactly the ops it runs without telemetry.  Stages 1 and 3 run under
 labels (``plan_scores``, ``plan_materialize``), so a ``torch.profiler``
 trace attributes their ops (``analysis/trace_ops.py``).
 
-Not ported yet: the tensor-parallel T-local route.
+Tensor parallelism (``sharding/``): a selecting layer of a sharded model
+hands ``build`` its ``HeadShard`` (``heads``), which alone decides the
+sharded routes.  QUOKA then scores on this rank's own KV heads when they
+shard (a block plan's max over KV heads becomes a cross-rank max, so
+every rank holds the same plan), or, when they are replicated, over
+every head's sub-selected queries: on the T-local route
+(``quoka.tp_plan_candidates``, over ``heads.ax``) when the reference's
+conditions allow, else on the whole replicated cache.  The scoring
+pass's collectives count under ``comm.scope("score")``.  The fused route
+stays off for a sharded layer, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from repro_torch.core import selection as sel_scores
 from repro_torch.core.attention import NEG_INF
 from repro_torch.core.quoka import Selected, prior_context_valid
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import comm
 
 
 class SelectionPlan(NamedTuple):
@@ -121,10 +131,13 @@ def plan_scores(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
 
 
 def plan_from_scores(scores, key_pos, cfg: QuokaConfig,
-                     budget: Optional[int] = None) -> SelectionPlan:
+                     budget: Optional[int] = None,
+                     heads: Optional[comm.HeadShard] = None) -> SelectionPlan:
     """Stage 2: top-k on the selection grid.  The ``keep_first`` earliest
     real tokens are stamped +inf first (sink protection); ties keep the
-    reference's order (descending score, lower index first)."""
+    reference's order (descending score, lower index first).  With
+    ``heads`` whose KV heads shard, ``scores`` are this rank's KV heads'
+    and a block plan's max over KV heads is taken across the ranks."""
     b, n_kv, t = scores.shape
     g = grid(cfg)
     budget = floor_to_grid(min(budget or sel_scores.resolve_budget(cfg, t),
@@ -143,6 +156,8 @@ def plan_from_scores(scores, key_pos, cfg: QuokaConfig,
             f"{t} (align granularity with the pool block size / B_CP)")
     # block score = max over the g tokens and over KV heads
     sb = scores.reshape(b, n_kv, t // g, g).amax(3).amax(1)
+    if heads is not None and heads.kv_sharded:
+        sb = comm.all_reduce_max(sb, heads.ax)
     top_s, top_i = qk.topk_stable(sb, budget // g)                # (b, NB)
     return SelectionPlan(idx=torch.where(top_s > NEG_INF / 2, top_i,
                                          torch.full_like(top_i, -1)))
@@ -197,11 +212,51 @@ def _materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
 
 
 def build(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
-          budget: Optional[int] = None, q_valid=None) -> SelectionPlan:
-    """Stages 1+2."""
+          budget: Optional[int] = None, q_valid=None,
+          heads: Optional[comm.HeadShard] = None) -> SelectionPlan:
+    """Stages 1+2.  Under tensor parallelism (``heads``) QUOKA scores as
+    the module docstring says, on the T-local route where it applies;
+    every rank returns the same plan (its own KV heads' rows of it at
+    granularity 1 when the KV heads shard)."""
+    if heads is not None:
+        if method != "quoka":
+            raise NotImplementedError(
+                f"selection method {method!r} on a mesh is not yet ported")
+        with torch.profiler.record_function("plan_scores"), \
+                comm.scope("score"):
+            return _build_tp(q, k, key_pos, chunk_start, cfg,
+                             _plan_budget(cfg, k.shape[1], budget), q_valid,
+                             heads)
     scores = plan_scores(method, q, k, key_pos, chunk_start, cfg,
                          q_valid=q_valid)
     return plan_from_scores(scores, key_pos, cfg, budget=budget)
+
+
+def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
+              q_valid, heads: comm.HeadShard) -> SelectionPlan:
+    """QUOKA's stages 1+2 on a mesh (``build``)."""
+    q = qk.sanitize_queries(q, q_valid)
+    valid = prior_context_valid(key_pos, chunk_start)
+    if heads.kv_sharded:
+        # whole GQA groups on this rank: its own heads score its own keys
+        qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
+                                  q_valid=q_valid)
+        qk.ROUTES["kv_heads"] += 1
+        return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg), key_pos,
+                                cfg, budget=budget, heads=heads)
+    if heads.heads_sharded:
+        qs = qk.subselect_queries_tp(q, cfg.n_queries, heads,
+                                     q_valid=q_valid)
+    else:
+        qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
+                                  q_valid=q_valid)
+    if qk._tp_route(k, cfg, heads):
+        qk.ROUTES["t_local"] += 1
+        return SelectionPlan(idx=qk.tp_plan_candidates(
+            qs, k, key_pos, valid, cfg, budget, heads.ax))
+    qk.ROUTES["replicated"] += 1
+    return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg), key_pos, cfg,
+                            budget=budget)
 
 
 def select(method: str, q, k, v, key_pos, chunk_start, cfg: QuokaConfig,
@@ -245,13 +300,20 @@ def refresh(carry: Optional[PlanCarry], layer_idx: int, cfg: QuokaConfig,
 
 
 def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
-                chunk_start, cfg: QuokaConfig, budget, q_valid):
+                chunk_start, cfg: QuokaConfig, budget, q_valid, heads=None):
     """Refresh-or-build this layer's plan: (plan, updated carry, stage-1
     scores).  The scores are None where the layer reused the carried plan
-    (no scores were computed); they feed only the ``LayerObs`` sketch."""
+    (no scores were computed); they feed only the ``LayerObs`` sketch.
+    A sharded layer (``heads``) builds through ``build``."""
+    if heads is not None and ctx.get("obs"):
+        raise NotImplementedError(
+            "per-layer selection telemetry on a mesh is not yet ported")
     built = []
 
     def build_fn():
+        if heads is not None:
+            return build(method, q, k, key_pos, chunk_start, cfg,
+                         budget=budget, q_valid=q_valid, heads=heads)
         built.append(plan_scores(method, q, k, key_pos, chunk_start, cfg,
                                  q_valid=q_valid))
         return plan_from_scores(built[0], key_pos, cfg, budget=budget)
@@ -262,18 +324,20 @@ def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
 
 def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
                     key_pos, chunk_start, cfg: QuokaConfig,
-                    budget: Optional[int] = None, q_valid=None):
+                    budget: Optional[int] = None, q_valid=None, heads=None):
     """The block-facing staged selection: refresh-or-build, then
     materialize.  Returns (Selected, updated carry).  With ``ctx["obs"]``
     set the layer's ``LayerObs`` is left in ``ctx["_obs"]`` (a per-layer
-    ctx copy, see models/stack.py)."""
+    ctx copy, see models/stack.py).  ``heads``: a sharded layer's
+    ``HeadShard`` (``build``); the ``Selected`` holds the cache's KV
+    heads."""
     pln, plan, scores = _layer_plan(ctx, plan, method, q, k, key_pos,
-                                    chunk_start, cfg, budget, q_valid)
+                                    chunk_start, cfg, budget, q_valid, heads)
     _note_block_counts(ctx, pln, cfg)
     sel = materialize(pln, k, v, key_pos, chunk_start, cfg)
     if ctx.get("obs"):
         ctx["_obs"] = selected_obs(sel.pos, key_pos, chunk_start,
-                                   _obs_budget(cfg, k.shape[1], budget),
+                                   _plan_budget(cfg, k.shape[1], budget),
                                    scores)
     return sel, plan
 
@@ -309,11 +373,13 @@ def pool_block_counts(plan: SelectionPlan, cfg: QuokaConfig,
 
 
 def fused_route(cfg: QuokaConfig, method: str, k,
-                window: Optional[int] = None) -> bool:
+                window: Optional[int] = None,
+                heads: Optional[comm.HeadShard] = None) -> bool:
     """May the fused selected-attention kernel replace materialize +
     attention here?  Opted in, block-granular plans whose grid divides the
-    cache view, no sliding window (no mesh exists in the port yet)."""
-    if not cfg.fused_select_attn or window is not None:
+    cache view, no sliding window, not a sharded layer (``heads``: the
+    sharded routes stay staged, as in the reference)."""
+    if not cfg.fused_select_attn or window is not None or heads is not None:
         return False
     g = grid(cfg)
     return g > 1 and k.shape[1] % g == 0
@@ -363,7 +429,7 @@ def fused_attend_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q,
     if ctx.get("obs"):
         ctx["_obs"] = selected_obs(
             plan_selected_pos(pln, key_pos, chunk_start, cfg), key_pos,
-            chunk_start, _obs_budget(cfg, k.shape[1], budget), scores)
+            chunk_start, _plan_budget(cfg, k.shape[1], budget), scores)
     return att, plan
 
 
@@ -447,6 +513,6 @@ def selected_obs(sel_pos, key_pos, chunk_start, budget: int,
         score_lo=lo, score_mean=mean, score_hi=hi)
 
 
-def _obs_budget(cfg: QuokaConfig, t: int, budget: Optional[int]) -> int:
+def _plan_budget(cfg: QuokaConfig, t: int, budget: Optional[int]) -> int:
     return floor_to_grid(min(budget or sel_scores.resolve_budget(cfg, t), t),
                          grid(cfg))

@@ -8,8 +8,16 @@
      group before the product.
 
 Layouts: q (b, t, n_q_heads, d); caches (b, T, n_kv, d); key positions
-(b, T) int32 with -1 marking empty slots.  The tensor-parallel T-local
-route (``_tp_route`` / ``tp_plan_candidates``) is not ported yet.
+(b, T) int32 with -1 marking empty slots.
+
+Tensor parallelism (``sharding/``): ``subselect_queries_tp`` gives every
+rank every head's sub-selected queries when the query heads are sharded
+and the KV heads are not, moving only the per-token dissimilarities and
+the kept queries; ``_tp_route`` / ``tp_plan_candidates`` are the
+reference's T-local route: each rank scores a contiguous ``T / M`` slice
+of the keys it holds and the ranks merge (score, index) candidates, never
+the K cache.  ``ROUTES`` counts the scoring calls of each route under a
+mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +29,13 @@ from repro_torch.configs.base import QuokaConfig
 from repro_torch.core.attention import NEG_INF
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import l2_normalize
+from repro_torch.sharding import comm
+
+#: scoring calls by route under a mesh: ``t_local`` (candidates merged),
+#: ``replicated`` (every KV head on the replicated cache: the route's
+#: conditions failed, the reference's rule), ``kv_heads`` (this rank's own
+#: KV heads, when they shard)
+ROUTES = {"t_local": 0, "replicated": 0, "kv_heads": 0}
 
 
 class Selected(NamedTuple):
@@ -56,9 +71,16 @@ def subselect_queries(q, n_queries: int, n_kv: Optional[int] = None,
     With ``n_kv`` the dissimilarity is averaged over each GQA group and all
     heads of a group keep the same tokens.  ``q_valid`` (b, t) keeps padding
     out of the mean and ranks it last."""
-    b, t, h, d = q.shape
-    if t <= n_queries:
+    if q.shape[1] <= n_queries:
         return q
+    top_i = _kept_tokens(_dissimilarity(q, q_valid), n_queries, n_kv)
+    return _gather_tokens(q, top_i)
+
+
+def _dissimilarity(q, q_valid):
+    """(b, t, h) fp32: minus each query's CosSim to its head's mean query
+    (padding out of the mean and ranked last).  Per head: a shard of the
+    heads gives the same numbers for its heads."""
     qf = q.float()
     if q_valid is not None:
         w = q_valid[:, :, None, None].float()
@@ -72,16 +94,46 @@ def subselect_queries(q, n_queries: int, n_kv: Optional[int] = None,
     if q_valid is not None:
         s_q = torch.where(q_valid[:, :, None], s_q,
                           torch.full_like(s_q, float("-inf")))
+    return s_q
+
+
+def _kept_tokens(s_q, n_queries: int, n_kv: Optional[int]):
+    """(b, h, N_Q) token indices each head keeps: group-coherent under
+    GQA (the group's mean dissimilarity)."""
+    b, t, h = s_q.shape
     if n_kv is not None and n_kv != h:
         group = h // n_kv
         s_g = s_q.reshape(b, t, n_kv, group).mean(3)              # (b, t, n_kv)
         _, top_g = topk_stable(s_g.transpose(1, 2), n_queries)
-        top_i = top_g.repeat_interleave(group, dim=1)             # (b, h, N_Q)
-    else:
-        _, top_i = topk_stable(s_q.transpose(1, 2), n_queries)
+        return top_g.repeat_interleave(group, dim=1)              # (b, h, N_Q)
+    _, top_i = topk_stable(s_q.transpose(1, 2), n_queries)
+    return top_i
+
+
+def _gather_tokens(q, top_i):
+    """q (b, t, h, d) at per-head token indices (b, h, N_Q) ->
+    (b, N_Q, h, d)."""
     gathered = torch.gather(q.transpose(1, 2), 2,
-                            top_i[..., None].expand(-1, -1, -1, d))
+                            top_i[..., None].expand(-1, -1, -1, q.shape[-1]))
     return gathered.transpose(1, 2)
+
+
+def subselect_queries_tp(q, n_queries: int, heads: comm.HeadShard,
+                         q_valid: Optional[torch.Tensor] = None):
+    """``subselect_queries`` over every head when this rank holds only
+    query heads ``heads.h0 ..`` of q (b, t, h_loc, d): the ranks gather
+    the (b, t, h) dissimilarities (a GQA group may straddle ranks), each
+    keeps its own heads' queries at the group's tokens, and the ranks
+    gather those: (b, N_Q, n_heads, d), the same on every rank and equal
+    to the meshless sub-selection.  The chunk's queries themselves never
+    move (a decode step's single query does: it is the sub-selection)."""
+    ax = heads.ax
+    if q.shape[1] <= n_queries:
+        return comm.all_gather(q, ax, dim=2)
+    s_q = comm.all_gather(_dissimilarity(q, q_valid), ax, dim=2)
+    top_i = _kept_tokens(s_q, n_queries, heads.n_kv)
+    mine = top_i[:, heads.h0:heads.h0 + heads.h_loc]
+    return comm.all_gather(_gather_tokens(q, mine), ax, dim=2)
 
 
 def quoka_scores(q, k, valid, cfg: QuokaConfig):
@@ -134,3 +186,71 @@ def prior_context_valid(key_pos, chunk_start):
     if isinstance(chunk_start, torch.Tensor) and chunk_start.ndim == 1:
         chunk_start = chunk_start[:, None]
     return (key_pos >= 0) & (key_pos < chunk_start)
+
+
+# ----------------------------------------------------------------------------
+# tensor-parallel T-local selection (over the ``model`` axis)
+# ----------------------------------------------------------------------------
+
+def _tp_route(k, cfg: QuokaConfig, heads: comm.HeadShard) -> bool:
+    """Does the T-local route apply to a sharded layer (``heads``)?  The
+    reference's conditions: cosine scoring with max aggregation, a >1-way
+    model axis ``heads.ax``, a KV-head count (the model's) that does not
+    divide it (in that regime the cache's heads are replicated, so each
+    rank can score a contiguous T-slice of keys it already holds),
+    ``T % M == 0`` and a selection grid that does not straddle the
+    slices."""
+    if cfg.scoring != "cosine" or cfg.query_agg != "max":
+        return False
+    msize, t = heads.ax.size, k.shape[1]
+    return (msize > 1 and heads.n_kv % msize != 0 and t % msize == 0
+            and (t // msize) % max(1, cfg.granularity) == 0)
+
+
+def tp_plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig,
+                       budget: int, ax: comm.Axis) -> torch.Tensor:
+    """T-local scoring and candidate merge: each rank scores its
+    contiguous ``T / M`` slice of the keys through the same
+    ``ops.score`` as the meshless path, stamps the sinks, keeps its local
+    top candidates on the selection grid, and the ranks merge them with
+    one small all-gather of (score, index) pairs.  The merged top-k is
+    ``plan.plan_from_scores``'s exactly: descending score, lower index
+    first on ties (the slices are contiguous and ascending, the local
+    top-k orders ties by index, and the merge keeps candidate order on
+    ties).  qs: (b, N_Q, h, d) every head's sub-selected queries; k:
+    (b, T, n_kv, d) the replicated cache.  Returns the plan's ``idx``:
+    (b, n_kv, budget) token slots at granularity 1, (b, budget // g)
+    block ids at g > 1; -1 marks padding.  ``ax``: the model axis."""
+    b, nq, h, d = qs.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = max(1, cfg.granularity)
+    budget = min(budget, t)
+    nb = budget // g                                      # plan slots
+    tl = t // ax.size
+    n_cand = min(nb, tl // g)                             # per-rank slots
+    lo = ax.rank * tl
+    qn = l2_normalize(qs.float())
+    qbar = qn.reshape(b, nq, n_kv, h // n_kv, d).mean(3)
+    s = kops.score(qbar, k[:, lo:lo + tl], valid[:, lo:lo + tl],
+                   proj=score_proj(cfg, d, device=k.device))  # (b, n_kv, tl)
+    if cfg.keep_first:
+        ps = key_pos[:, lo:lo + tl]
+        sink = (ps >= 0) & (ps < cfg.keep_first)
+        s = torch.where(sink[:, None, :] & (s > NEG_INF / 2),
+                        torch.full_like(s, float("inf")), s)
+    if g == 1:
+        cs, ci = topk_stable(s, n_cand)                   # (b, n_kv, n_cand)
+        ci = ci + lo
+        dim = 2
+    else:
+        # max is associative: the local block max then the merge equals
+        # the meshless reshape-max over the whole key axis
+        sb = s.reshape(b, n_kv, tl // g, g).amax(3).amax(1)
+        cs, ci = topk_stable(sb, n_cand)                  # (b, n_cand)
+        ci = ci + lo // g
+        dim = 1
+    cs = comm.all_gather(cs, ax, dim=dim)
+    ci = comm.all_gather(ci.to(torch.int32), ax, dim=dim).long()
+    top_s, cpos = topk_stable(cs, nb if g > 1 else budget, dim=dim)
+    top_i = torch.gather(ci, dim, cpos)
+    return torch.where(top_s > NEG_INF / 2, top_i, torch.full_like(top_i, -1))

@@ -77,15 +77,29 @@ activity) of the measured ``generate`` into
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --continuous --metrics --trace-dir /tmp/serve_trace
 
-Not ported yet: ``--mesh``.
+Tensor-parallel serving over the ``model`` axis of a mesh: one process
+per rank under ``torchrun``, one-shot or ``--continuous`` (dense
+``attn`` models; ``launch/mesh.py`` picks NCCL when every rank has a
+card of its own and gloo when they share one, or on the CPU).  Only rank
+0 prints; its first line is ``# mesh {...} over N devices``:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --smoke --mesh model=2 --prompt-len 64 --batch 2 \
+        --max-new 4 [--continuous]
+
+A ``data`` or ``pod`` axis larger than 1, ``--metrics`` / ``--trace-dir``
+and methods other than ``full`` and ``quoka`` raise "not yet ported" on
+a mesh.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.selection import METHODS
@@ -184,6 +198,10 @@ def parse_args(argv=None):
                          "Chrome/Perfetto trace of the engine's step spans; "
                          "one-shot mode instead writes a torch.profiler "
                          "trace of the measured run there")
+    ap.add_argument("--mesh", default=None, metavar="model=M",
+                    help="serve tensor-parallel on a mesh (run one process "
+                         "per rank under torchrun; axes from (pod, data, "
+                         "model), data and pod 1)")
     return ap.parse_args(argv)
 
 
@@ -275,7 +293,7 @@ def _export_telemetry(reg, trace_dir, prefix):
     return paths
 
 
-def run_continuous(model, args, device):
+def run_continuous(model, args, device, mesh=None):
     """Trace-driven continuous batching with prefix caching; a first serve
     of the longest prompt warms the real step geometry off the clocks.
     With ``--metrics`` / ``--trace-dir`` the measured serve runs with a
@@ -286,7 +304,7 @@ def run_continuous(model, args, device):
     reg = Registry() if args.metrics or args.trace_dir else None
     eng = Engine(model, method=args.method, device=device,
                  sampler=SamplerConfig(temperature=args.temperature),
-                 registry=reg)
+                 registry=reg, mesh=mesh)
     kw = dict(block_size=args.block_size, num_blocks=args.num_blocks,
               max_prefill_tokens=args.max_prefill_tokens,
               max_decode_batch=args.max_decode_batch,
@@ -343,7 +361,30 @@ def run_continuous(model, args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    if not args.mesh:
+        return _main(args, resolve_device(args.device))
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.sharding import comm, specs
+    mesh = mesh_from_spec(args.mesh, args.device)
+    ax = comm.axis(mesh)
+    rank = dist.get_rank()
+    try:
+        # every rank runs the same program; only rank 0 prints
+        with (contextlib.nullcontext() if rank == 0 else
+              contextlib.redirect_stdout(open(os.devnull, "w"))):
+            shape = specs.mesh_shape(mesh)
+            print(f"# mesh {shape} over {dist.get_world_size()} devices "
+                  f"({ax.backend}, {mesh.device_type})")
+            dev = resolve_device(args.device)
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+            return _main(args, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _main(args, device, mesh=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke(n_layers=4, d_model=256, n_heads=8, n_kv_heads=2,
@@ -362,14 +403,15 @@ def main(argv=None):
     model = ckpt.restore(args.ckpt, cfg, device) if args.ckpt else \
         build_model(cfg, device)
     if args.continuous:
-        return run_continuous(model, args, device)
+        return run_continuous(model, args, device, mesh)
     rng = np.random.default_rng(0)
     toks = rng.integers(3, cfg.vocab,
                         (args.batch, args.prompt_len)).astype(np.int32)
     runs = []
     for m in [args.method] + (["full"] if args.compare_dense else []):
         eng = Engine(model, method=m, device=device,
-                     sampler=SamplerConfig(temperature=args.temperature))
+                     sampler=SamplerConfig(temperature=args.temperature),
+                     mesh=mesh)
         if args.trace_dir:
             # warm the signature off the trace, then profile the measured
             # run (the record_function ranges label its regions)

@@ -62,6 +62,13 @@ pos == -1) and, under cross-layer plan reuse, ``layer_idx`` (the global
 layer index ``core/plan.py::refresh`` decides on).  With ``obs`` set, an
 attention layer leaves its ``LayerObs`` in ``_obs``: ``dense_obs`` at a
 dense bypass, the selecting routes through ``core/plan.py``.
+
+Tensor parallelism (``training/checkpoint.py::shard``, kind ``"attn"``
+only): ``AttnBlock.place`` reads the block's shards off its weights'
+shapes.  ``n_heads`` / ``n_kv`` are then this rank's query heads and the
+KV heads its cache holds, ``heads`` its ``HeadShard`` (selection and the
+KV heads each query head reads), and ``wo`` and, when the FFN width
+divides, the MLP's ``down`` are row-parallel (``layers.row_linear``).
 """
 from __future__ import annotations
 
@@ -80,7 +87,8 @@ from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.layers import (layernorm, linear, mlp, rmsnorm,
-                                       rope)
+                                       rope, row_linear)
+from repro_torch.sharding import comm
 from repro_torch.serving.cache import (CrossCache, CrossKV, KVCache,
                                        LatentCache, RWKVCache,
                                        SharedAttnCache, cross_init, kv_init,
@@ -142,7 +150,7 @@ def _ffn(blk, x):
     h = _block_norm(blk, "ln2", x)
     if blk.kind.endswith("_moe"):
         return x + moe.moe_apply(blk.moe, h, cfg)
-    return x + mlp(blk.mlp, h, cfg.act)
+    return x + mlp(blk.mlp, h, cfg.act, getattr(blk, "tp_ffn", None))
 
 
 def _ffn_aux(blk, x):
@@ -178,31 +186,49 @@ class AttnBlock(nn.Module):
         self.cfg = cfg
         self.kind = kind
         self.window = cfg.sliding_window if kind == "attn_local" else None
+        # this rank's query heads and held KV heads (all of them meshless)
+        self.n_heads, self.n_kv = cfg.n_heads, cfg.n_kv_heads
+        self.heads = None          # HeadShard under tensor parallelism
+        self.tp_ffn = None         # the model axis when ``down`` is sharded
         d, hd = cfg.d_model, cfg.resolved_head_dim
         w = _weight(cfg.compute_dtype, device)
         _norm_params(self, ("ln1", "ln2"), cfg, device)
-        self.wq = w(d, cfg.n_heads * hd)
-        self.wk = w(d, cfg.n_kv_heads * hd)
-        self.wv = w(d, cfg.n_kv_heads * hd)
-        self.wo = w(cfg.n_heads * hd, d)
+        self.wq = w(d, self.n_heads * hd)
+        self.wk = w(d, self.n_kv * hd)
+        self.wv = w(d, self.n_kv * hd)
+        self.wo = w(self.n_heads * hd, d)
         _ffn_params(self, cfg, device, gated=cfg.act != "gelu")
 
+    def place(self, ax: comm.Axis) -> None:
+        """Adopt the tensor-parallel layout of the (already sliced)
+        weights on the ``model`` axis ``ax``: local head counts, the
+        ``HeadShard``, and a row-parallel ``down`` when it is sliced."""
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        self.n_heads = self.wq.shape[1] // hd
+        self.n_kv = self.wk.shape[1] // hd
+        if self.wo.shape[0] != self.n_heads * hd:
+            raise ValueError("wq and wo are sliced differently")
+        self.heads = comm.HeadShard(ax, cfg.n_heads, cfg.n_kv_heads,
+                                    self.n_heads, self.n_kv, self.wq.device)
+        self.tp_ffn = ax if self.mlp["down"].shape[0] < cfg.d_ff else None
+
     def init_cache(self, batch: int, cap: int) -> KVCache:
-        """The layer's cache: ``cap`` slots, or a ring of at most ``window``
-        slots for a windowed layer."""
+        """The layer's cache of its held KV heads: ``cap`` slots, or a ring
+        of at most ``window`` slots for a windowed layer."""
         cfg = self.cfg
         if self.window is not None:
             cap = min(cap, self.window)
-        return kv_init(batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
+        return kv_init(batch, cap, self.n_kv, cfg.resolved_head_dim,
                        cfg.compute_dtype, self.wq.device)
 
     def _qkv(self, x, pos):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = linear(self.wq, x).reshape(b, t, cfg.n_heads, hd)
-        k = linear(self.wk, x).reshape(b, t, cfg.n_kv_heads, hd)
-        v = linear(self.wv, x).reshape(b, t, cfg.n_kv_heads, hd)
+        q = linear(self.wq, x).reshape(b, t, self.n_heads, hd)
+        k = linear(self.wk, x).reshape(b, t, self.n_kv, hd)
+        v = linear(self.wv, x).reshape(b, t, self.n_kv, hd)
         if cfg.use_rope:
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
@@ -218,10 +244,20 @@ class AttnBlock(nn.Module):
         ``enc_attn``."""
         b, t, _ = x.shape
         q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
-        att = attention_with_positions(q, k, v, pos, pos,
-                                       causal=self.kind != "enc_attn",
+        att = attention_with_positions(q, self._kv(k), self._kv(v), pos,
+                                       pos, causal=self.kind != "enc_attn",
                                        window=self.window)
-        return x + linear(self.wo, att.reshape(b, t, -1))
+        return x + self._out(att.reshape(b, t, -1))
+
+    def _kv(self, x):
+        """The KV heads (axis 2) this rank's query heads read."""
+        return x if self.heads is None else self.heads.take(x, 2)
+
+    def _out(self, att):
+        """The output projection: row-parallel when the heads shard."""
+        h = self.heads
+        return row_linear(self.wo, att,
+                          h.ax if h is not None and h.heads_sharded else None)
 
     def full_forward(self, x, pos, ctx=None):
         """The full-sequence pass: attention over the sequence, then the
@@ -251,11 +287,13 @@ class AttnBlock(nn.Module):
         budget = sel_mod.resolve_budget(qcfg, kv.capacity) \
             if method != "full" else 0
         if method == "full" or kv.capacity <= budget + t:
-            att = attention_with_positions(q, kv.k, kv.v, pos, kv.pos,
-                                           causal=True, window=self.window)
+            att = attention_with_positions(q, self._kv(kv.k), self._kv(kv.v),
+                                           pos, kv.pos, causal=True,
+                                           window=self.window)
             if ctx.get("obs"):
                 ctx["_obs"] = plan_mod.dense_obs(kv.pos, start)
-        elif plan_mod.fused_route(qcfg, method, kv.k, window=self.window):
+        elif plan_mod.fused_route(qcfg, method, kv.k, window=self.window,
+                                  heads=self.heads):
             # the chunk's KV was just written into the cache, so the kernel
             # reads it from there rather than from a [budget | chunk] concat
             att, plan = plan_mod.fused_attend_with_ctx(
@@ -264,9 +302,14 @@ class AttnBlock(nn.Module):
         else:
             sel, plan = plan_mod.select_with_ctx(
                 ctx, plan, method, q, kv.k, kv.v, kv.pos, start, qcfg,
-                budget=budget, q_valid=pos >= 0)
-            att = self._selected_attention(q, k, v, pos, sel)
-        return x + linear(self.wo, att.reshape(b, t, -1)), plan
+                budget=budget, q_valid=pos >= 0, heads=self.heads)
+            if self.heads is not None:
+                tk = self.heads.take
+                sel = sel._replace(k=tk(sel.k, 2), v=tk(sel.v, 2),
+                                   pos=tk(sel.pos, 1), idx=tk(sel.idx, 1))
+            att = self._selected_attention(q, self._kv(k), self._kv(v), pos,
+                                           sel)
+        return x + self._out(att.reshape(b, t, -1)), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is

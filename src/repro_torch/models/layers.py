@@ -5,6 +5,13 @@ Linear weights keep the reference layout ``(d_in, d_out)`` applied as
 ``x @ w``; the port stores them once in the compute dtype (the reference
 casts at every use, which gives the same numbers).  The embedding and norm
 gains stay fp32.
+
+Under tensor parallelism (``sharding/comm.py``) ``ax`` names the ``model``
+axis: ``embed`` looks up a vocab shard (rows ``v0 ..``) and sums the
+ranks' masked rows, ``unembed`` gathers the vocab shards' logits, and
+``row_linear`` (a row-parallel ``wo`` or MLP ``down``) sums the ranks'
+partial products in fp32 and casts once, so bf16 takes no second rounding
+that the meshless product does not.
 """
 from __future__ import annotations
 
@@ -12,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import comm
 
 
 def linear(w, x, b=None):
@@ -22,13 +31,41 @@ def linear(w, x, b=None):
     return y
 
 
-def embed(emb, tokens, dtype):
-    return emb[tokens].to(dtype)
+def row_linear(w, x, ax=None):
+    """``linear(w, x)`` for a row-parallel ``w`` (this rank's rows of the
+    input dimension): the partial products in fp32, summed over ``ax``,
+    cast to x's dtype once.  On the card a bf16 product stays a bf16 GEMM
+    and only its result is fp32; the CPU has no such GEMM and upcasts.
+    Meshless (``ax`` None) it is ``linear``."""
+    if ax is None:
+        return linear(w, x)
+    if x.is_cuda and x.dtype != torch.float32:
+        # one half-precision GEMM with an fp32 result (fp32 accumulation)
+        part = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        part = x.float() @ w.float()
+    return comm.all_reduce(part, ax).to(x.dtype)
 
 
-def unembed(emb, x):
-    """Tied read-out in fp32: logits = x @ emb^T."""
-    return x.float() @ emb.float().T
+def embed(emb, tokens, dtype, ax=None, v0: int = 0):
+    """Rows of ``emb`` for ``tokens``, cast to ``dtype``.  With ``ax``,
+    ``emb`` is the vocab shard starting at row ``v0``: tokens outside it
+    read zeros, and the ranks' rows are summed (exact: one is nonzero)."""
+    if ax is None:
+        return emb[tokens].to(dtype)
+    loc = tokens.long() - v0
+    ok = (loc >= 0) & (loc < emb.shape[0])
+    rows = emb[loc.clamp(0, emb.shape[0] - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    return comm.all_reduce(rows, ax).to(dtype)
+
+
+def unembed(emb, x, ax=None):
+    """Tied read-out in fp32: logits = x @ emb^T (with ``ax``, every vocab
+    shard's logits gathered in rank order)."""
+    logits = x.float() @ emb.float().T
+    return logits if ax is None else comm.all_gather(logits, ax, dim=-1)
 
 
 def rmsnorm(g, x, eps: float = 1e-6):
@@ -69,14 +106,16 @@ def _act(name: str, x):
     raise ValueError(name)
 
 
-def mlp(p, x, act: str = "silu"):
-    """Gated MLP; ``p`` maps "up", "down" and optionally "gate" to weights."""
+def mlp(p, x, act: str = "silu", ax=None):
+    """Gated MLP; ``p`` maps "up", "down" and optionally "gate" to weights.
+    With ``ax`` the hidden dimension is sharded: "up" / "gate" column-
+    parallel, "down" row-parallel (``row_linear``)."""
     up = linear(p["up"], x)
     if "gate" in p:
         h = _act(act, linear(p["gate"], x)) * up
     else:
         h = _act(act, up)
-    return linear(p["down"], h)
+    return row_linear(p["down"], h, ax)
 
 
 def rope(x, positions, theta: float):

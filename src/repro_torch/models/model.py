@@ -35,6 +35,13 @@ turns them on (``training/loop.py::init_state``).  The read-out is tied
 to the embedding or, untied, ``lm_head`` (fp32, as the reference applies
 it).  ``prefill_chunk`` and ``decode_step`` can also return the per-layer
 ``LayerObs`` (``with_obs``), stacked into (n_layers,) leaves.
+
+Tensor parallelism: ``training/checkpoint.py::shard`` slices a model's
+weights for one rank of a ``model`` mesh axis (``mesh`` then names it);
+a vocab-sharded model (``tp_vocab``, the axis) looks its embeddings up
+with a masked lookup and a sum over the ranks, and gathers the vocab
+shards' logits in ``_readout``, so every rank samples from the same
+logits.  Weights are drawn (``init``) before they are sliced.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from repro_torch.models.blocks import (AttnBlock, DecCrossBlock,
 from repro_torch.models.layers import (_act, embed, linear, rmsnorm,
                                        sinusoidal, unembed)
 from repro_torch.models.stack import Cache, Stack
+from repro_torch.sharding import comm
 
 
 def _on(x, dev, dtype=None) -> torch.Tensor:
@@ -112,6 +120,8 @@ class Model(nn.Module):
                              f"'audio' and a frontend to family 'vlm' only")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.mesh = None           # the mesh a ``shard`` placed this on
+        self.tp_vocab = None       # the model axis when the vocab shards
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
                         device=dev), requires_grad=False)
@@ -159,6 +169,8 @@ class Model(nn.Module):
         ``torch.Generator`` with the reference's initialiser scales
         (the numbers differ from ``jax.random``'s)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            raise ValueError("draw the weights before sharding the model")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
 
@@ -228,7 +240,7 @@ class Model(nn.Module):
         it takes no padding, as the reference."""
         dev = self.device
         tok = _on(batch["tokens"], dev)
-        x = embed(self.embed, tok, self.cfg.compute_dtype)
+        x = self._embed(tok)
         if self.proj is not None:
             if batch.get("pad") is not None:
                 raise ValueError("left-padding unsupported for VLM inputs")
@@ -315,11 +327,23 @@ class Model(nn.Module):
             obs = LayerObs(*(torch.stack(f) for f in zip(*obs)))
         return x, obs, sel
 
+    def _embed(self, tok, dtype=None):
+        """Token embeddings in ``dtype`` (default the compute dtype): a
+        vocab-parallel lookup under ``tp_vocab``."""
+        ax = self.tp_vocab
+        dt = self.cfg.compute_dtype if dtype is None else dtype
+        if ax is None:
+            return embed(self.embed, tok, dt)
+        return embed(self.embed, tok, dt, ax, ax.rank * self.embed.shape[0])
+
     def _readout(self, x):
         x = rmsnorm(self.ln_f, x, self.cfg.norm_eps)
         if self.lm_head is None:
-            return unembed(self.embed, x)
-        return linear(self.lm_head, x.float())
+            return unembed(self.embed, x, self.tp_vocab)
+        logits = linear(self.lm_head, x.float())
+        if self.tp_vocab is None:
+            return logits
+        return comm.all_gather(logits, self.tp_vocab, dim=-1)
 
     # ------------------------------------------------------------------
     # training
@@ -348,7 +372,7 @@ class Model(nn.Module):
         reference, which divides by all b * T)."""
         cfg = self.cfg
         tok = _on(batch["tokens"], self.device).long()
-        emb_n = embed(self.embed, torch.roll(tok, -1, dims=1), hidden.dtype)
+        emb_n = self._embed(torch.roll(tok, -1, dims=1), hidden.dtype)
         h = rmsnorm(self.mtp.ln, hidden, cfg.norm_eps)
         h = linear(self.mtp.mix, torch.cat([h, emb_n], dim=-1))
         h, _ = self.mtp.block.full_forward(h, pos, ctx)
@@ -422,7 +446,7 @@ class Model(nn.Module):
         method = method or self.cfg.quoka.method
         dev = self.device
         tok = _on(batch["tokens"], dev)
-        x = embed(self.embed, tok, self.cfg.compute_dtype)
+        x = self._embed(tok)
         b, t = tok.shape
         offs = torch.arange(t, dtype=torch.int32, device=dev)
         if isinstance(pos_start, torch.Tensor) and pos_start.ndim == 1:
@@ -458,7 +482,7 @@ class Model(nn.Module):
         cfg = self.cfg
         method = method or cfg.quoka.method
         b = tokens.shape[0]
-        x = embed(self.embed, tokens[:, None], cfg.compute_dtype)
+        x = self._embed(tokens[:, None])
         if isinstance(pos, torch.Tensor) and pos.ndim == 1:
             slot = pos.to(device=self.device, dtype=torch.int32)
             pos2 = slot[:, None]

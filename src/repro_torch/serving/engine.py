@@ -37,14 +37,26 @@ token fetch, scheduler and pool counters and gauges, and the per-layer
 beside the tokens and the engine fetches in one stacked copy per step
 after the token fetch.  With no registry the step functions run without
 them, exactly as before.  ``Engine.stats`` is a view of the registry
-either way (an ephemeral one when off).  Not ported yet: mesh serving
-(raises).
+either way (an ephemeral one when off).
+
+``Engine(mesh=)`` (a ``DeviceMesh``, ``launch/mesh.py``) serves
+tensor-parallel over the mesh's ``model`` axis, one process per rank:
+the model is sharded at construction (``training/checkpoint.py::shard``)
+and ``generate`` / ``serve`` run under the mesh policy
+(``sharding/ctx.py``), every rank on its own shards with the collectives
+of ``sharding/comm.py``.  Every rank returns the same greedy tokens.  The
+scheduler runs on rank 0's clock (``ServeState.clock``), so every rank
+admits, packs and finishes alike.  Not yet ported on a mesh, and refused:
+a ``data`` or ``pod`` axis larger than 1, ``registry=``, selection
+methods other than ``full`` and ``quoka``, block kinds other than
+``attn``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +68,9 @@ from repro_torch.serving import pool as pl
 from repro_torch.serving.policy import resolve_policy
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.sharding import comm, specs
+from repro_torch.sharding import ctx as shctx
+from repro_torch.training import checkpoint as ckpt
 
 
 @dataclass
@@ -92,10 +107,13 @@ class ServeState:
     #: (None: no host tier)
     hot: Optional[np.ndarray] = None
     host_ctr: Tuple = (0, 0, 0, 0)       # last pool tier counters seen
+    #: on a mesh, maps this rank's elapsed time to rank 0's (None: own)
+    clock: Optional[Callable[[float], float]] = None
 
     @property
     def now(self) -> float:
-        return time.perf_counter() - self.t0
+        t = time.perf_counter() - self.t0
+        return t if self.clock is None else self.clock(t)
 
 
 @dataclass
@@ -132,18 +150,27 @@ class Engine:
                  mesh=None, registry=None):
         """Serves ``model`` on ``device`` — the CUDA card unless the caller
         passes another; the model must already live there.  ``registry``
-        (``obs.Registry``) turns on serve-path telemetry (module
-        docstring)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not yet ported")
+        (``obs.Registry``) turns on serve-path telemetry; ``mesh`` serves
+        tensor-parallel and shards the model (module docstring)."""
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, engine on {dev}")
-        self.model = model
-        self.device = dev
         self.method = method or model.cfg.quoka.method
         if self.method not in METHODS:
             raise ValueError(f"unknown selection method {self.method!r}")
+        if mesh is not None:
+            if registry is not None:
+                raise NotImplementedError(
+                    "serve-path telemetry (registry=) on a mesh is not yet "
+                    "ported")
+            if self.method not in ("full", "quoka"):
+                raise NotImplementedError(
+                    f"selection method {self.method!r} on a mesh is not "
+                    f"yet ported (full and quoka are)")
+            ckpt.shard(model, mesh)
+        self.mesh = mesh
+        self.model = model
+        self.device = dev
         self.sampler = sampler
         self.registry = registry if registry is not None else obs_reg.NULL
         self._obs_on = bool(self.registry.enabled)
@@ -170,6 +197,18 @@ class Engine:
         ride along too: whisper's ``frames`` (b, n_ctx, d) and a VLM's
         ``patches`` (b, n, d_in), whose n positions come before the
         prompt's (the cache holds them, and decode starts at n + T)."""
+        with self._policy():
+            return self._generate(batch, max_new, generator)
+
+    def _policy(self):
+        """The mesh policy for the duration of a call (nothing meshless)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return shctx.policy(self.mesh, tuple(
+            a for a in ("pod", "data") if a in specs.mesh_shape(self.mesh)))
+
+    def _generate(self, batch: Dict, max_new: int,
+                  generator: Optional[torch.Generator]) -> GenerationResult:
         model, dev = self.model, self.device
         tokens = np.asarray(batch["tokens"])
         b, t = tokens.shape
@@ -353,16 +392,29 @@ class Engine:
             num_blocks = max_decode_batch * max_nb    # no contention
         b_p = (max(1, max_prefill_tokens // chunk)
                if max_prefill_rows is None else max(1, int(max_prefill_rows)))
+        rows = b_p                  # the scheduler's cap (pre rounding)
         b_d = max_decode_batch
+        clock = None
+        if self.mesh is not None:
+            # the pool's block axis follows the data axes: round the pool
+            # and the step rows up to the data-parallel degree (1 while
+            # only ``model`` is ported), as the reference does; the
+            # scheduler's admission bound stays ``max_decode_batch``
+            dp = specs._axes_size(self.mesh, specs.fsdp_axes(self.mesh))
+            num_blocks = -(-num_blocks // dp) * dp
+            b_p = -(-b_p // dp) * dp
+            b_d = -(-b_d // dp) * dp
+            ax = comm.axis(self.mesh, "model")
+            clock = lambda t: comm.broadcast_float(t, ax, self.device)
         pool = pl.PagedKVCache(self.model, num_blocks, block_size,
-                               host_tier_blocks=htb)
+                               mesh=self.mesh, host_tier_blocks=htb)
         # selection methods consume prefill in ``granularity``-sized score
         # units — that is the finest grid a packed chunk can be charged at
         grid = 1 if self.method == "full" else max(1, g)
         sched = Scheduler(pool, chunk, max_prefill_tokens, max_decode_batch,
                           prefix_cache=prefix_cache, prefix_align=align,
                           registry=self.registry, policy=pol,
-                          max_prefill_rows=b_p, token_grid=grid)
+                          max_prefill_rows=rows, token_grid=grid)
         fns = self._continuous_fns(block_size, max_nb, num_blocks,
                                    sel_on=htb > 0)
         if generator is None:
@@ -372,10 +424,11 @@ class Engine:
                            generator=generator, chunk=chunk, max_nb=max_nb,
                            b_prefill=b_p, b_decode=b_d, prefetch_depth=pfd,
                            hot=np.zeros((max_nb,), np.float64) if htb
-                           else None)
+                           else None, clock=clock)
         sig = ("serve", block_size, max_nb, b_p, b_d, num_blocks, htb > 0)
         if sig not in self._warmed:
-            self._warm_steps(state)
+            with self._policy():
+                self._warm_steps(state)
             self._warmed.add(sig)
         return state
 
@@ -508,6 +561,10 @@ class Engine:
         (prefill rows, decode rows) executed.  ``state.events`` is reset and
         filled with this step's emitted (rid, token) pairs — the feed
         ``serve_stream`` yields from."""
+        with self._policy():
+            return self._step(state)
+
+    def _step(self, state: ServeState) -> Tuple[int, int]:
         pool, sched = state.pool, state.sched
         reg, obs = self.registry, self._obs_on
         state.events = []

@@ -74,7 +74,15 @@ in exactly one tier.  On the card:
 
 On a CPU pool the rows are plain host tensors and every copy is
 synchronous: device memory already is host memory, as in the reference.
-Not ported yet: mesh placement (asking for it raises).
+
+On a mesh (``mesh=``, the model sharded on it by
+``training/checkpoint.py::shard``) each rank's pool holds the KV heads
+its layers hold: its own when the KV heads divide the ``model`` axis,
+all of them otherwise, as ``sharding/specs.py::cache_specs(paged=True)``
+places the pool (the block axis follows the data axes, size 1 here); the
+host-side bookkeeping is the same on every rank.  The host tier on a mesh
+raises the reference's error, and an MLA latent pool on a mesh is not yet
+ported.
 """
 from __future__ import annotations
 
@@ -272,15 +280,38 @@ class HostTier:
         self._free.append(slot)
 
 
+def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> None:
+    """A pool on ``mesh``: the model must be sharded on it, and each
+    layer's held KV heads must be what ``cache_specs(paged=True)`` places
+    on this rank."""
+    from repro_torch.sharding import specs
+    cfg = model.cfg
+    if any(k in ("mla", "mla_moe") for k in cfg.layer_kinds()):
+        raise NotImplementedError(
+            "the MLA latent pool on a mesh is not yet ported")
+    if model.mesh is not mesh:
+        raise ValueError("shard the model on this mesh first "
+                         "(training/checkpoint.py::shard; Engine(mesh=) "
+                         "does)")
+    msize = specs.mesh_shape(mesh).get("model", 1)
+    place = specs.cache_specs(cfg, specs.kv_cache_shapes(
+        cfg, num_blocks, block_size), mesh, paged=True)
+    for si, stack in enumerate(model.stacks):
+        for i, blk in enumerate(stack.layers):
+            spec = place[f"stacks/{si}/{i % len(stack.period)}/kv/k"]
+            want = cfg.n_kv_heads // msize if spec[3] == "model" \
+                else cfg.n_kv_heads
+            if blk.n_kv != want:
+                raise ValueError(f"layer holds {blk.n_kv} KV heads, the "
+                                 f"pool's placement {spec} wants {want}")
+
+
 class PagedKVCache:
     """Fixed-size-block KV pool + per-request block tables + free-list +
     content-addressed prefix cache (refcounts, LRU eviction, COW tails)."""
 
     def __init__(self, model, num_blocks: int, block_size: int, mesh=None,
                  host_tier_blocks: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("paged pool on a mesh is not yet "
-                                      "ported")
         kinds = [k for s in model.stacks for k in s.period]
         bad = sorted(set(k for k in kinds if k in _UNSUPPORTED_KINDS))
         if bad:
@@ -289,7 +320,14 @@ class PagedKVCache:
                 f"model has unsupported block kinds {bad}")
         if model.cfg.family == "vlm":
             raise ValueError("paged KV pool does not support VLM frontends")
+        if host_tier_blocks and mesh is not None:
+            raise ValueError(
+                "host tier + mesh is not supported yet: demotion would "
+                "have to gather a sharded block slab per eviction")
+        if mesh is not None:
+            _check_pool_mesh(model, mesh, int(num_blocks), int(block_size))
         self.model = model
+        self.mesh = mesh
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.data = model.init_cache(self.num_blocks, self.block_size)
@@ -331,6 +369,7 @@ class PagedKVCache:
     @property
     def device(self) -> torch.device:
         return next(_layers(self.data)).pos.device
+
 
     # ---- free-list bookkeeping ------------------------------------------
     @property

@@ -34,6 +34,14 @@ state under the reference's ``TrainState`` keys ``params/...``,
 fp32 (numpy has no bf16; the reference's leaves are fp32 anyway).  The
 map also gives each parameter the rank of its reference leaf
 (``leaf_ranks``), on which the reference's AdamW decides weight decay.
+
+``shard(model, mesh)`` slices every leaf, in place, by its placement
+(``sharding/specs.py::param_specs`` on these keys; a stacked leaf's
+placement without its leading repeats entry) to this rank's share of the
+mesh's ``model`` axis, and hands the blocks their layout;
+``from_flat(..., mesh=)`` shards what it reads.  A model is drawn whole
+(``Model.init``) on every rank before it is sliced, so every rank and a
+meshless run hold the same weights.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.blocks import (DecCrossBlock, MambaBlock, MLABlock,
                                       RWKVBlock)
 from repro_torch.models.model import Model
+from repro_torch.sharding import comm, specs
 from repro_torch.training import optimizer as opt
 
 
@@ -156,10 +165,62 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
     param.copy_(torch.from_numpy(np.array(arr)))
 
 
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise for what this port does not place on a mesh yet: a ``data``
+    or ``pod`` axis larger than 1, a frontend or encoder, any block kind
+    but dense ``attn``."""
+    shape = specs.mesh_shape(mesh)
+    big = {a: n for a, n in shape.items() if a != "model" and n > 1}
+    if big:
+        raise NotImplementedError(
+            f"mesh {shape}: the data and pod axes ({big}) are not yet "
+            f"ported (tensor parallelism over 'model' only)")
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: a mesh for the {cfg.family} family's "
+            f"{'frontend' if cfg.family == 'vlm' else 'encoder'} is not "
+            f"yet ported")
+    bad = sorted(set(cfg.layer_kinds()) - {"attn"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {bad} on a mesh are not yet ported "
+            f"(dense 'attn' only)")
+
+
+@torch.no_grad()
+def shard(model: Model, mesh) -> Model:
+    """Slice ``model``'s weights, in place, to this rank's share of the
+    mesh's ``model`` axis (module docstring) and place its blocks.  A
+    model already sharded on ``mesh`` is returned as it is."""
+    if model.mesh is mesh:
+        return model
+    if model.mesh is not None:
+        raise ValueError("the model is already sharded on another mesh")
+    cfg = model.cfg
+    check_mesh(cfg, mesh)
+    ax = comm.axis(mesh, "model")
+    leaves = leaf_map(model)
+    placements = specs.param_specs(cfg, specs.tree_shapes(model), mesh)
+    for key, (ts, stacked) in leaves.items():
+        dim = specs.model_axis_entry(placements[key][int(stacked):])
+        if dim is None:
+            continue
+        for t in ts:
+            n = t.shape[dim] // ax.size
+            t.data = t.data.narrow(dim, ax.rank * n, n).clone()
+    for blk in model.layers():
+        blk.place(ax)
+    if model.embed.shape[0] < cfg.vocab:
+        model.tp_vocab = ax
+    model.mesh = mesh
+    return model
+
+
 @torch.no_grad()
 def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-              device=None) -> Model:
-    """Build the port's model from the reference's flat parameter dict."""
+              device=None, mesh=None) -> Model:
+    """Build the port's model from the reference's flat parameter dict
+    (sharded on ``mesh`` when one is given)."""
     model = Model(cfg, device)
     leaves = leaf_map(model)
     missing = set(leaves) - set(flat)
@@ -179,7 +240,7 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
     if extra:
         raise ValueError(f"checkpoint has parameters the port does not "
                          f"hold: {sorted(extra)}")
-    return model
+    return model if mesh is None else shard(model, mesh)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

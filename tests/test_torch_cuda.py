@@ -1153,3 +1153,95 @@ def test_layer_obs_on_the_card_match_cpu(dev, route):
     score sketch within 2e-5, NaN in the same places."""
     err, _, _ = layer_obs_card_vs_cpu(dev, route)
     assert err <= 2e-5
+
+
+def mesh_smoke_case(rank, world, dev):
+    """One rank of the tensor-parallel smoke check on the card: smoke
+    granite-3-2b (seed 0) at ``model=world``, ranks sharing the card over
+    gloo, ``generate`` / ``serve`` / a warm-pool prefix hit against the
+    same card's meshless engine (``tests/torch_tp_cases.py``).  Returns
+    whether every token array is equal and how many were compared.
+    ``chip_smoke.py`` phase 33 runs this too."""
+    import torch_tp_cases as cases
+    prompts = [np.random.default_rng(3).integers(3, 512, (n,)).astype(
+        np.int32) for n in (16, 48, 29)]
+    out = cases.serve_case(rank, world, dev, "granite-3-2b", {}, None,
+                           prompts)
+    pairs = []
+    for m in ("full", "quoka"):
+        pairs.append((out[f"{m}/generate"], out[f"{m}/generate_mesh"]))
+        for key in ("serve_mesh", "serve_hit"):
+            pairs += [(out[f"{m}/serve"][i], out[f"{m}/{key}"][i])
+                      for i in range(len(prompts))]
+    equal = all(np.array_equal(a, b) for a, b in pairs) and \
+        out["reassembled"] and out["quoka/cache_hits"] > 0
+    return {"equal": bool(equal), "checked": len(pairs),
+            "backend": out["backend"]}
+
+
+def test_mesh_serving_on_the_card(dev):
+    """Smoke granite at ``model=2``, two ranks sharing the card over gloo:
+    the same tokens as the card's meshless engine on every rank."""
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(mesh_smoke_case, 2, device="cuda", timeout=600)
+    for r in res:
+        assert r["equal"] and r["backend"] == "gloo", r
+
+
+MUTANT_RUNS = (("bf16 g1", "bfloat16", {}),)
+
+
+def _chip_smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def _kernel_modules():
+    return {"flash": fa_mod, "score": qs_mod, "selected": sa_mod}
+
+
+def mutant_rank(rank, world, dev, prompt):
+    """One rank of phase 33's qwen3-4b bf16 ``generate`` with a wrong head
+    mapping: every sharded layer's KV heads reversed, so each query group
+    attends another group's keys.  Returns the first-step logits."""
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models.blocks import AttnBlock
+    cs = _chip_smoke()
+    qkv = AttnBlock._qkv
+
+    def reversed_kv(self, x, pos):
+        q, k, v = qkv(self, x, pos)
+        if self.heads is not None:
+            k, v = k.flip(2), v.flip(2)
+        return q, k, v
+
+    AttnBlock._qkv = reversed_kv
+    mesh = mesh_from_spec(f"model={world}", dev)
+    return cs.mesh_run(torch, np, _kernel_modules(), "qwen3-4b", prompt,
+                       MUTANT_RUNS, mesh, dev)["bf16 g1"]["logits"]
+
+
+def test_mesh_bf16_bound_catches_a_wrong_head_mapping(dev):
+    """``chip_smoke.py`` phase 33 holds qwen3-4b's bf16 first-step logits
+    on a ``model=2`` mesh within ``MESH_BF16_DRIFT`` of their largest
+    magnitude; a wrong head mapping must land outside that bound (the
+    drift ratio is printed)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    cs = _chip_smoke()
+    prompt = cs.MESH_CASES[0][2]
+    ref_logits = cs.mesh_run(torch, np, _kernel_modules(), "qwen3-4b",
+                             prompt, MUTANT_RUNS, None, dev)["bf16 g1"][
+                                 "logits"]
+    torch.cuda.empty_cache()
+    scale = float(np.abs(ref_logits).max())
+    for logits in spawn_ranks(mutant_rank, 2, prompt, device="cuda",
+                              timeout=600):
+        ratio = float(np.abs(logits - ref_logits).max()) / scale
+        print(f"wrong head mapping: first-step drift {ratio:.4g} x the "
+              f"logits' largest magnitude {scale:.4g} (bound "
+              f"{cs.MESH_BF16_DRIFT})")
+        assert ratio > cs.MESH_BF16_DRIFT

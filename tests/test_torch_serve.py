@@ -39,6 +39,13 @@ from repro_torch.training.checkpoint import from_flat
 torch.set_num_threads(2)
 
 BS = 16
+
+
+class _Mesh:
+    """A mesh's axis sizes only (``sharding/specs.py::mesh_shape`` reads
+    them): enough for the refusals, which come before any rank meets."""
+    def __init__(self, shape):
+        self.shape = dict(shape)
 VARIANTS = {
     "full": ("full", {}),
     "quoka_staged": ("quoka", {}),
@@ -351,13 +358,18 @@ def test_serve_state_guards(granite):
 
 
 def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
-    """Mesh serving still raises; the telemetry options it used to refuse
-    with it (``registry=``, ``with_obs``) now run (``test_torch_obs.py``
-    holds them to the reference)."""
+    """What mesh serving still refuses raises (a ``data`` axis, and
+    ``registry=`` with a mesh; ``test_torch_sharding.py`` serves on a
+    ``model`` axis); the telemetry options once refused (``registry=``,
+    ``with_obs``) run meshless (``test_torch_obs.py`` holds them to the
+    reference)."""
     from repro_torch.obs import Registry
     rm, params, pm = granite
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Engine(pm, device="cpu", mesh=object())
+        Engine(pm, device="cpu", mesh=_Mesh({"data": 2, "model": 1}))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Engine(pm, device="cpu", mesh=_Mesh({"model": 2}),
+               registry=Registry())
     assert Engine(pm, device="cpu", registry=Registry())._obs_on
     eng = Engine(pm, method="quoka", device="cpu")
     pr = make_requests(_prompts(1, (16,), pm.cfg.vocab), 2)
@@ -377,14 +389,15 @@ def test_latent_cache_serve_raises_and_generate_runs():
     """deepseek-v3's latent caches now have a paged-pool layout: ``serve``
     runs and gives each request its own ``generate``'s tokens (the
     reference's serve is matched in ``test_torch_latent_pool.py``); what
-    still raises is a pool on a mesh (not yet ported), explicitly and with
-    no fallback; the one-shot ``generate`` keeps the reference's tokens."""
+    still raises is the latent pool on a mesh (not yet ported), explicitly
+    and with no fallback; the one-shot ``generate`` keeps the reference's tokens."""
     rm, params, pm = _pair("deepseek-v3-671b")
     prompts = _prompts(7, (64, 48), pm.cfg.vocab)
     eng = Engine(pm, method="quoka", device="cpu")
     from repro_torch.serving.pool import PagedKVCache
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedKVCache(pm, num_blocks=8, block_size=BS, mesh=object())
+        PagedKVCache(pm, num_blocks=8, block_size=BS,
+                     mesh=_Mesh({"model": 2}))
     got = eng.serve(make_requests(prompts, 4), block_size=BS)
     for i, pr in enumerate(prompts):
         np.testing.assert_array_equal(
