@@ -108,9 +108,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      demotion and promotion; every slab's H2D copy in a profiler trace
      from pinned memory, on a side stream, inside one step's compute span;
      A's cold and promoted TTFT;
- 17. olmoe-1b-7b (16 layers, d_model 2048, MHA 16 / 16, 64 experts top-8,
-     capacity dispatch) at full width: ``Engine.generate`` staged and fused
-     with exact launch counts (16 x 95), layer 0's capacity dispatch on the
+ 17. olmoe-1b-7b (published 16 layers, d_model 2048, MHA 16 / 16, 64
+     experts top-8, capacity dispatch) at full width, cut in depth to 8
+     layers (room for phase 34): ``Engine.generate`` staged
+     and fused with exact launch counts (8 x 95), layer 0's capacity
+     dispatch on the
      card against the CPU (fp32: the same dropped pairs, outputs within
      1e-4 relative), and a serve of three requests (8192, 3000, 2048
      tokens) with one prefill and one decode row, whose whole-chunk
@@ -130,10 +132,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      the plain version and timed beside SDPA, each timed call held to one
      launch of the flash kernel by its launch counter (the profiler does
      not record them reliably here);
- 20. h2o-danube-3-4b (24 layers, d_model 3840, 32 / 8 heads, d 120, every
-     layer windowed at 4096) at full width: ``Engine.generate`` at prompt
+ 20. h2o-danube-3-4b (published 24 layers, d_model 3840, 32 / 8 heads, d
+     120, every layer windowed at 4096) at full width, cut in depth to 12
+     layers (room for phase 34): ``Engine.generate`` at prompt
      8192 (every ring wraps), staged and g = 16, with exact launch counts
-     (scoring on every layer call, 24 x 95; no flash, no selected
+     (scoring on every layer call, 12 x 95; no flash, no selected
      attention: a windowed layer attends on the plain masked path), and a
      trace of its fused route as phase 7's;
  21. gemma3-27b's and h2o-danube-3-4b's smoke configs (window 64) at
@@ -146,16 +149,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      counts (2 global layers x 95; the local layers' 1024-slot rings take
      the dense bypass), and a trace of the fused route as phase 7's at
      prompt 4096 (at 2048 every layer would take the dense bypass);
- 23. zamba2-7b (81 layers: 13 x (5 Mamba2 + 1 Mamba2 followed by the ONE
-     shared attention block, MHA 32 / 32 at d 112) + 3 Mamba2; d_model
-     3584) at full width and depth: ``Engine.generate`` staged and fused
-     (g = 16) with exact launch counts (13 shared-block uses x 95 per
-     kernel and route; the Mamba2 layers launch nothing), and a trace of
+ 23. zamba2-7b (published 81 layers: 13 x (5 Mamba2 + 1 Mamba2 followed
+     by the ONE shared attention block, MHA 32 / 32 at d 112) + 3 Mamba2;
+     d_model 3584) at full width, cut in depth to 27 layers (4 periods +
+     the 3-layer tail, to make room for phase 34 in the
+     run's time limit: the 81 layers took 201 s): ``Engine.generate``
+     staged and fused (g = 16) with exact launch counts (4 shared-block
+     uses x 95 per kernel and route; the Mamba2 layers launch nothing),
+     and a trace of
      the fused route as phase 7's with the device time of the SSD scan,
      the causal convolution, the shared block (its kernels apart) and the
      products;
- 24. rwkv6-1.6b (24 RWKV6 layers, d_model 2048, no KV cache) at full
-     width and depth: ``Engine.generate`` with QUOKA asked for and 0
+ 24. rwkv6-1.6b (published 24 RWKV6 layers, d_model 2048, no KV cache) at
+     full width, cut in depth to 12 layers (room for phase
+     34): ``Engine.generate`` with QUOKA asked for and 0
      launches of every kernel (nothing to select), and a trace with the
      wkv scan's device time;
  25. zamba2-7b's smoke config (staged and g = 16) and rwkv6-1.6b's in
@@ -171,9 +178,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      cross-attention launch nothing), TTFT with the encoder, decode rate,
      peak memory, and a trace of the fused route with the device time of
      the encoder, the cross-KV build and the cross-attention;
- 27. internvl2-1b (24 layers, d_model 896, GQA 14 / 2, d 64; a projector
-     of 256 patches of d 1024 ahead of 7936 tokens: 8192 positions) the
-     same way (24 x 95), its trace (the prefill through ``embed_inputs``,
+ 27. internvl2-1b (published 24 layers, d_model 896, GQA 14 / 2, d 64; a
+     projector of 256 patches of d 1024 ahead of 7936 tokens: 8192
+     positions) the same way, cut in depth to 12 layers (room
+     for phase 34; 12 x 95), its trace (the prefill through ``embed_inputs``,
      the patches ahead of the tokens) with the projector's device time,
      which CUDA events also time outside the profiler;
  28. both smoke configs in fp32 (whisper at prompt 160 over 64 frames,
@@ -239,7 +247,34 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      smoke-width check of ``tests/test_torch_cuda.py``
      (``mesh_smoke_case``: smoke granite at ``model=2``, generate and serve
      mesh == meshless on the card) and which collectives gloo takes on
-     CUDA tensors.
+     CUDA tensors;
+ 34. data-parallel serving on the ``data`` axis beside ``model`` (after
+     phase 33): qwen3-4b at full width, cut in depth to ``DP_LAYERS`` of
+     its 36 layers (every layer call all-gathers its FSDP-sharded
+     weights, and gloo moves them through host memory), at
+     ``data=2,model=2``, four ranks spawned as children sharing the card
+     over gloo, through ``tests/torch_tp_cases.py::dp_card_case`` (the
+     rank body ``tests/test_torch_cuda.py::test_dp_serving_on_the_card``
+     runs too), against the same card's meshless run in the same phase
+     (``dp_card_run``): fp32 ``generate`` at batch 2 (rows over ``data``)
+     and at batch 1 with prompt 1024 (the cache's sequence over ``data``:
+     each rank holds half the slots and scores them, the candidates and
+     the budget's rows cross ranks), bf16 at batch 1 (first-step logits
+     within ``MESH_BF16_DRIFT`` of the meshless logits' largest
+     magnitude), and an fp32 serve with a 256-token prefix hit (the
+     pool's blocks split over ``data``); selection budget 256 (phase
+     33's); launches per rank (scoring and flash on every layer call, 0
+     selected, 0 paged; in the serve scoring and flash launched, 0
+     selected, 0 paged), the scoring routes, bytes per forward pass by
+     scope (``fsdp``, ``seq``, ``score``) beside each rank's K cache slice
+     and held weight bytes; at batch 1 a selecting call's scoring and
+     budget-row bytes under a quarter of the K cache's (the CPU tests'
+     bound) and its budget rows no more than one budget's K, V and
+     positions of the rank's heads; per-rank peak against the meshless
+     peak, the phase's wall time.
+
+Every phase header line carries the script's elapsed time, and a line
+before the last three gives each phase's wall time.
 
 The last three lines are the card's name and power limit, one JSON line
 with every kernel (``launches`` from phases 3-4, ``paths`` the launches
@@ -268,11 +303,22 @@ SERVE_NEW = 16                     # new tokens per request in phase 8
 _T0 = time.perf_counter()
 
 
+_PHASES = []                       # (phase, start) in the order they ran
+
+
 def log(msg=""):
     """Print a line; a phase's header carries the script's elapsed time."""
     if msg.startswith("== "):
+        _PHASES.append((msg[3:].split(":")[0], time.perf_counter()))
         msg = f"{msg}  [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
+
+
+def phase_walls() -> dict:
+    """Each phase's wall time in s, from its header to the next one's (the
+    last to now)."""
+    ends = [t for _, t in _PHASES[1:]] + [time.perf_counter()]
+    return {name: round(end - t, 1) for (name, t), end in zip(_PHASES, ends)}
 
 
 def card_line() -> str:
@@ -1951,9 +1997,11 @@ def phase_host_tier(torch, np, K, model):
     tokens; one of A's blocks is held byte for byte through demotion and
     promotion; a ``torch.profiler`` trace of [B, A] shows every H2D copy of
     a slab from pinned memory, on a stream other than the compute stream,
-    inside the device span of one step (between the step's first and last
-    compute kernels, no token fetch in between), and counts the copies
-    that overlap a compute kernel itself."""
+    inside the device span of one step (between the step's first device
+    operation on the compute stream, its first kernel or the upload of
+    its inputs, and the end of its last compute kernel, no token fetch
+    in between), and counts the copies that overlap a compute kernel
+    itself."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.pool import _chain_hashes, _slab_leaves
@@ -2053,6 +2101,14 @@ def phase_host_tier(torch, np, K, model):
                      and "DtoH" in e.get("name", "")
                      and "Pageable" in e["name"]
                      and e["args"]["stream"] == compute)
+    # a step starts with its pool gather, then the upload of its inputs
+    # on the compute stream, then its prefetch; the trace can lose the
+    # gather's kernel record (a session's first one, in most runs: PERF.md
+    # section 6), so the uploads mark the step's start too
+    uploads = sorted(e["ts"] for e in events
+                     if e.get("cat") == "gpu_memcpy"
+                     and "HtoD" in e.get("name", "")
+                     and e["args"]["stream"] == compute)
     direct = 0
     for e in copies:
         if "Pinned" not in e["name"] or "Pageable" in e["name"]:
@@ -2069,7 +2125,10 @@ def phase_host_tier(torch, np, K, model):
         i = bisect.bisect_left(starts, hi) - 1
         step = [k for k in on_compute[bisect.bisect_right(starts, f0):
                                       bisect.bisect_left(starts, f1)]]
-        if f1 < hi or not step or step[0][0] > lo or \
+        first = min([k[0] for k in step[:1]] + uploads[
+            bisect.bisect_right(uploads, f0):
+            bisect.bisect_left(uploads, f1)][:1], default=math.inf)
+        if f1 < hi or not step or first > lo or \
                 max(k[1] for k in step) < hi:
             raise AssertionError(f"slab copy [{lo}, {hi}] not inside one "
                                  f"step's compute span")
@@ -2120,13 +2179,15 @@ OLMOE_NEW = 16                                  # phase 17's serve
 
 
 def phase_olmoe(torch, np, K):
-    """Phase 17: olmoe-1b-7b (16 layers, d_model 2048, MHA 16 / 16, d 128,
+    """Phase 17: olmoe-1b-7b (cut to ``OLMOE_LAYERS``; d_model 2048, MHA
+    16 / 16, d 128,
     64 experts top-8, d_expert 1024, capacity dispatch) at full width from
     random weights: one-shot staged and fused (``phase_oneshot``), one MoE
     layer's capacity dispatch on the card against the same plain code on
     the CPU, and a continuous serve of three requests.  Returns the
     one-shot numbers and the rest."""
-    model, oneshot = phase_oneshot(torch, np, K, "olmoe-1b-7b", 17)
+    model, oneshot = phase_oneshot(torch, np, K, "olmoe-1b-7b", 17,
+                                   layers=OLMOE_LAYERS)
     out = {"capacity": moe_capacity_check(torch, np, model)}
     out["serve"] = olmoe_serve(torch, np, K, model)
     out["trace"] = phase_trace(torch, np, model, phase="  phase 17")
@@ -2697,17 +2758,30 @@ class traced_spans:
         return False
 
 
+# phase 23's cut of zamba2-7b's 81 layers and phase 20's of
+# h2o-danube-3-4b's 24 (to make room for phase 34): 4 periods
+# of 5 Mamba2 + 1 shared-block layer, and the tail; 12 windowed layers
+ZAMBA_LAYERS = 27
+DANUBE_LAYERS = 12
+# and of olmoe-1b-7b's 16 (phase 17), rwkv6-1.6b's 24 (phase 24) and
+# internvl2-1b's 24 (phase 27): a whole run took 1243 s on a slow
+# host with them whole
+OLMOE_LAYERS = 8
+RWKV_LAYERS = INTERNVL_LAYERS = 12
+
+
 def phase_recurrent(torch, np, K):
-    """Phases 23-25: zamba2-7b (staged and fused) and rwkv6-1.6b one-shot
-    at full width and depth with exact launch counts, a trace of each
+    """Phases 23-25: zamba2-7b (staged and fused; cut to ``ZAMBA_LAYERS``)
+    and rwkv6-1.6b (cut to ``RWKV_LAYERS``) one-shot at full width with
+    exact launch counts, a trace of each
     with the device time of its recurrent scans, convolution, shared
     attention block and products, then both smoke configs card vs CPU.
     Returns ({arch: one-shot numbers}, {arch: trace})."""
     from repro_torch.models import mamba2, rwkv6
     from repro_torch.models.blocks import AttnBlock
     oneshot, traces = {}, {}
-    zamba, oneshot["zamba2-7b"] = phase_oneshot(torch, np, K, "zamba2-7b",
-                                                23)
+    zamba, oneshot[f"zamba2-7b ({ZAMBA_LAYERS} layers)"] = phase_oneshot(
+        torch, np, K, "zamba2-7b", 23, layers=ZAMBA_LAYERS)
     traces["zamba2-7b"] = phase_trace(
         torch, np, zamba, phase="  phase 23", spans={
             "mamba2 SSD scan": (mamba2, "_ssd_chunked"),
@@ -2717,8 +2791,9 @@ def phase_recurrent(torch, np, K):
             "shared attention block (torch ops)": (AttnBlock, "apply")})
     del zamba
     torch.cuda.empty_cache()
-    rwkv, oneshot["rwkv6-1.6b"] = phase_oneshot(
-        torch, np, K, "rwkv6-1.6b", 24, routes=ROUTES[:1])
+    rwkv, oneshot[f"rwkv6-1.6b ({RWKV_LAYERS} layers)"] = phase_oneshot(
+        torch, np, K, "rwkv6-1.6b", 24, routes=ROUTES[:1],
+        layers=RWKV_LAYERS)
     traces["rwkv6-1.6b"] = phase_trace(
         torch, np, rwkv, phase="  phase 24", spans={
             "rwkv6 wkv scan": (rwkv6, "_time_mix_chunked"),
@@ -2735,10 +2810,10 @@ def phase_recurrent(torch, np, K):
 
 def phase_modality(torch, np, K):
     """Phases 26-28: whisper-small (12 decoder and 12 encoder layers over
-    1500 frames) and internvl2-1b (256 patches + 7936 tokens) one-shot at
-    full width and depth, staged and fused (g = 16), with exact launch
-    counts (whisper: its 12 decoder layers' self-attention x 95; internvl2:
-    24 x 95), TTFT (whisper's encoder and cross-KV build included), decode
+    1500 frames; full depth) and internvl2-1b (256 patches + 7936 tokens;
+    cut to ``INTERNVL_LAYERS``) one-shot at full width, staged and fused
+    (g = 16), with exact launch counts (whisper: its 12 decoder layers'
+    self-attention x 95; internvl2: 12 x 95), TTFT (whisper's encoder and cross-KV build included), decode
     rate and peak memory, and a trace of each fused route with the device
     time of the encoder, the cross-KV build and the cross-attention
     (whisper) or the projector (internvl2; also timed by CUDA events
@@ -2759,8 +2834,9 @@ def phase_modality(torch, np, K):
             cache, whisper.encode(frames)))
     del whisper
     torch.cuda.empty_cache()
-    internvl, oneshot["internvl2-1b"] = phase_oneshot(
-        torch, np, K, "internvl2-1b", 27)
+    internvl, oneshot[f"internvl2-1b ({INTERNVL_LAYERS} layers)"] = \
+        phase_oneshot(torch, np, K, "internvl2-1b", 27,
+                      layers=INTERNVL_LAYERS)
     patches = prompt_batch(np, internvl.cfg, PROMPT, seed=27)["patches"]
     traces["internvl2-1b"] = phase_trace(
         torch, np, internvl, phase="  phase 27",
@@ -3341,6 +3417,157 @@ def phase_mesh(torch, np, K, card, dev):
         out[arch] = res
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 33 took {out['phase_s']:.1f} s")
+    return out
+
+
+# phase 34: qwen3-4b cut in depth to DP_LAYERS of 36 for the phase's
+# 120 s (each layer call all-gathers its FSDP shards through host memory:
+# an fp32 layer's 202 MB);
+# (label, dtype, batch, prompt): batch 2 puts rows over data, batch 1 the
+# cache's sequence (1028 slots, 514 a rank)
+DP_LAYERS = 4
+DP_NEW = 4
+DP_RUNS = (("bf16 b1", "bfloat16", 1, 1024), ("fp32 b2", "float32", 2, 512),
+           ("fp32 b1", "float32", 1, 1024))
+
+
+def phase_dp(torch, np, K, card, dev):
+    """Phase 34: data-parallel serving on ``data=2,model=2`` (four ranks
+    sharing the card over gloo, through ``tests/torch_tp_cases.py::
+    dp_card_case``) against the card's meshless run of the same rank body
+    (``dp_card_run``), run here while the ranks run (neither's times are
+    figures).  Holds every rank to it (module docstring) and returns the
+    phase's numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tp_cases as cases
+    arch = "qwen3-4b"
+    log(f"== phase 34: data-parallel serving, {arch} at full width "
+        f"({DP_LAYERS} of 36 layers) on {cases.DP_SPEC}, four ranks sharing "
+        f"the card over gloo, budget {MESH_BUDGET}, {DP_NEW} new tokens "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    args = (arch, DP_LAYERS, DP_RUNS, MESH_BUDGET, DP_NEW)
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(spawn_ranks, cases.dp_card_case, 4, *args,
+                          device="cuda", timeout=600)
+        ref = cases.dp_card_run(dev, *args)
+        torch.cuda.empty_cache()
+        ranks = fut.result()
+    ref_peak = max(ref[label]["peak_gib"] for label, *_ in DP_RUNS)
+    out = {"spec": cases.DP_SPEC, "layers": DP_LAYERS,
+           "budget": MESH_BUDGET, "backend": ranks[0]["backend"],
+           "peak_gib": [r["peak_all_gib"] for r in ranks],
+           "meshless_peak_gib": ref_peak}
+    for label, dt, b, prompt in DP_RUNS:
+        runs, want = [r[label] for r in ranks], ref[label]
+        n = runs[0]["stack_calls"] * DP_LAYERS
+        route = "seq" if b == 1 else "kv_heads"
+        for i, run in enumerate(runs):
+            if run["tokens"] != runs[0]["tokens"]:
+                raise AssertionError(f"phase 34 {label}: rank {i} tokens "
+                                     f"differ from rank 0's")
+            if run["launches"] != {
+                    "quoka_score": n, "flash_attention": n,
+                    "selected_attention": 0, "selected_attention_paged": 0}:
+                raise AssertionError(f"phase 34 {label} rank {i}: launches "
+                                     f"{run['launches']}, {n} layer calls")
+            if run["routes"][route] != n or \
+                    sum(run["routes"].values()) != n:
+                raise AssertionError(f"phase 34 {label} rank {i}: routes "
+                                     f"{run['routes']}, want {n} {route}")
+            if run["slots"] * (2 if b == 1 else 1) != run["cap"]:
+                raise AssertionError(f"phase 34 {label} rank {i}: "
+                                     f"{run['slots']} of {run['cap']} slots")
+            if b == 1:
+                score, rows = cases.dp_moves(run)
+                if not (0 < rows <= run["budget_bytes"]
+                        and score + rows < run["k_bytes"] / 4):
+                    raise AssertionError(
+                        f"phase 34 {label} rank {i}: a selecting call "
+                        f"moves {score:.0f} B of candidates and "
+                        f"{rows:.0f} B of budget rows (bounds: their sum "
+                        f"{run['k_bytes'] / 4:.0f}, the rows "
+                        f"{run['budget_bytes']})")
+        dlog = max(float(np.abs(r["logits"] - want["logits"]).max())
+                   for r in runs)
+        scale = float(np.abs(want["logits"]).max())
+        equal = runs[0]["tokens"] == want["tokens"]
+        if dt == "float32" and not equal:
+            raise AssertionError(f"phase 34 {label}: tokens "
+                                 f"{runs[0]['tokens']} != meshless "
+                                 f"{want['tokens']}")
+        if dt == "bfloat16" and dlog > MESH_BF16_DRIFT * scale:
+            raise AssertionError(f"phase 34 {label}: first-step logits "
+                                 f"{dlog:.4g} from meshless, over "
+                                 f"{MESH_BF16_DRIFT} x {scale:.4g}")
+        per_pass = {sc: {k: v / runs[0]["stack_calls"] for k, v in
+                         by.items()} for sc, by in runs[0]["bytes"].items()}
+        row = dict(tokens_equal=equal, max_logit_diff=dlog,
+                   max_abs_logit=scale, launches_per_rank=runs[0]["launches"],
+                   stack_calls=runs[0]["stack_calls"],
+                   routes=runs[0]["routes"], bytes_per_pass=per_pass,
+                   k_slice_bytes=runs[0]["k_slice_bytes"],
+                   slots=runs[0]["slots"], cap=runs[0]["cap"],
+                   param_bytes=runs[0]["param_bytes"],
+                   meshless_param_bytes=want["param_bytes"],
+                   run_peak_gib=[r["peak_gib"] for r in runs],
+                   meshless_run_peak_gib=want["peak_gib"],
+                   ttft_s=[r["ttft_s"] for r in runs],
+                   meshless_ttft_s=want["ttft_s"])
+        if b == 1:
+            row["moved_per_call"] = dict(zip(("score", "seq"),
+                                             cases.dp_moves(runs[0])))
+            row["k_bytes"] = runs[0]["k_bytes"]
+            row["budget_bytes"] = runs[0]["budget_bytes"]
+        out[label] = row
+        log(f"  {label} (batch {b}, prompt {prompt}): tokens "
+            f"{'equal' if equal else 'differ'}, max first-step logit diff "
+            f"{dlog:.4g} (largest {scale:.4g}), launches/rank "
+            f"{n} + {n} = {runs[0]['stack_calls']} passes x {DP_LAYERS}, "
+            f"routes {runs[0]['routes']}, slots/rank {runs[0]['slots']} of "
+            f"{runs[0]['cap']}")
+        log(f"    bytes per forward pass by scope "
+            f"{ {sc: {k: round(v) for k, v in by.items()} for sc, by in per_pass.items()} }"
+            f"; K cache slice {runs[0]['k_slice_bytes']} B/layer; weights "
+            f"held {runs[0]['param_bytes']} B (meshless "
+            f"{want['param_bytes']} B); run peak/rank "
+            f"{[round(r['peak_gib'], 2) for r in runs]} GiB vs meshless "
+            f"{want['peak_gib']:.2f}")
+        if b == 1:
+            mv = row["moved_per_call"]
+            log(f"    per selecting call: {mv['score']:.0f} B of scoring "
+                f"candidates + {mv['seq']:.0f} B of budget rows (one "
+                f"budget's K, V and positions of the rank's heads: "
+                f"{row['budget_bytes']} B) = "
+                f"{(mv['score'] + mv['seq']) / row['k_bytes']:.4f} of the "
+                f"K cache's {row['k_bytes']} B")
+    sv = ref["fp32 serve"]
+    for i, r in enumerate(ranks):
+        got = r["fp32 serve"]
+        if got["tokens"] != sv["tokens"] or got["hit_tokens"] != \
+                cases.DP_HIT or 2 * got["pool_blocks"][0] != \
+                got["pool_blocks"][1]:
+            raise AssertionError(f"phase 34 serve rank {i}: {got} vs "
+                                 f"meshless {sv}")
+        sl = got["launches"]
+        if not (sl["quoka_score"] > 0 and sl["flash_attention"] > 0
+                and sl["selected_attention"] == 0
+                and sl["selected_attention_paged"] == 0):
+            raise AssertionError(f"phase 34 serve rank {i}: launches {sl}")
+    out["fp32 serve"] = dict(tokens_equal=True, hit_tokens=cases.DP_HIT,
+                             pool_blocks=ranks[0]["fp32 serve"]["pool_blocks"],
+                             launches_per_rank=ranks[0]["fp32 serve"][
+                                 "launches"])
+    log(f"  fp32 serve: tokens equal, {cases.DP_HIT}-token prefix hit, "
+        f"pool blocks/rank {ranks[0]['fp32 serve']['pool_blocks']}, "
+        f"launches/rank {ranks[0]['fp32 serve']['launches']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  backend {out['backend']}, per-rank peak "
+        f"{[round(p, 2) for p in out['peak_gib']]} GiB vs meshless "
+        f"{ref_peak:.2f} GiB; phase 34 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -4005,7 +4232,8 @@ def main() -> int:
     del stablelm
     torch.cuda.empty_cache()
     # the MoE and MLA slice: olmoe-1b-7b, then deepseek-v3 cut to 4 layers
-    oneshot["olmoe-1b-7b"], olmoe = phase_olmoe(torch, np, K)
+    oneshot[f"olmoe-1b-7b ({OLMOE_LAYERS} layers)"], olmoe = \
+        phase_olmoe(torch, np, K)
     deepseek, ds_model = phase_deepseek(torch, np, K)
     oneshot["deepseek-v3 (4 layers)"] = {"staged": deepseek}
     # the sliding-window and latent-pool slice: deepseek-v3 served on
@@ -4015,8 +4243,9 @@ def main() -> int:
     timing["flash_attention"].update(ds_rows)
     del ds_model
     torch.cuda.empty_cache()
-    danube, oneshot["h2o-danube-3-4b"] = phase_oneshot(
-        torch, np, K, "h2o-danube-3-4b", 20)
+    danube, oneshot[f"h2o-danube-3-4b ({DANUBE_LAYERS} layers)"] = \
+        phase_oneshot(torch, np, K, "h2o-danube-3-4b", 20,
+                      layers=DANUBE_LAYERS)
     window_traces = {"h2o-danube-3-4b": phase_trace(
         torch, np, danube, phase="  phase 20")}
     del danube
@@ -4046,8 +4275,10 @@ def main() -> int:
                 "families": phase_train_families(torch, np),
                 "retrieval": phase_train_retrieval(torch, np, K)}
     torch.cuda.empty_cache()
-    # the tensor-parallel slice
+    # the tensor-parallel slice, then the data-parallel one
     mesh = phase_mesh(torch, np, K, card, dev)
+    torch.cuda.empty_cache()
+    dp = phase_dp(torch, np, K, card, dev)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -4079,6 +4310,10 @@ def main() -> int:
             for label, _, _ in runs:
                 paths[name][f"{arch} model={world} {label} per rank"] = \
                     mesh[arch][label]["launches_per_rank"][name]
+        for label in [r[0] for r in DP_RUNS] + ["fp32 serve"]:
+            paths[name][f"qwen3-4b ({DP_LAYERS} layers) {dp['spec']} "
+                        f"{label} per rank"] = \
+                dp[label]["launches_per_rank"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -4099,8 +4334,9 @@ def main() -> int:
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
                     "training": training, "telemetry": telemetry,
-                    "mesh": mesh,
+                    "mesh": mesh, "dp": dp,
                     "elapsed_s": time.perf_counter() - t_start}))
+    log(f"phase wall times (s): {json.dumps(phase_walls())}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -36,6 +36,14 @@ every head's sub-selected queries: on the T-local route
 conditions allow, else on the whole replicated cache.  The scoring
 pass's collectives count under ``comm.scope("score")``.  The fused route
 stays off for a sharded layer, as in the reference.
+
+A batch-1 cache whose sequence is split over ``data`` (``seq``, a
+``serving/cache.py::SeqShard``) is selected where it lies: each rank
+scores the slots it holds and the ranks merge their candidates
+(``quoka.plan_candidates``; the T-local route inside a slice where it
+applies), so every rank builds the meshless plan; ``materialize`` then
+brings the budget's K/V rows to every rank, each rank contributing the
+rows it holds (``comm.scope("seq")``).
 """
 from __future__ import annotations
 
@@ -164,12 +172,71 @@ def plan_from_scores(scores, key_pos, cfg: QuokaConfig,
 
 
 def materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
-                cfg: QuokaConfig) -> Selected:
+                cfg: QuokaConfig, seq=None) -> Selected:
     """Stage 3: gather a plan's KV budget from the cache (b, T, n_kv, d)
     into a dense ``Selected``.  Validity is re-derived here: tokens that
-    are not prior context get pos == -1."""
+    are not prior context get pos == -1.  ``seq``: the cache is this
+    rank's slice of a sequence-sharded one (``_materialize_seq``)."""
     with torch.profiler.record_function("plan_materialize"):
+        if seq is not None:
+            return _materialize_seq(plan, k, v, key_pos, chunk_start, cfg,
+                                    seq)
         return _materialize(plan, k, v, key_pos, chunk_start, cfg)
+
+
+def _materialize_seq(plan: SelectionPlan, k, v, key_pos, chunk_start,
+                     cfg: QuokaConfig, seq) -> Selected:
+    """``_materialize`` on a sequence-sharded cache: every rank knows from
+    the plan which rank holds each selected slot (slot // held), so each
+    rank packs the rows it holds (K, V and position, as bytes) and
+    broadcasts them over ``seq.ax``; the others place them where the plan
+    puts them.  The budget's rows cross once, never the cache.  The values
+    are the meshless ones (an unselected row holds zeros where the
+    meshless one holds a masked row)."""
+    b, held, n_kv, d = k.shape
+    g = grid(cfg)
+    if g == 1:
+        slots = plan.idx                                      # (b, n_kv, B)
+    else:
+        ar = torch.arange(g, device=k.device)
+        slots = torch.where(plan.idx[:, :, None] >= 0,
+                            plan.idx[:, :, None] * g + ar,
+                            torch.full_like(plan.idx[:, :, None], -1))
+        slots = slots.reshape(b, 1, -1).expand(b, n_kv, -1)
+    owner = torch.where(slots >= 0, slots // held,
+                        torch.full_like(slots, -1)).transpose(1, 2)
+    counts = torch.bincount(owner[owner >= 0].reshape(-1),
+                            minlength=seq.ax.size).tolist()
+    # this rank's rows in (b, S, n_kv) order
+    mine = owner == seq.ax.rank
+    loc = (slots - seq.lo).clamp(0, held - 1)
+    gi = loc.transpose(1, 2)[..., None].expand(-1, -1, -1, d)
+    kv = torch.cat([torch.gather(k, 1, gi), torch.gather(v, 1, gi)], -1)
+    valid = prior_context_valid(key_pos, chunk_start)
+    pos = torch.gather(key_pos[:, None, :].expand(b, n_kv, held), 2, loc)
+    ok = torch.gather(valid[:, None, :].expand(b, n_kv, held), 2, loc)
+    pos = torch.where(ok, pos, torch.full_like(pos, -1)).transpose(1, 2)
+    out_kv = torch.zeros_like(kv)                         # (b, S, n_kv, 2d)
+    out_pos = torch.full_like(pos, -1)                    # (b, S, n_kv)
+    row = 2 * d * kv.element_size()
+    with comm.scope("seq"):
+        for r, n in enumerate(counts):
+            if n == 0:
+                continue
+            if r == seq.ax.rank:
+                buf = torch.cat([kv[mine].reshape(-1).view(torch.uint8),
+                                 pos[mine].reshape(-1).view(torch.uint8)])
+            else:
+                buf = torch.empty(n * (row + pos.element_size()),
+                                  dtype=torch.uint8, device=k.device)
+            buf = comm.broadcast(buf, seq.ax, r)
+            at = owner == r
+            out_kv[at] = buf[:n * row].view(kv.dtype).view(n, 2 * d)
+            out_pos[at] = buf[n * row:].view(pos.dtype)
+    pos = out_pos.transpose(1, 2)
+    return Selected(k=out_kv[..., :d], v=out_kv[..., d:], pos=pos,
+                    idx=torch.where(pos >= 0, slots,
+                                    torch.full_like(slots, -1)))
 
 
 def _materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
@@ -213,27 +280,30 @@ def _materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
 
 def build(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
           budget: Optional[int] = None, q_valid=None,
-          heads: Optional[comm.HeadShard] = None) -> SelectionPlan:
+          heads: Optional[comm.HeadShard] = None, seq=None) -> SelectionPlan:
     """Stages 1+2.  Under tensor parallelism (``heads``) QUOKA scores as
     the module docstring says, on the T-local route where it applies;
     every rank returns the same plan (its own KV heads' rows of it at
-    granularity 1 when the KV heads shard)."""
+    granularity 1 when the KV heads shard).  ``seq``: ``k`` / ``key_pos``
+    are this rank's slice of a sequence-sharded cache, which must pass
+    ``quoka.seq_route``."""
     if heads is not None:
         if method != "quoka":
             raise NotImplementedError(
                 f"selection method {method!r} on a mesh is not yet ported")
+        t = k.shape[1] if seq is None else seq.cap
         with torch.profiler.record_function("plan_scores"), \
                 comm.scope("score"):
             return _build_tp(q, k, key_pos, chunk_start, cfg,
-                             _plan_budget(cfg, k.shape[1], budget), q_valid,
-                             heads)
+                             _plan_budget(cfg, t, budget), q_valid, heads,
+                             seq)
     scores = plan_scores(method, q, k, key_pos, chunk_start, cfg,
                          q_valid=q_valid)
     return plan_from_scores(scores, key_pos, cfg, budget=budget)
 
 
 def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
-              q_valid, heads: comm.HeadShard) -> SelectionPlan:
+              q_valid, heads: comm.HeadShard, seq=None) -> SelectionPlan:
     """QUOKA's stages 1+2 on a mesh (``build``)."""
     q = qk.sanitize_queries(q, q_valid)
     valid = prior_context_valid(key_pos, chunk_start)
@@ -241,15 +311,19 @@ def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
         # whole GQA groups on this rank: its own heads score its own keys
         qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
                                   q_valid=q_valid)
-        qk.ROUTES["kv_heads"] += 1
-        return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg), key_pos,
-                                cfg, budget=budget, heads=heads)
-    if heads.heads_sharded:
+        if seq is None:
+            qk.ROUTES["kv_heads"] += 1
+            return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg),
+                                    key_pos, cfg, budget=budget, heads=heads)
+    elif heads.heads_sharded:
         qs = qk.subselect_queries_tp(q, cfg.n_queries, heads,
                                      q_valid=q_valid)
     else:
         qs = qk.subselect_queries(q, cfg.n_queries, n_kv=k.shape[2],
                                   q_valid=q_valid)
+    if seq is not None:
+        return SelectionPlan(idx=_seq_candidates(qs, k, key_pos, valid, cfg,
+                                                 budget, heads, seq))
     if qk._tp_route(k, cfg, heads):
         qk.ROUTES["t_local"] += 1
         return SelectionPlan(idx=qk.tp_plan_candidates(
@@ -257,6 +331,27 @@ def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
     qk.ROUTES["replicated"] += 1
     return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg), key_pos, cfg,
                             budget=budget)
+
+
+def _seq_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
+                    heads: comm.HeadShard, seq) -> torch.Tensor:
+    """The plan of a sequence-sharded cache: this rank's slots scored,
+    the candidates merged over ``seq.ax``; where the KV heads are
+    replicated and the T-local conditions hold on the slice, each
+    ``model`` rank scores its part of the slice and the candidates merge
+    over ``model`` first."""
+    ax = heads.ax
+    if not heads.kv_sharded and qk._tp_route(k, cfg, heads):
+        qk.ROUTES["seq_t_local"] += 1
+        tl = k.shape[1] // ax.size
+        a = ax.rank * tl
+        return qk.plan_candidates(
+            qs, k[:, a:a + tl], key_pos[:, a:a + tl], valid[:, a:a + tl],
+            cfg, budget, seq.lo + a, (ax, seq.ax))
+    qk.ROUTES["seq"] += 1
+    return qk.plan_candidates(qs, k, key_pos, valid, cfg, budget, seq.lo,
+                              (seq.ax,),
+                              head_ax=ax if heads.kv_sharded else None)
 
 
 def select(method: str, q, k, v, key_pos, chunk_start, cfg: QuokaConfig,
@@ -300,7 +395,8 @@ def refresh(carry: Optional[PlanCarry], layer_idx: int, cfg: QuokaConfig,
 
 
 def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
-                chunk_start, cfg: QuokaConfig, budget, q_valid, heads=None):
+                chunk_start, cfg: QuokaConfig, budget, q_valid, heads=None,
+                seq=None):
     """Refresh-or-build this layer's plan: (plan, updated carry, stage-1
     scores).  The scores are None where the layer reused the carried plan
     (no scores were computed); they feed only the ``LayerObs`` sketch.
@@ -313,7 +409,8 @@ def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
     def build_fn():
         if heads is not None:
             return build(method, q, k, key_pos, chunk_start, cfg,
-                         budget=budget, q_valid=q_valid, heads=heads)
+                         budget=budget, q_valid=q_valid, heads=heads,
+                         seq=seq)
         built.append(plan_scores(method, q, k, key_pos, chunk_start, cfg,
                                  q_valid=q_valid))
         return plan_from_scores(built[0], key_pos, cfg, budget=budget)
@@ -324,17 +421,20 @@ def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
 
 def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
                     key_pos, chunk_start, cfg: QuokaConfig,
-                    budget: Optional[int] = None, q_valid=None, heads=None):
+                    budget: Optional[int] = None, q_valid=None, heads=None,
+                    seq=None):
     """The block-facing staged selection: refresh-or-build, then
     materialize.  Returns (Selected, updated carry).  With ``ctx["obs"]``
     set the layer's ``LayerObs`` is left in ``ctx["_obs"]`` (a per-layer
     ctx copy, see models/stack.py).  ``heads``: a sharded layer's
     ``HeadShard`` (``build``); the ``Selected`` holds the cache's KV
-    heads."""
+    heads.  ``seq``: the cache is this rank's slice of a
+    sequence-sharded one (``build``, ``materialize``)."""
     pln, plan, scores = _layer_plan(ctx, plan, method, q, k, key_pos,
-                                    chunk_start, cfg, budget, q_valid, heads)
+                                    chunk_start, cfg, budget, q_valid, heads,
+                                    seq)
     _note_block_counts(ctx, pln, cfg)
-    sel = materialize(pln, k, v, key_pos, chunk_start, cfg)
+    sel = materialize(pln, k, v, key_pos, chunk_start, cfg, seq=seq)
     if ctx.get("obs"):
         ctx["_obs"] = selected_obs(sel.pos, key_pos, chunk_start,
                                    _plan_budget(cfg, k.shape[1], budget),

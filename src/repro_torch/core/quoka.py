@@ -16,8 +16,11 @@ and the KV heads are not, moving only the per-token dissimilarities and
 the kept queries; ``_tp_route`` / ``tp_plan_candidates`` are the
 reference's T-local route: each rank scores a contiguous ``T / M`` slice
 of the keys it holds and the ranks merge (score, index) candidates, never
-the K cache.  ``ROUTES`` counts the scoring calls of each route under a
-mesh.
+the K cache.  A cache whose sequence is split over ``data`` takes the
+same merge (``plan_candidates``) over ``data``: each rank scores the
+slots it holds (and, where the T-local route applies, its ``model``
+rank's part of them, merged over ``model`` first).  ``ROUTES`` counts the
+scoring calls of each route under a mesh.
 """
 from __future__ import annotations
 
@@ -34,8 +37,12 @@ from repro_torch.sharding import comm
 #: scoring calls by route under a mesh: ``t_local`` (candidates merged),
 #: ``replicated`` (every KV head on the replicated cache: the route's
 #: conditions failed, the reference's rule), ``kv_heads`` (this rank's own
-#: KV heads, when they shard)
-ROUTES = {"t_local": 0, "replicated": 0, "kv_heads": 0}
+#: KV heads, when they shard); on a sequence-sharded cache ``seq`` (this
+#: rank's slots, candidates merged over ``data``) and ``seq_t_local``
+#: (its ``model`` rank's part of them, merged over ``model``, then
+#: ``data``)
+ROUTES = {"t_local": 0, "replicated": 0, "kv_heads": 0, "seq": 0,
+          "seq_t_local": 0}
 
 
 class Selected(NamedTuple):
@@ -210,47 +217,75 @@ def _tp_route(k, cfg: QuokaConfig, heads: comm.HeadShard) -> bool:
 def tp_plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig,
                        budget: int, ax: comm.Axis) -> torch.Tensor:
     """T-local scoring and candidate merge: each rank scores its
-    contiguous ``T / M`` slice of the keys through the same
-    ``ops.score`` as the meshless path, stamps the sinks, keeps its local
-    top candidates on the selection grid, and the ranks merge them with
-    one small all-gather of (score, index) pairs.  The merged top-k is
-    ``plan.plan_from_scores``'s exactly: descending score, lower index
-    first on ties (the slices are contiguous and ascending, the local
-    top-k orders ties by index, and the merge keeps candidate order on
-    ties).  qs: (b, N_Q, h, d) every head's sub-selected queries; k:
-    (b, T, n_kv, d) the replicated cache.  Returns the plan's ``idx``:
-    (b, n_kv, budget) token slots at granularity 1, (b, budget // g)
-    block ids at g > 1; -1 marks padding.  ``ax``: the model axis."""
-    b, nq, h, d = qs.shape
-    t, n_kv = k.shape[1], k.shape[2]
-    g = max(1, cfg.granularity)
-    budget = min(budget, t)
-    nb = budget // g                                      # plan slots
+    contiguous ``T / M`` slice of the keys and the ranks merge their
+    candidates (``plan_candidates``).  qs: (b, N_Q, h, d) every head's
+    sub-selected queries; k: (b, T, n_kv, d) the replicated cache.
+    Returns the plan's ``idx``: (b, n_kv, budget) token slots at
+    granularity 1, (b, budget // g) block ids at g > 1; -1 marks padding.
+    ``ax``: the model axis."""
+    t = k.shape[1]
     tl = t // ax.size
-    n_cand = min(nb, tl // g)                             # per-rank slots
     lo = ax.rank * tl
+    return plan_candidates(qs, k[:, lo:lo + tl], key_pos[:, lo:lo + tl],
+                           valid[:, lo:lo + tl], cfg, min(budget, t), lo,
+                           (ax,))
+
+
+def plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
+                    lo: int, axes, head_ax: Optional[comm.Axis] = None
+                    ) -> torch.Tensor:
+    """Score the contiguous slice of keys ``k`` (b, tl, n_kv, d), which
+    starts at slot ``lo`` of the whole cache, through the same
+    ``ops.score`` as the meshless path, stamp the sinks, keep the slice's
+    top candidates on the selection grid, and merge the ranks'
+    candidates over each axis of ``axes`` in turn (inner first: their
+    slices must tile the keys in rank order) with small all-gathers of
+    (score, index) pairs.  The merged top-k is
+    ``plan.plan_from_scores``'s exactly: descending score, lower index
+    first on ties (each rank's slice is contiguous and ascending, its
+    local top-k orders ties by index, and the merge keeps candidate order
+    on ties; the top-k of a union is the top-k of its parts' top-ks under
+    that total order).  ``budget`` is the whole cache's, on the grid.
+    ``head_ax``: when ``k`` holds this rank's own KV heads of a block
+    plan, the axis over which the max over KV heads is taken.  Returns
+    the plan's ``idx`` as ``tp_plan_candidates``."""
+    b, nq, h, d = qs.shape
+    tl, n_kv = k.shape[1], k.shape[2]
+    g = max(1, cfg.granularity)
+    want = budget if g == 1 else budget // g          # plan slots
     qn = l2_normalize(qs.float())
     qbar = qn.reshape(b, nq, n_kv, h // n_kv, d).mean(3)
-    s = kops.score(qbar, k[:, lo:lo + tl], valid[:, lo:lo + tl],
+    s = kops.score(qbar, k, valid,
                    proj=score_proj(cfg, d, device=k.device))  # (b, n_kv, tl)
     if cfg.keep_first:
-        ps = key_pos[:, lo:lo + tl]
-        sink = (ps >= 0) & (ps < cfg.keep_first)
+        sink = (key_pos >= 0) & (key_pos < cfg.keep_first)
         s = torch.where(sink[:, None, :] & (s > NEG_INF / 2),
                         torch.full_like(s, float("inf")), s)
     if g == 1:
-        cs, ci = topk_stable(s, n_cand)                   # (b, n_kv, n_cand)
+        cs, ci = topk_stable(s, min(want, tl))            # (b, n_kv, n)
         ci = ci + lo
         dim = 2
     else:
         # max is associative: the local block max then the merge equals
         # the meshless reshape-max over the whole key axis
         sb = s.reshape(b, n_kv, tl // g, g).amax(3).amax(1)
-        cs, ci = topk_stable(sb, n_cand)                  # (b, n_cand)
+        if head_ax is not None:
+            sb = comm.all_reduce_max(sb, head_ax)
+        cs, ci = topk_stable(sb, min(want, tl // g))      # (b, n)
         ci = ci + lo // g
         dim = 1
-    cs = comm.all_gather(cs, ax, dim=dim)
-    ci = comm.all_gather(ci.to(torch.int32), ax, dim=dim).long()
-    top_s, cpos = topk_stable(cs, nb if g > 1 else budget, dim=dim)
-    top_i = torch.gather(ci, dim, cpos)
-    return torch.where(top_s > NEG_INF / 2, top_i, torch.full_like(top_i, -1))
+    for ax in axes:
+        cs = comm.all_gather(cs, ax, dim=dim)
+        ci = comm.all_gather(ci.to(torch.int32), ax, dim=dim).long()
+        cs, cpos = topk_stable(cs, min(want, cs.shape[dim]), dim=dim)
+        ci = torch.gather(ci, dim, cpos)
+    return torch.where(cs > NEG_INF / 2, ci, torch.full_like(ci, -1))
+
+
+def seq_route(k, cfg: QuokaConfig) -> bool:
+    """Does sequence-local selection apply to this rank's slice ``k`` of
+    a sequence-sharded cache?  Cosine scoring with max aggregation (the
+    scoring kernel's contract) and a selection grid that does not
+    straddle the ranks' slices; else the slices are gathered first."""
+    return (cfg.scoring == "cosine" and cfg.query_agg == "max"
+            and k.shape[1] % max(1, cfg.granularity) == 0)

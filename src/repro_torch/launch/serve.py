@@ -77,19 +77,21 @@ activity) of the measured ``generate`` into
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --continuous --metrics --trace-dir /tmp/serve_trace
 
-Tensor-parallel serving over the ``model`` axis of a mesh: one process
-per rank under ``torchrun``, one-shot or ``--continuous`` (dense
-``attn`` models; ``launch/mesh.py`` picks NCCL when every rank has a
-card of its own and gloo when they share one, or on the CPU).  Only rank
-0 prints; its first line is ``# mesh {...} over N devices``:
+Serving on a mesh: tensor-parallel over its ``model`` axis, data-parallel
+with FSDP weights over its ``pod`` / ``data`` axes (``Engine(mesh=)``),
+one process per rank under ``torchrun``, one-shot or ``--continuous``
+(dense ``attn`` models; ``launch/mesh.py`` picks NCCL when every rank has
+a card of its own and gloo when they share one, or on the CPU).  Only
+rank 0 prints; its first line is ``# mesh {...} over N devices``:
 
-    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
-        --device cpu --smoke --mesh model=2 --prompt-len 64 --batch 2 \
-        --max-new 4 [--continuous]
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --device cpu --smoke --mesh data=2,model=2 --prompt-len 64 \
+        --batch 2 --max-new 4 [--continuous]
 
-A ``data`` or ``pod`` axis larger than 1, ``--metrics`` / ``--trace-dir``
-and methods other than ``full`` and ``quoka`` raise "not yet ported" on
-a mesh.
+``--batch 1`` splits the cache's sequence over ``data`` when ``data``
+divides its capacity.  ``--metrics`` / ``--trace-dir``, methods other
+than ``full`` and ``quoka`` and, on a data axis, ``--policy slo`` (it
+preempts) raise "not yet ported" on a mesh.
 """
 from __future__ import annotations
 
@@ -198,10 +200,12 @@ def parse_args(argv=None):
                          "Chrome/Perfetto trace of the engine's step spans; "
                          "one-shot mode instead writes a torch.profiler "
                          "trace of the measured run there")
-    ap.add_argument("--mesh", default=None, metavar="model=M",
-                    help="serve tensor-parallel on a mesh (run one process "
-                         "per rank under torchrun; axes from (pod, data, "
-                         "model), data and pod 1)")
+    ap.add_argument("--mesh", default=None, metavar="data=N,model=M",
+                    help="serve on a mesh (run one process per rank under "
+                         "torchrun; axes from (pod, data, model): tensor "
+                         "parallelism over model, FSDP weights and "
+                         "data-parallel rows, pool blocks or a batch-1 "
+                         "cache's sequence over pod and data)")
     return ap.parse_args(argv)
 
 

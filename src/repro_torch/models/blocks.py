@@ -69,6 +69,13 @@ shapes.  ``n_heads`` / ``n_kv`` are then this rank's query heads and the
 KV heads its cache holds, ``heads`` its ``HeadShard`` (selection and the
 KV heads each query head reads), and ``wo`` and, when the FFN width
 divides, the MLP's ``down`` are row-parallel (``layers.row_linear``).
+Under FSDP (a ``pod`` / ``data`` axis) the weights' embed axis is cut
+over the FSDP group as well (``fsdp``): each layer call gathers its
+weights whole over that group in one all-gather (``_weights``) and drops
+them when it returns, so no full copy stays resident.  A batch-1 cache
+whose sequence is split over ``data`` (``KVCache.seq``) is selected
+where it lies (``core/plan.py``); dense attention gathers it whole
+(``cache.seq_full``).
 """
 from __future__ import annotations
 
@@ -79,6 +86,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
+from repro_torch.core import quoka as qk
 from repro_torch.core import selection as sel_mod
 from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
                                         attention_with_positions,
@@ -86,15 +94,16 @@ from repro_torch.core.attention import (BLOCKED_THRESHOLD, NEG_INF,
                                         position_mask)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import mamba2, moe, rwkv6
-from repro_torch.models.layers import (layernorm, linear, mlp, rmsnorm,
-                                       rope, row_linear)
+from repro_torch.models.layers import (gather_weights, layernorm, linear,
+                                       mlp, rmsnorm, rope, row_linear)
 from repro_torch.sharding import comm
 from repro_torch.serving.cache import (CrossCache, CrossKV, KVCache,
                                        LatentCache, RWKVCache,
                                        SharedAttnCache, cross_init, kv_init,
                                        kv_write, kv_write_ring, latent_init,
                                        latent_write, mamba_cache_init,
-                                       rwkv_cache_init, state_write)
+                                       rwkv_cache_init, seq_full,
+                                       state_write)
 
 
 def _weight(dt, device):
@@ -143,22 +152,23 @@ def _ffn_params(blk, cfg: ModelConfig, device, gated: bool) -> None:
             blk.mlp["gate"] = w(d, cfg.d_ff)
 
 
-def _ffn(blk, x):
-    """x + FFN(norm2(x)): the MLP, or the MoE with no aux loss (inference;
-    ``moe.moe_apply`` takes a ctx to accumulate it)."""
+def _ffn(blk, x, mlp_w):
+    """x + FFN(norm2(x)): the MLP of weights ``mlp_w`` (the layer call's),
+    or the MoE with no aux loss (inference; ``moe.moe_apply`` takes a ctx
+    to accumulate it)."""
     cfg = blk.cfg
     h = _block_norm(blk, "ln2", x)
     if blk.kind.endswith("_moe"):
         return x + moe.moe_apply(blk.moe, h, cfg)
-    return x + mlp(blk.mlp, h, cfg.act, getattr(blk, "tp_ffn", None))
+    return x + mlp(mlp_w, h, cfg.act, getattr(blk, "tp_ffn", None))
 
 
-def _ffn_aux(blk, x):
-    """``(_ffn(blk, x), aux)``: a MoE FFN's ``router_aux_coef`` times its
-    load-balance loss, accumulated into a dict of this call's own (so a
-    recomputed forward cannot count it twice), else 0.0."""
+def _ffn_aux(blk, x, mlp_w):
+    """``(_ffn(blk, x, mlp_w), aux)``: a MoE FFN's ``router_aux_coef``
+    times its load-balance loss, accumulated into a dict of this call's
+    own (so a recomputed forward cannot count it twice), else 0.0."""
     if not blk.kind.endswith("_moe"):
-        return _ffn(blk, x), 0.0
+        return _ffn(blk, x, mlp_w), 0.0
     c = {}
     y = moe.moe_apply(blk.moe, _block_norm(blk, "ln2", x), blk.cfg, c)
     return x + y, c["aux_loss"]
@@ -169,7 +179,8 @@ def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
     a t-token chunk, or None when it never selects there (``full``, the
     dense bypass, a cache off the selection grid), which disables the
     cross-layer carry."""
-    b, cap, n_kv = cache.k.shape[:3]
+    b, n_kv = cache.k.shape[0], cache.k.shape[2]
+    cap = cache.capacity
     budget = sel_mod.resolve_budget(qcfg, cap)
     if method == "full" or cap <= budget + t:
         return None
@@ -190,6 +201,7 @@ class AttnBlock(nn.Module):
         self.n_heads, self.n_kv = cfg.n_heads, cfg.n_kv_heads
         self.heads = None          # HeadShard under tensor parallelism
         self.tp_ffn = None         # the model axis when ``down`` is sharded
+        self.fsdp = None           # (FSDP axis, {weight: its cut dim})
         d, hd = cfg.d_model, cfg.resolved_head_dim
         w = _weight(cfg.compute_dtype, device)
         _norm_params(self, ("ln1", "ln2"), cfg, device)
@@ -199,10 +211,11 @@ class AttnBlock(nn.Module):
         self.wo = w(self.n_heads * hd, d)
         _ffn_params(self, cfg, device, gated=cfg.act != "gelu")
 
-    def place(self, ax: comm.Axis) -> None:
-        """Adopt the tensor-parallel layout of the (already sliced)
-        weights on the ``model`` axis ``ax``: local head counts, the
-        ``HeadShard``, and a row-parallel ``down`` when it is sliced."""
+    def place(self, ax: comm.Axis, fax: comm.Axis = None) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``: local head counts, the ``HeadShard``, and a
+        row-parallel ``down`` when it is sliced; and which weights the
+        FSDP axis ``fax`` cut along their embed axis (``fsdp``)."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         self.n_heads = self.wq.shape[1] // hd
@@ -212,23 +225,48 @@ class AttnBlock(nn.Module):
         self.heads = comm.HeadShard(ax, cfg.n_heads, cfg.n_kv_heads,
                                     self.n_heads, self.n_kv, self.wq.device)
         self.tp_ffn = ax if self.mlp["down"].shape[0] < cfg.d_ff else None
+        # the embed axis: rows of the input projections, columns of the
+        # output ones
+        dims = {k: int(k in ("wo", "mlp/down"))
+                for k, t in self._held().items()
+                if t.shape[int(k in ("wo", "mlp/down"))] < cfg.d_model}
+        self.fsdp = (fax, dims) if dims else None
 
-    def init_cache(self, batch: int, cap: int) -> KVCache:
+    def _held(self):
+        """The layer's linear weights as this rank holds them, by name."""
+        mlp_w = self.mlp.items() if hasattr(self, "mlp") else ()
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
+                **{f"mlp/{k}": p for k, p in mlp_w}}
+
+    def _weights(self):
+        """The weights of one layer call: the held ones, or under FSDP
+        the whole ones, gathered from the FSDP group in one all-gather for
+        this call only (the caller drops them when it returns)."""
+        w = self._held()
+        if self.fsdp is not None:
+            fax, dims = self.fsdp
+            w.update(gather_weights({k: (w[k], d) for k, d in dims.items()},
+                                    fax))
+        w["mlp"] = {k[4:]: p for k, p in w.items() if k.startswith("mlp/")}
+        return w
+
+    def init_cache(self, batch: int, cap: int, seq=None) -> KVCache:
         """The layer's cache of its held KV heads: ``cap`` slots, or a ring
-        of at most ``window`` slots for a windowed layer."""
+        of at most ``window`` slots for a windowed layer; ``seq`` (a mesh
+        axis) holds this rank's slice of the capacity axis."""
         cfg = self.cfg
         if self.window is not None:
             cap = min(cap, self.window)
         return kv_init(batch, cap, self.n_kv, cfg.resolved_head_dim,
-                       cfg.compute_dtype, self.wq.device)
+                       cfg.compute_dtype, self.wq.device, seq_ax=seq)
 
-    def _qkv(self, x, pos):
+    def _qkv(self, x, pos, w):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.resolved_head_dim
-        q = linear(self.wq, x).reshape(b, t, self.n_heads, hd)
-        k = linear(self.wk, x).reshape(b, t, self.n_kv, hd)
-        v = linear(self.wv, x).reshape(b, t, self.n_kv, hd)
+        q = linear(w["wq"], x).reshape(b, t, self.n_heads, hd)
+        k = linear(w["wk"], x).reshape(b, t, self.n_kv, hd)
+        v = linear(w["wv"], x).reshape(b, t, self.n_kv, hd)
         if cfg.use_rope:
             q = rope(q, pos, cfg.rope_theta)
             k = rope(k, pos, cfg.rope_theta)
@@ -237,46 +275,49 @@ class AttnBlock(nn.Module):
     def plan_carry_shape(self, cache: KVCache, t: int, method: str, qcfg):
         return _kv_plan_shape(cache, t, method, qcfg)
 
-    def _self_attend(self, x, pos):
+    def _self_attend(self, x, pos, w):
         """x plus attention over the sequence itself at positions ``pos``
         (the plain path: dense, or blocked above ``BLOCKED_THRESHOLD``
         keys): causal and windowed as the kind says, bidirectional for
-        ``enc_attn``."""
+        ``enc_attn``; ``w`` the layer call's weights."""
         b, t, _ = x.shape
-        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
+        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos, w)
         att = attention_with_positions(q, self._kv(k), self._kv(v), pos,
                                        pos, causal=self.kind != "enc_attn",
                                        window=self.window)
-        return x + self._out(att.reshape(b, t, -1))
+        return x + self._out(att.reshape(b, t, -1), w)
 
     def _kv(self, x):
         """The KV heads (axis 2) this rank's query heads read."""
         return x if self.heads is None else self.heads.take(x, 2)
 
-    def _out(self, att):
+    def _out(self, att, w):
         """The output projection: row-parallel when the heads shard."""
         h = self.heads
-        return row_linear(self.wo, att,
+        return row_linear(w["wo"], att,
                           h.ax if h is not None and h.heads_sharded else None)
 
     def full_forward(self, x, pos, ctx=None):
         """The full-sequence pass: attention over the sequence, then the
         MLP or the MoE.  Returns (x, aux)."""
-        return _ffn_aux(self, self._self_attend(x, pos))
+        w = self._weights()
+        return _ffn_aux(self, self._self_attend(x, pos, w), w["mlp"])
 
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
         ``kv`` in place.  ``plan`` is the cross-layer ``PlanCarry`` (None:
         no reuse).  Returns (block output, updated carry); the dense bypass
         leaves the carry as it came."""
-        x, plan = self._attend(x, pos, kv, ctx, plan)
-        return _ffn(self, x), plan
+        w = self._weights()
+        x, plan = self._attend(x, pos, kv, ctx, plan, w)
+        return _ffn(self, x, w["mlp"]), plan
 
-    def _attend(self, x, pos, kv: KVCache, ctx, plan=None):
+    def _attend(self, x, pos, kv: KVCache, ctx, plan, w):
         """x plus the attention sub-block's output, along the route the
-        method and the cache give (no MLP).  Returns (x, plan carry)."""
+        method and the cache give (no MLP; ``w`` the layer call's
+        weights).  Returns (x, plan carry)."""
         b, t, _ = x.shape
-        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos)
+        q, k, v = self._qkv(_block_norm(self, "ln1", x), pos, w)
         # the chunk's first slot, unmodded: selection compares positions
         # with it; only a ring's write takes it modulo the capacity
         start = ctx["slot"]
@@ -286,6 +327,10 @@ class AttnBlock(nn.Module):
         qcfg = ctx["qcfg"]
         budget = sel_mod.resolve_budget(qcfg, kv.capacity) \
             if method != "full" else 0
+        if kv.seq is not None and (method == "full" or kv.capacity <=
+                                   budget + t or not qk.seq_route(kv.k,
+                                                                  qcfg)):
+            kv = seq_full(kv)       # every key, or a grid across slices
         if method == "full" or kv.capacity <= budget + t:
             att = attention_with_positions(q, self._kv(kv.k), self._kv(kv.v),
                                            pos, kv.pos, causal=True,
@@ -302,14 +347,15 @@ class AttnBlock(nn.Module):
         else:
             sel, plan = plan_mod.select_with_ctx(
                 ctx, plan, method, q, kv.k, kv.v, kv.pos, start, qcfg,
-                budget=budget, q_valid=pos >= 0, heads=self.heads)
+                budget=budget, q_valid=pos >= 0, heads=self.heads,
+                seq=kv.seq)
             if self.heads is not None:
                 tk = self.heads.take
                 sel = sel._replace(k=tk(sel.k, 2), v=tk(sel.v, 2),
                                    pos=tk(sel.pos, 1), idx=tk(sel.idx, 1))
             att = self._selected_attention(q, self._kv(k), self._kv(v), pos,
                                            sel)
-        return x + self._out(att.reshape(b, t, -1)), plan
+        return x + self._out(att.reshape(b, t, -1), w), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is
@@ -424,7 +470,8 @@ class MLABlock(nn.Module):
         q_abs, q_rope = self._queries(h, pos)
         ckv, kr = self._latent_kv(h, pos)
         att = self._absorbed_full(q_abs, q_rope, ckv, kr, pos, pos)
-        return _ffn_aux(self, x + linear(self.wo, att))
+        return _ffn_aux(self, x + linear(self.wo, att),
+                        getattr(self, "mlp", None))
 
     def _absorbed_attention(self, q_abs, q_rope, ckv, krope, mask):
         """Attention entirely in latent space (the MLA deployment trick);
@@ -469,7 +516,7 @@ class MLABlock(nn.Module):
             att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
                                                  lat, start, ctx, plan)
         x = x + linear(self.wo, att)
-        return _ffn(self, x), plan
+        return _ffn(self, x, getattr(self, "mlp", None)), plan
 
     def _selected_attention(self, q_abs, q_rope, ckv_chunk, kr_chunk, pos,
                             lat: LatentCache, start, ctx, plan=None):
@@ -666,14 +713,16 @@ class DecCrossBlock(nn.Module):
         """The full-sequence pass: causal self-attention over the sequence,
         cross-attention over the keys and values of ``ctx["enc_out"]``,
         then the MLP.  Returns (x, 0.0)."""
-        x = self.self_attn._self_attend(x, pos)
+        w = self.self_attn._weights()
+        x = self.self_attn._self_attend(x, pos, w)
         x = self._cross(x, self.build_cross(ctx["enc_out"]))
-        return _ffn(self.self_attn, x), 0.0
+        return _ffn(self.self_attn, x, w["mlp"]), 0.0
 
     def apply(self, x, pos, cache: CrossCache, ctx, plan=None):
-        x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan)
+        w = self.self_attn._weights()
+        x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan, w)
         x = self._cross(x, cache.cross)
-        return _ffn(self.self_attn, x), plan
+        return _ffn(self.self_attn, x, w["mlp"]), plan
 
 
 def make_block(cfg: ModelConfig, kind: str, device):

@@ -8,10 +8,19 @@ gains stay fp32.
 
 Under tensor parallelism (``sharding/comm.py``) ``ax`` names the ``model``
 axis: ``embed`` looks up a vocab shard (rows ``v0 ..``) and sums the
-ranks' masked rows, ``unembed`` gathers the vocab shards' logits, and
+ranks' masked rows, ``readout`` gathers the vocab shards' logits, and
 ``row_linear`` (a row-parallel ``wo`` or MLP ``down``) sums the ranks'
 partial products in fp32 and casts once, so bf16 takes no second rounding
 that the meshless product does not.
+
+Under FSDP (``fax``, the flattened ``(pod, data)`` axis) a weight's embed
+axis is cut over the FSDP ranks too: ``gather_weights`` rebuilds a
+layer's weights for one call; the embedding table, whose rows a step
+reads by token, is never gathered whole: ``embed`` gathers the rows the
+FSDP ranks' tokens read (each rank looks them up in its columns), and
+``readout`` sums each rank's columns' partial logits of every FSDP
+rank's rows, so it returns the logits of every FSDP rank's rows, in
+rank order.
 """
 from __future__ import annotations
 
@@ -48,23 +57,69 @@ def row_linear(w, x, ax=None):
     return comm.all_reduce(part, ax).to(x.dtype)
 
 
-def embed(emb, tokens, dtype, ax=None, v0: int = 0):
+def gather_weights(ws, fax):
+    """Whole weights from this rank's FSDP shards, for one call: ``ws``
+    maps a name to (shard, the dimension the FSDP axis ``fax`` cut); the
+    shards (one dtype) travel in one flat all-gather, under
+    ``comm.scope("fsdp")``."""
+    names = list(ws)
+    flat = torch.cat([ws[n][0].reshape(-1) for n in names])
+    with comm.scope("fsdp"):
+        parts = comm.all_gather_parts(flat, fax)
+    out, off = {}, 0
+    for n in names:
+        w, dim = ws[n]
+        k = w.numel()
+        out[n] = torch.cat([p[off:off + k].view(w.shape) for p in parts],
+                           dim=dim)
+        off += k
+    return out
+
+
+def embed(emb, tokens, dtype, ax=None, v0: int = 0, fax=None):
     """Rows of ``emb`` for ``tokens``, cast to ``dtype``.  With ``ax``,
     ``emb`` is the vocab shard starting at row ``v0``: tokens outside it
-    read zeros, and the ranks' rows are summed (exact: one is nonzero)."""
+    read zeros, and the ranks' rows are summed (exact: one is nonzero).
+    With ``fax``, ``emb`` holds this rank's columns of the embed axis:
+    every FSDP rank's tokens are looked up in them and the columns
+    gathered back, then this rank's rows kept (the module docstring)."""
+    b = tokens.shape[0]
+    if fax is not None:
+        with comm.scope("fsdp"):
+            tokens = comm.all_gather(tokens, fax, dim=0)
     if ax is None:
-        return emb[tokens].to(dtype)
-    loc = tokens.long() - v0
-    ok = (loc >= 0) & (loc < emb.shape[0])
-    rows = emb[loc.clamp(0, emb.shape[0] - 1)]
-    rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
-    return comm.all_reduce(rows, ax).to(dtype)
+        rows = emb[tokens]
+    else:
+        loc = tokens.long() - v0
+        ok = (loc >= 0) & (loc < emb.shape[0])
+        rows = emb[loc.clamp(0, emb.shape[0] - 1)]
+        rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    if fax is not None:
+        with comm.scope("fsdp"):
+            rows = comm.all_gather(rows, fax, dim=-1)
+        rows = rows[fax.rank * b:(fax.rank + 1) * b]
+    return (rows if ax is None else comm.all_reduce(rows, ax)).to(dtype)
 
 
-def unembed(emb, x, ax=None):
-    """Tied read-out in fp32: logits = x @ emb^T (with ``ax``, every vocab
-    shard's logits gathered in rank order)."""
-    logits = x.float() @ emb.float().T
+def readout(w, x, fax=None, ax=None, tied: bool = True):
+    """The fp32 read-out ``x @ w^T`` of the tied embedding (vocab [shard],
+    d [/ D]) or ``x @ w`` of an untied ``lm_head`` (d [/ D], vocab
+    [shard]).  Under FSDP (``fax``) ``x`` is this rank's rows: every FSDP
+    rank's rows are gathered, and where ``fax`` cut the embed axis of
+    ``w``, each rank multiplies its columns of them by its slice and the
+    partial logits are summed over ``fax``.  With ``ax``, the vocab
+    shards' logits are gathered in rank order."""
+    xf = x.float()
+    wf = w.float().T if tied else w.float()
+    n = wf.shape[0]
+    with comm.scope("fsdp"):
+        if fax is not None:
+            xf = comm.all_gather(xf, fax, dim=0)
+        if n < xf.shape[-1]:
+            xf = xf[..., fax.rank * n:(fax.rank + 1) * n]
+            logits = comm.all_reduce(xf @ wf, fax)
+        else:
+            logits = xf @ wf
     return logits if ax is None else comm.all_gather(logits, ax, dim=-1)
 
 

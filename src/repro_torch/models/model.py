@@ -41,7 +41,13 @@ weights for one rank of a ``model`` mesh axis (``mesh`` then names it);
 a vocab-sharded model (``tp_vocab``, the axis) looks its embeddings up
 with a masked lookup and a sum over the ranks, and gathers the vocab
 shards' logits in ``_readout``, so every rank samples from the same
-logits.  Weights are drawn (``init``) before they are sliced.
+logits.  Weights are drawn (``init``) before they are sliced.  Under
+FSDP (``fsdp``, the flattened ``(pod, data)`` axis; ``layers.py``) the
+lookup reads the embedding rows its tokens need from every FSDP rank's
+columns, and ``_readout`` returns the logits of EVERY FSDP rank's rows,
+in rank order: rows split over the FSDP ranks come back as the whole
+batch, rows every rank holds come back once per rank.  ``init_cache(...,
+seq=)`` splits a batch-1 cache's sequence over a mesh axis.
 """
 from __future__ import annotations
 
@@ -58,10 +64,9 @@ from repro_torch.core.plan import LayerObs
 from repro_torch.models.blocks import (AttnBlock, DecCrossBlock,
                                       MambaBlock, RWKVBlock, _weight,
                                       make_block)
-from repro_torch.models.layers import (_act, embed, linear, rmsnorm,
-                                       sinusoidal, unembed)
+from repro_torch.models.layers import (_act, embed, linear, readout,
+                                       rmsnorm, sinusoidal)
 from repro_torch.models.stack import Cache, Stack
-from repro_torch.sharding import comm
 
 
 def _on(x, dev, dtype=None) -> torch.Tensor:
@@ -122,6 +127,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.mesh = None           # the mesh a ``shard`` placed this on
         self.tp_vocab = None       # the model axis when the vocab shards
+        self.fsdp = None           # the FSDP axis (``shard``, pod x data)
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
                         device=dev), requires_grad=False)
@@ -293,12 +299,15 @@ class Model(nn.Module):
             return x
         return x + sinusoidal(pos, self.cfg.d_model, x.dtype)
 
-    def init_cache(self, batch: int, cap: int) -> List[List[Cache]]:
+    def init_cache(self, batch: int, cap: int,
+                   seq=None) -> List[List[Cache]]:
         """One cache per layer (``KVCache``, ``LatentCache`` for MLA,
         ``CrossCache`` for whisper's decoder, or a recurrent state:
         ``MambaCache``, ``SharedAttnCache``, ``RWKVCache``), grouped by
-        stack.  A VLM's ``cap`` counts its patch positions."""
-        return [s.init_cache(batch, cap) for s in self.stacks]
+        stack.  A VLM's ``cap`` counts its patch positions.  ``seq`` (a
+        mesh axis; attention layers only) splits each cache's capacity
+        axis over it, this rank holding its contiguous slice."""
+        return [s.init_cache(batch, cap, seq) for s in self.stacks]
 
     def _ctx(self, method: str) -> Dict:
         ctx = {"method": method, "qcfg": self.cfg.quoka}
@@ -332,18 +341,18 @@ class Model(nn.Module):
         vocab-parallel lookup under ``tp_vocab``."""
         ax = self.tp_vocab
         dt = self.cfg.compute_dtype if dtype is None else dtype
+        fax = self.fsdp if self.fsdp is not None and \
+            self.embed.shape[1] < self.cfg.d_model else None
         if ax is None:
-            return embed(self.embed, tok, dt)
-        return embed(self.embed, tok, dt, ax, ax.rank * self.embed.shape[0])
+            return embed(self.embed, tok, dt, fax=fax)
+        return embed(self.embed, tok, dt, ax, ax.rank * self.embed.shape[0],
+                     fax=fax)
 
     def _readout(self, x):
         x = rmsnorm(self.ln_f, x, self.cfg.norm_eps)
-        if self.lm_head is None:
-            return unembed(self.embed, x, self.tp_vocab)
-        logits = linear(self.lm_head, x.float())
-        if self.tp_vocab is None:
-            return logits
-        return comm.all_gather(logits, self.tp_vocab, dim=-1)
+        tied = self.lm_head is None
+        return readout(self.embed if tied else self.lm_head, x, self.fsdp,
+                       self.tp_vocab, tied=tied)
 
     # ------------------------------------------------------------------
     # training

@@ -68,8 +68,10 @@ class Stack(nn.Module):
             aux = aux + a
         return x, aux
 
-    def init_cache(self, batch: int, cap: int) -> List[Cache]:
-        return [blk.init_cache(batch, cap) for blk in self.layers]
+    def init_cache(self, batch: int, cap: int, seq=None) -> List[Cache]:
+        if seq is None:
+            return [blk.init_cache(batch, cap) for blk in self.layers]
+        return [blk.init_cache(batch, cap, seq) for blk in self.layers]
 
     def _plan_carry0(self, caches: List[Cache], t: int, ctx, plan, device):
         """The initial plan carry, or None when reuse is off: it engages

@@ -26,12 +26,33 @@ Whisper's ``dec_cross`` layers keep a ``CrossCache``: the self-attention's
 ``KVCache`` beside a ``CrossKV``, the cross-attention's keys and values of
 the encoder's output, written once per prompt (``Model._build_cross``)
 and only read after.
+
+On a mesh a batch-1 cache may hold only a contiguous slice of its
+capacity axis (a ``SeqKVCache``, whose ``seq`` is a ``SeqShard``; a
+``KVCache``'s is None): rank ``r`` of the ``data`` axis
+holds slots ``[r * cap / D, (r + 1) * cap / D)``, as GSPMD lays out the
+reference's ``P(..., "data", ...)``.  ``kv_write`` writes only the part
+of a chunk that falls in the held slots (after the clamp, which keeps its
+meaning on the whole capacity), and ``seq_full`` gathers the whole cache
+where an attention needs every key (dense attention; the ranks' bytes
+count under ``comm.scope("seq")``).  Selection reads the slices where
+they lie (``core/plan.py``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.sharding import comm
+
+
+class SeqShard(NamedTuple):
+    """The slice of a cache's capacity axis this rank holds: slots ``lo
+    .. lo + held`` of ``cap``, split over the mesh axis ``ax``."""
+    ax: comm.Axis
+    lo: int
+    cap: int
 
 
 class KVCache(NamedTuple):
@@ -43,13 +64,53 @@ class KVCache(NamedTuple):
     def capacity(self) -> int:
         return self.k.shape[1]
 
+    @property
+    def seq(self) -> Optional[SeqShard]:
+        """A whole cache: no ``SeqShard``."""
+        return None
+
+
+class SeqKVCache(NamedTuple):
+    """A ``KVCache`` of which this rank holds the slots ``seq`` says."""
+    k: torch.Tensor      # (b, held, n_kv, hd)
+    v: torch.Tensor      # (b, held, n_kv, hd)
+    pos: torch.Tensor    # (b, held) int32, -1 = empty
+    seq: SeqShard
+
+    @property
+    def capacity(self) -> int:
+        """Slots of the whole cache (every rank's)."""
+        return self.seq.cap
+
 
 def kv_init(batch: int, cap: int, n_kv: int, hd: int, dtype,
-            device) -> KVCache:
-    return KVCache(
-        k=torch.zeros((batch, cap, n_kv, hd), dtype=dtype, device=device),
-        v=torch.zeros((batch, cap, n_kv, hd), dtype=dtype, device=device),
-        pos=torch.full((batch, cap), -1, dtype=torch.int32, device=device))
+            device, seq_ax: Optional[comm.Axis] = None):
+    """A ``KVCache`` of ``cap`` slots; with ``seq_ax`` (size D > 1,
+    dividing cap) a ``SeqKVCache`` of this rank's ``cap / D`` of them."""
+    held = cap if seq_ax is None or seq_ax.size == 1 else cap // seq_ax.size
+    if held != cap and cap % seq_ax.size:
+        raise ValueError(f"capacity {cap} does not split over "
+                         f"{seq_ax.size} ranks")
+    leaves = dict(
+        k=torch.zeros((batch, held, n_kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, held, n_kv, hd), dtype=dtype, device=device),
+        pos=torch.full((batch, held), -1, dtype=torch.int32, device=device))
+    if held == cap:
+        return KVCache(**leaves)
+    return SeqKVCache(**leaves, seq=SeqShard(seq_ax, seq_ax.rank * held,
+                                             cap))
+
+
+def seq_full(cache) -> KVCache:
+    """The whole cache of a sequence-sharded one (every rank's slices
+    gathered in slot order); the cache itself when it is whole."""
+    if cache.seq is None:
+        return cache
+    ax = cache.seq.ax
+    with comm.scope("seq"):
+        return KVCache(k=comm.all_gather(cache.k, ax, 1),
+                       v=comm.all_gather(cache.v, ax, 1),
+                       pos=comm.all_gather(cache.pos, ax, 1))
 
 
 def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
@@ -63,6 +124,8 @@ def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
     b, t = k_new.shape[:2]
     cap = cache.capacity
     dev = cache.pos.device
+    if cache.seq is not None:
+        return _seq_write(cache, k_new, v_new, start, pos_new)
     if isinstance(start, torch.Tensor) and start.ndim == 1:
         s = start.to(device=dev, dtype=torch.int64)
         offs = torch.arange(t, device=dev)
@@ -83,6 +146,27 @@ def kv_write(cache: KVCache, k_new, v_new, start, pos_new=None) -> KVCache:
     cache.k[:, s:s + t] = k_new
     cache.v[:, s:s + t] = v_new
     cache.pos[:, s:s + t] = pos_new
+    return cache
+
+
+def _seq_write(cache: SeqKVCache, k_new, v_new, start, pos_new):
+    """``kv_write`` into a sequence-sharded cache: the chunk's slots,
+    clamped as on the whole capacity, that this rank holds."""
+    if isinstance(start, torch.Tensor) and start.ndim > 0:
+        raise ValueError("a sequence-sharded cache takes one int start "
+                         "(batch-1 generate, not continuous batching)")
+    b, t = k_new.shape[:2]
+    start = int(start)
+    if pos_new is None:
+        pos_new = torch.arange(start, start + t, dtype=torch.int32,
+                               device=cache.pos.device).expand(b, t)
+    s = min(max(start, 0), cache.seq.cap - t)
+    lo, held = cache.seq.lo, cache.k.shape[1]
+    a, e = max(s, lo), min(s + t, lo + held)
+    if a < e:
+        cache.k[:, a - lo:e - lo] = k_new[:, a - s:e - s]
+        cache.v[:, a - lo:e - lo] = v_new[:, a - s:e - s]
+        cache.pos[:, a - lo:e - lo] = pos_new[:, a - s:e - s]
     return cache
 
 

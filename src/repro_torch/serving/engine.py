@@ -39,17 +39,30 @@ after the token fetch.  With no registry the step functions run without
 them, exactly as before.  ``Engine.stats`` is a view of the registry
 either way (an ephemeral one when off).
 
-``Engine(mesh=)`` (a ``DeviceMesh``, ``launch/mesh.py``) serves
-tensor-parallel over the mesh's ``model`` axis, one process per rank:
-the model is sharded at construction (``training/checkpoint.py::shard``)
-and ``generate`` / ``serve`` run under the mesh policy
-(``sharding/ctx.py``), every rank on its own shards with the collectives
-of ``sharding/comm.py``.  Every rank returns the same greedy tokens.  The
-scheduler runs on rank 0's clock (``ServeState.clock``), so every rank
+``Engine(mesh=)`` (a ``DeviceMesh``, ``launch/mesh.py``) serves on the
+mesh, one process per rank: tensor-parallel over its ``model`` axis and
+data-parallel over its FSDP axes ``(pod, data)``.  The model is sharded
+at construction (``training/checkpoint.py::shard``: every weight's embed
+axis cut over the FSDP group too, gathered per layer call) and
+``generate`` / ``serve`` run under the mesh policy (``sharding/ctx.py``),
+every rank on its own shards with the collectives of
+``sharding/comm.py``.  ``generate`` places the batch as
+``specs.batch_spec`` / ``cache_specs`` do (``_layout``): rows split over
+the FSDP ranks when they divide the batch; else every rank runs every
+row, and a cache whose capacity the ``data`` axis divides holds its
+sequence split over ``data`` (a batch-1 prompt), selected where it lies
+(``core/plan.py``).  The read-out gives every rank the whole batch's
+logits, which every rank samples with the same generator, so every rank
+returns the same tokens, the meshless run's draws.  ``serve`` splits the
+pool's blocks and each step's rows over the FSDP ranks: a request is
+pinned at admission to one rank (``Scheduler``), its blocks come from
+that rank's share and its row sits in that rank's rows of every step, so
+no KV moves between steps.  The scheduler runs on rank 0's clock,
+broadcast over the whole mesh (``ServeState.clock``), so every rank
 admits, packs and finishes alike.  Not yet ported on a mesh, and refused:
-a ``data`` or ``pod`` axis larger than 1, ``registry=``, selection
-methods other than ``full`` and ``quoka``, block kinds other than
-``attn``.
+``registry=``, selection methods other than ``full`` and ``quoka``,
+block kinds other than ``attn``, and on a data axis a preempting
+scheduling policy.
 """
 from __future__ import annotations
 
@@ -207,6 +220,25 @@ class Engine:
         return shctx.policy(self.mesh, tuple(
             a for a in ("pod", "data") if a in specs.mesh_shape(self.mesh)))
 
+    def _layout(self, b: int, cap: int):
+        """(this rank's rows of a (b, cap) ``generate``, the axis its
+        caches' sequence splits over or None), as ``specs.batch_spec`` and
+        ``cache_specs`` place them: rows over the FSDP axes when they
+        divide b; else every row, and the sequence over ``data`` when it
+        divides cap.  Meshless: every row, no split."""
+        fax = self.model.fsdp
+        if fax is None:
+            return slice(0, b), None
+        cfg, mesh = self.model.cfg, self.mesh
+        if specs.batch_spec(cfg, {"tokens": (b, 1)}, mesh)["tokens"][0]:
+            n = b // fax.size
+            return slice(fax.rank * n, (fax.rank + 1) * n), None
+        place = specs.cache_specs(cfg, specs.kv_cache_shapes(cfg, b, cap),
+                                  mesh)
+        if place["stacks/0/0/kv/k"][2] == "data":
+            return slice(0, b), comm.axis(mesh, "data")
+        return slice(0, b), None
+
     def _generate(self, batch: Dict, max_new: int,
                   generator: Optional[torch.Generator]) -> GenerationResult:
         model, dev = self.model, self.device
@@ -220,6 +252,11 @@ class Engine:
         if generator is None:
             generator = torch.Generator(device=dev)
             generator.manual_seed(0)
+        rows, seq = self._layout(b, cap)
+        if rows != slice(0, b):
+            batch = {k: (v if v is None else np.asarray(v)[rows])
+                     for k, v in batch.items()}
+        nb = rows.stop - rows.start
 
         # first call on a signature: build the kernels and warm every path
         # on a throwaway cache, off the clocks
@@ -227,22 +264,24 @@ class Engine:
                tuple(sorted(k for k in batch if batch[k] is not None)))
         if sig not in self._warmed:
             wgen = torch.Generator(device=dev)
-            wcache = model.init_cache(b, cap)
+            wcache = model.init_cache(nb, cap, seq)
             wl, wcache = model.prefill(batch, wcache, self.method)
-            wt = sample(wl, wgen, self.sampler)
+            wt = sample(wl[:b], wgen, self.sampler)
             if max_new > 1:
-                wl, wcache = model.decode_step(wt, positions, wcache,
-                                                  self.method)
-                sample(wl, wgen, self.sampler)
+                wl, wcache = model.decode_step(wt[rows], positions, wcache,
+                                               self.method)
+                sample(wl[:b], wgen, self.sampler)
             _sync(dev)
             del wcache
             self._warmed.add(sig)
 
-        cache = model.init_cache(b, cap)
+        # under FSDP the logits cover every FSDP rank's rows: the whole
+        # batch (rows split) or a copy per rank (``[:b]`` takes rank 0's)
+        cache = model.init_cache(nb, cap, seq)
         _sync(dev)
         t0 = time.perf_counter()
         logits, cache = model.prefill(batch, cache, self.method)
-        tok = sample(logits, generator, self.sampler)
+        tok = sample(logits[:b], generator, self.sampler)
         _sync(dev)
         ttft = time.perf_counter() - t0
 
@@ -250,8 +289,9 @@ class Engine:
         t1 = time.perf_counter()
         pos = positions
         for _ in range(max_new - 1):
-            logits, cache = model.decode_step(tok, pos, cache, self.method)
-            tok = sample(logits, generator, self.sampler)
+            logits, cache = model.decode_step(tok[rows], pos, cache,
+                                              self.method)
+            tok = sample(logits[:b], generator, self.sampler)
             out.append(tok)
             pos += 1
         _sync(dev)
@@ -269,7 +309,7 @@ class Engine:
     # continuous batching
     # ------------------------------------------------------------------
     def _continuous_fns(self, block_size: int, max_nb: int,
-                        num_blocks: int, sel_on: bool = False):
+                        pool: pl.PagedKVCache, sel_on: bool = False):
         """The two step functions for one geometry: gather blocks -> model
         step -> sample -> scatter the touched blocks back.  Host arrays
         (tables, starts, lengths) stay on the host for the index decisions
@@ -290,6 +330,21 @@ class Engine:
         dev = self.device
         chunk = model.cfg.quoka.chunk_size
         selb = (block_size, max_nb) if sel_on else None
+        # the pool's block axis over the FSDP ranks: each runs its rows
+        # (``_place``) on its blocks, with local ids (and reads the whole
+        # step's logits: ``[:n]`` keeps rank 0's copy when rows repeat)
+        dp, n_loc = pool.dp, pool.local_blocks
+
+        def local(table, *rows):
+            if dp == 1:
+                return (table,) + rows
+            n = table.shape[0] // dp
+            sl = slice(pool.rank * n, (pool.rank + 1) * n)
+            t = table[sl]
+            t = np.where(t >= 0, t - pool.base, -1).astype(np.int32)
+            if t.max(initial=-1) >= n_loc:
+                raise RuntimeError("a step row names another rank's block")
+            return (t,) + tuple(np.asarray(r)[sl] for r in rows)
 
         def out(tok, res, with_obs):
             # res: (head, cache[, obs][, sel])
@@ -300,7 +355,9 @@ class Engine:
         @torch.no_grad()
         def prefill_step(data, table, tokens, start, vlen, generator,
                          during=None, with_obs=False):
-            cache = pl.gather(data, table, num_blocks, block_size)
+            n = table.shape[0]
+            table, tokens, start, vlen = local(table, tokens, start, vlen)
+            cache = pl.gather(data, table, n_loc, block_size)
             inputs = [torch.as_tensor(x, device=dev)
                       for x in (tokens, start, vlen)]
             if during is not None:
@@ -308,28 +365,30 @@ class Engine:
             res = model.prefill_chunk(
                 {"tokens": inputs[0]}, inputs[1], cache, method,
                 valid_len=inputs[2], with_obs=with_obs, sel_blocks=selb)
-            logits = model._readout(res[0][:, None, :])[:, 0]
+            logits = model._readout(res[0][:, None, :])[:n, 0]
             tok = sample(logits, generator, sampler)
             # the whole chunk is written (pos -1 past valid_len), so a row
             # with any valid token touches all of its chunk's blocks
             wrote = np.where(vlen > 0, chunk, 0)
             touched = pl.touched_blocks(start, wrote, max_nb, block_size)
-            pl.scatter(data, res[1], table, touched, num_blocks, block_size)
+            pl.scatter(data, res[1], table, touched, n_loc, block_size)
             return out(tok, res, with_obs)
 
         @torch.no_grad()
         def decode_step(data, table, tokens, pos, live, generator,
                         during=None, with_obs=False):
-            cache = pl.gather(data, table, num_blocks, block_size)
+            n = table.shape[0]
+            table, tokens, pos, live = local(table, tokens, pos, live)
+            cache = pl.gather(data, table, n_loc, block_size)
             inputs = [torch.as_tensor(x, device=dev) for x in (tokens, pos)]
             if during is not None:
                 during()
             res = model.decode_step(inputs[0].long(), inputs[1], cache,
                                     method, with_obs=with_obs,
                                     sel_blocks=selb)
-            tok = sample(res[0], generator, sampler)
+            tok = sample(res[0][:n], generator, sampler)
             touched = pl.touched_blocks(pos, live, max_nb, block_size)
-            pl.scatter(data, res[1], table, touched, num_blocks, block_size)
+            pl.scatter(data, res[1], table, touched, n_loc, block_size)
             return out(tok, res, with_obs)
 
         return prefill_step, decode_step
@@ -397,14 +456,19 @@ class Engine:
         clock = None
         if self.mesh is not None:
             # the pool's block axis follows the data axes: round the pool
-            # and the step rows up to the data-parallel degree (1 while
-            # only ``model`` is ported), as the reference does; the
-            # scheduler's admission bound stays ``max_decode_batch``
+            # and the step rows up to the data-parallel degree, as the
+            # reference does; each rank then admits up to its share of
+            # the rows (``Scheduler``), within the global
+            # ``max_decode_batch``
             dp = specs._axes_size(self.mesh, specs.fsdp_axes(self.mesh))
+            if dp > 1 and pol.may_preempt:
+                raise NotImplementedError(
+                    f"a preempting scheduling policy ({pol.name}) on a data "
+                    f"axis is not yet ported")
             num_blocks = -(-num_blocks // dp) * dp
             b_p = -(-b_p // dp) * dp
             b_d = -(-b_d // dp) * dp
-            ax = comm.axis(self.mesh, "model")
+            ax = comm.world(self.mesh)
             clock = lambda t: comm.broadcast_float(t, ax, self.device)
         pool = pl.PagedKVCache(self.model, num_blocks, block_size,
                                mesh=self.mesh, host_tier_blocks=htb)
@@ -415,7 +479,7 @@ class Engine:
                           prefix_cache=prefix_cache, prefix_align=align,
                           registry=self.registry, policy=pol,
                           max_prefill_rows=rows, token_grid=grid)
-        fns = self._continuous_fns(block_size, max_nb, num_blocks,
+        fns = self._continuous_fns(block_size, max_nb, pool,
                                    sel_on=htb > 0)
         if generator is None:
             generator = torch.Generator(device=self.device)
@@ -589,10 +653,11 @@ class Engine:
             tokens = np.zeros((state.b_prefill, state.chunk), np.int32)
             start = np.zeros((state.b_prefill,), np.int32)
             vlen = np.zeros((state.b_prefill,), np.int32)
-            for i, (r, ch, st, vl) in enumerate(rows):
+            at = self._place(pool, [r for r, *_ in rows], state.b_prefill)
+            for i, (r, ch, st, vl) in zip(at, rows):
                 tokens[i], start[i], vlen[i] = ch, st, vl
             table = pool.table_array([r.rid for r, *_ in rows],
-                                     state.b_prefill, state.max_nb)
+                                     state.b_prefill, state.max_nb, at=at)
             # host-tier blocks are staged while the step is dispatched,
             # then comes the step's one sync; the span brackets the step
             # through that token fetch
@@ -607,7 +672,7 @@ class Engine:
                 self._record_layer_obs("prefill", lobs)
                 reg.count("engine/prefill_tokens", float(vlen.sum()))
             now = state.now
-            for i, (r, ch, st, vl) in enumerate(rows):
+            for i, (r, ch, st, vl) in zip(at, rows):
                 ev = sched.note_prefilled(r, vl, int(tok_np[i]), now)
                 if ev is not None:
                     state.events.append((r.rid, ev))
@@ -618,10 +683,11 @@ class Engine:
             tokens = np.zeros((state.b_decode,), np.int32)
             pos = np.zeros((state.b_decode,), np.int32)
             live = np.zeros((state.b_decode,), np.int32)
-            for i, r in enumerate(drows):
+            at = self._place(pool, drows, state.b_decode)
+            for i, r in zip(at, drows):
                 tokens[i], pos[i], live[i] = r.out[-1], r.decode_pos, 1
             table = pool.table_array([r.rid for r in drows],
-                                     state.b_decode, state.max_nb)
+                                     state.b_decode, state.max_nb, at=at)
             with reg.span("engine/decode_step", rows=len(drows)):
                 out = state.fns[1](pool.data, table, tokens, pos, live,
                                    state.generator,
@@ -633,7 +699,7 @@ class Engine:
                 self._record_layer_obs("decode", lobs)
                 reg.count("engine/decode_tokens", float(len(drows)))
             now = state.now
-            for i, r in enumerate(drows):
+            for i, r in zip(at, drows):
                 state.events.append((r.rid,
                                      sched.note_decoded(r, int(tok_np[i]),
                                                         now)))
@@ -642,6 +708,24 @@ class Engine:
 
         state.steps += 1
         return len(rows), len(drows)
+
+    @staticmethod
+    def _place(pool, reqs, n_rows: int) -> List[int]:
+        """The step row of each request: in order, or, when the pool's
+        blocks are split over the FSDP ranks, the next free row among its
+        rank's ``n_rows / dp`` (its blocks live only there)."""
+        if pool.dp == 1:
+            return list(range(len(reqs)))
+        per = n_rows // pool.dp
+        used = [0] * pool.dp
+        at = []
+        for r in reqs:
+            k = pool.rank_of_rid(r.rid)
+            if used[k] == per:
+                raise RuntimeError(f"rank {k} has more than {per} rows")
+            at.append(k * per + used[k])
+            used[k] += 1
+        return at
 
     def serve_stream(self, requests: Sequence, *,
                      block_size: Optional[int] = None,

@@ -79,10 +79,14 @@ On a mesh (``mesh=``, the model sharded on it by
 ``training/checkpoint.py::shard``) each rank's pool holds the KV heads
 its layers hold: its own when the KV heads divide the ``model`` axis,
 all of them otherwise, as ``sharding/specs.py::cache_specs(paged=True)``
-places the pool (the block axis follows the data axes, size 1 here); the
-host-side bookkeeping is the same on every rank.  The host tier on a mesh
-raises the reference's error, and an MLA latent pool on a mesh is not yet
-ported.
+places the pool; its block axis follows the FSDP axes ``(pod, data)``:
+of ``num_blocks`` blocks, FSDP rank ``k`` of ``dp`` holds ids ``[k N /
+dp, (k + 1) N / dp)`` (``rank``, ``base``, ``local_blocks``).  The host-side
+bookkeeping is the same on every rank and names global ids; a request
+is pinned to one rank (``alloc_prefix(rank=)``, ``rank_of_rid``), whose
+share all its blocks come from, so each device helper touches only the
+blocks this rank holds.  The host tier on a mesh raises the reference's
+error, and an MLA latent pool on a mesh is not yet ported.
 """
 from __future__ import annotations
 
@@ -280,10 +284,10 @@ class HostTier:
         self._free.append(slot)
 
 
-def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> None:
+def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> int:
     """A pool on ``mesh``: the model must be sharded on it, and each
     layer's held KV heads must be what ``cache_specs(paged=True)`` places
-    on this rank."""
+    on this rank.  Returns the ranks its block axis splits over."""
     from repro_torch.sharding import specs
     cfg = model.cfg
     if any(k in ("mla", "mla_moe") for k in cfg.layer_kinds()):
@@ -296,6 +300,7 @@ def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> None:
     msize = specs.mesh_shape(mesh).get("model", 1)
     place = specs.cache_specs(cfg, specs.kv_cache_shapes(
         cfg, num_blocks, block_size), mesh, paged=True)
+    dp = specs._axes_size(mesh, place["stacks/0/0/kv/k"][1])
     for si, stack in enumerate(model.stacks):
         for i, blk in enumerate(stack.layers):
             spec = place[f"stacks/{si}/{i % len(stack.period)}/kv/k"]
@@ -304,6 +309,7 @@ def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> None:
             if blk.n_kv != want:
                 raise ValueError(f"layer holds {blk.n_kv} KV heads, the "
                                  f"pool's placement {spec} wants {want}")
+    return dp
 
 
 class PagedKVCache:
@@ -324,15 +330,20 @@ class PagedKVCache:
             raise ValueError(
                 "host tier + mesh is not supported yet: demotion would "
                 "have to gather a sharded block slab per eviction")
-        if mesh is not None:
+        self.dp = 1 if mesh is None else \
             _check_pool_mesh(model, mesh, int(num_blocks), int(block_size))
         self.model = model
         self.mesh = mesh
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
-        self.data = model.init_cache(self.num_blocks, self.block_size)
+        # this rank's share of the block axis (module docstring)
+        self.local_blocks = self.num_blocks // self.dp
+        self.rank = 0 if self.dp == 1 else model.fsdp.rank
+        self.base = self.rank * self.local_blocks
+        self.data = model.init_cache(self.local_blocks, self.block_size)
         self._free: List[int] = list(range(self.num_blocks))
         self._tables: Dict[int, List[int]] = {}
+        self._rank: Dict[int, int] = {}             # rid -> its FSDP rank
         # ---- prefix cache state ----
         self._ref: Dict[int, int] = {}              # block -> live refcount
         self._lru: "OrderedDict[int, None]" = OrderedDict()  # evictable
@@ -385,18 +396,44 @@ class PagedKVCache:
         """Registered (matchable) blocks, live or evictable."""
         return len(self._reg)
 
-    def can_alloc(self, n: int, exclude: Sequence[int] = ()) -> bool:
+    def rank_of(self, b: int) -> int:
+        """The FSDP rank that holds block ``b``."""
+        return b // self.local_blocks
+
+    def rank_of_rid(self, rid: int) -> int:
+        """The FSDP rank request ``rid``'s blocks came from."""
+        return self._rank.get(rid, 0)
+
+    def _on(self, rank: Optional[int], blocks) -> List[int]:
+        """``blocks`` held by ``rank`` (all of them for None)."""
+        return list(blocks) if rank is None else \
+            [b for b in blocks if self.rank_of(b) == rank]
+
+    def num_free_on(self, rank: Optional[int] = None) -> int:
+        if rank is None:
+            return len(self._free)
+        return len(self._on(rank, self._free))
+
+    def can_alloc(self, n: int, exclude: Sequence[int] = (),
+                  rank: Optional[int] = None) -> bool:
         """Can ``n`` FRESH blocks be produced (free list + LRU eviction),
-        without evicting any block in ``exclude``?"""
-        lru = len(self._lru) - sum(1 for b in exclude if b in self._lru)
-        return n <= len(self._free) + lru
+        without evicting any block in ``exclude``?  ``rank``: from that
+        FSDP rank's share only."""
+        if rank is None:
+            lru = len(self._lru) - sum(1 for b in exclude if b in self._lru)
+        else:
+            lru = len(self._on(rank, self._lru)) - sum(
+                1 for b in exclude
+                if b in self._lru and self.rank_of(b) == rank)
+        return n <= self.num_free_on(rank) + lru
 
     def alloc(self, rid: int, n: int) -> List[int]:
         return self.alloc_prefix(rid, n)
 
     def alloc_prefix(self, rid: int, n_total: int,
                      shared: Sequence = (),
-                     cow: Optional[Tuple] = None) -> List[int]:
+                     cow: Optional[Tuple] = None,
+                     rank: Optional[int] = None) -> List[int]:
         """Build request ``rid``'s table: ``shared`` prefix entries in
         logical order followed by the remaining fresh blocks.  An entry is
         a physical device block id (refcount-pinned read-only) or ``("host",
@@ -409,15 +446,24 @@ class PagedKVCache:
         as a copy of ``src`` — a device block id or ``("host", slot)`` —
         with slots >= ``keep`` invalidated (shared partial tail).  A host
         COW source is copied, not consumed: the host copy stays
-        matchable."""
+        matchable.
+
+        ``rank`` pins the request to one FSDP rank of a split pool: its
+        fresh blocks come from that rank's share, and ``shared`` / ``cow``
+        must lie there too."""
         if rid in self._tables:
             raise RuntimeError(f"request {rid} already holds blocks")
+        if rank is not None and any(
+                self.rank_of(b) != rank for b in
+                list(shared) + ([cow[0]] if cow else [])
+                if not isinstance(b, tuple)):
+            raise RuntimeError(f"request {rid}'s hit lies off rank {rank}")
         dev_shared = [e for e in shared if not isinstance(e, tuple)]
         promote = [e[1] for e in shared if isinstance(e, tuple)]
         cow_host = cow is not None and isinstance(cow[0], tuple)
         n_fresh = n_total - len(dev_shared)
         protect = dev_shared + ([cow[0]] if cow and not cow_host else [])
-        if not self.can_alloc(n_fresh, exclude=protect):
+        if not self.can_alloc(n_fresh, exclude=protect, rank=rank):
             raise RuntimeError(
                 f"pool exhausted: need {n_fresh} fresh blocks, "
                 f"{len(self._free)} free + {len(self._lru)} evictable")
@@ -431,7 +477,7 @@ class PagedKVCache:
         cow_buf = self._peek_host(cow[0][1]) if cow_host else None
         fresh, stale = [], []
         for _ in range(n_fresh):
-            b, was_cached = self._take_fresh(protect)
+            b, was_cached = self._take_fresh(protect, rank)
             if was_cached:
                 stale.append(b)
             fresh.append(b)
@@ -462,9 +508,13 @@ class PagedKVCache:
             else:
                 if src not in self._ref and src not in self._lru:
                     raise RuntimeError(f"COW source block {src} not resident")
-                _cow_block(self.data, src, rest[0], keep)
+                if self.rank_of(rest[0]) == self.rank:    # src's rank too
+                    _cow_block(self.data, src - self.base,
+                               rest[0] - self.base, keep)
             self.cow_copies += 1
         self._tables[rid] = table + rest
+        if self.dp > 1:
+            self._rank[rid] = 0 if rank is None else rank
         return self._tables[rid]
 
     def free(self, rid: int) -> List[int]:
@@ -474,6 +524,7 @@ class PagedKVCache:
         blocks that landed on the LRU list (the suspend path demotes
         exactly those)."""
         blocks = self._tables.pop(rid)   # KeyError on double free
+        self._rank.pop(rid, None)
         stale, retained = [], []
         for b in blocks:
             self._ref[b] -= 1
@@ -492,11 +543,13 @@ class PagedKVCache:
         return self._tables[rid]
 
     def table_array(self, rids: Sequence[int], rows: int,
-                    max_blocks: int) -> np.ndarray:
-        """(rows, max_blocks) int32 block table, -1 padded (empty block).
-        Rows beyond len(rids) are idle (all -1)."""
+                    max_blocks: int,
+                    at: Optional[Sequence[int]] = None) -> np.ndarray:
+        """(rows, max_blocks) int32 block table, -1 padded (empty block):
+        ``rids[i]``'s blocks in row ``at[i]`` (default ``i``).  Rows no
+        request takes are idle (all -1)."""
         tab = np.full((rows, max_blocks), -1, np.int32)
-        for i, rid in enumerate(rids):
+        for i, rid in zip(range(len(rids)) if at is None else at, rids):
             blocks = self._tables[rid]
             tab[i, :len(blocks)] = blocks
         return tab
@@ -696,14 +749,18 @@ class PagedKVCache:
         else:
             self._ref[b] += 1
 
-    def _take_fresh(self, protect: Sequence[int]) -> Tuple[int, bool]:
-        """One fresh block: free list first, then LRU eviction (the evicted
-        block loses its cache entry).  Returns (block, needs stamping) —
-        free-list blocks were stamped when freed."""
-        if self._free:
-            return self._free.pop(), False
+    def _take_fresh(self, protect: Sequence[int],
+                    rank: Optional[int] = None) -> Tuple[int, bool]:
+        """One fresh block (of FSDP rank ``rank``'s share when given):
+        free list first, then LRU eviction (the evicted block loses its
+        cache entry).  Returns (block, needs stamping) — free-list blocks
+        were stamped when freed."""
+        for i in range(len(self._free) - 1, -1, -1):     # the newest first
+            if rank is None or self.rank_of(self._free[i]) == rank:
+                return self._free.pop(i), False
         for b in self._lru:                        # oldest first
-            if b not in protect:
+            if b not in protect and (rank is None
+                                     or self.rank_of(b) == rank):
                 del self._lru[b]
                 if self.host is not None:
                     self._demote(b)
@@ -791,8 +848,9 @@ class PagedKVCache:
     def _stamp(self, blocks: List[int]) -> None:
         """pos=-1-stamp ``blocks`` on device: recycled blocks must read as
         empty (a donor's stale positions would pass the validity masks)."""
-        if blocks:
-            _stamp_blocks(self.data, torch.as_tensor(blocks,
+        mine = [b - self.base for b in self._on(self.rank, blocks)]
+        if mine:
+            _stamp_blocks(self.data, torch.as_tensor(mine,
                                                      device=self.device))
 
     def check_invariants(self) -> None:

@@ -52,6 +52,17 @@ outputs are only reproducible when the sharer's suffix chunks land on the
 same grid — hits must be floored to a chunk multiple.  Dense attention is
 chunking-invariant, so ``full`` can share at token granularity (COW tails).
 The scheduler is pure host-side policy; device work happens in the engine.
+
+Data parallelism (the pool's blocks split over ``pool.dp`` > 1 FSDP
+ranks of a mesh): each request is pinned at admission to one rank,
+the one holding its prefix hit (the hit cut to the blocks on its first
+block's rank), else the one with the most free blocks, lowest rank on
+ties; every rank computes the same choice from the same state.  Its
+blocks come from that rank's share of the pool and its row sits in that
+rank's rows of every step, so each rank admits at most its share of the
+decode rows (``ceil(max_decode_batch / pool.dp)``) and packs at most
+its share of the prefill rows, where the reference's bounds are global
+(a deliberate difference: no KV moves between steps).
 """
 from __future__ import annotations
 
@@ -102,6 +113,10 @@ class Scheduler:
             else max(1, self.max_prefill_tokens // self.chunk_size))
         self.token_grid = max(1, int(token_grid))
         self.max_decode_batch = int(max_decode_batch)
+        # data parallelism (module docstring): each rank's share of rows
+        self.data_ranks = pool.dp
+        self.rank_decode = -(-self.max_decode_batch // self.data_ranks)
+        self.rank_prefill = -(-self.max_prefill_rows // self.data_ranks)
         self.prefix_cache = bool(prefix_cache)
         self.prefix_align = max(1, int(prefix_align))
         self.waiting: List[rq.Request] = []
@@ -137,10 +152,11 @@ class Scheduler:
                 r.prompt_len, r.max_new, self.chunk_size,
                 self.pool.block_size, align=self.prefix_align,
                 preempt=True))
-        if n > self.pool.num_blocks:
+        share = self.pool.num_blocks // self.data_ranks   # one rank's
+        if n > share:
             raise ValueError(
                 f"request {r.rid} needs {n} blocks > pool size "
-                f"{self.pool.num_blocks}; it can never be admitted")
+                f"{share}; it can never be admitted")
         # reset ALL runtime state so a Request object can be re-served
         # (warmup-then-measure traces); stale n_prefilled/out would make a
         # re-served request complete instantly with the previous run's tokens
@@ -176,12 +192,48 @@ class Scheduler:
         if chain is None:
             chain = self._chain[r.rid] = _chain_hashes(
                 r.tokens, self.pool.block_size)
-        fulls, tail = self.pool.match_prefix(r.tokens, chain=chain)
+        fulls, tail = self._one_rank(*self.pool.match_prefix(r.tokens,
+                                                             chain=chain))
         bs = self.pool.block_size
         matched = len(fulls) * bs + (tail[1] if tail else 0)
         cached = (min(matched, r.prompt_len - 1)
                   // self.prefix_align) * self.prefix_align
         return self._hit(cached, fulls, tail)
+
+    def _one_rank(self, fulls: List, tail):
+        """A prefix match cut to the blocks on its first block's rank
+        (all of it without data parallelism)."""
+        if self.data_ranks == 1:
+            return fulls, tail
+        blocks = fulls + ([tail[0]] if tail else [])
+        if not blocks:
+            return fulls, tail
+        k = self.pool.rank_of(blocks[0])
+        n = next((i for i, b in enumerate(fulls)
+                  if self.pool.rank_of(b) != k), len(fulls))
+        keep_tail = tail if (tail and n == len(fulls)
+                             and self.pool.rank_of(tail[0]) == k) else None
+        return fulls[:n], keep_tail
+
+    def _active_on(self, rank: int) -> int:
+        return sum(1 for r in self.prefilling + self.decoding
+                   if self.pool.rank_of_rid(r.rid) == rank)
+
+    def _ranks(self, hit: Tuple) -> List[Tuple[Optional[int], bool]]:
+        """(rank, use the hit) in the order a request tries them: the
+        whole pool without data parallelism; else the hit's rank, then
+        the others by most free blocks, lowest rank on ties, those with
+        a free row only."""
+        if self.data_ranks == 1:
+            return [(None, True)]
+        cached, shared, cow = hit
+        first = (shared[0] if shared else cow[0]) if cached else None
+        hit_rank = None if first is None else self.pool.rank_of(first)
+        order = sorted(range(self.data_ranks),
+                       key=lambda k: (k != hit_rank,
+                                      -self.pool.num_free_on(k), k))
+        return [(k, k == hit_rank) for k in order
+                if self._active_on(k) < self.rank_decode]
 
     def _hit(self, cached: int, fulls: List, tail) -> Tuple[int, List,
                                                             Optional[Tuple]]:
@@ -248,13 +300,19 @@ class Scheduler:
     def _try_admit(self, r: rq.Request, now: float) -> bool:
         if r.status == rq.SUSPENDED:
             return self._try_resume(r, now)
+        hit = self._match(r) if self.prefix_cache else (0, [], None)
+        return any(self._admit_on(r, rank, *(hit if use else (0, [], None)))
+                   for rank, use in self._ranks(hit))
+
+    def _admit_on(self, r: rq.Request, rank: Optional[int], cached: int,
+                  shared: List, cow) -> bool:
+        """Admit ``r`` with a hit of ``cached`` tokens on ``rank`` (None:
+        the whole pool), if its blocks fit there."""
         pool = self.pool
-        cached, shared, cow = (self._match(r) if self.prefix_cache
-                               else (0, [], None))
         n = self.blocks_needed(r, cached_len=cached)
         dev_shared, protect = _device_entries(shared, cow)
         if cached and not pool.can_alloc(n - len(dev_shared),
-                                         exclude=protect):
+                                         exclude=protect, rank=rank):
             # a hit can demand MORE of the pool than a cold admit: a
             # token-granularity hit shifts the chunk grid (up to one
             # extra block of padding) and its shared/COW-source blocks
@@ -264,12 +322,13 @@ class Scheduler:
             cached, shared, cow, dev_shared, protect = 0, [], None, [], []
             n = self.blocks_needed(r)
             self.reg.count("sched/hit_degraded")
-        if not pool.can_alloc(n - len(dev_shared), exclude=protect):
+        if not pool.can_alloc(n - len(dev_shared), exclude=protect,
+                              rank=rank):
             return False
         n_promote = len(shared) - len(dev_shared)
         if n_promote:
             self.reg.count("sched/promoted_blocks", float(n_promote))
-        pool.alloc_prefix(r.rid, n, shared, cow)
+        pool.alloc_prefix(r.rid, n, shared, cow, rank=rank)
         pool.lookups += 1
         pool.prompt_tokens += r.prompt_len
         if cached:
@@ -376,13 +435,18 @@ class Scheduler:
         rows = []
         budget = self.max_prefill_tokens
         g = self.token_grid
+        per_rank = [0] * self.data_ranks
         for r in self.policy.order_prefill(list(self.prefilling), now):
             if len(rows) >= self.max_prefill_rows:
                 break
+            k = self.pool.rank_of_rid(r.rid) if self.data_ranks > 1 else 0
+            if per_rank[k] >= self.rank_prefill:
+                continue                  # its rank's rows are full
             vnext = min(self.chunk_size, r.prefill_target - r.n_prefilled)
             charge = min(self.chunk_size, -(-vnext // g) * g)
             if charge > budget:
                 break
+            per_rank[k] += 1
             tok, start, vlen = r.next_chunk(self.chunk_size)
             rows.append((r, tok, start, vlen))
             budget -= charge

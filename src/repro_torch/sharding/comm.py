@@ -1,19 +1,31 @@
-"""The tensor-parallel collectives, written out (the port's own module: the
-reference has no counterpart, since GSPMD inserts its collectives).
+"""The mesh collectives, written out (the port's own module: the reference
+has no counterpart, since GSPMD inserts its collectives).
 
 Placement is explicit SPMD: one process per rank, each holding its own
 shards (``training/checkpoint.py::shard``) and computing on them; the
-collectives below, over the ``model`` axis of a ``DeviceMesh``, are the
-only places where ranks meet:
+collectives below, over one axis of a ``DeviceMesh`` (``model``,
+``data``, the FSDP group ``(pod, data)`` or the whole mesh), are the only
+places where ranks meet:
 
   * ``all_reduce``      the row-parallel partial sums (``wo``, MLP
-                        ``down``) and the vocab-parallel embedding lookup;
-  * ``all_gather``      the vocab-parallel logits, the sub-selected queries
-                        and QUOKA's (score, index) candidates;
+                        ``down``), the vocab-parallel embedding lookup and
+                        the FSDP read-out's partial logits;
+  * ``all_gather``      the vocab-parallel logits, the sub-selected queries,
+                        QUOKA's (score, index) candidates, FSDP weight
+                        shards, and a sequence-sharded cache's whole
+                        slices (for dense attention);
   * ``all_reduce_max``  the head-shared block plan's max over KV heads
                         when the KV heads are sharded;
-  * ``broadcast``       rank 0's clock, which the serving scheduler runs
-                        on, so every rank takes the same decisions.
+  * ``broadcast``       a sequence-sharded cache's selected rows, from
+                        the rank that holds them; and rank 0's clock,
+                        over the whole mesh, which the serving scheduler
+                        runs on, so every rank takes the same decisions.
+
+``axis(mesh, name)`` takes an axis name, or a tuple of names for their
+flattened product (the FSDP group ``("pod", "data")``, built with
+``dist.new_group`` by every rank in the same order; ``DeviceMesh``'s own
+flattening is private API); an axis the mesh lacks has size 1, and a
+collective over a size-1 axis returns its input without meeting anyone.
 
 Backends: NCCL when every rank has a card of its own; gloo when ranks
 share one card (``launch/mesh.py``).  gloo runs every collective used
@@ -26,15 +38,19 @@ backend refuses raises.  Compute stays where the tensors are.
 
 ``BYTES`` counts by (scope, kind), as the reference's
 ``analysis/hlo.py::collective_bytes`` counts an HLO module: an all-gather
-its result bytes, an all-reduce twice its bytes.  ``scope("score")``
-labels the collectives of a stretch of code (the scoring pass labels
-its own), the rest count under ``""``.
+its result bytes, an all-reduce twice its bytes, a broadcast its
+bytes once.  ``scope(name)`` labels
+the collectives of a stretch of code: ``score`` the scoring pass,
+``fsdp`` the weight gathers (and the embedding rows and read-out sums
+that stand in for gathering the embedding), ``seq`` a sequence-sharded
+cache's row and slice moves; the rest count under ``""``.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from collections import defaultdict
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -72,22 +88,57 @@ def _note(kind: str, nbytes: int) -> None:
 
 
 class Axis:
-    """One mesh axis as this rank sees it: its process group, size, this
-    rank's coordinate on it and the group's backend."""
+    """One mesh axis (or the flattened product of a tuple of axes) as this
+    rank sees it: its process group, size, this rank's coordinate on it,
+    the global rank of each coordinate (``ranks``; ``root`` the first)
+    and the group's backend.  An axis the mesh lacks has size 1 and no
+    group."""
 
-    def __init__(self, mesh, name: str = "model"):
+    def __init__(self, mesh, name: Union[str, Tuple[str, ...]] = "model"):
         self.mesh = mesh
         self.name = name
-        self.size = mesh_shape(mesh)[name]
-        self.group = mesh.get_group(name)
-        self.rank = mesh.get_local_rank(name)
+        shape = mesh_shape(mesh)
+        names = tuple(n for n in ((name,) if isinstance(name, str) else name)
+                      if n in shape)
+        self.size = int(math.prod(shape[n] for n in names))
+        self.group, self.rank, self.ranks = None, 0, [dist.get_rank()]
+        if len(names) == 1:
+            self.group = mesh.get_group(names[0])
+            self.rank = mesh.get_local_rank(names[0])
+            self.ranks = [dist.get_global_rank(self.group, c)
+                          for c in range(self.size)]
+        elif names:
+            self.group, self.rank, self.ranks = _flat_group(mesh, names)
+        self.root = self.ranks[0]
         self.backend = str(dist.get_backend(self.group))
 
 
-_AXES: Dict[Tuple[int, str], Axis] = {}
+def _flat_group(mesh, names):
+    """(group, coordinate, ranks) of the flattened product of ``names``
+    (in the mesh's axis order, the first major): every rank creates the
+    group of every coordinate of the other axes, in one order, and keeps
+    its own; or the default group when ``names`` span the whole world."""
+    dims = list(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    keep = [dims.index(n) for n in dims if n in names]
+    rest = [i for i in range(len(dims)) if i not in keep]
+    rows = grid.permute(*rest, *keep).reshape(-1, math.prod(
+        grid.shape[i] for i in keep)).tolist()
+    me = dist.get_rank()
+    if len(rows) == 1 and len(rows[0]) == dist.get_world_size():
+        return None, rows[0].index(me), rows[0]
+    mine = None
+    for ranks in rows:
+        g = dist.new_group(ranks)
+        if me in ranks:
+            mine = (g, ranks.index(me), ranks)
+    return mine
 
 
-def axis(mesh, name: str = "model") -> Axis:
+_AXES: Dict[Tuple[int, object], Axis] = {}
+
+
+def axis(mesh, name: Union[str, Tuple[str, ...]] = "model") -> Axis:
     key = (id(mesh), name)
     ax = _AXES.get(key)
     if ax is None or ax.mesh is not mesh:
@@ -95,7 +146,14 @@ def axis(mesh, name: str = "model") -> Axis:
     return ax
 
 
+def world(mesh) -> Axis:
+    """Every rank of ``mesh`` as one axis (the serve clock's)."""
+    return axis(mesh, tuple(mesh_shape(mesh)))
+
+
 def _reduce(x: torch.Tensor, ax: Axis, op, kind: str) -> torch.Tensor:
+    if ax.size == 1:
+        return x.clone()
     y = x.clone()
     dist.all_reduce(y, op=op, group=ax.group)
     _note(kind, 2 * y.numel() * y.element_size())
@@ -112,22 +170,42 @@ def all_reduce_max(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     return _reduce(x, ax, dist.ReduceOp.MAX, "all_reduce_max")
 
 
-def all_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+def all_gather_parts(x: torch.Tensor, ax: Axis) -> List[torch.Tensor]:
+    """Every rank's ``x`` (one shape on every rank), in rank order."""
+    if ax.size == 1:
+        return [x]
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ax.size)]
     dist.all_gather(parts, x, group=ax.group)
-    out = torch.cat(parts, dim=dim)
-    _note("all_gather", out.numel() * out.element_size())
-    return out
+    _note("all_gather", ax.size * x.numel() * x.element_size())
+    return parts
+
+
+def all_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    parts = all_gather_parts(x, ax)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def broadcast(x: torch.Tensor, ax: Axis, src: int) -> torch.Tensor:
+    """Coordinate ``src``'s ``x`` on every rank of ``ax``: every rank
+    passes a contiguous tensor of one shape and dtype, which the others'
+    receive into."""
+    if ax.size == 1:
+        return x
+    dist.broadcast(x, src=ax.ranks[src], group=ax.group)
+    _note("broadcast", x.numel() * x.element_size())
+    return x
 
 
 def broadcast_float(v: float, ax: Axis, device) -> float:
     """Rank 0's host value ``v`` on every rank: a float64 on the card for
     NCCL, in host memory for gloo."""
+    if ax.size == 1:
+        return v
     t = torch.tensor([v], dtype=torch.float64,
                      device=device if ax.backend == "nccl" else "cpu")
-    dist.broadcast(t, src=dist.get_global_rank(ax.group, 0), group=ax.group)
+    dist.broadcast(t, src=ax.root, group=ax.group)
     _note("broadcast", t.numel() * t.element_size())
     return float(t.item())
 

@@ -16,10 +16,11 @@ the reference's leading ``(repeats, ...)`` axis (``tree_shapes``).  A
 mesh is a ``torch.distributed`` ``DeviceMesh`` or anything with a
 ``shape`` mapping of axis sizes (the reference tests' ``FakeMesh``).
 
-At run time the port applies only a ``(data=1, model=M)`` mesh's
-placements (``training/checkpoint.py::shard``); the ``data`` and ``pod``
-entries are computed, as in the reference, but placing them is not yet
-ported.
+At run time ``training/checkpoint.py::shard`` applies every placement of
+a dense ``attn`` model: the ``model`` entries, then the FSDP entries (the
+embed axis over ``(pod, data)``); the serving engine places batch rows,
+pool blocks and a batch-1 cache's sequence as ``batch_spec`` and
+``cache_specs`` say.
 """
 from __future__ import annotations
 
@@ -156,9 +157,9 @@ def _axes_size(mesh, ax) -> int:
     if ax is None:
         return 1
     shape = mesh_shape(mesh)
-    if isinstance(ax, tuple):
-        return int(math.prod(shape[a] for a in ax))
-    return shape[ax]
+    names = ax if isinstance(ax, tuple) else (ax,)
+    # an axis the mesh lacks has size 1 (the reference's raises there)
+    return int(math.prod(shape.get(a, 1) for a in names))
 
 
 def _maybe(mesh, dim: int, ax):
@@ -252,5 +253,15 @@ def model_axis_entry(spec: Spec) -> Optional[int]:
     """The dimension a placement shards over ``model``, or None."""
     for i, ax in enumerate(spec):
         if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+            return i
+    return None
+
+
+def fsdp_axis_entry(spec: Spec) -> Optional[int]:
+    """The dimension a placement shards over the FSDP axes (``pod``,
+    ``data`` or both), or None."""
+    for i, ax in enumerate(spec):
+        names = ax if isinstance(ax, tuple) else (ax,)
+        if any(a in ("pod", "data") for a in names):
             return i
     return None

@@ -37,8 +37,10 @@ map also gives each parameter the rank of its reference leaf
 
 ``shard(model, mesh)`` slices every leaf, in place, by its placement
 (``sharding/specs.py::param_specs`` on these keys; a stacked leaf's
-placement without its leading repeats entry) to this rank's share of the
-mesh's ``model`` axis, and hands the blocks their layout;
+placement without its leading repeats entry) to this rank's share: its
+``model`` entry by the rank's ``model`` coordinate, then its FSDP entry
+(the embed axis) by the rank's coordinate on the flattened ``(pod,
+data)`` group, and hands the blocks and the model their layout;
 ``from_flat(..., mesh=)`` shards what it reads.  A model is drawn whole
 (``Model.init``) on every rank before it is sliced, so every rank and a
 meshless run hold the same weights.
@@ -166,15 +168,8 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for what this port does not place on a mesh yet: a ``data``
-    or ``pod`` axis larger than 1, a frontend or encoder, any block kind
-    but dense ``attn``."""
-    shape = specs.mesh_shape(mesh)
-    big = {a: n for a, n in shape.items() if a != "model" and n > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh {shape}: the data and pod axes ({big}) are not yet "
-            f"ported (tensor parallelism over 'model' only)")
+    """Raise for what this port does not place on a mesh yet: a frontend
+    or encoder, any block kind but dense ``attn``."""
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: a mesh for the {cfg.family} family's "
@@ -199,19 +194,24 @@ def shard(model: Model, mesh) -> Model:
     cfg = model.cfg
     check_mesh(cfg, mesh)
     ax = comm.axis(mesh, "model")
+    fax = comm.axis(mesh, specs.fsdp_axes(mesh) or ())
     leaves = leaf_map(model)
     placements = specs.param_specs(cfg, specs.tree_shapes(model), mesh)
     for key, (ts, stacked) in leaves.items():
-        dim = specs.model_axis_entry(placements[key][int(stacked):])
-        if dim is None:
-            continue
-        for t in ts:
-            n = t.shape[dim] // ax.size
-            t.data = t.data.narrow(dim, ax.rank * n, n).clone()
+        spec = placements[key][int(stacked):]
+        for dim, a in ((specs.model_axis_entry(spec), ax),
+                       (specs.fsdp_axis_entry(spec), fax)):
+            if dim is None or a.size == 1:
+                continue
+            for t in ts:
+                n = t.shape[dim] // a.size
+                t.data = t.data.narrow(dim, a.rank * n, n).clone()
     for blk in model.layers():
-        blk.place(ax)
+        blk.place(ax, fax)
     if model.embed.shape[0] < cfg.vocab:
         model.tp_vocab = ax
+    if fax.size > 1:
+        model.fsdp = fax
     model.mesh = mesh
     return model
 

@@ -1188,6 +1188,54 @@ def test_mesh_serving_on_the_card(dev):
         assert r["equal"] and r["backend"] == "gloo", r
 
 
+DP_SMOKE_RUNS = (("bf16 b1", "bfloat16", 1, 256),
+                 ("fp32 b2", "float32", 2, 128),
+                 ("fp32 b1", "float32", 1, 256))
+
+
+def test_dp_serving_on_the_card(dev):
+    """Smoke granite (2 layers) at ``data=2,model=2``, four ranks sharing
+    the card over gloo, through phase 34's rank body
+    (``torch_tp_cases.dp_card_case``): fp32 tokens at batch 2 (rows over
+    ``data``), at batch 1 (the sequence over ``data``, each rank holding
+    half the slots) and of a serve with a 256-token prefix hit equal the
+    card's meshless run on every rank; bf16 first-step logits within
+    0.25 of the meshless logits' largest magnitude; scoring and flash
+    launched on every layer call, selected and paged attention never (in
+    the serve too); at batch 1 a selecting call moves under a quarter of
+    the K cache's bytes, its budget rows no more than one budget."""
+    import torch_tp_cases as cases
+    from repro_torch.launch.mesh import spawn_ranks
+    args = ("granite-3-2b", 2, DP_SMOKE_RUNS, 32, 4)
+    ref = cases.dp_card_run(dev, *args, smoke=True)
+    ranks = spawn_ranks(cases.dp_card_case, 4, *args, True, device="cuda",
+                        timeout=600)
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        for label, dt, b, _ in DP_SMOKE_RUNS:
+            got, want = r[label], ref[label]
+            n = got["stack_calls"] * 2
+            assert got["launches"] == {
+                "quoka_score": n, "flash_attention": n,
+                "selected_attention": 0, "selected_attention_paged": 0}
+            assert got["slots"] * (2 if b == 1 else 1) == got["cap"]
+            if b == 1:
+                score, rows = cases.dp_moves(got)
+                assert 0 < rows <= got["budget_bytes"]
+                assert score + rows < got["k_bytes"] / 4
+            if dt == "float32":
+                assert got["tokens"] == want["tokens"], label
+            else:
+                drift = float(np.abs(got["logits"] - want["logits"]).max())
+                assert drift <= 0.25 * float(np.abs(want["logits"]).max())
+        assert r["fp32 serve"]["tokens"] == ref["fp32 serve"]["tokens"]
+        assert r["fp32 serve"]["hit_tokens"] == cases.DP_HIT
+        sl = r["fp32 serve"]["launches"]
+        assert sl["quoka_score"] > 0 and sl["flash_attention"] > 0
+        assert sl["selected_attention"] == sl["selected_attention_paged"] \
+            == 0
+
+
 MUTANT_RUNS = (("bf16 g1", "bfloat16", {}),)
 
 
@@ -1213,8 +1261,8 @@ def mutant_rank(rank, world, dev, prompt):
     cs = _chip_smoke()
     qkv = AttnBlock._qkv
 
-    def reversed_kv(self, x, pos):
-        q, k, v = qkv(self, x, pos)
+    def reversed_kv(self, x, pos, w):
+        q, k, v = qkv(self, x, pos, w)
         if self.heads is not None:
             k, v = k.flip(2), v.flip(2)
         return q, k, v

@@ -145,14 +145,16 @@ def test_mesh_spec_errors_match_reference():
 
 
 def test_refusals_without_ranks():
-    """What raises before any rank meets: a data axis, the MLA latent
-    pool, the modality families and the other block kinds on a mesh."""
+    """What raises before any rank meets: the MLA latent pool, the
+    modality families and the other block kinds on a mesh, a data axis
+    among them; a dense ``attn`` model places on a data axis."""
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import Engine
     from repro_torch.serving.pool import PagedKVCache
     pm = build_model(get_config("granite-3-2b").smoke(), "cpu")
+    ckpt.check_mesh(pm.cfg, FakeMesh({"data": 2, "model": 1}))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        Engine(pm, device="cpu", mesh=FakeMesh({"data": 2, "model": 1}))
+        ckpt.shard(Model(get_config("olmoe-1b-7b").smoke(), device="meta"),
+                   FakeMesh({"data": 2, "model": 1}))
     ds = build_model(get_config("deepseek-v3-671b").smoke(), "cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         PagedKVCache(ds, 8, 16, mesh=FakeMesh({"model": 2}))
@@ -255,7 +257,8 @@ def world4(granite_ref):
 def test_tp_plan_candidates_equal_reference_plan(world4):
     _, plan, _, want = world4
     for (ids, routes, nbytes), w in zip(plan, want):
-        assert routes == {"t_local": 1, "replicated": 0, "kv_heads": 0}
+        assert routes == {"t_local": 1, "replicated": 0, "kv_heads": 0,
+                          "seq": 0, "seq_t_local": 0}
         np.testing.assert_array_equal(ids, w)
 
 
@@ -298,8 +301,11 @@ def test_model4_tokens_equal_meshless_and_reference(world4, granite_ref,
 
 def test_mesh_refusals_on_ranks(world4):
     msgs = world4[2]
+    # a data axis serves (the engine was built); a preempting policy on
+    # it is what is refused
     assert msgs["data2"][0] == "NotImplementedError"
     assert "not yet ported" in msgs["data2"][1]
+    assert "preempting scheduling policy (slo)" in msgs["data2"][1]
     assert msgs["registry"] == ("NotImplementedError", msgs["registry"][1])
     assert "registry" in msgs["registry"][1]
     assert "not yet ported" in msgs["method"][1]

@@ -1,8 +1,9 @@
-"""Rank bodies of the port's tensor-parallel checks, run by
-``launch/mesh.py::spawn_ranks`` from ``tests/test_torch_sharding.py`` (on
-the CPU, gloo) and ``tests/test_torch_cuda.py`` (ranks sharing the card).
-This module imports neither ``jax`` nor the reference package: the
-reference's weights and expected outputs arrive as numpy arguments."""
+"""Rank bodies of the port's mesh checks, run by
+``launch/mesh.py::spawn_ranks`` from ``tests/test_torch_sharding.py`` and
+``tests/test_torch_dp.py`` (on the CPU, gloo), ``tests/test_torch_cuda.py``
+and ``chip_smoke.py`` (ranks sharing the card).  This module imports
+neither ``jax`` nor the reference package: the reference's weights and
+expected outputs arrive as numpy arguments."""
 import dataclasses
 
 import numpy as np
@@ -31,13 +32,17 @@ def _models(cfg, flat, dev, mesh):
 
 
 def serve_case(rank, world, dev, arch, over, flat, prompts, quoka=None,
-               new=GEN_NEW):
+               new=GEN_NEW, spec=None, meshless=True):
     """generate (two prompts, ``new`` new tokens), a serve trace and the same
     trace again over the warm pool, meshless and on a ``model=world``
-    mesh, for ``full`` and ``quoka``.  Returns every token array, the
-    scoring routes, the scoring collectives' bytes per T-local call
-    beside the K cache's bytes per layer call, and whether every sharded
-    leaf reassembles to the meshless model's."""
+    mesh (or the mesh ``spec``), for ``full`` and ``quoka``.  Returns
+    every token array, the scoring routes, the scoring collectives' bytes
+    per T-local call beside the K cache's bytes per layer call, whether
+    every sharded leaf reassembles to the meshless model's, the parameter
+    bytes this rank holds beside what its placements give it (before and
+    after serving), and the FSDP gathers' bytes and the layer stacks'
+    calls of the mesh ``generate``.  ``meshless=False`` leaves the
+    meshless runs to the caller."""
     torch.set_num_threads(1)
     from repro_torch.core import quoka as qk
     from repro_torch.launch.mesh import make_host_mesh, mesh_from_spec
@@ -45,8 +50,8 @@ def serve_case(rank, world, dev, arch, over, flat, prompts, quoka=None,
     from repro_torch.serving.request import make_requests
     from repro_torch.sharding import comm
     from repro_torch.training.checkpoint import leaf_map
-    mesh = make_host_mesh(model=world) if dev.type == "cpu" else \
-        mesh_from_spec(f"model={world}", dev)
+    mesh = make_host_mesh(model=world) if dev.type == "cpu" and not spec \
+        else mesh_from_spec(spec or f"model={world}", dev)
     cfg = port_cfg(arch, over, quoka)
     out = {"backend": comm.axis(mesh).backend}
     toks = np.stack([prompts[1], prompts[1][::-1].copy()])
@@ -56,8 +61,11 @@ def serve_case(rank, world, dev, arch, over, flat, prompts, quoka=None,
         eng = Engine(shd, method=method, device=dev, mesh=mesh)
         if method == "full":
             out["reassembled"] = _reassembled(full, shd, mesh, leaf_map)
-        out[f"{method}/generate"] = ref.generate(ref.pad_prompt(toks),
-                                                 new).tokens
+            out["param_bytes"] = param_bytes(full, shd, mesh)
+        calls = _count_calls(shd)
+        if meshless:
+            out[f"{method}/generate"] = ref.generate(ref.pad_prompt(toks),
+                                                     new).tokens
         for k in list(qk.ROUTES):
             qk.ROUTES[k] = 0
         comm.reset_counts()
@@ -65,36 +73,206 @@ def serve_case(rank, world, dev, arch, over, flat, prompts, quoka=None,
             eng.pad_prompt(toks), new).tokens
         out[f"{method}/routes"] = dict(qk.ROUTES)
         out[f"{method}/score_bytes"] = comm.bytes_by_kind("score")
-        reqs = make_requests(prompts, 5)
-        out[f"{method}/serve"] = ref.serve(reqs, **SERVE_KW).tokens
+        out[f"{method}/fsdp_bytes"] = comm.bytes_by_kind("fsdp")
+        out[f"{method}/stack_calls"] = calls[0]
+        if meshless:
+            out[f"{method}/serve"] = ref.serve(make_requests(prompts, 5),
+                                               **SERVE_KW).tokens
         st = eng.make_serve_state(make_requests(prompts, 5), **SERVE_KW)
         out[f"{method}/serve_mesh"] = eng.serve(make_requests(prompts, 5),
                                                 state=st).tokens
         out[f"{method}/serve_hit"] = eng.serve(make_requests(prompts, 5),
                                                state=st).tokens
         out[f"{method}/cache_hits"] = eng.stats["cache_hits"]
+        out[f"{method}/pool_blocks"] = (st.pool.local_blocks,
+                                        st.pool.num_blocks)
+        if method == "full":
+            out["param_bytes_after"] = param_bytes(full, shd, mesh)[0]
     hd = cfg.resolved_head_dim
     cap = toks.shape[1] + new
     out["k_bytes"] = toks.shape[0] * cap * cfg.n_kv_heads * hd * 4
     return out
 
 
+def _placed(full, mesh):
+    """(flat key -> its placement without a stacked leaf's repeats entry,
+    the model axis, the FSDP axis)."""
+    from repro_torch.sharding import comm, specs
+    from repro_torch.training.checkpoint import leaf_map
+    place = specs.param_specs(full.cfg, specs.tree_shapes(full), mesh)
+    spec = {k: place[k][int(stacked):]
+            for k, (_, stacked) in leaf_map(full).items()}
+    return spec, comm.axis(mesh), comm.axis(mesh, specs.fsdp_axes(mesh)
+                                            or ())
+
+
 def _reassembled(full, shd, mesh, leaf_map):
-    """Every leaf of the sharded model, gathered over the model axis
-    where it was sliced, equals the meshless model's."""
-    from repro_torch.sharding import comm
-    ax = comm.axis(mesh)
+    """Every leaf of the sharded model, gathered over the FSDP and model
+    axes where its placement cut it, equals the meshless model's."""
+    from repro_torch.sharding import comm, specs
+    spec, ax, fax = _placed(full, mesh)
     fl, sl = leaf_map(full), leaf_map(shd)
     for key, (fts, _) in fl.items():
         for ft, st in zip(fts, sl[key][0]):
-            if ft.shape != st.shape:
-                dim = next(i for i, (a, b) in enumerate(zip(ft.shape,
-                                                            st.shape))
-                           if a != b)
-                st = comm.all_gather(st, ax, dim)
+            for dim, a in ((specs.fsdp_axis_entry(spec[key]), fax),
+                           (specs.model_axis_entry(spec[key]), ax)):
+                if dim is not None and a.size > 1:
+                    st = comm.all_gather(st, a, dim)
             if not torch.equal(ft, st):
                 return False
     return True
+
+
+def param_bytes(full, shd, mesh):
+    """(parameter bytes the sharded model holds, the bytes its
+    placements give this rank: each leaf over the sizes of the axes that
+    cut it, the whole model's bytes)."""
+    from repro_torch.sharding import specs
+    from repro_torch.training.checkpoint import leaf_map
+    spec, ax, fax = _placed(full, mesh)
+    held = sum(p.numel() * p.element_size() for p in shd.parameters())
+    want = whole = 0
+    for key, (ts, _) in leaf_map(full).items():
+        n = sum(t.numel() * t.element_size() for t in ts)
+        whole += n
+        for dim, a in ((specs.fsdp_axis_entry(spec[key]), fax),
+                       (specs.model_axis_entry(spec[key]), ax)):
+            if dim is not None:
+                n //= a.size
+        want += n
+    return held, want, whole
+
+
+def _count_calls(model):
+    """A one-element list counting ``model``'s layer-stack passes."""
+    calls, inner = [0], model._apply_stacks
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    model._apply_stacks = counted
+    return calls
+
+
+def seq_case(rank, world, dev, spec, arch, over, flat, prompt, method,
+             quoka=None, new=GEN_NEW, record=False, meshless=True):
+    """A batch-1 ``generate`` of ``prompt`` (tokens) meshless and on the
+    mesh ``spec``, whose cache capacity the ``data`` axis divides, so the
+    cache's sequence splits over ``data``.  Returns both token arrays,
+    the scoring routes, the selecting calls' ``score`` and ``seq`` bytes
+    (and all bytes by scope), the slots each layer's cache holds here and
+    the capacity; with ``record``, every selecting layer call's inputs
+    (whole, gathered under a scope of their own) and plan ids of the
+    measured run, from rank 0 (the plans are equal on every rank).
+    ``meshless=False`` leaves the meshless run to the caller."""
+    torch.set_num_threads(1)
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import quoka as qk
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, over, quoka)
+    full, shd = _models(cfg, flat, dev, mesh)
+    toks = prompt[None]
+    ref = Engine(full, method=method, device=dev)
+    eng = Engine(shd, method=method, device=dev, mesh=mesh)
+    out = {"generate": ref.generate(ref.pad_prompt(toks), new).tokens
+           if meshless else None}
+    caches, records, runs = [], [], [0]
+    init_cache, prefill, build = (shd.init_cache, shd.prefill,
+                                  plan_mod.build)
+
+    def init(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
+    def pre(*a, **kw):
+        runs[0] += 1
+        return prefill(*a, **kw)
+
+    def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
+            q_valid=None, heads=None, seq=None):
+        pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
+                    q_valid=q_valid, heads=heads, seq=seq)
+        if record and runs[0] == 2 and seq is not None:
+            with comm.scope("record"):
+                if heads.heads_sharded:
+                    q = comm.all_gather(q, heads.ax, 2)
+                idx = pln.idx
+                if heads.kv_sharded and idx.ndim == 3:
+                    idx = comm.all_gather(idx, heads.ax, 1)
+                whole = [comm.all_gather(x, seq.ax, 1) for x in (k, key_pos)]
+                if heads.kv_sharded:
+                    whole[0] = comm.all_gather(whole[0], heads.ax, 2)
+            if rank == 0:
+                records.append(dict(
+                    q=q.numpy(), k=whole[0].numpy(), key_pos=whole[1].numpy(),
+                    chunk_start=int(chunk_start), budget=budget,
+                    q_valid=None if q_valid is None else q_valid.numpy(),
+                    idx=idx.numpy()))
+        return pln
+
+    shd.init_cache, shd.prefill, plan_mod.build = init, pre, rec
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    comm.reset_counts()
+    try:
+        out["generate_mesh"] = eng.generate(eng.pad_prompt(toks), new).tokens
+    finally:
+        plan_mod.build = build
+    kv = caches[-1][0][0]
+    out.update(routes=dict(qk.ROUTES), records=records,
+               bytes={s: comm.bytes_by_kind(s)
+                      for s in ("score", "seq", "fsdp", "")},
+               slots=[c.k.shape[1] for st in caches[-1] for c in st],
+               cap=kv.capacity, k_bytes=kv.capacity * cfg.n_kv_heads
+               * cfg.resolved_head_dim * kv.k.element_size(),
+               budget_bytes=_budget_bytes(kv, cfg.quoka))
+    return out
+
+
+def _budget_bytes(kv, qcfg):
+    """The bytes of one selection budget's K, V and position rows of the
+    KV heads the sequence-sharded cache ``kv`` holds here."""
+    from repro_torch.core import plan as plan_mod
+    b, _, n_kv, hd = kv.k.shape
+    row = 2 * hd * kv.k.element_size() + kv.pos.element_size()
+    return plan_mod.resolve_budget(qcfg, kv.capacity) * b * n_kv * row
+
+
+def gen_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
+             meshless=True):
+    """``generate`` of the batch ``toks`` for ``full`` and ``quoka``,
+    meshless (unless ``meshless`` is False) and on the mesh ``spec``:
+    {method: (meshless or None, mesh)}."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.serving.engine import Engine
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, over)
+    out = {}
+    for method in ("full", "quoka"):
+        full, shd = _models(cfg, flat, dev, mesh)
+        ref = Engine(full, method=method, device=dev)
+        eng = Engine(shd, method=method, device=dev, mesh=mesh)
+        out[method] = (ref.generate(ref.pad_prompt(toks), new).tokens
+                       if meshless else None,
+                       eng.generate(eng.pad_prompt(toks), new).tokens)
+    return out
+
+
+def dp_world(rank, world, dev, runs):
+    """One spawn of ``tests/test_torch_dp.py``: each (name, case, args)
+    of ``runs`` (``serve_case``, ``seq_case`` or ``gen_case`` by name,
+    with these positional arguments after the rank's own), in order.
+    Returns {name: result}."""
+    cases = {"serve": serve_case, "seq": seq_case, "gen": gen_case}
+    out = {}
+    for name, case, args, kw in runs:
+        out[name] = cases[case](rank, world, dev, *args, **kw)
+    return out
 
 
 def plan_case(rank, world, dev, cases):
@@ -126,9 +304,10 @@ def plan_case(rank, world, dev, cases):
 
 
 def refusal_case(rank, world, dev, arch):
-    """What a real mesh still refuses: a ``data=2`` mesh (world 4),
-    ``registry=`` with a mesh, a method other than full / quoka, and the
-    host tier on a mesh.  Returns the messages."""
+    """What a real mesh still refuses: on a ``data=2`` mesh (world 4),
+    which now serves, a preempting scheduling policy; ``registry=`` with a
+    mesh, a method other than full / quoka, and the host tier on a mesh.
+    Returns the messages."""
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
@@ -144,9 +323,12 @@ def refusal_case(rank, world, dev, arch):
         except (NotImplementedError, ValueError) as e:
             msgs[name] = (type(e).__name__, str(e))
 
+    from repro_torch.serving.request import make_requests
     dp = make_host_mesh(model=2, data=2)
-    grab("data2", lambda: Engine(build_model(cfg, dev), device=dev,
-                                 mesh=dp))
+    dpe = Engine(build_model(cfg, dev), device=dev, mesh=dp)
+    grab("data2", lambda: dpe.make_serve_state(
+        make_requests([np.arange(3, 19, dtype=np.int32)], 2),
+        policy="slo", **SERVE_KW))
     mp = make_host_mesh(model=4)
     grab("registry", lambda: Engine(build_model(cfg, dev), device=dev,
                                     mesh=mp, registry=Registry()))
@@ -196,3 +378,157 @@ def dying_case(rank, world, dev):
     if rank == 1:
         os._exit(3)
     return rank
+
+
+# ---------------------------------------------------------------------------
+# data parallelism on the card (``chip_smoke.py`` phase 34 and
+# ``tests/test_torch_cuda.py::test_dp_serving_on_the_card``)
+# ---------------------------------------------------------------------------
+
+DP_SPEC = "data=2,model=2"
+DP_HIT = 256                    # the serve's shared prefix (2 blocks of 128)
+
+
+def _launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quoka_score as qs
+    from repro_torch.kernels import selected_attention as sa
+    return {"quoka_score": qs.LAUNCHES, "flash_attention": fa.LAUNCHES,
+            "selected_attention": sa.LAUNCHES,
+            "selected_attention_paged": sa.PAGED_LAUNCHES}
+
+
+def _zero_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quoka_score as qs
+    from repro_torch.kernels import selected_attention as sa
+    qs.LAUNCHES = fa.LAUNCHES = sa.LAUNCHES = sa.PAGED_LAUNCHES = 0
+
+
+def dp_card_run(dev, arch, layers, runs, budget, new, mesh=None,
+                smoke=False):
+    """``arch`` at its published width (its smoke config with ``smoke``)
+    cut in depth to ``layers``, from seed 0, selection
+    budget ``budget``, meshless (``mesh`` None) or on one rank of
+    ``mesh``: for each (label, dtype, batch, prompt) of ``runs`` one
+    ``generate`` of ``new`` tokens with QUOKA (a first call on a geometry
+    warms it inside), the counts set to 0 just before it; and an fp32
+    ``serve`` of a 512-token request, then one sharing its first
+    ``DP_HIT`` tokens, on one warm pool (block 128, two decode rows).
+    Returns per run: tokens, first-step logits, kernel launches, layer
+    stack passes, scoring routes, collective bytes by scope, peak GiB,
+    the slots and K bytes each layer's cache holds here, the whole K
+    cache's bytes, a budget's row bytes (sequence-sharded caches), the
+    parameter bytes held, TTFT; and the serve's tokens, hit and kernel
+    launches (the counts set to 0 just before it)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import quoka as qk
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    from repro_torch.sharding import comm
+    base = get_config(arch)
+    base = dc.replace(base.smoke() if smoke else base, n_layers=layers)
+    base = dc.replace(base, quoka=dc.replace(base.quoka, budget=budget))
+    cuda = dev.type == "cuda"
+    out, model, eng = {}, None, None
+    for label, dt, b, prompt in runs:
+        cfg = dc.replace(base, dtype=getattr(torch, dt))
+        if model is None or model.cfg.dtype != cfg.dtype:
+            model = eng = None          # the previous model freed first
+            if cuda:
+                torch.cuda.empty_cache()
+            model = build_model(cfg, dev, seed=0)
+        eng = Engine(model, method="quoka", device=dev, mesh=mesh)
+        toks = np.random.default_rng(b).integers(
+            3, cfg.vocab, (b, prompt)).astype(np.int32)
+        caches, firsts = [], []
+        calls = _count_calls(model)
+        init_cache, prefill = model.init_cache, model.prefill
+
+        def init(*a, **kw):
+            caches.append(init_cache(*a, **kw))
+            return caches[-1]
+
+        def pre(*a, **kw):
+            r = prefill(*a, **kw)
+            firsts.append(r[0][:b].float().cpu().numpy())
+            return r
+
+        model.init_cache, model.prefill = init, pre
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        comm.reset_counts()
+        for key in qk.ROUTES:
+            qk.ROUTES[key] = 0
+        try:
+            r = eng.generate({"tokens": toks}, new)
+        finally:
+            del model.init_cache, model.prefill, model._apply_stacks
+        kv = caches[-1][0][0]
+        out[label] = dict(
+            tokens=r.tokens.tolist(), logits=firsts[-1], ttft_s=r.ttft_s,
+            launches=_launches(), stack_calls=calls[0],
+            routes=dict(qk.ROUTES),
+            bytes={s or "other": comm.bytes_by_kind(s)
+                   for s in ("fsdp", "seq", "score", "")},
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else None,
+            slots=kv.k.shape[1], cap=kv.capacity,
+            k_slice_bytes=kv.k.numel() * kv.k.element_size(),
+            k_bytes=kv.capacity * b * cfg.n_kv_heads * cfg.resolved_head_dim
+            * kv.k.element_size(),
+            budget_bytes=_budget_bytes(kv, cfg.quoka)
+            if kv.seq is not None else None,
+            param_bytes=sum(p.numel() * p.element_size()
+                            for p in model.parameters()))
+    cfg = dc.replace(base, dtype=torch.float32)
+    if model is None or model.cfg.dtype != torch.float32:
+        model = eng = None
+        if cuda:
+            torch.cuda.empty_cache()
+        model = build_model(cfg, dev, seed=0)
+    model.cfg = dc.replace(cfg, quoka=dc.replace(cfg.quoka, granularity=16))
+    rng = np.random.default_rng(5)
+    a = rng.integers(3, cfg.vocab, (512,)).astype(np.int32)
+    c = np.concatenate([a[:DP_HIT], rng.integers(3, cfg.vocab, (128,))
+                        .astype(np.int32)])
+    eng = Engine(model, method="quoka", device=dev, mesh=mesh)
+    st = eng.make_serve_state(make_requests([a, c], 4), block_size=128,
+                              max_decode_batch=2)
+    _zero_launches()
+    s1 = eng.serve(make_requests([a], 4), state=st)
+    s2 = eng.serve(make_requests([c], 4), state=st)
+    out["fp32 serve"] = dict(
+        tokens=[s1.tokens[0].tolist(), s2.tokens[0].tolist()],
+        hit_tokens=float(eng.stats["hit_tokens"]),
+        pool_blocks=(st.pool.local_blocks, st.pool.num_blocks),
+        launches=_launches())
+    return out
+
+
+def dp_moves(run):
+    """A sequence-sharded run's (scoring bytes, budget-row bytes) per
+    selecting layer call, from ``dp_card_run``'s record."""
+    calls = run["routes"]["seq"] + run["routes"]["seq_t_local"]
+    return tuple(sum(run["bytes"][sc].values()) / calls
+                 for sc in ("score", "seq"))
+
+
+def dp_card_case(rank, world, dev, arch, layers, runs, budget, new,
+                 smoke=False):
+    """One rank of ``dp_card_run`` on the ``DP_SPEC`` mesh, ranks sharing
+    the card over gloo (or the CPU)."""
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(DP_SPEC, dev)
+    out = dp_card_run(dev, arch, layers, runs, budget, new, mesh=mesh,
+                      smoke=smoke)
+    out["backend"] = comm.axis(mesh).backend
+    if dev.type == "cuda":
+        out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out

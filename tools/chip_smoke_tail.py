@@ -1,0 +1,34 @@
+"""``chip_smoke.py``'s ``main()`` of the tree at ROOT from phase 14 on.
+
+Phases 14-34 need only the kernels' build from what comes before them,
+so this skips phases 1-13 (about 40% of a whole run) and stops before the
+kernel line, which reads them.  Phase 16 runs PASSES times (default 1).
+A development check on the card, not a substitute for the whole script:
+
+    python3 tools/chip_smoke_tail.py ROOT [PASSES]
+"""
+import inspect, os, sys, textwrap
+
+
+def main(root, passes=1):
+    sys.path.insert(0, root); sys.path.insert(0, os.path.join(root, "src"))
+    import chip_smoke as cs
+    src = textwrap.dedent(inspect.getsource(cs.main))
+    a = src.index('    log("== phase 1: build")')
+    b = src.index('    llama, oneshot = phase_oneshot(')
+    c = src.index('    launches = {"quoka_score"')
+    head = '    build.library()\n    timing = {"flash_attention": {}}\n'
+    mid = src[b:c].replace(
+        "    tier = phase_host_tier(torch, np, K, llama)\n",
+        "    tier = phase_host_tier(torch, np, K, llama)\n"
+        f"    for _ in range({passes - 1}):\n"
+        "        phase_host_tier(torch, np, K, llama)\n")
+    tail = '    log(f"phase wall times (s): {json.dumps(phase_walls())}")\n' \
+           '    return 0\n'
+    ns = dict(vars(cs))
+    exec(compile(src[:a] + head + mid + tail, "main_tail", "exec"), ns)
+    return ns["main"]()
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], *(int(x) for x in sys.argv[2:3])))
