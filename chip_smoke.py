@@ -271,7 +271,28 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      budget-row bytes under a quarter of the K cache's (the CPU tests'
      bound) and its budget rows no more than one budget's K, V and
      positions of the rank's heads; per-rank peak against the meshless
-     peak, the phase's wall time.
+     peak, the phase's wall time;
+ 35. expert-parallel MoE and MLA on the mesh (after phase 34), ranks
+     sharing the card over gloo through ``tests/torch_tp_cases.py::
+     ep_card_case`` against the card's meshless run of the same body,
+     budget 256, at full width cut in depth (``EP_CASES``): olmoe-1b-7b
+     at ``model=2`` (32 of its 64 experts a rank) in fp32 and bf16, prompt
+     1024, and at ``data=2,model=2`` in fp32 at batch 2, prompt 512 (rows
+     over ``data``; the experts' FSDP shards gathered per layer call);
+     deepseek-v3 at phase 18's cut at ``model=2`` in bf16, prompt 1024
+     (the meshless run first and freed, the ranks drawing in turns), then
+     a latent-pool serve with a 256-token prefix hit.  Every rank returns
+     the same tokens; fp32 tokens equal the meshless run's and bf16
+     first-step logits stay within 0.25 of their largest magnitude; each
+     MoE call's dropped pairs (the rows' ranks' masks in FSDP order)
+     equal the meshless call's; scoring and flash launch once a layer
+     call (deepseek: every call on the T-local route, each rank scoring
+     half the latent, flash on its 64 heads), selected and paged never;
+     each rank's first scoring and flash calls are held to their plain
+     versions on their own inputs; prints dropped pairs per MoE call,
+     ``ep`` bytes per MoE call, ``score`` bytes per selecting call,
+     ``fsdp`` bytes per pass beside the held expert bytes, per-rank peak
+     and the phase's wall time.
 
 Every phase header line carries the script's elapsed time, and a line
 before the last three gives each phase's wall time.
@@ -3571,6 +3592,232 @@ def phase_dp(torch, np, K, card, dev):
     return out
 
 
+# phase 35: expert-parallel MoE and MLA on the mesh, ranks sharing the one
+# card over gloo, budget 256 (phase 33's).  Widths are the configs'; depth
+# is cut for the phase's 150 s: olmoe-1b-7b to EP_MOE_LAYERS of 16 at
+# ``model=2`` and to EP_DP_LAYERS at ``data=2,model=2`` (every layer call
+# all-gathers its rank's 32 experts' FSDP shards through host memory: an
+# fp32 layer's 805 MB); deepseek-v3 at phase 18's cut (3 mla + 1 mla_moe)
+# in bf16 only: two ranks' fp32 shards of even a 2-layer cut (~29 GB
+# each) beside one rank's whole fp32 draw (~58 GB) do not fit the card,
+# so deepseek's fp32 tokens are held on the CPU (tests/test_torch_ep.py)
+EP_BUDGET = MESH_BUDGET
+EP_NEW = 8
+EP_MOE_LAYERS = 4
+EP_DP_LAYERS = 2
+EP_DP_NEW = 4
+# (label, arch, spec, config cut, runs: (label, dtype, batch, prompt), new,
+# serve, ranks draw in turns, meshless beside the ranks)
+# In bf16 a changed summation order moves a near-tie router choice now
+# and then, and at the configs' capacity factor 1.25 (olmoe drops about
+# 30% of a chunk's pairs) each moved choice shifts the ranks of the later
+# pairs of two experts, so other pairs drop: the first step's logits then
+# drift by more than the summation order alone moves them.  So a bf16
+# run at the configs' capacity is reported, and its no-drop twin
+# (capacity factor E / k: no expert can overflow) is held within
+# MESH_BF16_DRIFT; fp32 runs hold tokens and every dropped pair.
+EP_NODROP = {"olmoe-1b-7b": {"capacity_factor": 8.0},
+             "deepseek-v3-671b": {"capacity_factor": 32.0}}
+EP_CASES = (
+    ("olmoe model=2", "olmoe-1b-7b", "model=2",
+     {"n_layers": EP_MOE_LAYERS},
+     (("fp32", "float32", 1, 1024, {}), ("bf16", "bfloat16", 1, 1024, {}),
+      ("bf16 no-drop", "bfloat16", 1, 1024, EP_NODROP["olmoe-1b-7b"])),
+     EP_NEW, False, False, True),
+    ("olmoe data=2,model=2", "olmoe-1b-7b", "data=2,model=2",
+     {"n_layers": EP_DP_LAYERS}, (("fp32 b2", "float32", 2, 512, {}),),
+     EP_DP_NEW, False, False, True),
+    ("deepseek-v3 model=2", "deepseek-v3-671b", "model=2",
+     {"n_layers": 4, "layer_groups": DEEPSEEK_LAYERS},
+     (("bf16", "bfloat16", 1, 1024, {}),
+      ("bf16 no-drop", "bfloat16", 1, 1024,
+       EP_NODROP["deepseek-v3-671b"])), EP_NEW, True, True, False))
+
+
+def ep_check(np, cfg, case, label, dt, runs, want, rows, hold_drift):
+    """Phase 35's checks of one run on every rank against the meshless
+    ``want`` (module docstring); ``rows`` are the runs of the ranks that
+    split the batch's rows, in FSDP order (one rank when every rank runs
+    every row); ``hold_drift``: a bf16 run whose first-step drift is held
+    (``EP_NODROP``).  Returns its row."""
+    n_layers = cfg.n_layers
+    n_moe = sum(k.endswith("_moe") for k in cfg.layer_kinds())
+    r0 = runs[0]
+    n = r0["stack_calls"] * n_layers
+    route = "t_local" if cfg.mla is not None else "kv_heads"
+    for i, run in enumerate(runs):
+        tag = f"phase 35 {case} {label} rank {i}"
+        if run["tokens"] != r0["tokens"]:
+            raise AssertionError(f"{tag}: tokens differ from rank 0's")
+        if run["launches"] != {
+                "quoka_score": n, "flash_attention": n,
+                "selected_attention": 0, "selected_attention_paged": 0}:
+            raise AssertionError(f"{tag}: launches {run['launches']}, "
+                                 f"{n} layer calls")
+        if run["routes"][route] != n or sum(run["routes"].values()) != n:
+            raise AssertionError(f"{tag}: routes {run['routes']}, want {n} "
+                                 f"{route}")
+        if len(run["drops"]) != r0["stack_calls"] * n_moe:
+            raise AssertionError(f"{tag}: {len(run['drops'])} MoE calls")
+        for name, c in run["checked"].items():
+            shapes = " ".join(f"{k} {v}" for k, v in c["shapes"].items())
+            check(f"{case} {label} rank {i} {name} {shapes}", c["err"],
+                  c["tol"], "the run's first call with a selectable key, "
+                  "card vs plain")
+    # each MoE call's dropped pairs: held equal in fp32; in bf16 the
+    # ranks' changed summation order may move a near-tie router choice
+    mesh_drops, same = [], True
+    for c, d in enumerate(want["drops"]):
+        got = np.concatenate([r["drops"][c] for r in rows])
+        mesh_drops.append(int(got.sum()))
+        same = same and np.array_equal(got, d)
+        if dt == "float32" and not np.array_equal(got, d):
+            raise AssertionError(f"phase 35 {case} {label}: MoE call {c} "
+                                 f"drops {int(got.sum())} pairs, meshless "
+                                 f"{int(d.sum())} (or others)")
+    dlog = max(float(np.abs(r["logits"] - want["logits"]).max())
+               for r in runs)
+    scale = float(np.abs(want["logits"]).max())
+    equal = r0["tokens"] == want["tokens"]
+    if dt == "float32" and not equal:
+        raise AssertionError(f"phase 35 {case} {label}: tokens "
+                             f"{r0['tokens']} != meshless {want['tokens']}")
+    if hold_drift and dlog > MESH_BF16_DRIFT * scale:
+        raise AssertionError(f"phase 35 {case} {label}: first-step logits "
+                             f"{dlog:.4g} from meshless, over "
+                             f"{MESH_BF16_DRIFT} x {scale:.4g}")
+    calls = r0["stack_calls"]
+    per_moe = {k: v / max(1, calls * n_moe)
+               for k, v in r0["bytes"]["ep"].items()}
+    per_sel = {k: v / n for k, v in r0["bytes"]["score"].items()}
+    per_pass = {k: v / calls for k, v in r0["bytes"]["fsdp"].items()}
+    drops = [int(d.sum()) for d in want["drops"]]
+    row = dict(tokens_equal=equal, max_logit_diff=dlog, max_abs_logit=scale,
+               launches_per_rank=r0["launches"], stack_calls=calls,
+               routes=r0["routes"], ep_bytes_per_moe_call=per_moe,
+               score_bytes_per_selecting_call=per_sel,
+               fsdp_bytes_per_pass=per_pass,
+               drops_per_moe_call=drops, mesh_drops_per_moe_call=mesh_drops,
+               drops_equal=same, drift_held=hold_drift or dt == "float32",
+               experts_held=r0["experts_held"],
+               expert_bytes=r0["expert_bytes"],
+               meshless_expert_bytes=want["expert_bytes"],
+               param_bytes=r0["param_bytes"],
+               meshless_param_bytes=want["param_bytes"],
+               run_peak_gib=[r["peak_gib"] for r in runs],
+               meshless_run_peak_gib=want["peak_gib"],
+               checked=[r["checked"] for r in runs],
+               ttft_s=[r["ttft_s"] for r in runs],
+               meshless_ttft_s=want["ttft_s"])
+    held = "held" if hold_drift or dt == "float32" else "reported"
+    log(f"  {case} {label}: tokens {'equal' if equal else 'differ'}, max "
+        f"first-step logit diff {dlog:.4g} = {dlog / scale:.4f} of the "
+        f"largest {scale:.4g} ({held}); "
+        f"launches/rank {n} + {n} = {calls} passes x {n_layers}, routes "
+        f"{r0['routes']}; experts held {r0['experts_held']}")
+    log(f"    dropped pairs per MoE call ({len(drops)} calls; the pairs "
+        f"{'equal' if same else 'differ'} on the mesh): meshless total "
+        f"{sum(drops)}, first {drops[:8]}; mesh total {sum(mesh_drops)}; ep "
+        f"bytes per MoE call { {k: round(v) for k, v in per_moe.items()} }; "
+        f"score bytes per selecting call "
+        f"{ {k: round(v) for k, v in per_sel.items()} }")
+    log(f"    fsdp bytes per pass { {k: round(v) for k, v in per_pass.items()} }"
+        f"; expert weights held {r0['expert_bytes']} B of "
+        f"{want['expert_bytes']}; params held {r0['param_bytes']} B of "
+        f"{want['param_bytes']}; run peak/rank "
+        f"{[round(r['peak_gib'], 2) for r in runs]} GiB vs meshless "
+        f"{want['peak_gib']:.2f}")
+    return row
+
+
+def phase_ep(torch, np, K, card, dev):
+    """Phase 35: expert-parallel MoE and MLA on the mesh (``EP_CASES``),
+    ranks sharing the card over gloo, through ``tests/torch_tp_cases.py::
+    ep_card_case``, against the card's meshless run of the same body
+    (``ep_card_run``): beside the ranks for olmoe, before them (and freed)
+    for deepseek-v3, whose ranks draw their whole models in turns.  Holds
+    every rank to it (``ep_check``), deepseek's latent-pool serve to its
+    prefix hit and launches, and returns the phase's numbers and the
+    largest kernel-vs-plain error per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tp_cases as cases
+    log(f"== phase 35: expert-parallel MoE and MLA on the mesh, ranks "
+        f"sharing the card over gloo, budget {EP_BUDGET} [{card}]")
+    t0 = time.perf_counter()
+    out, errs = {}, {"quoka_score": 0.0, "flash_attention": 0.0}
+    for case, arch, spec, cut, runs, new, serve, turns, beside in EP_CASES:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        world = math.prod(int(x.split("=")[1]) for x in spec.split(","))
+        t1 = time.perf_counter()
+        args = (arch, cut, runs, EP_BUDGET, new)
+        with ThreadPoolExecutor(1) as pool:
+            if beside:
+                fut = pool.submit(spawn_ranks, cases.ep_card_case, world,
+                                  spec, *args, serve, turns, device="cuda",
+                                  timeout=600)
+            ref = cases.ep_card_run(dev, *args, serve=serve)
+            torch.cuda.empty_cache()
+            if not beside:
+                fut = pool.submit(spawn_ranks, cases.ep_card_case, world,
+                                  spec, *args, serve, turns, device="cuda",
+                                  timeout=600)
+            ranks = fut.result()
+        res = {"spec": spec, "layers": cfg.n_layers, "new": new,
+               "backend": ranks[0]["backend"],
+               "peak_gib": [r["peak_all_gib"] for r in ranks]}
+        axes = dict((a, int(x)) for a, x in
+                    (p.split("=") for p in spec.split(",")))
+        m, d = axes.get("model", 1), world // axes.get("model", 1)
+        for label, dt, b, prompt, moe_over in runs:
+            got = [r[label] for r in ranks]
+            # the ranks splitting the rows: model coordinate 0, FSDP order
+            rows = got[::m] if d > 1 and b % d == 0 else got[:1]
+            res[label] = ep_check(np, cfg, case, label, dt, got, ref[label],
+                                  rows, dt == "bfloat16" and bool(moe_over))
+            for r in ranks:
+                for name, c in r[label]["checked"].items():
+                    key = "quoka_score" if name == "score" else \
+                        "flash_attention"
+                    errs[key] = max(errs[key], c["err"])
+        if serve:
+            sv = ref["serve"]
+            for i, r in enumerate(ranks):
+                got = r["serve"]
+                sl = got["launches"]
+                if got["hit_tokens"] != cases.EP_HIT or not (
+                        sl["quoka_score"] > 0 and sl["flash_attention"] > 0
+                        and sl["selected_attention"] == 0
+                        and sl["selected_attention_paged"] == 0):
+                    raise AssertionError(f"phase 35 {case} serve rank {i}: "
+                                         f"{got}")
+                if got["tokens"] != ranks[0]["serve"]["tokens"]:
+                    raise AssertionError(f"phase 35 {case} serve rank {i}: "
+                                         f"tokens differ from rank 0's")
+            res["serve"] = dict(
+                hit_tokens=cases.EP_HIT,
+                tokens_equal_meshless=ranks[0]["serve"]["tokens"] ==
+                sv["tokens"], launches_per_rank=ranks[0]["serve"]["launches"],
+                pool_blocks=ranks[0]["serve"]["pool_blocks"])
+            log(f"  {case} latent-pool serve: {cases.EP_HIT}-token prefix "
+                f"hit on every rank, launches/rank "
+                f"{ranks[0]['serve']['launches']}, tokens "
+                f"{'equal to' if res['serve']['tokens_equal_meshless'] else 'differ from'}"
+                f" the meshless bf16 serve's")
+        res["case_s"] = time.perf_counter() - t1
+        log(f"  {case}: backend {res['backend']}, per-rank peak "
+            f"{[round(p, 2) for p in res['peak_gib']]} GiB, "
+            f"{res['case_s']:.1f} s")
+        out[case] = res
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 35 took {out['phase_s']:.1f} s")
+    return out, errs
+
+
 def time_ms(torch, fn, flush, iters=20):
     """Times of one ``fn`` call in ms, each a mean over ``iters`` calls,
     with ``flush()`` run before each (outside the timed span) unless it is
@@ -4275,10 +4522,15 @@ def main() -> int:
                 "families": phase_train_families(torch, np),
                 "retrieval": phase_train_retrieval(torch, np, K)}
     torch.cuda.empty_cache()
-    # the tensor-parallel slice, then the data-parallel one
+    # the tensor-parallel slice, then the data-parallel one, then the
+    # expert-parallel MoE and MLA one
     mesh = phase_mesh(torch, np, K, card, dev)
     torch.cuda.empty_cache()
     dp = phase_dp(torch, np, K, card, dev)
+    torch.cuda.empty_cache()
+    ep, ep_errs = phase_ep(torch, np, K, card, dev)
+    for name, err in ep_errs.items():
+        errs[name] = max(errs[name], err)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -4314,6 +4566,14 @@ def main() -> int:
             paths[name][f"qwen3-4b ({DP_LAYERS} layers) {dp['spec']} "
                         f"{label} per rank"] = \
                 dp[label]["launches_per_rank"][name]
+        for case, arch, spec, cut, runs, *_ in EP_CASES:
+            head = f"{arch} ({ep[case]['layers']} layers) {spec}"
+            for label, *_ in runs:
+                paths[name][f"{head} {label} per rank"] = \
+                    ep[case][label]["launches_per_rank"][name]
+            if "serve" in ep[case]:
+                paths[name][f"{head} serve per rank"] = \
+                    ep[case]["serve"]["launches_per_rank"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -4334,7 +4594,7 @@ def main() -> int:
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
                     "training": training, "telemetry": telemetry,
-                    "mesh": mesh, "dp": dp,
+                    "mesh": mesh, "dp": dp, "ep": ep,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(f"phase wall times (s): {json.dumps(phase_walls())}")
     log(card)

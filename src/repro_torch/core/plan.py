@@ -192,8 +192,10 @@ def _materialize_seq(plan: SelectionPlan, k, v, key_pos, chunk_start,
     broadcasts them over ``seq.ax``; the others place them where the plan
     puts them.  The budget's rows cross once, never the cache.  The values
     are the meshless ones (an unselected row holds zeros where the
-    meshless one holds a masked row)."""
+    meshless one holds a masked row).  When ``v`` is ``k`` (MLA's latent,
+    whose values are its keys' first columns) one buffer moves."""
     b, held, n_kv, d = k.shape
+    one = v is k
     g = grid(cfg)
     if g == 1:
         slots = plan.idx                                      # (b, n_kv, B)
@@ -211,14 +213,16 @@ def _materialize_seq(plan: SelectionPlan, k, v, key_pos, chunk_start,
     mine = owner == seq.ax.rank
     loc = (slots - seq.lo).clamp(0, held - 1)
     gi = loc.transpose(1, 2)[..., None].expand(-1, -1, -1, d)
-    kv = torch.cat([torch.gather(k, 1, gi), torch.gather(v, 1, gi)], -1)
+    kv = torch.gather(k, 1, gi) if one else \
+        torch.cat([torch.gather(k, 1, gi), torch.gather(v, 1, gi)], -1)
+    w = kv.shape[-1]
     valid = prior_context_valid(key_pos, chunk_start)
     pos = torch.gather(key_pos[:, None, :].expand(b, n_kv, held), 2, loc)
     ok = torch.gather(valid[:, None, :].expand(b, n_kv, held), 2, loc)
     pos = torch.where(ok, pos, torch.full_like(pos, -1)).transpose(1, 2)
-    out_kv = torch.zeros_like(kv)                         # (b, S, n_kv, 2d)
+    out_kv = torch.zeros_like(kv)                         # (b, S, n_kv, w)
     out_pos = torch.full_like(pos, -1)                    # (b, S, n_kv)
-    row = 2 * d * kv.element_size()
+    row = w * kv.element_size()
     with comm.scope("seq"):
         for r, n in enumerate(counts):
             if n == 0:
@@ -231,10 +235,11 @@ def _materialize_seq(plan: SelectionPlan, k, v, key_pos, chunk_start,
                                   dtype=torch.uint8, device=k.device)
             buf = comm.broadcast(buf, seq.ax, r)
             at = owner == r
-            out_kv[at] = buf[:n * row].view(kv.dtype).view(n, 2 * d)
+            out_kv[at] = buf[:n * row].view(kv.dtype).view(n, w)
             out_pos[at] = buf[n * row:].view(pos.dtype)
     pos = out_pos.transpose(1, 2)
-    return Selected(k=out_kv[..., :d], v=out_kv[..., d:], pos=pos,
+    k_sel = out_kv[..., :d]
+    return Selected(k=k_sel, v=k_sel if one else out_kv[..., d:], pos=pos,
                     idx=torch.where(pos >= 0, slots,
                                     torch.full_like(slots, -1)))
 

@@ -202,8 +202,9 @@ def prior_context_valid(key_pos, chunk_start):
 def _tp_route(k, cfg: QuokaConfig, heads: comm.HeadShard) -> bool:
     """Does the T-local route apply to a sharded layer (``heads``)?  The
     reference's conditions: cosine scoring with max aggregation, a >1-way
-    model axis ``heads.ax``, a KV-head count (the model's) that does not
-    divide it (in that regime the cache's heads are replicated, so each
+    model axis ``heads.ax``, a KV-head count (the layer's: the model's,
+    or 1 for MLA's latent, as the reference reads ``k.shape[2]``) that
+    does not divide it (in that regime the cache's heads are replicated, so each
     rank can score a contiguous T-slice of keys it already holds),
     ``T % M == 0`` and a selection grid that does not straddle the
     slices."""

@@ -80,13 +80,22 @@ activity) of the measured ``generate`` into
 Serving on a mesh: tensor-parallel over its ``model`` axis, data-parallel
 with FSDP weights over its ``pod`` / ``data`` axes (``Engine(mesh=)``),
 one process per rank under ``torchrun``, one-shot or ``--continuous``
-(dense ``attn`` models; ``launch/mesh.py`` picks NCCL when every rank has
-a card of its own and gloo when they share one, or on the CPU).  Only
-rank 0 prints; its first line is ``# mesh {...} over N devices``:
+(models of ``attn``, ``attn_moe``, ``mla`` and ``mla_moe`` layers: the
+dense ones, olmoe-1b-7b with its experts over ``model`` and
+deepseek-v3-671b with MLA's heads over ``model``; ``launch/mesh.py``
+picks NCCL when every rank has a card of its own and gloo when they
+share one, or on the CPU).  Only rank 0 prints; its first line is ``#
+mesh {...} over N devices``:
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
         --device cpu --smoke --mesh data=2,model=2 --prompt-len 64 \
         --batch 2 --max-new 4 [--continuous]
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --device cpu --smoke --arch olmoe-1b-7b --mesh data=2,model=2 \
+        --prompt-len 64 --batch 2 --max-new 4 [--continuous]
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --smoke --arch deepseek-v3-671b --mesh model=2 \
+        --prompt-len 64 --max-new 4 --continuous
 
 ``--batch 1`` splits the cache's sequence over ``data`` when ``data``
 divides its capacity.  ``--metrics`` / ``--trace-dir``, methods other

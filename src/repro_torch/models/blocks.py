@@ -63,19 +63,23 @@ layer index ``core/plan.py::refresh`` decides on).  With ``obs`` set, an
 attention layer leaves its ``LayerObs`` in ``_obs``: ``dense_obs`` at a
 dense bypass, the selecting routes through ``core/plan.py``.
 
-Tensor parallelism (``training/checkpoint.py::shard``, kind ``"attn"``
-only): ``AttnBlock.place`` reads the block's shards off its weights'
-shapes.  ``n_heads`` / ``n_kv`` are then this rank's query heads and the
-KV heads its cache holds, ``heads`` its ``HeadShard`` (selection and the
-KV heads each query head reads), and ``wo`` and, when the FFN width
-divides, the MLP's ``down`` are row-parallel (``layers.row_linear``).
-Under FSDP (a ``pod`` / ``data`` axis) the weights' embed axis is cut
-over the FSDP group as well (``fsdp``): each layer call gathers its
-weights whole over that group in one all-gather (``_weights``) and drops
-them when it returns, so no full copy stays resident.  A batch-1 cache
-whose sequence is split over ``data`` (``KVCache.seq``) is selected
+Tensor parallelism (``training/checkpoint.py::shard``; kinds ``"attn"``,
+``"attn_moe"``, ``"mla"``, ``"mla_moe"``): ``AttnBlock.place`` and
+``MLABlock.place`` read the block's shards off its weights' shapes.
+``n_heads`` / ``n_kv`` are then this rank's query heads and the KV heads
+its cache holds (MLA: one, the latent), ``heads`` its ``HeadShard``
+(selection and the KV heads each query head reads), and ``wo`` and, when
+the FFN width divides, the MLP's ``down`` are row-parallel
+(``layers.row_linear``); a MoE FFN runs this rank's experts
+(``moe.MoE.place``).  Under FSDP (a ``pod`` / ``data`` axis) the weights'
+embed axis is cut over the FSDP group as well (``fsdp``, ``_EMBED_DIM``:
+the router's rows, the experts' ``d`` axis): each layer call gathers its
+weights whole over that group in one all-gather (``_layer_weights``) and
+drops them when it returns, so no full copy stays resident.  A batch-1
+cache whose sequence is split over ``data`` (``cache.seq``) is selected
 where it lies (``core/plan.py``); dense attention gathers it whole
-(``cache.seq_full``).
+(``cache.seq_full``).  ``ctx["rows"]`` names the FSDP axis when a step's
+rows are split over it, for the MoE's global capacity ranking.
 """
 from __future__ import annotations
 
@@ -152,26 +156,76 @@ def _ffn_params(blk, cfg: ModelConfig, device, gated: bool) -> None:
             blk.mlp["gate"] = w(d, cfg.d_ff)
 
 
-def _ffn(blk, x, mlp_w):
-    """x + FFN(norm2(x)): the MLP of weights ``mlp_w`` (the layer call's),
-    or the MoE with no aux loss (inference; ``moe.moe_apply`` takes a ctx
-    to accumulate it)."""
+def _ffn(blk, x, w, rows=None):
+    """x + FFN(norm2(x)) with the layer call's weights ``w`` (``_weights``):
+    the MLP, or the MoE with no aux loss (inference; ``moe.moe_apply``
+    takes a ctx to accumulate it); ``rows``: the FSDP axis when the
+    step's rows are split over it (MoE capacity is global)."""
     cfg = blk.cfg
     h = _block_norm(blk, "ln2", x)
     if blk.kind.endswith("_moe"):
-        return x + moe.moe_apply(blk.moe, h, cfg)
-    return x + mlp(mlp_w, h, cfg.act, getattr(blk, "tp_ffn", None))
+        return x + moe.moe_apply(blk.moe, h, cfg, w=w["moe"], rows=rows)
+    return x + mlp(w["mlp"], h, cfg.act, blk.tp_ffn)
 
 
-def _ffn_aux(blk, x, mlp_w):
-    """``(_ffn(blk, x, mlp_w), aux)``: a MoE FFN's ``router_aux_coef``
+def _ffn_aux(blk, x, w):
+    """``(_ffn(blk, x, w), aux)``: a MoE FFN's ``router_aux_coef``
     times its load-balance loss, accumulated into a dict of this call's
     own (so a recomputed forward cannot count it twice), else 0.0."""
     if not blk.kind.endswith("_moe"):
-        return _ffn(blk, x, mlp_w), 0.0
+        return _ffn(blk, x, w), 0.0
     c = {}
-    y = moe.moe_apply(blk.moe, _block_norm(blk, "ln2", x), blk.cfg, c)
+    y = moe.moe_apply(blk.moe, _block_norm(blk, "ln2", x), blk.cfg, c,
+                      w=w["moe"])
     return x + y, c["aux_loss"]
+
+
+#: the embed axis (the one the FSDP group cuts) of each linear weight of
+#: a layer, by its name in ``_held``
+_EMBED_DIM = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "wq_a": 0, "wkv_a": 0,
+              "mlp/gate": 0, "mlp/up": 0, "mlp/down": 1,
+              "moe/router": 0, "moe/gate": 1, "moe/up": 1, "moe/down": 2,
+              "moe/shared/gate": 0, "moe/shared/up": 0,
+              "moe/shared/down": 1}
+
+
+def _ffn_held(blk):
+    """The FFN's weights as this rank holds them: ``mlp/<name>`` or
+    ``moe/<name>`` (``MoE.held``)."""
+    if hasattr(blk, "moe"):
+        return {f"moe/{k}": p for k, p in blk.moe.held().items()}
+    return {f"mlp/{k}": p for k, p in blk.mlp.items()}
+
+
+def _place_ffn(blk, ax: comm.Axis, fax: comm.Axis) -> None:
+    """The FFN's layout on the ``model`` axis ``ax`` (a row-parallel
+    ``down`` when it is sliced; the MoE's experts, ``MoE.place``) and
+    which of the layer's weights the FSDP axis ``fax`` cut along their
+    embed axis (``blk.fsdp``)."""
+    if hasattr(blk, "moe"):
+        blk.moe.place(ax)
+    else:
+        blk.tp_ffn = ax if blk.mlp["down"].shape[0] < blk.cfg.d_ff else None
+    d = blk.cfg.d_model
+    dims = {k: _EMBED_DIM[k] for k, t in blk._held().items()
+            if k in _EMBED_DIM and t.shape[_EMBED_DIM[k]] < d}
+    blk.fsdp = (fax, dims) if dims else None
+
+
+def _layer_weights(blk):
+    """The weights of one layer call: the held ones, or under FSDP the
+    whole ones, gathered from the FSDP group in one all-gather for this
+    call only (the caller drops them when it returns); the FFN's also
+    under ``mlp`` / ``moe`` without their prefix."""
+    w = blk._held()
+    if blk.fsdp is not None:
+        fax, dims = blk.fsdp
+        w.update(gather_weights({k: (w[k], d) for k, d in dims.items()},
+                                fax))
+    for f in ("mlp", "moe"):
+        w[f] = {k[len(f) + 1:]: p for k, p in w.items()
+                if k.startswith(f + "/")}
+    return w
 
 
 def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
@@ -213,9 +267,10 @@ class AttnBlock(nn.Module):
 
     def place(self, ax: comm.Axis, fax: comm.Axis = None) -> None:
         """Adopt the layout of the (already sliced) weights on the
-        ``model`` axis ``ax``: local head counts, the ``HeadShard``, and a
-        row-parallel ``down`` when it is sliced; and which weights the
-        FSDP axis ``fax`` cut along their embed axis (``fsdp``)."""
+        ``model`` axis ``ax``: local head counts, the ``HeadShard``, the
+        FFN's (``_place_ffn``: a row-parallel ``down``, the MoE's
+        experts); and which weights the FSDP axis ``fax`` cut along their
+        embed axis (``fsdp``)."""
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         self.n_heads = self.wq.shape[1] // hd
@@ -224,31 +279,14 @@ class AttnBlock(nn.Module):
             raise ValueError("wq and wo are sliced differently")
         self.heads = comm.HeadShard(ax, cfg.n_heads, cfg.n_kv_heads,
                                     self.n_heads, self.n_kv, self.wq.device)
-        self.tp_ffn = ax if self.mlp["down"].shape[0] < cfg.d_ff else None
-        # the embed axis: rows of the input projections, columns of the
-        # output ones
-        dims = {k: int(k in ("wo", "mlp/down"))
-                for k, t in self._held().items()
-                if t.shape[int(k in ("wo", "mlp/down"))] < cfg.d_model}
-        self.fsdp = (fax, dims) if dims else None
+        _place_ffn(self, ax, fax)
 
     def _held(self):
         """The layer's linear weights as this rank holds them, by name."""
-        mlp_w = self.mlp.items() if hasattr(self, "mlp") else ()
         return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo,
-                **{f"mlp/{k}": p for k, p in mlp_w}}
+                **_ffn_held(self)}
 
-    def _weights(self):
-        """The weights of one layer call: the held ones, or under FSDP
-        the whole ones, gathered from the FSDP group in one all-gather for
-        this call only (the caller drops them when it returns)."""
-        w = self._held()
-        if self.fsdp is not None:
-            fax, dims = self.fsdp
-            w.update(gather_weights({k: (w[k], d) for k, d in dims.items()},
-                                    fax))
-        w["mlp"] = {k[4:]: p for k, p in w.items() if k.startswith("mlp/")}
-        return w
+    _weights = _layer_weights
 
     def init_cache(self, batch: int, cap: int, seq=None) -> KVCache:
         """The layer's cache of its held KV heads: ``cap`` slots, or a ring
@@ -301,7 +339,7 @@ class AttnBlock(nn.Module):
         """The full-sequence pass: attention over the sequence, then the
         MLP or the MoE.  Returns (x, aux)."""
         w = self._weights()
-        return _ffn_aux(self, self._self_attend(x, pos, w), w["mlp"])
+        return _ffn_aux(self, self._self_attend(x, pos, w), w)
 
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
@@ -310,7 +348,7 @@ class AttnBlock(nn.Module):
         leaves the carry as it came."""
         w = self._weights()
         x, plan = self._attend(x, pos, kv, ctx, plan, w)
-        return _ffn(self, x, w["mlp"]), plan
+        return _ffn(self, x, w, ctx.get("rows")), plan
 
     def _attend(self, x, pos, kv: KVCache, ctx, plan, w):
         """x plus the attention sub-block's output, along the route the
@@ -388,7 +426,19 @@ class MLABlock(nn.Module):
     """DeepSeek MLA (kinds ``"mla"``, ``"mla_moe"``): queries absorbed into
     the latent space (``q_abs[h] = q_nope[h] @ W_uk[h]``), one compressed
     latent per token plus a shared rope key in the cache, attention in
-    latent space and the values decompressed by ``W_uv`` after it."""
+    latent space and the values decompressed by ``W_uv`` after it.
+
+    Tensor parallelism (``place``): ``wq_b``'s columns, ``wk_b`` /
+    ``wv_b``'s head axis and ``wo``'s rows are head-major, so a contiguous
+    cut gives this rank whole heads (``n_heads`` local); ``wo`` is then
+    row-parallel.  The latent is one shared "KV head", replicated over
+    ``model``: every rank writes all of it, and its ``HeadShard`` has one
+    KV head, so QUOKA takes the T-local route (each rank scores its ``T /
+    M`` slice of the latent) with the group-coherent sub-selection over
+    every head.  Under FSDP ``wq_a``, ``wkv_a``, ``wo`` and the FFN are
+    gathered per call as ``AttnBlock``'s weights; a batch-1 latent whose
+    sequence is split over ``data`` (``SeqLatentCache``) is selected
+    where it lies."""
 
     def __init__(self, cfg: ModelConfig, device, kind: str = "mla"):
         super().__init__()
@@ -397,6 +447,10 @@ class MLABlock(nn.Module):
         self.cfg = cfg
         self.kind = kind
         m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        self.n_heads = h           # this rank's query heads
+        self.heads = None          # HeadShard under tensor parallelism
+        self.tp_ffn = None         # the model axis when ``down`` is sharded
+        self.fsdp = None           # (FSDP axis, {weight: its cut dim})
         self.scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
         w = _weight(cfg.compute_dtype, device)
         self.ln1 = _norm(d, device)
@@ -412,41 +466,78 @@ class MLABlock(nn.Module):
         self.ln2 = _norm(d, device)
         _ffn_params(self, cfg, device, gated=True)
 
-    def init_cache(self, batch: int, cap: int) -> LatentCache:
+    def place(self, ax: comm.Axis, fax: comm.Axis = None) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``: the local query heads (``wq_b``'s columns),
+        the ``HeadShard`` of one KV head, the FFN's (``_place_ffn``); and
+        which weights the FSDP axis ``fax`` cut (``fsdp``)."""
+        cfg, m = self.cfg, self.cfg.mla
+        self.n_heads = self.wq_b.shape[1] // (m.qk_nope_dim + m.qk_rope_dim)
+        if not (self.wk_b.shape[1] == self.wv_b.shape[1] == self.n_heads
+                and self.wo.shape[0] == self.n_heads * m.v_head_dim):
+            raise ValueError("wq_b, wk_b, wv_b and wo are sliced "
+                             "differently")
+        self.heads = comm.HeadShard(ax, cfg.n_heads, 1, self.n_heads, 1,
+                                    self.wq_b.device)
+        _place_ffn(self, ax, fax)
+
+    def _held(self):
+        """The layer's linear weights as this rank holds them, by name."""
+        return {"wq_a": self.wq_a, "wq_b": self.wq_b, "wkv_a": self.wkv_a,
+                "wk_b": self.wk_b, "wv_b": self.wv_b, "wo": self.wo,
+                **_ffn_held(self)}
+
+    _weights = _layer_weights
+
+    def init_cache(self, batch: int, cap: int, seq=None) -> LatentCache:
+        """The layer's latent cache of ``cap`` slots, the whole latent on
+        every ``model`` rank; ``seq`` (a mesh axis) holds this rank's
+        slice of the capacity axis."""
         m = self.cfg.mla
         return latent_init(batch, cap, m.kv_lora_rank, m.qk_rope_dim,
-                           self.cfg.compute_dtype, self.wq_a.device)
+                           self.cfg.compute_dtype, self.wq_a.device,
+                           seq_ax=seq)
 
     # ---- projections ----
-    def _queries(self, h, pos):
-        """(q_abs (b, t, H, r), q_rope (b, t, H, rope))."""
+    def _queries(self, h, pos, w=None):
+        """(q_abs (b, t, H, r), q_rope (b, t, H, rope)) of this rank's H
+        query heads; ``w`` the layer call's weights (default the held
+        ones)."""
         cfg, m = self.cfg, self.cfg.mla
+        w = self._held() if w is None else w
         b, t, _ = h.shape
-        cq = rmsnorm(self.q_ln, linear(self.wq_a, h), cfg.norm_eps)
-        q = linear(self.wq_b, cq).reshape(b, t, cfg.n_heads,
+        cq = rmsnorm(self.q_ln, linear(w["wq_a"], h), cfg.norm_eps)
+        q = linear(w["wq_b"], cq).reshape(b, t, self.n_heads,
                                           m.qk_nope_dim + m.qk_rope_dim)
         q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
         q_rope = rope(q_rope, pos, cfg.rope_theta)
         q_abs = torch.einsum("bthn,rhn->bthr", q_nope,
-                             self.wk_b.to(q_nope.dtype))
+                             w["wk_b"].to(q_nope.dtype))
         return q_abs, q_rope
 
-    def _latent_kv(self, h, pos):
+    def _latent_kv(self, h, pos, w=None):
         """(ckv (b, t, r) normalised latent, kr (b, t, rope) rope'd key)."""
         cfg, m = self.cfg, self.cfg.mla
-        kv = linear(self.wkv_a, h)
+        w = self._held() if w is None else w
+        kv = linear(w["wkv_a"], h)
         ckv = rmsnorm(self.kv_ln, kv[..., :m.kv_lora_rank], cfg.norm_eps)
         kr = rope(kv[:, :, None, m.kv_lora_rank:], pos,
                   cfg.rope_theta)[:, :, 0, :]
         return ckv, kr
 
     def _decompress(self, o_lat, dtype):
-        """Latent attention output (b, t, H, r) -> (b, t, H * v) via W_uv,
-        in fp32 as the reference."""
+        """Latent attention output (b, t, H, r) -> (b, t, H * v) via W_uv
+        (this rank's heads), in fp32 as the reference."""
         b, t = o_lat.shape[:2]
         out = torch.einsum("bthr,rhv->bthv", o_lat.float(),
                            self.wv_b.float())
         return out.reshape(b, t, -1).to(dtype)
+
+    def _out(self, att, w):
+        """The output projection: row-parallel when the heads shard."""
+        h = self.heads
+        return row_linear(w["wo"], att,
+                          h.ax if h is not None and h.heads_sharded else None)
 
     def _absorbed_full(self, q_abs, q_rope, ckv, krope, q_pos, k_pos):
         """Position-masked absorbed attention over keys ``[ckv | krope]``
@@ -466,12 +557,12 @@ class MLABlock(nn.Module):
     def full_forward(self, x, pos, ctx=None):
         """The full-sequence pass: absorbed attention of the sequence over
         its own latents, then the MLP or the MoE.  Returns (x, aux)."""
+        w = self._weights()
         h = rmsnorm(self.ln1, x, self.cfg.norm_eps)
-        q_abs, q_rope = self._queries(h, pos)
-        ckv, kr = self._latent_kv(h, pos)
+        q_abs, q_rope = self._queries(h, pos, w)
+        ckv, kr = self._latent_kv(h, pos, w)
         att = self._absorbed_full(q_abs, q_rope, ckv, kr, pos, pos)
-        return _ffn_aux(self, x + linear(self.wo, att),
-                        getattr(self, "mlp", None))
+        return _ffn_aux(self, x + self._out(att, w), w)
 
     def _absorbed_attention(self, q_abs, q_rope, ckv, krope, mask):
         """Attention entirely in latent space (the MLA deployment trick);
@@ -487,7 +578,7 @@ class MLABlock(nn.Module):
     def plan_carry_shape(self, cache: LatentCache, t: int, method: str,
                          qcfg):
         """Latent selection geometry: one shared "KV head" (n_kv == 1)."""
-        b, cap = cache.latent.shape[:2]
+        b, cap = cache.latent.shape[0], cache.capacity
         budget = sel_mod.resolve_budget(qcfg, cap)
         if method == "full" or cap <= budget + t:
             return None
@@ -499,15 +590,21 @@ class MLABlock(nn.Module):
         """As ``AttnBlock.apply``, over the layer's latent cache (written
         in place)."""
         cfg = self.cfg
+        w = self._weights()
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
-        q_abs, q_rope = self._queries(h, pos)
-        ckv, kr = self._latent_kv(h, pos)
+        q_abs, q_rope = self._queries(h, pos, w)
+        ckv, kr = self._latent_kv(h, pos, w)
         start = ctx["slot"]
         latent_write(lat, ckv, kr, start, pos_new=pos)
         method = ctx.get("method", "full")
-        budget = sel_mod.resolve_budget(ctx["qcfg"], lat.capacity) \
+        qcfg = ctx["qcfg"]
+        budget = sel_mod.resolve_budget(qcfg, lat.capacity) \
             if method != "full" else 0
-        if method == "full" or lat.capacity <= budget + x.shape[1]:
+        dense = method == "full" or lat.capacity <= budget + x.shape[1]
+        if lat.seq is not None and (dense or not qk.seq_route(lat.latent[
+                :, :, None], qcfg)):
+            lat = seq_full(lat)     # every key, or a grid across slices
+        if dense:
             att = self._absorbed_full(q_abs, q_rope, lat.ckv, lat.krope,
                                       pos, lat.pos)
             if ctx.get("obs"):
@@ -515,18 +612,19 @@ class MLABlock(nn.Module):
         else:
             att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
                                                  lat, start, ctx, plan)
-        x = x + linear(self.wo, att)
-        return _ffn(self, x, getattr(self, "mlp", None)), plan
+        x = x + self._out(att, w)
+        return _ffn(self, x, w, ctx.get("rows")), plan
 
     def _selected_attention(self, q_abs, q_rope, ckv_chunk, kr_chunk, pos,
                             lat: LatentCache, start, ctx, plan=None):
         """QUOKA (or a baseline) on the compressed latent: one shared "KV
         head" per token, scored by the absorbed per-head queries, so
-        pre-aggregation runs over all heads (n_kv == 1).  Then flash over
-        ``[selected | chunk]``: queries and keys are ``[absorbed | rope]``
-        vectors, the values the latent itself (its first ``r`` key
-        columns, no copy), where the reference pads it with zeros to the
-        key width and slices the output: the same numbers."""
+        pre-aggregation runs over all heads (n_kv == 1; on a mesh over
+        every rank's heads, ``plan``'s T-local route).  Then flash over
+        ``[selected | chunk]`` on this rank's heads: queries and keys are
+        ``[absorbed | rope]`` vectors, the values the latent itself (its
+        first ``r`` key columns, no copy), where the reference pads it with
+        zeros to the key width and slices the output: the same numbers."""
         qc = ctx["qcfg"]
         method = ctx.get("method", "quoka")
         r = lat.rank
@@ -534,7 +632,7 @@ class MLABlock(nn.Module):
         q_score = torch.cat([q_abs, q_rope], dim=-1)            # (b,t,H,r+rd)
         sel, plan = plan_mod.select_with_ctx(
             ctx, plan, method, q_score, keys, keys, lat.pos, start, qc,
-            q_valid=pos >= 0)
+            q_valid=pos >= 0, heads=self.heads, seq=lat.seq)
         chunk = torch.cat([ckv_chunk, kr_chunk], dim=-1)        # (b,t,r+rd)
         k_cat = torch.cat([sel.k[:, :, 0], chunk], dim=1)[:, :, None, :]
         k_valid = torch.cat([sel.pos >= 0, (pos >= 0)[:, None, :]], dim=-1)
@@ -716,13 +814,13 @@ class DecCrossBlock(nn.Module):
         w = self.self_attn._weights()
         x = self.self_attn._self_attend(x, pos, w)
         x = self._cross(x, self.build_cross(ctx["enc_out"]))
-        return _ffn(self.self_attn, x, w["mlp"]), 0.0
+        return _ffn(self.self_attn, x, w), 0.0
 
     def apply(self, x, pos, cache: CrossCache, ctx, plan=None):
         w = self.self_attn._weights()
         x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan, w)
         x = self._cross(x, cache.cross)
-        return _ffn(self.self_attn, x, w["mlp"]), plan
+        return _ffn(self.self_attn, x, w, ctx.get("rows")), plan
 
 
 def make_block(cfg: ModelConfig, kind: str, device):

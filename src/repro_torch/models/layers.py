@@ -42,19 +42,24 @@ def linear(w, x, b=None):
 
 def row_linear(w, x, ax=None):
     """``linear(w, x)`` for a row-parallel ``w`` (this rank's rows of the
-    input dimension): the partial products in fp32, summed over ``ax``,
-    cast to x's dtype once.  On the card a bf16 product stays a bf16 GEMM
-    and only its result is fp32; the CPU has no such GEMM and upcasts.
-    Meshless (``ax`` None) it is ``linear``."""
+    input dimension): the partial products in fp32 (``row_partial``),
+    summed over ``ax``, cast to x's dtype once.  Meshless (``ax`` None) it
+    is ``linear``."""
     if ax is None:
         return linear(w, x)
+    return comm.all_reduce(row_partial(w, x), ax).to(x.dtype)
+
+
+def row_partial(w, x):
+    """This rank's fp32 partial product ``x @ w`` of a row-parallel
+    ``w``, before the sum over the ranks.  On the card a bf16 product
+    stays a bf16 GEMM and only its result is fp32; the CPU has no such
+    GEMM and upcasts."""
     if x.is_cuda and x.dtype != torch.float32:
         # one half-precision GEMM with an fp32 result (fp32 accumulation)
-        part = torch.mm(x.reshape(-1, x.shape[-1]), w,
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
-    else:
-        part = x.float() @ w.float()
-    return comm.all_reduce(part, ax).to(x.dtype)
+    return x.float() @ w.float()
 
 
 def gather_weights(ws, fax):
@@ -165,12 +170,15 @@ def mlp(p, x, act: str = "silu", ax=None):
     """Gated MLP; ``p`` maps "up", "down" and optionally "gate" to weights.
     With ``ax`` the hidden dimension is sharded: "up" / "gate" column-
     parallel, "down" row-parallel (``row_linear``)."""
+    return row_linear(p["down"], mlp_hidden(p, x, act), ax)
+
+
+def mlp_hidden(p, x, act: str = "silu"):
+    """The gated MLP's hidden activation, the input of ``down``."""
     up = linear(p["up"], x)
     if "gate" in p:
-        h = _act(act, linear(p["gate"], x)) * up
-    else:
-        h = _act(act, up)
-    return row_linear(p["down"], h, ax)
+        return _act(act, linear(p["gate"], x)) * up
+    return _act(act, up)
 
 
 def rope(x, positions, theta: float):

@@ -47,7 +47,11 @@ lookup reads the embedding rows its tokens need from every FSDP rank's
 columns, and ``_readout`` returns the logits of EVERY FSDP rank's rows,
 in rank order: rows split over the FSDP ranks come back as the whole
 batch, rows every rank holds come back once per rank.  ``init_cache(...,
-seq=)`` splits a batch-1 cache's sequence over a mesh axis.
+seq=)`` splits a batch-1 cache's sequence over a mesh axis.  The
+attention-and-MoE and MLA families shard too (``attn_moe``, ``mla``,
+``mla_moe``: expert-parallel MoE, MLA's heads); deepseek's untied
+``lm_head`` is vocab-parallel and FSDP-cut like the embedding, and its
+``mtp`` head is placed with the layers and never run at inference.
 """
 from __future__ import annotations
 
@@ -411,12 +415,15 @@ class Model(nn.Module):
         return (nll * m).sum() / m.sum().clamp(min=1.0) + aux
 
     @torch.no_grad()
-    def prefill(self, batch: Dict, cache, method: Optional[str] = None):
+    def prefill(self, batch: Dict, cache, method: Optional[str] = None,
+                rows=None):
         """Chunked prefill of the whole prompt; the cache fills in place.
         Whisper first runs its encoder over ``batch["frames"]`` and builds
         the cross-attention keys and values (so its TTFT includes the
-        encoder, as the reference's).  Returns (last-position logits (b, V)
-        fp32, cache)."""
+        encoder, as the reference's).  ``rows``: the FSDP axis when the
+        batch is this rank's share of its rows (rank-major; a MoE's
+        capacity counts every rank's tokens), else None.  Returns
+        (last-position logits (b, V) fp32, cache)."""
         cfg = self.cfg
         method = method or cfg.quoka.method
         if self.enc is not None:
@@ -426,7 +433,7 @@ class Model(nn.Module):
         bcp = min(cfg.quoka.chunk_size, t)
         if t % bcp:
             raise ValueError(f"prompt length {t} must be a multiple of {bcp}")
-        base = self._ctx(method)
+        base = dict(self._ctx(method), rows=rows)
         h = x_all
         for c0 in range(0, t, bcp):
             # write SLOT of the chunk — pad slots keep their slot, pos -1
@@ -438,7 +445,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill_chunk(self, batch: Dict, pos_start, cache,
                       method: Optional[str] = None, valid_len=None,
-                      with_obs: bool = False, sel_blocks=None):
+                      with_obs: bool = False, sel_blocks=None, rows=None):
         """One B_CP chunk through all stacks: the unit of per-chunk dispatch
         under continuous batching.  batch["tokens"]: (b, B_CP) chunk (a
         host array or a tensor, as ``valid_len``);
@@ -451,7 +458,7 @@ class Model(nn.Module):
         itself is unchanged), and ``sel_blocks = (block_size, n_blocks)``
         then appends the prefetch oracle's output, the (b, n_blocks) int32
         selection counts per logical pool block summed over layers
-        (``core/plan.py::pool_block_counts``)."""
+        (``core/plan.py::pool_block_counts``); ``rows`` as ``prefill``'s."""
         method = method or self.cfg.quoka.method
         dev = self.device
         tok = _on(batch["tokens"], dev)
@@ -469,7 +476,7 @@ class Model(nn.Module):
             pos = torch.where(offs[None] < vl[:, None], pos,
                               torch.full_like(pos, -1))
         x = self._positional(x, pos)
-        ctx = self._step_ctx(method, slot, with_obs, sel_blocks)
+        ctx = self._step_ctx(method, slot, with_obs, sel_blocks, rows)
         x, obs, sel = self._apply_stacks(x, pos, cache, ctx)
         if valid_len is None:
             last = x[:, -1]
@@ -481,13 +488,13 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, pos, cache,
                     method: Optional[str] = None, with_obs: bool = False,
-                    sel_blocks=None):
+                    sel_blocks=None, rows=None):
         """One decode step.  tokens (b,) on the model's device; pos an int
         or a per-row (b,) tensor (continuous batching): the slot and
         position of each new token.  Returns (logits (b, V), cache), plus
         the per-layer ``LayerObs`` when ``with_obs=True`` and the selection
         counts when ``sel_blocks`` is set (see ``prefill_chunk``; obs
-        first)."""
+        first); ``rows`` as ``prefill``'s."""
         cfg = self.cfg
         method = method or cfg.quoka.method
         b = tokens.shape[0]
@@ -500,12 +507,13 @@ class Model(nn.Module):
             pos2 = torch.full((b, 1), slot, dtype=torch.int32,
                               device=self.device)
         x = self._positional(x, pos2)
-        ctx = self._step_ctx(method, slot, with_obs, sel_blocks)
+        ctx = self._step_ctx(method, slot, with_obs, sel_blocks, rows)
         x, obs, sel = self._apply_stacks(x, pos2, cache, ctx)
         return _step_out(self._readout(x)[:, 0], cache, obs, sel)
 
-    def _step_ctx(self, method: str, slot, with_obs: bool, sel_blocks):
-        ctx = dict(self._ctx(method), slot=slot)
+    def _step_ctx(self, method: str, slot, with_obs: bool, sel_blocks,
+                  rows=None):
+        ctx = dict(self._ctx(method), slot=slot, rows=rows)
         if with_obs:
             ctx["obs"] = True
         if sel_blocks is not None:

@@ -21,6 +21,26 @@ loss ``E * sum_e f_e * p_e``.  Two dispatch paths, as in the reference:
 Plus the always-on shared experts (deepseek).  The aux loss is computed
 only when the caller passes a ``ctx`` to accumulate it into (training);
 inference passes none.
+
+Expert parallelism (``training/checkpoint.py::shard``, ``MoE.place``):
+when the ``model`` axis divides the experts, rank ``r`` of ``M`` holds
+experts ``[r E / M, (r + 1) E / M)`` (``ep``, ``e0``) and runs the three
+products on its slice of the ``(E, C, d)`` buffer only (the ``dense``
+dispatch on its experts' columns of the gates); it weights and adds the
+outputs of the (token, choice) pairs routed to its experts, and that
+partial and the shared experts' row-parallel partial (when their width
+shards, ``tp_shared``) are summed over ``model`` in fp32 in one
+all-reduce (``comm.scope("ep")``), then cast once.  Experts the axis
+does not divide stay whole on every rank (``specs.param_specs`` drops the
+axis), and then the routed output is NOT summed: every rank computes all
+of it.  Under FSDP the caller passes the layer call's gathered weights
+(``w``).  When a step's rows are split over the FSDP ranks (``rows``, the
+flattened ``(pod, data)`` axis; rank-major), capacity is global, as the
+reference's cumsum over the sharded token axis is: N counts every rank's
+tokens, and a pair's rank within its expert adds the pairs of that expert
+on the earlier ranks (an all-gather of each rank's (E,) int32 counts).
+``DROPS``, when a list, receives each capacity call's dropped-pair mask
+(N, k) on the host (a diagnostic: it syncs the device).
 """
 from __future__ import annotations
 
@@ -33,7 +53,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.quoka import topk_stable
-from repro_torch.models.layers import _act, linear, mlp
+from repro_torch.models.layers import (_act, linear, mlp, mlp_hidden,
+                                       row_partial)
+from repro_torch.sharding import comm
+
+#: None, or a list that each capacity dispatch appends its dropped-pair
+#: mask (N, k) bool to, on the host
+DROPS = None
 
 
 class MoE(nn.Module):
@@ -58,6 +84,28 @@ class MoE(nn.Module):
             {"up": w(d, e.n_shared * e.d_expert),
              "down": w(e.n_shared * e.d_expert, d),
              "gate": w(d, e.n_shared * e.d_expert)} if e.n_shared else {})
+        self.n_experts = e.n_experts
+        self.f_shared = e.n_shared * e.d_expert
+        self.ep = None           # the model axis when the experts shard
+        self.e0 = 0              # this rank's first expert
+        self.tp_shared = None    # the model axis when ``shared`` shards
+
+    def place(self, ax: comm.Axis) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``: the experts this rank holds and whether
+        the shared experts' width is cut."""
+        e = self.gate.shape[0]
+        self.ep = ax if e < self.n_experts else None
+        self.e0 = ax.rank * e if self.ep is not None else 0
+        self.tp_shared = ax if self.shared and \
+            self.shared["down"].shape[0] < self.f_shared else None
+
+    def held(self):
+        """The weights as this rank holds them, by their key suffix
+        under ``moe/`` (the shared experts under ``shared/``)."""
+        return {"router": self.router, "gate": self.gate, "up": self.up,
+                "down": self.down,
+                **{f"shared/{k}": p for k, p in self.shared.items()}}
 
     @torch.no_grad()
     def init(self, normal_) -> None:
@@ -75,10 +123,12 @@ class MoE(nn.Module):
             normal_(p, 1.0 / math.sqrt(p.shape[0]))
 
 
-def route(p: MoE, x, e: MoEConfig, with_aux: bool = False):
+def route(p: MoE, x, e: MoEConfig, with_aux: bool = False, router=None):
     """x (N, d) -> (weights (N, k) in x's dtype, expert ids (N, k) int64,
-    the load-balance loss or None)."""
-    probs = torch.softmax(linear(p.router, x).float(), dim=-1)   # (N, E)
+    the load-balance loss or None); ``router``: the call's (d, E) router
+    weight (default ``p``'s)."""
+    router = p.router if router is None else router
+    probs = torch.softmax(linear(router, x).float(), dim=-1)     # (N, E)
     w, ids = topk_stable(probs, e.top_k)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     aux = None
@@ -94,60 +144,102 @@ def capacity(e: MoEConfig, n_tokens: int) -> int:
                                 * e.capacity_factor)))
 
 
-def capacity_slots(ids, n_experts: int, cap: int):
+def capacity_slots(ids, n_experts: int, cap: int, rows=None):
     """Each (token, choice)'s slot in its expert's buffer.  ids (N, k) ->
     (flat expert ids (N*k,), slot (N*k,), kept (N*k,) bool): the rank of the
     pair among its expert's pairs in token-major order (the k choices of
     a token in order), kept while below ``cap``; a dropped pair's slot is
-    ``cap - 1``."""
+    ``cap - 1``.  ``rows``: the axis this rank's rows are its share of,
+    rank-major: the pairs of the earlier ranks count first."""
     flat_e = ids.reshape(-1)
     onehot = F.one_hot(flat_e, n_experts).to(torch.int32)      # (N*k, E)
     ranks = torch.cumsum(onehot, dim=0) - onehot
+    if rows is not None and rows.size > 1:
+        with comm.scope("ep"):
+            counts = comm.all_gather_parts(onehot.sum(0, dtype=torch.int32),
+                                           rows)
+        if rows.rank:
+            ranks = ranks + torch.stack(counts[:rows.rank]).sum(0)
     pos = torch.gather(ranks, 1, flat_e[:, None])[:, 0]
     keep = pos < cap
     return flat_e, torch.where(keep, pos, torch.full_like(pos, cap - 1)), keep
 
 
-def _expert_ffn(p: MoE, h, act: str):
-    """h (E, C, d) -> (E, C, d): every expert's SwiGLU on its own slots."""
-    g = torch.bmm(h, p.gate.to(h.dtype))
-    u = torch.bmm(h, p.up.to(h.dtype))
-    return torch.bmm(_act(act, g) * u, p.down.to(h.dtype))
+def _expert_ffn(w, h, act: str):
+    """h (E, C, d) -> (E, C, d): every expert's SwiGLU on its own slots
+    (``w``: the weights of the experts ``h`` holds)."""
+    g = torch.bmm(h, w["gate"].to(h.dtype))
+    u = torch.bmm(h, w["up"].to(h.dtype))
+    return torch.bmm(_act(act, g) * u, w["down"].to(h.dtype))
 
 
-def moe_apply(p: MoE, x, cfg: ModelConfig, ctx: Optional[dict] = None):
+def moe_apply(p: MoE, x, cfg: ModelConfig, ctx: Optional[dict] = None,
+              w: Optional[dict] = None, rows=None):
     """x (b, t, d) -> (b, t, d).  With a ``ctx`` dict, adds
     ``router_aux_coef`` times the load-balance loss into
-    ``ctx["aux_loss"]``, as the reference does."""
+    ``ctx["aux_loss"]``, as the reference does.  ``w``: the layer call's
+    weights by ``MoE.held``'s names (default the held ones); ``rows``:
+    the FSDP axis when this rank's rows are its share of the step's
+    (module docstring)."""
     e = cfg.moe
+    w = p.held() if w is None else w
     b, t, d = x.shape
     xf = x.reshape(-1, d)                                       # (N, d)
     n = xf.shape[0]
-    w, ids, aux = route(p, xf, e, with_aux=ctx is not None)
+    wt, ids, aux = route(p, xf, e, with_aux=ctx is not None,
+                         router=w["router"])
     if ctx is not None:
         ctx["aux_loss"] = ctx.get("aux_loss", 0.0) + e.router_aux_coef * aux
+    ep = p.ep
+    n_loc = w["gate"].shape[0]                  # the experts this rank runs
+    e0 = p.e0
+    # the routed output, or this rank's fp32 partial of it under ``ep``
     if e.dispatch == "dense":
         gates = torch.zeros((n, e.n_experts), dtype=x.dtype,
-                            device=x.device).scatter(1, ids, w)  # (N, E)
-        h = torch.einsum("nd,edf->nef", xf, p.gate.to(x.dtype))
-        u = torch.einsum("nd,edf->nef", xf, p.up.to(x.dtype))
+                            device=x.device).scatter(1, ids, wt)  # (N, E)
+        gates = gates[:, e0:e0 + n_loc]
+        h = torch.einsum("nd,edf->nef", xf, w["gate"].to(x.dtype))
+        u = torch.einsum("nd,edf->nef", xf, w["up"].to(x.dtype))
         y = torch.einsum("nef,efd->ned", _act(cfg.act, h) * u,
-                         p.down.to(x.dtype))
-        out = torch.einsum("ned,ne->nd", y, gates)
+                         w["down"].to(x.dtype))
+        if ep is None:
+            out = torch.einsum("ned,ne->nd", y, gates)
+        else:
+            out = torch.einsum("ned,ne->nd", y.float(), gates.float())
     elif e.dispatch == "capacity":
-        cap = capacity(e, n)
-        flat_e, slot, keep = capacity_slots(ids, e.n_experts, cap)
+        nr = 1 if rows is None else rows.size
+        cap = capacity(e, n * nr)
+        flat_e, slot, keep = capacity_slots(ids, e.n_experts, cap, rows)
+        if DROPS is not None:
+            DROPS.append((~keep).reshape(n, e.top_k).cpu())
+        mine = keep if ep is None else \
+            keep & (flat_e >= e0) & (flat_e < e0 + n_loc)
+        le = (flat_e - e0).clamp(0, n_loc - 1)
         xe = xf.repeat_interleave(e.top_k, dim=0)               # (N*k, d)
-        buf = torch.zeros((e.n_experts, cap, d), dtype=x.dtype,
-                          device=x.device)
-        buf.index_put_((flat_e, slot),
-                       torch.where(keep[:, None], xe, torch.zeros_like(xe)),
+        buf = torch.zeros((n_loc, cap, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((le, slot),
+                       torch.where(mine[:, None], xe, torch.zeros_like(xe)),
                        accumulate=True)
-        back = _expert_ffn(p, buf, cfg.act)[flat_e, slot]       # (N*k, d)
-        back = torch.where(keep[:, None], back, torch.zeros_like(back))
-        out = torch.sum(back.reshape(n, e.top_k, d) * w[..., None], dim=1)
+        back = _expert_ffn(w, buf, cfg.act)[le, slot]           # (N*k, d)
+        back = torch.where(mine[:, None], back, torch.zeros_like(back))
+        if ep is None:
+            out = torch.sum(back.reshape(n, e.top_k, d) * wt[..., None],
+                            dim=1)
+        else:
+            out = torch.sum(back.reshape(n, e.top_k, d).float()
+                            * wt.float()[..., None], dim=1)
     else:
         raise ValueError(e.dispatch)
-    if e.n_shared:
-        out = out + mlp(p.shared, xf, cfg.act)
+    shared = {k[7:]: v for k, v in w.items() if k.startswith("shared/")}
+    if ep is not None:
+        # one fp32 sum over ``model`` of the routed and shared partials
+        if e.n_shared and p.tp_shared is not None:
+            out = out + row_partial(shared["down"],
+                                    mlp_hidden(shared, xf, cfg.act))
+        with comm.scope("ep"):
+            out = comm.all_reduce(out, ep).to(x.dtype)
+        if e.n_shared and p.tp_shared is None:
+            out = out + mlp(shared, xf, cfg.act)
+    elif e.n_shared:
+        out = out + mlp(shared, xf, cfg.act, p.tp_shared)
     return out.reshape(b, t, d)

@@ -28,12 +28,13 @@ the encoder's output, written once per prompt (``Model._build_cross``)
 and only read after.
 
 On a mesh a batch-1 cache may hold only a contiguous slice of its
-capacity axis (a ``SeqKVCache``, whose ``seq`` is a ``SeqShard``; a
-``KVCache``'s is None): rank ``r`` of the ``data`` axis
+capacity axis (a ``SeqKVCache`` or ``SeqLatentCache``, whose ``seq`` is a
+``SeqShard``; a whole cache's is None): rank ``r`` of the ``data`` axis
 holds slots ``[r * cap / D, (r + 1) * cap / D)``, as GSPMD lays out the
 reference's ``P(..., "data", ...)``.  ``kv_write`` writes only the part
 of a chunk that falls in the held slots (after the clamp, which keeps its
-meaning on the whole capacity), and ``seq_full`` gathers the whole cache
+meaning on the whole capacity; ``latent_write`` likewise), and
+``seq_full`` gathers the whole cache
 where an attention needs every key (dense attention; the ranks' bytes
 count under ``comm.scope("seq")``).  Selection reads the slices where
 they lie (``core/plan.py``).
@@ -101,13 +102,18 @@ def kv_init(batch: int, cap: int, n_kv: int, hd: int, dtype,
                                              cap))
 
 
-def seq_full(cache) -> KVCache:
+def seq_full(cache):
     """The whole cache of a sequence-sharded one (every rank's slices
-    gathered in slot order); the cache itself when it is whole."""
+    gathered in slot order: a ``KVCache`` or a ``LatentCache``); the
+    cache itself when it is whole."""
     if cache.seq is None:
         return cache
     ax = cache.seq.ax
     with comm.scope("seq"):
+        if isinstance(cache, SeqLatentCache):
+            return LatentCache(latent=comm.all_gather(cache.latent, ax, 1),
+                               pos=comm.all_gather(cache.pos, ax, 1),
+                               rank=cache.rank)
         return KVCache(k=comm.all_gather(cache.k, ax, 1),
                        v=comm.all_gather(cache.v, ax, 1),
                        pos=comm.all_gather(cache.pos, ax, 1))
@@ -213,25 +219,61 @@ class LatentCache(NamedTuple):
     def capacity(self) -> int:
         return self.latent.shape[1]
 
+    @property
+    def seq(self) -> Optional[SeqShard]:
+        """A whole cache: no ``SeqShard``."""
+        return None
+
+
+class SeqLatentCache(NamedTuple):
+    """A ``LatentCache`` of which this rank holds the slots ``seq`` says
+    (batch 1, the sequence over ``data``; ``SeqKVCache``'s twin)."""
+    latent: torch.Tensor   # (b, held, rank + rope)
+    pos: torch.Tensor      # (b, held) int32, -1 = empty
+    rank: int
+    seq: SeqShard
+
+    ckv = LatentCache.ckv
+    krope = LatentCache.krope
+
+    @property
+    def capacity(self) -> int:
+        """Slots of the whole cache (every rank's)."""
+        return self.seq.cap
+
 
 def latent_init(batch: int, cap: int, r: int, rope: int, dtype,
-                device) -> LatentCache:
-    return LatentCache(
-        latent=torch.zeros((batch, cap, r + rope), dtype=dtype,
+                device, seq_ax: Optional[comm.Axis] = None):
+    """A ``LatentCache`` of ``cap`` slots; with ``seq_ax`` (size D > 1,
+    dividing cap) a ``SeqLatentCache`` of this rank's ``cap / D``."""
+    held = cap if seq_ax is None or seq_ax.size == 1 else cap // seq_ax.size
+    if held != cap and cap % seq_ax.size:
+        raise ValueError(f"capacity {cap} does not split over "
+                         f"{seq_ax.size} ranks")
+    leaves = dict(
+        latent=torch.zeros((batch, held, r + rope), dtype=dtype,
                            device=device),
-        pos=torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+        pos=torch.full((batch, held), -1, dtype=torch.int32, device=device),
         rank=r)
+    if held == cap:
+        return LatentCache(**leaves)
+    return SeqLatentCache(**leaves, seq=SeqShard(seq_ax, seq_ax.rank * held,
+                                                 cap))
 
 
 def latent_write(cache: LatentCache, ckv_new, krope_new, start,
                  pos_new=None) -> LatentCache:
     """MLA twin of ``kv_write``, in place: the same int-or-per-row
-    ``start``, clamping and optional ``pos_new``."""
+    ``start``, clamping and optional ``pos_new``; a ``SeqLatentCache``
+    takes the part of the chunk in its slots."""
     b, t = ckv_new.shape[:2]
     r = cache.rank
     cap = cache.capacity
     dev = cache.pos.device
     if isinstance(start, torch.Tensor) and start.ndim == 1:
+        if cache.seq is not None:
+            raise ValueError("a sequence-sharded cache takes one int start "
+                             "(batch-1 generate, not continuous batching)")
         s = start.to(device=dev, dtype=torch.int64)
         offs = torch.arange(t, device=dev)
         if pos_new is None:
@@ -247,9 +289,13 @@ def latent_write(cache: LatentCache, ckv_new, krope_new, start,
         pos_new = torch.arange(start, start + t, dtype=torch.int32,
                                device=dev).expand(b, t)
     s = min(max(start, 0), cap - t)
-    cache.latent[:, s:s + t, :r] = ckv_new
-    cache.latent[:, s:s + t, r:] = krope_new
-    cache.pos[:, s:s + t] = pos_new
+    lo, held = (0, cap) if cache.seq is None else \
+        (cache.seq.lo, cache.latent.shape[1])
+    a, e = max(s, lo), min(s + t, lo + held)
+    if a < e:
+        cache.latent[:, a - lo:e - lo, :r] = ckv_new[:, a - s:e - s]
+        cache.latent[:, a - lo:e - lo, r:] = krope_new[:, a - s:e - s]
+        cache.pos[:, a - lo:e - lo] = pos_new[:, a - s:e - s]
     return cache
 
 

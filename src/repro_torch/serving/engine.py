@@ -59,9 +59,13 @@ pinned at admission to one rank (``Scheduler``), its blocks come from
 that rank's share and its row sits in that rank's rows of every step, so
 no KV moves between steps.  The scheduler runs on rank 0's clock,
 broadcast over the whole mesh (``ServeState.clock``), so every rank
-admits, packs and finishes alike.  Not yet ported on a mesh, and refused:
-``registry=``, selection methods other than ``full`` and ``quoka``,
-block kinds other than ``attn``, and on a data axis a preempting
+admits, packs and finishes alike.  The block kinds ``attn``,
+``attn_moe``, ``mla`` and ``mla_moe`` serve on a mesh (expert-parallel
+MoE, MLA's heads over ``model``, the latent pool's blocks over the FSDP
+axes); a MoE's capacity ranking is global over rows split across the
+FSDP ranks (``rows=``; ``models/moe.py``).  Not yet ported on a mesh,
+and refused: ``registry=``, selection methods other than ``full`` and
+``quoka``, the other block kinds, and on a data axis a preempting
 scheduling policy.
 """
 from __future__ import annotations
@@ -233,9 +237,9 @@ class Engine:
         if specs.batch_spec(cfg, {"tokens": (b, 1)}, mesh)["tokens"][0]:
             n = b // fax.size
             return slice(fax.rank * n, (fax.rank + 1) * n), None
-        place = specs.cache_specs(cfg, specs.kv_cache_shapes(cfg, b, cap),
-                                  mesh)
-        if place["stacks/0/0/kv/k"][2] == "data":
+        place = specs.payload_specs(specs.cache_specs(
+            cfg, specs.kv_cache_shapes(cfg, b, cap), mesh))
+        if place["stacks/0/0"][2] == "data":
             return slice(0, b), comm.axis(mesh, "data")
         return slice(0, b), None
 
@@ -253,6 +257,8 @@ class Engine:
             generator = torch.Generator(device=dev)
             generator.manual_seed(0)
         rows, seq = self._layout(b, cap)
+        # a MoE's capacity counts every rank's rows when they are split
+        rax = model.fsdp if rows != slice(0, b) else None
         if rows != slice(0, b):
             batch = {k: (v if v is None else np.asarray(v)[rows])
                      for k, v in batch.items()}
@@ -265,11 +271,11 @@ class Engine:
         if sig not in self._warmed:
             wgen = torch.Generator(device=dev)
             wcache = model.init_cache(nb, cap, seq)
-            wl, wcache = model.prefill(batch, wcache, self.method)
+            wl, wcache = model.prefill(batch, wcache, self.method, rax)
             wt = sample(wl[:b], wgen, self.sampler)
             if max_new > 1:
                 wl, wcache = model.decode_step(wt[rows], positions, wcache,
-                                               self.method)
+                                               self.method, rows=rax)
                 sample(wl[:b], wgen, self.sampler)
             _sync(dev)
             del wcache
@@ -280,7 +286,7 @@ class Engine:
         cache = model.init_cache(nb, cap, seq)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(batch, cache, self.method)
+        logits, cache = model.prefill(batch, cache, self.method, rax)
         tok = sample(logits[:b], generator, self.sampler)
         _sync(dev)
         ttft = time.perf_counter() - t0
@@ -290,7 +296,7 @@ class Engine:
         pos = positions
         for _ in range(max_new - 1):
             logits, cache = model.decode_step(tok[rows], pos, cache,
-                                              self.method)
+                                              self.method, rows=rax)
             tok = sample(logits[:b], generator, self.sampler)
             out.append(tok)
             pos += 1
@@ -334,6 +340,7 @@ class Engine:
         # (``_place``) on its blocks, with local ids (and reads the whole
         # step's logits: ``[:n]`` keeps rank 0's copy when rows repeat)
         dp, n_loc = pool.dp, pool.local_blocks
+        rax = model.fsdp if dp > 1 else None     # the rows split over it
 
         def local(table, *rows):
             if dp == 1:
@@ -364,7 +371,8 @@ class Engine:
                 during()
             res = model.prefill_chunk(
                 {"tokens": inputs[0]}, inputs[1], cache, method,
-                valid_len=inputs[2], with_obs=with_obs, sel_blocks=selb)
+                valid_len=inputs[2], with_obs=with_obs, sel_blocks=selb,
+                rows=rax)
             logits = model._readout(res[0][:, None, :])[:n, 0]
             tok = sample(logits, generator, sampler)
             # the whole chunk is written (pos -1 past valid_len), so a row
@@ -385,7 +393,7 @@ class Engine:
                 during()
             res = model.decode_step(inputs[0].long(), inputs[1], cache,
                                     method, with_obs=with_obs,
-                                    sel_blocks=selb)
+                                    sel_blocks=selb, rows=rax)
             tok = sample(res[0][:n], generator, sampler)
             touched = pl.touched_blocks(pos, live, max_nb, block_size)
             pl.scatter(data, res[1], table, touched, n_loc, block_size)

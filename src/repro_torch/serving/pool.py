@@ -85,8 +85,9 @@ dp, (k + 1) N / dp)`` (``rank``, ``base``, ``local_blocks``).  The host-side
 bookkeeping is the same on every rank and names global ids; a request
 is pinned to one rank (``alloc_prefix(rank=)``, ``rank_of_rid``), whose
 share all its blocks come from, so each device helper touches only the
-blocks this rank holds.  The host tier on a mesh raises the reference's
-error, and an MLA latent pool on a mesh is not yet ported.
+blocks this rank holds.  An MLA latent pool places its blocks the same
+way, the latent whole on every ``model`` rank (every rank writes all of
+it).  The host tier on a mesh raises the reference's error.
 """
 from __future__ import annotations
 
@@ -287,23 +288,29 @@ class HostTier:
 def _check_pool_mesh(model, mesh, num_blocks: int, block_size: int) -> int:
     """A pool on ``mesh``: the model must be sharded on it, and each
     layer's held KV heads must be what ``cache_specs(paged=True)`` places
-    on this rank.  Returns the ranks its block axis splits over."""
+    on this rank (an MLA latent: never split over ``model``, every rank
+    holds it whole).  Returns the ranks its block axis splits over."""
     from repro_torch.sharding import specs
     cfg = model.cfg
-    if any(k in ("mla", "mla_moe") for k in cfg.layer_kinds()):
-        raise NotImplementedError(
-            "the MLA latent pool on a mesh is not yet ported")
     if model.mesh is not mesh:
         raise ValueError("shard the model on this mesh first "
                          "(training/checkpoint.py::shard; Engine(mesh=) "
                          "does)")
     msize = specs.mesh_shape(mesh).get("model", 1)
-    place = specs.cache_specs(cfg, specs.kv_cache_shapes(
-        cfg, num_blocks, block_size), mesh, paged=True)
-    dp = specs._axes_size(mesh, place["stacks/0/0/kv/k"][1])
+    place = specs.payload_specs(specs.cache_specs(cfg, specs.kv_cache_shapes(
+        cfg, num_blocks, block_size), mesh, paged=True))
+    dp = specs._axes_size(mesh, place["stacks/0/0"][1])
     for si, stack in enumerate(model.stacks):
         for i, blk in enumerate(stack.layers):
-            spec = place[f"stacks/{si}/{i % len(stack.period)}/kv/k"]
+            spec = place[f"stacks/{si}/{i % len(stack.period)}"]
+            if spec[1:3] != place["stacks/0/0"][1:3]:
+                raise ValueError(f"the pool's layers place their blocks "
+                                 f"differently: {spec}")
+            if len(spec) == 4:              # an MLA latent (R, N, bs, r)
+                if "model" in spec:
+                    raise ValueError(f"an MLA latent placed over model: "
+                                     f"{spec}")
+                continue
             want = cfg.n_kv_heads // msize if spec[3] == "model" \
                 else cfg.n_kv_heads
             if blk.n_kv != want:

@@ -8,12 +8,14 @@ collectives below, over one axis of a ``DeviceMesh`` (``model``,
 places where ranks meet:
 
   * ``all_reduce``      the row-parallel partial sums (``wo``, MLP
-                        ``down``), the vocab-parallel embedding lookup and
-                        the FSDP read-out's partial logits;
+                        ``down``, the expert-parallel MoE's routed and
+                        shared partials), the vocab-parallel embedding
+                        lookup and the FSDP read-out's partial logits;
   * ``all_gather``      the vocab-parallel logits, the sub-selected queries,
                         QUOKA's (score, index) candidates, FSDP weight
-                        shards, and a sequence-sharded cache's whole
-                        slices (for dense attention);
+                        shards, a sequence-sharded cache's whole slices
+                        (for dense attention) and the MoE's per-expert
+                        counts;
   * ``all_reduce_max``  the head-shared block plan's max over KV heads
                         when the KV heads are sharded;
   * ``broadcast``       a sequence-sharded cache's selected rows, from
@@ -43,7 +45,9 @@ bytes once.  ``scope(name)`` labels
 the collectives of a stretch of code: ``score`` the scoring pass,
 ``fsdp`` the weight gathers (and the embedding rows and read-out sums
 that stand in for gathering the embedding), ``seq`` a sequence-sharded
-cache's row and slice moves; the rest count under ``""``.
+cache's row and slice moves, ``ep`` the expert-parallel MoE's sum over
+``model`` and its capacity ranking's (E,) int32 counts gathered over the
+FSDP group (``models/moe.py``); the rest count under ``""``.
 """
 from __future__ import annotations
 
@@ -223,7 +227,8 @@ class HeadShard:
     aligned range when the rank's heads are whole groups (or one head),
     else one KV head per query head by an index (group 1 locally; a rank
     whose groups straddle ranks, e.g. llama3-2-3b's 8 heads of group 3 on
-    ``model=3``)."""
+    ``model=3``).  MLA's latent is one KV head (``n_kv`` 1) that every
+    query head reads."""
 
     def __init__(self, ax: Axis, n_heads: int, n_kv: int, h_loc: int,
                  kv_held: int, device):
@@ -237,7 +242,7 @@ class HeadShard:
         if self.heads_sharded and not self.kv_sharded:
             if self.h0 % group == 0 and h_loc % group == 0:
                 self.kv_range = (self.h0 // group, h_loc // group)
-            elif h_loc == 1:
+            elif h_loc == 1 or n_kv == 1:
                 self.kv_range = (self.h0 // group, 1)
             else:
                 self.kv_idx = torch.tensor(

@@ -17,10 +17,11 @@ mesh is a ``torch.distributed`` ``DeviceMesh`` or anything with a
 ``shape`` mapping of axis sizes (the reference tests' ``FakeMesh``).
 
 At run time ``training/checkpoint.py::shard`` applies every placement of
-a dense ``attn`` model: the ``model`` entries, then the FSDP entries (the
-embed axis over ``(pod, data)``); the serving engine places batch rows,
-pool blocks and a batch-1 cache's sequence as ``batch_spec`` and
-``cache_specs`` say.
+a model of ``attn``, ``attn_moe``, ``mla`` and ``mla_moe`` layers: the
+``model`` entries, then the FSDP entries (the embed axis over ``(pod,
+data)``); the serving engine places batch rows, pool blocks and a
+batch-1 cache's sequence as ``batch_spec`` and ``cache_specs`` say (an
+MLA latent over the FSDP axes or ``data``, never ``model``).
 """
 from __future__ import annotations
 
@@ -184,7 +185,7 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh,
                 paged: bool = False) -> Dict[str, Spec]:
     """KV / state cache placements, on the reference's cache leaves
     (``stacks/<s>/<j>/kv/k`` (R, b, cap, n_kv, hd), ``.../pos`` (R, b,
-    cap), ...; ``kv_cache_shapes`` gives an attention model's).
+    cap), ...; ``kv_cache_shapes`` gives an attention or MLA model's).
 
     batch >= |pod * data|: batch over the FSDP axes, heads over model.
     batch == 1 (long context): the sequence axis over ``data`` and heads
@@ -231,22 +232,38 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh,
 
 def kv_cache_shapes(cfg: ModelConfig, batch: int, cap: int,
                     n_kv: Optional[int] = None) -> Dict[str, Tuple]:
-    """The reference's cache leaves of an attention-only model (every
-    stack's ``kv/{k,v,pos}``, stacked over repeats) for a (batch, cap)
-    cache: what ``cache_specs`` reads to place the port's ``KVCache``s."""
+    """The reference's cache leaves of a model of attention and MLA
+    layers (every stack's ``kv/{k,v,pos}``, or ``latent/{ckv,krope,pos}``
+    for an MLA kind, stacked over repeats) for a (batch, cap) cache: what
+    ``cache_specs`` reads to place the port's ``KVCache``s and
+    ``LatentCache``s."""
     n_kv = cfg.n_kv_heads if n_kv is None else n_kv
     out = {}
     for si, (period, reps) in enumerate(cfg.stacks()):
         for j, kind in enumerate(period):
-            if kind != "attn":
+            pre = f"stacks/{si}/{j}/"
+            if kind in ("mla", "mla_moe"):
+                m = cfg.mla
+                out[pre + "latent/ckv"] = (reps, batch, cap, m.kv_lora_rank)
+                out[pre + "latent/krope"] = (reps, batch, cap, m.qk_rope_dim)
+                out[pre + "latent/pos"] = (reps, batch, cap)
+                continue
+            if kind not in ("attn", "attn_moe"):
                 raise NotImplementedError(
                     f"cache placement of block kind {kind!r} on a mesh is "
                     f"not yet ported")
-            pre = f"stacks/{si}/{j}/kv/"
-            out[pre + "k"] = out[pre + "v"] = (reps, batch, cap, n_kv,
-                                               cfg.resolved_head_dim)
-            out[pre + "pos"] = (reps, batch, cap)
+            out[pre + "kv/k"] = out[pre + "kv/v"] = (reps, batch, cap, n_kv,
+                                                     cfg.resolved_head_dim)
+            out[pre + "kv/pos"] = (reps, batch, cap)
     return out
+
+
+def payload_specs(place: Dict[str, Spec]) -> Dict[str, Spec]:
+    """The placements of each layer's payload leaf (``kv/k`` or
+    ``latent/ckv``) of a ``cache_specs`` result, by its layer prefix
+    ``stacks/<s>/<j>``."""
+    return {k.rsplit("/", 2)[0]: v for k, v in place.items()
+            if k.endswith(("/kv/k", "/latent/ckv"))}
 
 
 def model_axis_entry(spec: Spec) -> Optional[int]:

@@ -167,19 +167,23 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
     param.copy_(torch.from_numpy(np.array(arr)))
 
 
+#: the block kinds a mesh places
+MESH_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
+
+
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise for what this port does not place on a mesh yet: a frontend
-    or encoder, any block kind but dense ``attn``."""
+    or encoder, any block kind but ``MESH_KINDS``."""
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: a mesh for the {cfg.family} family's "
             f"{'frontend' if cfg.family == 'vlm' else 'encoder'} is not "
             f"yet ported")
-    bad = sorted(set(cfg.layer_kinds()) - {"attn"})
+    bad = sorted(set(cfg.layer_kinds()) - set(MESH_KINDS))
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} on a mesh are not yet ported "
-            f"(dense 'attn' only)")
+            f"({', '.join(map(repr, MESH_KINDS))} only)")
 
 
 @torch.no_grad()
@@ -206,7 +210,7 @@ def shard(model: Model, mesh) -> Model:
             for t in ts:
                 n = t.shape[dim] // a.size
                 t.data = t.data.narrow(dim, a.rank * n, n).clone()
-    for blk in model.layers():
+    for blk in model.layers() + ([model.mtp.block] if model.mtp else []):
         blk.place(ax, fax)
     if model.embed.shape[0] < cfg.vocab:
         model.tp_vocab = ax

@@ -1188,6 +1188,24 @@ def test_mesh_serving_on_the_card(dev):
         assert r["equal"] and r["backend"] == "gloo", r
 
 
+def test_ep_moe_call_on_the_card_matches_cpu(dev):
+    """The expert-parallel MoE call on the card (smoke olmoe, capacity
+    factor 0.5) at ``data=2,model=2``, four ranks sharing the card over
+    gloo: each rank's two experts on its two rows agree with the meshless
+    CPU call within 1e-4 of its largest magnitude, drop the meshless
+    run's pairs of those rows (the ranking counts the other data rank's
+    rows), and sum the routed partials over ``model`` (``ep``)."""
+    import torch_tp_cases as cases
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(cases.ep_moe_call_case, 4, "data=2,model=2",
+                      device="cuda", timeout=600)
+    assert sum(r["drops"] for r in res[::2]) > 0
+    for r in res:
+        assert r["rel"] <= 1e-4 and r["drops_equal"], r
+        assert r["experts"] == 2
+        assert r["ep_bytes"].get("all_reduce", 0) > 0, r
+
+
 DP_SMOKE_RUNS = (("bf16 b1", "bfloat16", 1, 256),
                  ("fp32 b2", "float32", 2, 128),
                  ("fp32 b1", "float32", 1, 256))

@@ -393,13 +393,15 @@ def test_latent_cache_serve_raises_and_generate_runs():
     """deepseek-v3's latent caches now have a paged-pool layout: ``serve``
     runs and gives each request its own ``generate``'s tokens (the
     reference's serve is matched in ``test_torch_latent_pool.py``); what
-    still raises is the latent pool on a mesh (not yet ported), explicitly
-    and with no fallback; the one-shot ``generate`` keeps the reference's tokens."""
+    still raises is a latent pool on a mesh the model was not sharded on
+    (the latent pool on a mesh itself serves: ``test_torch_ep.py``),
+    explicitly and with no fallback; the one-shot ``generate`` keeps the
+    reference's tokens."""
     rm, params, pm = _pair("deepseek-v3-671b")
     prompts = _prompts(7, (64, 48), pm.cfg.vocab)
     eng = Engine(pm, method="quoka", device="cpu")
     from repro_torch.serving.pool import PagedKVCache
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="shard the model on this mesh"):
         PagedKVCache(pm, num_blocks=8, block_size=BS,
                      mesh=_Mesh({"model": 2}))
     got = eng.serve(make_requests(prompts, 4), block_size=BS)

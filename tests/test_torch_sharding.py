@@ -145,21 +145,28 @@ def test_mesh_spec_errors_match_reference():
 
 
 def test_refusals_without_ranks():
-    """What raises before any rank meets: the MLA latent pool, the
-    modality families and the other block kinds on a mesh, a data axis
-    among them; a dense ``attn`` model places on a data axis."""
+    """What raises before any rank meets: the modality families and the
+    block kinds not yet placed, on a mesh, a data axis among them; a
+    dense ``attn`` model places on a data axis; and the MLA latent pool's
+    placement puts its blocks over the FSDP axes, never over ``model``."""
     from repro_torch.models.model import build_model
-    from repro_torch.serving.pool import PagedKVCache
     pm = build_model(get_config("granite-3-2b").smoke(), "cpu")
     ckpt.check_mesh(pm.cfg, FakeMesh({"data": 2, "model": 1}))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ckpt.shard(Model(get_config("olmoe-1b-7b").smoke(), device="meta"),
+        ckpt.shard(Model(get_config("zamba2-7b").smoke(), device="meta"),
                    FakeMesh({"data": 2, "model": 1}))
-    ds = build_model(get_config("deepseek-v3-671b").smoke(), "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedKVCache(ds, 8, 16, mesh=FakeMesh({"model": 2}))
+    ds = get_config("deepseek-v3-671b").smoke()
+    for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 2}):
+        place = specs.cache_specs(ds, specs.kv_cache_shapes(ds, 8, 16),
+                                  FakeMesh(mesh), paged=True)
+        fsdp = specs.fsdp_axes(FakeMesh(mesh))
+        assert set(place) == {f"stacks/0/{j}/latent/{leaf}" for j in (0, 1)
+                              for leaf in ("ckv", "krope", "pos")}
+        for key, spec in place.items():
+            assert spec[1] == fsdp and "model" not in spec, (key, spec)
+            assert spec[2] is None, (key, spec)      # slots never split
     for arch in ("whisper-small", "internvl2-1b", "zamba2-7b",
-                 "olmoe-1b-7b", "gemma3-27b", "deepseek-v3-671b"):
+                 "gemma3-27b"):
         m = Model(get_config(arch).smoke(), device="meta")
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ckpt.shard(m, FakeMesh({"model": 2}))

@@ -1,10 +1,12 @@
 """Rank bodies of the port's mesh checks, run by
-``launch/mesh.py::spawn_ranks`` from ``tests/test_torch_sharding.py`` and
-``tests/test_torch_dp.py`` (on the CPU, gloo), ``tests/test_torch_cuda.py``
-and ``chip_smoke.py`` (ranks sharing the card).  This module imports
+``launch/mesh.py::spawn_ranks`` from ``tests/test_torch_sharding.py``,
+``tests/test_torch_dp.py`` and ``tests/test_torch_ep.py`` (on the CPU,
+gloo), ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (ranks sharing
+the card).  This module imports
 neither ``jax`` nor the reference package: the reference's weights and
 expected outputs arrive as numpy arguments."""
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -263,12 +265,166 @@ def gen_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
     return out
 
 
+def ep_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
+            serve=None, record=False):
+    """The expert-parallel MoE and MLA checks of one mesh ``spec``:
+    ``generate`` of the batch ``toks`` (``new`` new tokens) with QUOKA
+    on the mesh, each capacity call's dropped-pair mask (this rank's
+    rows, ``moe.DROPS``), the scoring routes, the bytes by scope, the
+    slots each layer's cache holds, the experts and the parameter bytes
+    this rank holds beside its placements', whether the shards
+    reassemble; with ``serve`` (prompts) a serve over a fresh pool and
+    the same requests again over the warm one (a prefix hit), their
+    tokens, hits and drops; with ``record``, every selecting layer call's
+    inputs (the queries of every head) and plan ids, from rank 0."""
+    torch.set_num_threads(1)
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import quoka as qk
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    from repro_torch.sharding import comm
+    from repro_torch.training.checkpoint import leaf_map
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, over)
+    full, shd = _models(cfg, flat, dev, mesh)
+    eng = Engine(shd, method="quoka", device=dev, mesh=mesh)
+    out = {"reassembled": _reassembled(full, shd, mesh, leaf_map),
+           "param_bytes": param_bytes(full, shd, mesh),
+           "experts": sorted({blk.moe.gate.shape[0] for blk in shd.layers()
+                              if hasattr(blk, "moe")})}
+    del full
+    caches, records = [], []
+    init_cache, build = shd.init_cache, plan_mod.build
+
+    def init(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
+    def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
+            q_valid=None, heads=None, seq=None):
+        pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
+                    q_valid=q_valid, heads=heads, seq=seq)
+        if record and seq is None:
+            with comm.scope("record"):
+                if heads.heads_sharded:
+                    q = comm.all_gather(q, heads.ax, 2)
+            if rank == 0:
+                records.append(dict(
+                    q=q.numpy(), k=k.numpy(), key_pos=key_pos.numpy(),
+                    chunk_start=int(chunk_start), budget=budget,
+                    q_valid=None if q_valid is None else q_valid.numpy(),
+                    idx=pln.idx.numpy()))
+        return pln
+
+    eng.generate(eng.pad_prompt(toks), new)          # warm the signature
+    shd.init_cache, plan_mod.build = init, rec
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    comm.reset_counts()
+    moe.DROPS = []
+    try:
+        out["generate"] = eng.generate(eng.pad_prompt(toks), new).tokens
+        out["drops"] = [d.numpy() for d in moe.DROPS]
+    finally:
+        plan_mod.build, moe.DROPS = build, None
+        del shd.init_cache
+    lay = caches[-1][0][0]
+    out.update(routes=dict(qk.ROUTES), records=records,
+               bytes={sc: comm.bytes_by_kind(sc)
+                      for sc in ("ep", "score", "seq", "fsdp", "")},
+               slots=(lay.pos.shape[1], lay.capacity))
+    if serve is not None:
+        reqs = lambda: make_requests(serve, 5)
+        st = eng.make_serve_state(reqs(), **SERVE_KW)
+        moe.DROPS = []
+        try:
+            out["serve"] = eng.serve(reqs(), state=st).tokens
+            out["serve_hit"] = eng.serve(reqs(), state=st).tokens
+            out["serve_drops"] = int(sum(d.sum() for d in moe.DROPS))
+            out["serve_moe_calls"] = len(moe.DROPS)
+        finally:
+            moe.DROPS = None
+        out["cache_hits"] = eng.stats["cache_hits"]
+        out["pool_blocks"] = (st.pool.local_blocks, st.pool.num_blocks)
+    return out
+
+
+def ep_moe_call_case(rank, world, dev, spec):
+    """One expert-parallel MoE call on ``dev`` against the meshless call
+    on the CPU: smoke olmoe with capacity dispatch at factor 0.5, batch 4,
+    this rank's experts (sliced over ``model``) on its rows (split over
+    the FSDP axes).  Returns the largest difference over the output's
+    largest magnitude, whether this rank's rows drop the meshless run's
+    pairs, how many they drop, and the ``ep`` bytes."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models import moe
+    from repro_torch.sharding import comm, specs
+    mesh = mesh_from_spec(spec, dev)
+    ax = comm.axis(mesh, "model")
+    fax = comm.axis(mesh, specs.fsdp_axes(mesh) or ())
+    base = get_config("olmoe-1b-7b").smoke()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch="capacity", capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(0)
+    cpu = moe.MoE(cfg, "cpu")
+    cpu.init(lambda p, std: p.copy_(torch.randn(p.shape, generator=gen)
+                                    * std))
+    x = torch.randn((4, 24, cfg.d_model), generator=gen)
+    card = moe.MoE(cfg, dev)
+    card.load_state_dict(cpu.state_dict())
+    n = cfg.moe.n_experts // ax.size
+    with torch.no_grad():
+        for t in (card.gate, card.up, card.down):
+            t.data = t.data.narrow(0, ax.rank * n, n).clone()
+    card.place(ax)
+    b = x.shape[0] // fax.size
+    rows = slice(fax.rank * b, (fax.rank + 1) * b)
+    moe.DROPS = []
+    try:
+        want = moe.moe_apply(cpu, x, cfg)
+        want_drop = moe.DROPS[0].reshape(4, -1, cfg.moe.top_k)[rows]
+        comm.reset_counts()
+        got = moe.moe_apply(card, x[rows].to(dev), cfg,
+                            rows=fax if fax.size > 1 else None).cpu()
+        got_drop = moe.DROPS[1].reshape(b, -1, cfg.moe.top_k)
+    finally:
+        moe.DROPS = None
+    rel = float((got - want[rows]).abs().max() / want.abs().max())
+    return {"rel": rel, "drops_equal": bool(torch.equal(got_drop,
+                                                        want_drop)),
+            "drops": int(want_drop.sum()), "experts": card.gate.shape[0],
+            "ep_bytes": comm.bytes_by_kind("ep")}
+
+
+def meshless_drops(arch, over, flat, toks, new=GEN_NEW):
+    """The meshless port's ``generate`` tokens and its capacity calls'
+    dropped-pair masks, for ``ep_case`` to be held to."""
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import checkpoint as ckpt
+    eng = Engine(ckpt.from_flat(flat, port_cfg(arch, over), "cpu"),
+                 method="quoka", device="cpu")
+    eng.generate(eng.pad_prompt(toks), new)
+    moe.DROPS = []
+    try:
+        tokens = eng.generate(eng.pad_prompt(toks), new).tokens
+        return tokens, [d.numpy() for d in moe.DROPS]
+    finally:
+        moe.DROPS = None
+
+
 def dp_world(rank, world, dev, runs):
-    """One spawn of ``tests/test_torch_dp.py``: each (name, case, args)
-    of ``runs`` (``serve_case``, ``seq_case`` or ``gen_case`` by name,
+    """One spawn of ``tests/test_torch_dp.py`` or ``test_torch_ep.py``:
+    each (name, case, args) of ``runs`` (``serve_case``, ``seq_case``,
+    ``gen_case`` or ``ep_case`` by name,
     with these positional arguments after the rank's own), in order.
     Returns {name: result}."""
-    cases = {"serve": serve_case, "seq": seq_case, "gen": gen_case}
+    cases = {"serve": serve_case, "seq": seq_case, "gen": gen_case,
+             "ep": ep_case}
     out = {}
     for name, case, args, kw in runs:
         out[name] = cases[case](rank, world, dev, *args, **kw)
@@ -528,6 +684,203 @@ def dp_card_case(rank, world, dev, arch, layers, runs, budget, new,
     mesh = mesh_from_spec(DP_SPEC, dev)
     out = dp_card_run(dev, arch, layers, runs, budget, new, mesh=mesh,
                       smoke=smoke)
+    out["backend"] = comm.axis(mesh).backend
+    if dev.type == "cuda":
+        out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE and MLA on the card (``chip_smoke.py`` phase 35)
+# ---------------------------------------------------------------------------
+
+EP_HIT = 256                    # the latent-pool serve's shared prefix
+
+
+def _captured(calls, kind):
+    """The first recorded ``ops.score`` / ``ops.attention`` call of a run
+    held to its plain version on its own inputs: (shapes, max error,
+    tolerance).  The re-launch that compares is not counted: the run's
+    counts are read before."""
+    from repro_torch.kernels import ops, ref
+    a, kw = calls[0]
+    if kind == "score":
+        qbar, k, valid = a
+        got = ops.score(qbar, k, valid)
+        want = ref.score_ref(qbar.transpose(1, 2), k.transpose(1, 2), valid)
+        tol = 1e-4
+        shapes = dict(qbar=tuple(qbar.shape), k=tuple(k.shape))
+    else:
+        q, k, v, valid = a
+        got = ops.attention(q, k, v, valid, **kw)
+        want = ref.flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            k_valid=valid, **kw).transpose(1, 2)
+        top = float(want.float().abs().max())
+        # one bf16 ulp of the output's largest magnitude; fp32 2e-5
+        tol = 2.0 ** (math.floor(math.log2(top)) - 7) if \
+            want.dtype == torch.bfloat16 and top > 0 else 2e-5
+        shapes = dict(q=tuple(q.shape), k=tuple(k.shape), v=tuple(v.shape))
+    err = float((got.float() - want.float()).abs().max())
+    return dict(shapes=shapes, err=err, tol=tol)
+
+
+def _ep_generate(model, eng, b, prompt, new, cuda):
+    """One ``ep_card_run`` run (its docstring), on its own frame so that
+    nothing of it holds the model when the next one is drawn."""
+    from repro_torch.core import quoka as qk
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.sharding import comm
+    toks = np.random.default_rng(b).integers(
+        3, model.cfg.vocab, (b, prompt)).astype(np.int32)
+    firsts, calls = [], _count_calls(model)
+    prefill = model.prefill
+    rec = {"score": [], "attention": []}
+    kernels = {"score": ops.score, "attention": ops.attention}
+
+    def pre(*a, **kw):
+        r = prefill(*a, **kw)
+        firsts.append(r[0][:b].float().cpu().numpy())
+        return r
+
+    def recording(name, selectable):
+        # the run's first call with a selectable key: a call on an empty
+        # cache (the first chunk) scores nothing but NEG_INF
+        def call(*a, **kw):
+            if not rec[name] and bool(selectable(*a, **kw)):
+                rec[name].append((a, kw))
+            return kernels[name](*a, **kw)
+        return call
+
+    model.prefill = pre
+    ops.score = recording("score", lambda qbar, k, valid, **kw: valid.any())
+    ops.attention = recording(
+        "attention", lambda q, k, v, valid, boundary=0, **kw:
+        valid[..., :boundary].any())
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    comm.reset_counts()
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    moe.DROPS = []
+    try:
+        r = eng.generate({"tokens": toks}, new)
+        launches = _launches()
+        drops = [d.numpy() for d in moe.DROPS]
+    finally:
+        moe.DROPS = None
+        ops.score, ops.attention = kernels["score"], kernels["attention"]
+        del model.prefill, model._apply_stacks
+    experts = [blk.moe for blk in model.layers() if hasattr(blk, "moe")]
+    return dict(
+        tokens=r.tokens.tolist(), logits=firsts[-1], ttft_s=r.ttft_s,
+        launches=launches, stack_calls=calls[0],
+        routes=dict(qk.ROUTES), drops=drops,
+        bytes={s or "other": comm.bytes_by_kind(s)
+               for s in ("ep", "fsdp", "seq", "score", "")},
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
+        if cuda else None,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        expert_bytes=sum(t.numel() * t.element_size() for m in experts
+                         for t in (m.gate, m.up, m.down)),
+        experts_held=experts[0].gate.shape[0] if experts else None,
+        checked={k: _captured(v, k) for k, v in rec.items() if v})
+
+
+def ep_card_run(dev, arch, cut, runs, budget, new, mesh=None, serve=False,
+                turns=False):
+    """``arch`` at its published width cut in depth by the config
+    overrides ``cut``, from seed 0, selection budget ``budget``, meshless
+    (``mesh`` None) or on one rank of ``mesh`` (with ``turns``, the ranks
+    draw their whole models one after another, each sharding before the
+    next draws, so two whole copies never share the card): for each
+    (label, dtype, batch, prompt, MoE config overrides) of ``runs`` (a
+    run of the previous run's dtype reuses its model) one QUOKA
+    ``generate`` of
+    ``new`` tokens (its first call on a geometry warms it inside, and the
+    counts, set to 0 just before it, include that).  Returns per run: tokens, first-step logits,
+    kernel launches, layer-stack passes, scoring routes, collective bytes
+    by scope, each MoE call's dropped-pair mask of this rank's rows, peak
+    GiB, held parameter and expert bytes, and the first scoring and flash
+    calls held to their plain versions on their own inputs; with
+    ``serve`` a 512-token request and then one sharing its first
+    ``EP_HIT`` tokens over one pool (block 128, two decode rows): their
+    tokens, the hit and the launches."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    from repro_torch.sharding import comm, specs
+    base = dc.replace(get_config(arch), **cut)
+    base = dc.replace(base, quoka=dc.replace(base.quoka, budget=budget))
+    cuda = dev.type == "cuda"
+    if mesh is not None:        # every group made before any rank draws
+        comm.axis(mesh, "model")
+        comm.axis(mesh, specs.fsdp_axes(mesh) or ())
+        comm.world(mesh)
+    out, model, eng = {}, None, None
+    for label, dt, b, prompt, moe_over in runs:
+        cfg = dc.replace(base, dtype=getattr(torch, dt))
+        if moe_over:
+            cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, **moe_over))
+        if model is not None and model.cfg.dtype == cfg.dtype:
+            model.cfg = cfg             # the next run's MoE settings
+            for blk in model.layers():
+                blk.cfg = cfg
+        else:
+            model = eng = None
+            if cuda:
+                torch.cuda.empty_cache()
+            order = range(dist.get_world_size()) if turns else [None]
+            for turn in order:
+                if turn is None or turn == dist.get_rank():
+                    model = build_model(cfg, dev, seed=0)
+                    eng = Engine(model, method="quoka", device=dev,
+                                 mesh=mesh)
+                    if cuda:
+                        torch.cuda.synchronize()
+                        torch.cuda.empty_cache()
+                if turn is not None:
+                    dist.barrier()
+        out[label] = _ep_generate(model, eng, b, prompt, new, cuda)
+    if serve:                   # at the config's own MoE settings
+        model.cfg = dc.replace(base, dtype=model.cfg.dtype)
+        for blk in model.layers():
+            blk.cfg = model.cfg
+        rng = np.random.default_rng(5)
+        a = rng.integers(3, model.cfg.vocab, (512,)).astype(np.int32)
+        c = np.concatenate([a[:EP_HIT], rng.integers(
+            3, model.cfg.vocab, (128,)).astype(np.int32)])
+        st = eng.make_serve_state(make_requests([a, c], 4), block_size=128,
+                                  max_decode_batch=2)
+        _zero_launches()
+        s1 = eng.serve(make_requests([a], 4), state=st)
+        s2 = eng.serve(make_requests([c], 4), state=st)
+        out["serve"] = dict(
+            tokens=[s1.tokens[0].tolist(), s2.tokens[0].tolist()],
+            hit_tokens=float(eng.stats["hit_tokens"]),
+            pool_blocks=(st.pool.local_blocks, st.pool.num_blocks),
+            launches=_launches())
+    return out
+
+
+def ep_card_case(rank, world, dev, spec, arch, cut, runs, budget, new,
+                 serve=False, turns=False):
+    """One rank of ``ep_card_run`` on the mesh ``spec``, ranks sharing the
+    card over gloo (or the CPU)."""
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(spec, dev)
+    out = ep_card_run(dev, arch, cut, runs, budget, new, mesh=mesh,
+                      serve=serve, turns=turns)
     out["backend"] = comm.axis(mesh).backend
     if dev.type == "cuda":
         out["peak_all_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s ``main()`` of the tree at ROOT from phase 14 on.
 
-Phases 14-34 need only the kernels' build from what comes before them,
+Phases 14-35 need only the kernels' build from what comes before them,
 so this skips phases 1-13 (about 40% of a whole run) and stops before the
 kernel line, which reads them.  Phase 16 runs PASSES times (default 1).
 A development check on the card, not a substitute for the whole script:
@@ -17,7 +17,8 @@ def main(root, passes=1):
     a = src.index('    log("== phase 1: build")')
     b = src.index('    llama, oneshot = phase_oneshot(')
     c = src.index('    launches = {"quoka_score"')
-    head = '    build.library()\n    timing = {"flash_attention": {}}\n'
+    head = '    build.library()\n    timing = {"flash_attention": {}}\n' \
+           '    errs = {"quoka_score": 0.0, "flash_attention": 0.0}\n'
     mid = src[b:c].replace(
         "    tier = phase_host_tier(torch, np, K, llama)\n",
         "    tier = phase_host_tier(torch, np, K, llama)\n"
