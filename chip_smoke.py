@@ -79,10 +79,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      serves the same trace on the card and on the CPU, and the tokens
      equal each other and each request's own ``generate``;
  11. every selection method through ``Engine.generate`` at qwen3-4b full
-     width cut in depth to 12 of its 36 layers, to keep the run inside
+     width cut in depth to 4 of its 36 layers, to keep the run inside
      its time limit (prompt 4096, 8 new tokens): ``full``, ``quoka``, the
      six baselines, ``quoka`` with plan reuse (interval 4, corrections 0
-     and 11) and with ``score_proj_dim`` 32, staged; two baselines fused;
+     and 3) and with ``score_proj_dim`` 32, staged; two baselines fused;
      TTFT, decode rate, greedy tokens and exact launch counts for each;
  12. the chunked-prefill harness on the card: output error, key recall and
      critical key recall of every method, staged and fused, at qwen3-4b's
@@ -109,9 +109,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      from pinned memory, on a side stream, inside one step's compute span;
      A's cold and promoted TTFT;
  17. olmoe-1b-7b (published 16 layers, d_model 2048, MHA 16 / 16, 64
-     experts top-8, capacity dispatch) at full width, cut in depth to 8
-     layers (room for phase 34): ``Engine.generate`` staged
-     and fused with exact launch counts (8 x 95), layer 0's capacity
+     experts top-8, capacity dispatch) at full width, cut in depth to 4
+     layers (room for phases 34 and 36): ``Engine.generate`` staged
+     and fused with exact launch counts (4 x 95), layer 0's capacity
      dispatch on the
      card against the CPU (fp32: the same dropped pairs, outputs within
      1e-4 relative), and a serve of three requests (8192, 3000, 2048
@@ -133,36 +133,36 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      launch of the flash kernel by its launch counter (the profiler does
      not record them reliably here);
  20. h2o-danube-3-4b (published 24 layers, d_model 3840, 32 / 8 heads, d
-     120, every layer windowed at 4096) at full width, cut in depth to 12
-     layers (room for phase 34): ``Engine.generate`` at prompt
+     120, every layer windowed at 4096) at full width, cut in depth to 8
+     layers (room for phases 34 and 36): ``Engine.generate`` at prompt
      8192 (every ring wraps), staged and g = 16, with exact launch counts
-     (scoring on every layer call, 12 x 95; no flash, no selected
+     (scoring on every layer call, 8 x 95; no flash, no selected
      attention: a windowed layer attends on the plain masked path), and a
      trace of its fused route as phase 7's;
  21. gemma3-27b's and h2o-danube-3-4b's smoke configs (window 64) at
      prompt 160, card (kernels) vs CPU (plain versions): logits within
      1e-4, greedy tokens equal, staged and g = 16;
  22. gemma3-27b (d_model 5376, 32 / 16 heads, 5 local (window 1024) : 1
-     global, budget 2048) at full width, cut in depth to two of its ten
-     periods (12 of 62 layers) to keep the run inside its time limit:
+     global, budget 2048) at full width, cut in depth to one of its ten
+     periods (6 of 62 layers) to keep the run inside its time limit:
      ``Engine.generate`` staged and fused (g = 16) with exact launch
-     counts (2 global layers x 95; the local layers' 1024-slot rings take
+     counts (1 global layer x 95; the local layers' 1024-slot rings take
      the dense bypass), and a trace of the fused route as phase 7's at
      prompt 4096 (at 2048 every layer would take the dense bypass);
  23. zamba2-7b (published 81 layers: 13 x (5 Mamba2 + 1 Mamba2 followed
      by the ONE shared attention block, MHA 32 / 32 at d 112) + 3 Mamba2;
-     d_model 3584) at full width, cut in depth to 27 layers (4 periods +
-     the 3-layer tail, to make room for phase 34 in the
-     run's time limit: the 81 layers took 201 s): ``Engine.generate``
-     staged and fused (g = 16) with exact launch counts (4 shared-block
+     d_model 3584) at full width, cut in depth to 12 layers (2 periods,
+     to make room for phases 34 and 36 in the run's time limit: the 81
+     layers took 201 s): ``Engine.generate``
+     staged and fused (g = 16) with exact launch counts (2 shared-block
      uses x 95 per kernel and route; the Mamba2 layers launch nothing),
      and a trace of
      the fused route as phase 7's with the device time of the SSD scan,
      the causal convolution, the shared block (its kernels apart) and the
      products;
  24. rwkv6-1.6b (published 24 RWKV6 layers, d_model 2048, no KV cache) at
-     full width, cut in depth to 12 layers (room for phase
-     34): ``Engine.generate`` with QUOKA asked for and 0
+     full width, cut in depth to 8 layers (room for phases
+     34 and 36): ``Engine.generate`` with QUOKA asked for and 0
      launches of every kernel (nothing to select), and a trace with the
      wkv scan's device time;
  25. zamba2-7b's smoke config (staged and g = 16) and rwkv6-1.6b's in
@@ -180,8 +180,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      the encoder, the cross-KV build and the cross-attention;
  27. internvl2-1b (published 24 layers, d_model 896, GQA 14 / 2, d 64; a
      projector of 256 patches of d 1024 ahead of 7936 tokens: 8192
-     positions) the same way, cut in depth to 12 layers (room
-     for phase 34; 12 x 95), its trace (the prefill through ``embed_inputs``,
+     positions) the same way, cut in depth to 8 layers (room
+     for phases 34 and 36; 8 x 95), its trace (the prefill through
+     ``embed_inputs``,
      the patches ahead of the tokens) with the projector's device time,
      which CUDA events also time outside the profiler;
  28. both smoke configs in fp32 (whisper at prompt 160 over 64 frames,
@@ -292,7 +293,29 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      versions on their own inputs; prints dropped pairs per MoE call,
      ``ep`` bytes per MoE call, ``score`` bytes per selecting call,
      ``fsdp`` bytes per pass beside the held expert bytes, per-rank peak
-     and the phase's wall time.
+     and the phase's wall time;
+ 36. the sliding-window and recurrent block kinds on the mesh (after
+     phase 35), ranks sharing the card over gloo through
+     ``tests/torch_tp_cases.py::kinds_card_case`` (one spawn a mesh)
+     against the card's meshless run of the same body (``ep_card_run``),
+     budget 256, at full width cut in depth (``KIND_CASES``): gemma3-27b
+     at one period (5 local + 1 global layers) at ``model=2`` in fp32
+     and bf16, prompt 1280 (the 1024-slot ring wraps); zamba2-7b at 6
+     layers (5 ``mamba`` + 1 ``mamba_shared_attn``) at ``model=2`` in
+     fp32 and bf16; rwkv6-1.6b at 4 layers and h2o-danube-3-4b at 4
+     layers (d 120, prompt 1024) at ``model=2`` in fp32; gemma3 at 2 local
+     layers at ``data=2,model=2``, batch 1, bf16, prompt 1152: each rank
+     holds half of each ring's slots and the ring wraps.  Every rank
+     returns the same tokens; fp32 tokens equal the meshless run's and
+     bf16 first-step logits stay within 0.25 of their largest magnitude;
+     scoring launches on every selecting layer call (every attention
+     layer and the shared block), flash on the global and shared ones
+     (windowed layers attend on the plain masked path), selected and
+     paged never, rwkv6 none; each rank's first scoring and flash calls
+     are held to their plain versions; prints launches per rank,
+     collective bytes per layer call by scope and kind beside each
+     rank's and the meshless run's K or state bytes, per-rank peak and
+     the phase's wall time.
 
 Every phase header line carries the script's elapsed time, and a line
 before the last three gives each phase's wall time.
@@ -1682,7 +1705,7 @@ def phase_small_serve(torch, np):
 BASELINES = ("sample_attention", "sparq", "loki", "less_is_more", "snapkv",
              "keydiff")
 METHOD_PROMPT, METHOD_NEW = 4096, 8          # phase 11
-METHOD_LAYERS = 12                           # phase 11's cut of 36 layers
+METHOD_LAYERS = 4                            # phase 11's cut of 36 layers
 REUSE = dict(reuse_interval=4, correction_layers=(0, METHOD_LAYERS - 1))
 
 
@@ -1941,7 +1964,7 @@ ROUTES = (("staged", {}),
           ("fused", dict(granularity=16, fused_select_attn=True)))
 
 
-GEMMA_LAYERS = 12        # phase 22's cut: two periods of 5 local + 1 global
+GEMMA_LAYERS = 6         # phase 22's cut: one period of 5 local + 1 global
 # phases 14-16's cuts in depth (of 28 and 32 layers), for the run's time
 # limit: the whole run took 1225 s on a slow host before them
 LLAMA_LAYERS = STABLELM_LAYERS = 4
@@ -2780,15 +2803,15 @@ class traced_spans:
 
 
 # phase 23's cut of zamba2-7b's 81 layers and phase 20's of
-# h2o-danube-3-4b's 24 (to make room for phase 34): 4 periods
-# of 5 Mamba2 + 1 shared-block layer, and the tail; 12 windowed layers
-ZAMBA_LAYERS = 27
-DANUBE_LAYERS = 12
+# h2o-danube-3-4b's 24 (to make room for phases 34 and 36): 2 periods
+# of 5 Mamba2 + 1 shared-block layer; 8 windowed layers
+ZAMBA_LAYERS = 12
+DANUBE_LAYERS = 8
 # and of olmoe-1b-7b's 16 (phase 17), rwkv6-1.6b's 24 (phase 24) and
 # internvl2-1b's 24 (phase 27): a whole run took 1243 s on a slow
 # host with them whole
-OLMOE_LAYERS = 8
-RWKV_LAYERS = INTERNVL_LAYERS = 12
+OLMOE_LAYERS = 4
+RWKV_LAYERS = INTERNVL_LAYERS = 8
 
 
 def phase_recurrent(torch, np, K):
@@ -3446,7 +3469,7 @@ def phase_mesh(torch, np, K, card, dev):
 # an fp32 layer's 202 MB);
 # (label, dtype, batch, prompt): batch 2 puts rows over data, batch 1 the
 # cache's sequence (1028 slots, 514 a rank)
-DP_LAYERS = 4
+DP_LAYERS = 2
 DP_NEW = 4
 DP_RUNS = (("bf16 b1", "bfloat16", 1, 1024), ("fp32 b2", "float32", 2, 512),
            ("fp32 b1", "float32", 1, 1024))
@@ -3603,7 +3626,7 @@ def phase_dp(torch, np, K, card, dev):
 # so deepseek's fp32 tokens are held on the CPU (tests/test_torch_ep.py)
 EP_BUDGET = MESH_BUDGET
 EP_NEW = 8
-EP_MOE_LAYERS = 4
+EP_MOE_LAYERS = 2
 EP_DP_LAYERS = 2
 EP_DP_NEW = 4
 # (label, arch, spec, config cut, runs: (label, dtype, batch, prompt), new,
@@ -3815,6 +3838,172 @@ def phase_ep(torch, np, K, card, dev):
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 35 took {out['phase_s']:.1f} s")
+    return out, errs
+
+
+# phase 36: the sliding-window and recurrent kinds on the mesh, ranks
+# sharing the one card over gloo, budget 256 (phase 33's).  Widths are the
+# configs'; depth is cut for the phase's 120 s: gemma3-27b to one period
+# (its 1024-slot rings wrap at prompt 1280; a layer is 1.65 GB in fp32),
+# zamba2-7b to one period of 6, rwkv6-1.6b and h2o-danube-3-4b to 4
+# layers, and the batch-1 gemma3 run to 2 local layers in bf16 (every
+# layer call all-gathers its FSDP shards, 413 MB in bf16, through host
+# memory).  (label, arch, config cut, runs: (label, dtype, batch, prompt,
+# {}), new, ranks draw in turns)
+KIND_BUDGET = MESH_BUDGET
+KIND_NEW = 8
+GEMMA_PERIOD = ("attn_local",) * 5 + ("attn",)
+KIND_M2 = (
+    ("gemma3-27b", "gemma3-27b", {"n_layers": 6},
+     (("fp32", "float32", 1, 1280, {}), ("bf16", "bfloat16", 1, 1280, {})),
+     KIND_NEW, True),
+    ("zamba2-7b", "zamba2-7b", {"n_layers": 6},
+     (("fp32", "float32", 1, 1024, {}), ("bf16", "bfloat16", 1, 1024, {})),
+     KIND_NEW, False),
+    ("rwkv6-1.6b", "rwkv6-1.6b", {"n_layers": 4},
+     (("fp32", "float32", 1, 1024, {}),), KIND_NEW, False),
+    ("h2o-danube-3-4b", "h2o-danube-3-4b", {"n_layers": 4},
+     (("fp32", "float32", 1, 1024, {}),), KIND_NEW, False))
+KIND_B1 = (
+    ("gemma3-27b b1", "gemma3-27b",
+     {"n_layers": 2, "layer_pattern": ("attn_local",)},
+     (("bf16 b1", "bfloat16", 1, 1152, {}),), 4, False),)
+KIND_CASES = (("model=2", KIND_M2), ("data=2,model=2", KIND_B1))
+
+
+def kind_launches(cfg, passes):
+    """Per rank, the launches of ``passes`` layer-stack passes when every
+    KV cache selects (capacity past budget + chunk): scoring on every
+    attention layer and shared-block use, flash on the ones without a
+    window, selected and paged none."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k in ("attn", "mamba_shared_attn") for k in kinds)
+    local = sum(k == "attn_local" for k in kinds)
+    return {"quoka_score": passes * (attn + local),
+            "flash_attention": passes * attn,
+            "selected_attention": 0, "selected_attention_paged": 0}
+
+
+def kind_check(np, cfg, spec, case, label, dt, b, runs, want):
+    """Phase 36's checks of one run on every rank against the meshless
+    ``want`` (module docstring).  Returns its row."""
+    r0 = runs[0]
+    calls = r0["stack_calls"]
+    launches = kind_launches(cfg, calls)
+    n_sel = launches["quoka_score"]
+    route = "seq" if b == 1 and "data" in spec else "kv_heads"
+    for i, run in enumerate(runs):
+        tag = f"phase 36 {case} {label} rank {i}"
+        if run["tokens"] != r0["tokens"]:
+            raise AssertionError(f"{tag}: tokens differ from rank 0's")
+        if run["launches"] != launches:
+            raise AssertionError(f"{tag}: launches {run['launches']}, want "
+                                 f"{launches} ({calls} passes)")
+        if run["routes"].get(route, 0) != n_sel or \
+                sum(run["routes"].values()) != n_sel:
+            raise AssertionError(f"{tag}: routes {run['routes']}, want "
+                                 f"{n_sel} {route}")
+        for name, c in run["checked"].items():
+            shapes = " ".join(f"{k} {v}" for k, v in c["shapes"].items())
+            check(f"{case} {label} rank {i} {name} {shapes}", c["err"],
+                  c["tol"], "the run's first call with a selectable key, "
+                  "card vs plain")
+        if n_sel and set(run["checked"]) != (
+                {"score", "attention"} if launches["flash_attention"]
+                else {"score"}):
+            raise AssertionError(f"{tag}: checked {sorted(run['checked'])}")
+    dlog = max(float(np.abs(r["logits"] - want["logits"]).max())
+               for r in runs)
+    scale = float(np.abs(want["logits"]).max())
+    equal = r0["tokens"] == want["tokens"]
+    if dt == "float32" and not equal:
+        raise AssertionError(f"phase 36 {case} {label}: tokens "
+                             f"{r0['tokens']} != meshless {want['tokens']}")
+    if dt == "bfloat16" and dlog > MESH_BF16_DRIFT * scale:
+        raise AssertionError(f"phase 36 {case} {label}: first-step logits "
+                             f"{dlog:.4g} from meshless, over "
+                             f"{MESH_BF16_DRIFT} x {scale:.4g}")
+    n_calls = calls * cfg.n_layers
+    per_call = {sc: {k: v / n_calls for k, v in by.items()}
+                for sc, by in r0["bytes"].items() if by}
+    row = dict(tokens_equal=equal, max_logit_diff=dlog, max_abs_logit=scale,
+               launches_per_rank=r0["launches"], stack_calls=calls,
+               routes=r0["routes"], bytes_per_layer_call=per_call,
+               cache_bytes_per_rank=r0["cache_bytes"],
+               meshless_cache_bytes=want["cache_bytes"],
+               param_bytes=r0["param_bytes"],
+               meshless_param_bytes=want["param_bytes"],
+               run_peak_gib=[r["peak_gib"] for r in runs],
+               meshless_run_peak_gib=want["peak_gib"],
+               checked=[r["checked"] for r in runs],
+               ttft_s=[r["ttft_s"] for r in runs],
+               meshless_ttft_s=want["ttft_s"])
+    held = "held" if dt == "float32" else "drift held"
+    log(f"  {case} {label}: tokens {'equal' if equal else 'differ'} ({held}),"
+        f" max first-step logit diff {dlog:.4g} = {dlog / scale:.4f} of the "
+        f"largest {scale:.4g}; launches/rank {r0['launches']} over {calls} "
+        f"passes x {cfg.n_layers} layers, routes {r0['routes']}")
+    rounded = {sc: {k: round(v) for k, v in by.items()}
+               for sc, by in per_call.items()}
+    log(f"    bytes per layer call {rounded}; cache bytes/rank {r0['cache_bytes']} vs meshless "
+        f"{want['cache_bytes']}; params/rank {r0['param_bytes']} B of "
+        f"{want['param_bytes']}; run peak/rank "
+        f"{[round(r['peak_gib'], 2) for r in runs]} GiB vs meshless "
+        f"{want['peak_gib']:.2f}; TTFT/rank "
+        f"{[round(r['ttft_s'], 3) for r in runs]} s vs {want['ttft_s']:.3f}")
+    return row
+
+
+def phase_kinds(torch, np, K, card, dev):
+    """Phase 36: the sliding-window and recurrent kinds on the mesh
+    (``KIND_CASES``), ranks sharing the card over gloo, one spawn a mesh
+    through ``tests/torch_tp_cases.py::kinds_card_case``, beside the
+    card's meshless runs of the same body (``ep_card_run``).  Holds every
+    rank to them (``kind_check``) and returns the phase's numbers and the
+    largest kernel-vs-plain error per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tp_cases as cases
+    log(f"== phase 36: sliding-window and recurrent kinds on the mesh, "
+        f"ranks sharing the card over gloo, budget {KIND_BUDGET} [{card}]")
+    t0 = time.perf_counter()
+    out, errs = {}, {"quoka_score": 0.0, "flash_attention": 0.0}
+    for spec, kcases in KIND_CASES:
+        world = math.prod(int(x.split("=")[1]) for x in spec.split(","))
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(spawn_ranks, cases.kinds_card_case, world,
+                              spec, kcases, KIND_BUDGET, device="cuda",
+                              timeout=600)
+            refs = {}
+            for label, arch, cut, runs, new, _ in kcases:
+                refs[label] = cases.ep_card_run(dev, arch, cut, runs,
+                                                KIND_BUDGET, new)
+                torch.cuda.empty_cache()
+            ranks = fut.result()
+        for label, arch, cut, runs, new, _ in kcases:
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            res = {"spec": spec, "layers": cfg.n_layers, "new": new,
+                   "backend": ranks[0]["backend"]}
+            for rl, dt, b, prompt, _ in runs:
+                got = [r[label][rl] for r in ranks]
+                res[rl] = kind_check(np, cfg, spec, label, rl, dt, b, got,
+                                     refs[label][rl])
+                for r in got:
+                    for name, c in r["checked"].items():
+                        key = "quoka_score" if name == "score" else \
+                            "flash_attention"
+                        errs[key] = max(errs[key], c["err"])
+            out[label] = res
+        out[spec] = dict(spawn_s=time.perf_counter() - t1)
+        log(f"  {spec}: backend {ranks[0]['backend']}, "
+            f"{out[spec]['spawn_s']:.1f} s with the meshless runs beside")
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 36 took {out['phase_s']:.1f} s")
     return out, errs
 
 
@@ -4531,6 +4720,10 @@ def main() -> int:
     ep, ep_errs = phase_ep(torch, np, K, card, dev)
     for name, err in ep_errs.items():
         errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    kinds, kind_errs = phase_kinds(torch, np, K, card, dev)
+    for name, err in kind_errs.items():
+        errs[name] = max(errs[name], err)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -4574,6 +4767,12 @@ def main() -> int:
             if "serve" in ep[case]:
                 paths[name][f"{head} serve per rank"] = \
                     ep[case]["serve"]["launches_per_rank"][name]
+        for spec, kcases in KIND_CASES:
+            for label, arch, cut, runs, *_ in kcases:
+                head = f"{arch} ({kinds[label]['layers']} layers) {spec}"
+                for rl, *_ in runs:
+                    paths[name][f"{head} {rl} per rank"] = \
+                        kinds[label][rl]["launches_per_rank"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -4594,7 +4793,7 @@ def main() -> int:
                     "recurrent_traces": recurrent_traces,
                     "modality_traces": modality_traces,
                     "training": training, "telemetry": telemetry,
-                    "mesh": mesh, "dp": dp, "ep": ep,
+                    "mesh": mesh, "dp": dp, "ep": ep, "kinds": kinds,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(f"phase wall times (s): {json.dumps(phase_walls())}")
     log(card)

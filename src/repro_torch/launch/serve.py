@@ -82,7 +82,8 @@ with FSDP weights over its ``pod`` / ``data`` axes (``Engine(mesh=)``),
 one process per rank under ``torchrun``, one-shot or ``--continuous``
 (models of ``attn``, ``attn_moe``, ``mla`` and ``mla_moe`` layers: the
 dense ones, olmoe-1b-7b with its experts over ``model`` and
-deepseek-v3-671b with MLA's heads over ``model``; ``launch/mesh.py``
+deepseek-v3-671b with MLA's heads over ``model``; one-shot only, the
+sliding-window and recurrent models below; ``launch/mesh.py``
 picks NCCL when every rank has a card of its own and gloo when they
 share one, or on the CPU).  Only rank 0 prints; its first line is ``#
 mesh {...} over N devices``:
@@ -97,10 +98,23 @@ mesh {...} over N devices``:
         --device cpu --smoke --arch deepseek-v3-671b --mesh model=2 \
         --prompt-len 64 --max-new 4 --continuous
 
-``--batch 1`` splits the cache's sequence over ``data`` when ``data``
-divides its capacity.  ``--metrics`` / ``--trace-dir``, methods other
-than ``full`` and ``quoka`` and, on a data axis, ``--policy slo`` (it
-preempts) raise "not yet ported" on a mesh.
+The sliding-window and recurrent models (gemma3-27b, h2o-danube-3-4b,
+zamba2-7b, rwkv6-1.6b) run one-shot on a mesh, their heads over
+``model`` (the pool refuses their caches, on a mesh or not):
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu --smoke --arch zamba2-7b --mesh model=2 \
+        --prompt-len 96 --batch 2 --max-new 4
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+        --device cpu --smoke --arch gemma3-27b --mesh data=2,model=2 \
+        --prompt-len 96 --batch 1 --max-new 4
+
+``--batch 1`` splits each KV cache's sequence over ``data`` where
+``data`` divides its capacity (a sliding window's ring too); a
+recurrent state stays whole on every ``data`` rank.  ``--metrics`` /
+``--trace-dir``, methods other than ``full`` and ``quoka`` and, on a
+data axis, ``--policy slo`` (it preempts) raise "not yet ported" on a
+mesh.
 """
 from __future__ import annotations
 

@@ -63,9 +63,11 @@ layer index ``core/plan.py::refresh`` decides on).  With ``obs`` set, an
 attention layer leaves its ``LayerObs`` in ``_obs``: ``dense_obs`` at a
 dense bypass, the selecting routes through ``core/plan.py``.
 
-Tensor parallelism (``training/checkpoint.py::shard``; kinds ``"attn"``,
-``"attn_moe"``, ``"mla"``, ``"mla_moe"``): ``AttnBlock.place`` and
-``MLABlock.place`` read the block's shards off its weights' shapes.
+Tensor parallelism (``training/checkpoint.py::shard``; every kind but
+``"dec_cross"`` / ``"enc_attn"``): ``AttnBlock.place``,
+``MLABlock.place``, ``MambaBlock.place`` and ``RWKVBlock.place`` read
+the block's shards off its weights' shapes (the recurrent mixers:
+``models/mamba2.py``, ``models/rwkv6.py``).
 ``n_heads`` / ``n_kv`` are then this rank's query heads and the KV heads
 its cache holds (MLA: one, the latent), ``heads`` its ``HeadShard``
 (selection and the KV heads each query head reads), and ``wo`` and, when
@@ -180,13 +182,23 @@ def _ffn_aux(blk, x, w):
     return x + y, c["aux_loss"]
 
 
-#: the embed axis (the one the FSDP group cuts) of each linear weight of
-#: a layer, by its name in ``_held``
+#: the axis the FSDP group cuts (the embed axis, or the channel mix
+#: ``cm/wv``'s ``d_ff`` rows) of each weight of a layer, by its name in
+#: ``_held``
 _EMBED_DIM = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "wq_a": 0, "wkv_a": 0,
               "mlp/gate": 0, "mlp/up": 0, "mlp/down": 1,
               "moe/router": 0, "moe/gate": 1, "moe/up": 1, "moe/down": 2,
               "moe/shared/gate": 0, "moe/shared/up": 0,
-              "moe/shared/down": 1}
+              "moe/shared/down": 1,
+              **{f"mamba/{k}": 0 for k in ("z_proj", "x_proj", "bc_proj",
+                                           "dt_proj")},
+              "mamba/out_proj": 1,
+              **{f"tm/{k}": 0 for k in ("wk", "wv", "wg", "wa")},
+              "tm/wo": 1, "cm/wk": 0, "cm/wr": 0, "cm/wv": 0}
+
+#: the prefixes under which ``_layer_weights`` also hands a mixer its
+#: weights without the prefix
+_MIXERS = ("mlp", "moe", "mamba", "tm", "cm")
 
 
 def _ffn_held(blk):
@@ -206,9 +218,16 @@ def _place_ffn(blk, ax: comm.Axis, fax: comm.Axis) -> None:
         blk.moe.place(ax)
     else:
         blk.tp_ffn = ax if blk.mlp["down"].shape[0] < blk.cfg.d_ff else None
-    d = blk.cfg.d_model
+    _place_fsdp(blk, fax)
+
+
+def _place_fsdp(blk, fax: comm.Axis) -> None:
+    """Which of the layer's weights the FSDP axis ``fax`` cut along their
+    ``_EMBED_DIM`` axis (``blk.fsdp``: gathered whole per layer call)."""
+    whole = {"cm/wv": blk.cfg.d_ff}
     dims = {k: _EMBED_DIM[k] for k, t in blk._held().items()
-            if k in _EMBED_DIM and t.shape[_EMBED_DIM[k]] < d}
+            if k in _EMBED_DIM and t.shape[_EMBED_DIM[k]]
+            < whole.get(k, blk.cfg.d_model)}
     blk.fsdp = (fax, dims) if dims else None
 
 
@@ -222,10 +241,17 @@ def _layer_weights(blk):
         fax, dims = blk.fsdp
         w.update(gather_weights({k: (w[k], d) for k, d in dims.items()},
                                 fax))
-    for f in ("mlp", "moe"):
+    for f in _MIXERS:
         w[f] = {k[len(f) + 1:]: p for k, p in w.items()
                 if k.startswith(f + "/")}
     return w
+
+
+def _divides(seq, cap: int):
+    """The mesh axis ``seq`` when it divides a cache's ``cap`` slots, else
+    None: as ``specs.cache_specs`` places each cache (a ring of
+    ``min(cap, window)`` slots may split where the others do not)."""
+    return seq if seq is not None and cap % seq.size == 0 else None
 
 
 def _kv_plan_shape(cache: KVCache, t: int, method: str, qcfg):
@@ -291,12 +317,14 @@ class AttnBlock(nn.Module):
     def init_cache(self, batch: int, cap: int, seq=None) -> KVCache:
         """The layer's cache of its held KV heads: ``cap`` slots, or a ring
         of at most ``window`` slots for a windowed layer; ``seq`` (a mesh
-        axis) holds this rank's slice of the capacity axis."""
+        axis) holds this rank's slice of the capacity axis where it
+        divides it (``_divides``)."""
         cfg = self.cfg
         if self.window is not None:
             cap = min(cap, self.window)
         return kv_init(batch, cap, self.n_kv, cfg.resolved_head_dim,
-                       cfg.compute_dtype, self.wq.device, seq_ax=seq)
+                       cfg.compute_dtype, self.wq.device,
+                       seq_ax=_divides(seq, cap))
 
     def _qkv(self, x, pos, w):
         cfg = self.cfg
@@ -645,29 +673,54 @@ class MLABlock(nn.Module):
 class MambaBlock(nn.Module):
     """``x + Mamba2(norm(x))`` (kind ``"mamba"``); kind
     ``"mamba_shared_attn"`` then applies the model's shared attention
-    block (``ctx["shared"]``) over this layer's own KV cache."""
+    block (``ctx["shared"]``) over this layer's own KV cache.
+
+    On a mesh (``place``) the mixer runs this rank's SSD heads
+    (``mamba2.Mamba2.place``) and its state holds them; the shared block's
+    KV cache holds the KV heads the shared block holds (``n_kv``), and a
+    batch-1 cache may split its sequence (``init_cache(seq=)``)."""
 
     def __init__(self, cfg: ModelConfig, device, kind: str = "mamba"):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
         self.with_shared = kind == "mamba_shared_attn"
+        self.n_kv = cfg.n_kv_heads  # the shared block's held KV heads
+        self.fsdp = None            # (FSDP axis, {weight: its cut dim})
         self.ln = _norm(cfg.d_model, device)
         self.mamba = mamba2.Mamba2(cfg, device)
 
-    def init_cache(self, batch: int, cap: int):
-        """A ``MambaCache`` or, with the shared block, a
-        ``SharedAttnCache`` that adds a KV cache of ``cap`` slots."""
-        cfg, s = self.cfg, self.cfg.ssm
-        _, nh, ch = mamba2._dims(cfg)
+    def place(self, ax: comm.Axis, fax: comm.Axis = None,
+              shared: "AttnBlock" = None) -> None:
+        """Adopt the layout of the (already sliced) weights: the mixer's
+        heads on the ``model`` axis ``ax``, the weights the FSDP axis
+        ``fax`` cut, and the KV heads of the (placed) ``shared`` block."""
+        self.mamba.place(ax)
+        _place_fsdp(self, fax)
+        if shared is not None:
+            self.n_kv = shared.n_kv
+
+    def _held(self):
+        return {f"mamba/{k}": p for k, p in self.mamba.held().items()}
+
+    _weights = _layer_weights
+
+    def init_cache(self, batch: int, cap: int, seq=None):
+        """A ``MambaCache`` of this rank's heads (its x channels and the
+        whole B / C ones in the convolution tail) or, with the shared
+        block, a ``SharedAttnCache`` that adds a KV cache of ``cap``
+        slots (``seq`` as ``AttnBlock.init_cache``'s)."""
+        cfg, s, m = self.cfg, self.cfg.ssm, self.mamba
         dev = self.ln.device
-        mc = mamba_cache_init(batch, s.d_conv, ch, nh, s.head_dim, s.d_state,
+        mc = mamba_cache_init(batch, s.d_conv,
+                              m.norm.shape[0] + 2 * s.d_state,
+                              m.a_log.shape[0], s.head_dim, s.d_state,
                               cfg.compute_dtype, dev)
         if not self.with_shared:
             return mc
         return SharedAttnCache(mamba=mc, kv=kv_init(
-            batch, cap, cfg.n_kv_heads, cfg.resolved_head_dim,
-            cfg.compute_dtype, dev))
+            batch, cap, self.n_kv, cfg.resolved_head_dim, cfg.compute_dtype,
+            dev, seq_ax=_divides(seq, cap)))
 
     def plan_carry_shape(self, cache, t: int, method: str, qcfg):
         """A plain Mamba2 layer builds no plan, which turns the carry off
@@ -694,7 +747,8 @@ class MambaBlock(nn.Module):
     def apply(self, x, pos, cache, ctx, plan=None):
         mc = cache.mamba if self.with_shared else cache
         y, new = mamba2.mamba_apply(
-            self.mamba, rmsnorm(self.ln, x, self.cfg.norm_eps), mc, self.cfg)
+            self.mamba, rmsnorm(self.ln, x, self.cfg.norm_eps), mc, self.cfg,
+            w=self._weights()["mamba"])
         state_write(mc, new)
         x = x + y
         if self.with_shared:
@@ -703,37 +757,60 @@ class MambaBlock(nn.Module):
 
 
 class RWKVBlock(nn.Module):
-    """``x + time_mix(norm1(x))``, then ``x + channel_mix(norm2(x))``."""
+    """``x + time_mix(norm1(x))``, then ``x + channel_mix(norm2(x))``.  On
+    a mesh (``place``) the time mix runs this rank's wkv heads and its
+    state holds them (``rwkv6.py``)."""
 
     def __init__(self, cfg: ModelConfig, device, kind: str = "rwkv"):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
+        self.fsdp = None            # (FSDP axis, {weight: its cut dim})
         self.ln1 = _norm(cfg.d_model, device)
         self.ln2 = _norm(cfg.d_model, device)
         self.tm = rwkv6.TimeMix(cfg, device)
         self.cm = rwkv6.ChannelMix(cfg, device)
 
-    def init_cache(self, batch: int, cap: int) -> RWKVCache:
+    def place(self, ax: comm.Axis, fax: comm.Axis = None) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax`` and which ones the FSDP axis ``fax`` cut."""
+        self.tm.place(ax)
+        self.cm.place(ax)
+        _place_fsdp(self, fax)
+
+    def _held(self):
+        return {**{f"tm/{k}": p for k, p in self.tm.held().items()},
+                **{f"cm/{k}": p for k, p in self.cm.held().items()}}
+
+    _weights = _layer_weights
+
+    def init_cache(self, batch: int, cap: int, seq=None) -> RWKVCache:
+        """The token-shift carries (whole: the residual stream is) and the
+        wkv state of this rank's heads; ``seq`` is ignored (the state has
+        no sequence axis: at batch 1 every ``data`` rank runs the whole
+        scan)."""
         cfg = self.cfg
         hd = cfg.rwkv.head_dim
-        return rwkv_cache_init(batch, cfg.d_model, cfg.d_model // hd, hd,
-                               cfg.compute_dtype, self.ln1.device)
+        return rwkv_cache_init(batch, cfg.d_model, self.tm.wk.shape[1] // hd,
+                               hd, cfg.compute_dtype, self.ln1.device)
 
     def plan_carry_shape(self, cache, t: int, method: str, qcfg):
         return None
 
-    def _run(self, x, cache: RWKVCache):
+    def _run(self, x, cache: RWKVCache, w=None):
         """Both mixes over the segment from ``cache``'s state (read, not
-        written).  Returns (x, the new ``RWKVCache``)."""
+        written), with the layer call's weights ``w`` (default: the
+        held ones).  Returns (x, the new ``RWKVCache``)."""
         cfg = self.cfg
+        w = w or {"tm": None, "cm": None}
         y, sh_tm, wkv = rwkv6.time_mix(self.tm, rmsnorm(self.ln1, x,
                                                         cfg.norm_eps),
-                                       cache.shift_tm, cache.wkv, cfg)
+                                       cache.shift_tm, cache.wkv, cfg,
+                                       w=w["tm"])
         x = x + y
         y, sh_cm = rwkv6.channel_mix(self.cm, rmsnorm(self.ln2, x,
                                                       cfg.norm_eps),
-                                     cache.shift_cm)
+                                     cache.shift_cm, w=w["cm"])
         return x + y, RWKVCache(shift_tm=sh_tm, shift_cm=sh_cm, wkv=wkv)
 
     def full_forward(self, x, pos, ctx=None):
@@ -746,7 +823,7 @@ class RWKVBlock(nn.Module):
         return self._run(x, zero)[0], 0.0
 
     def apply(self, x, pos, cache: RWKVCache, ctx, plan=None):
-        x, new = self._run(x, cache)
+        x, new = self._run(x, cache, self._weights())
         state_write(cache, new)
         return x, plan
 

@@ -20,6 +20,22 @@ casts them at every use: the same numbers); ``a_log``, ``d_skip``,
 
 State per layer (``serving/cache.py::MambaCache``): the convolution's last
 ``d_conv - 1`` inputs and the SSD state (b, H, P, N) in fp32.
+
+Tensor parallelism (``Mamba2.place``, after ``training/checkpoint.py::
+shard`` sliced the leaves by the reference's rules): a rank holds the
+columns of ``z_proj`` / ``x_proj`` / ``dt_proj`` and the channels of
+``conv_x_*``, ``a_log``, ``d_skip``, ``dt_bias`` and ``norm`` of its own
+SSD heads, contiguous and head-major, while ``bc_proj`` and
+``conv_bc_*`` (the B and C shared by every head) stay whole; the scan
+runs on its heads alone, and ``out_proj`` is row-parallel (one fp32
+all-reduce over ``model``, ``layers.row_linear``).  The gated RMSNorm
+normalises over the whole ``d_inner``: its fp32 sum of squares, one (b,
+T) vector, is summed over ``model`` before the scale (``_gated_norm``).
+The convolution tail keeps the rank's x channels and the whole B / C
+channels (``[x_local | B | C]``), where the reference's ``cache_specs``
+cuts the concatenated channel axis at its midpoint, off the heads
+(``ROADMAP.md`` C, deliberate differences).  Under FSDP the caller passes
+the layer call's gathered weights (``w``).
 """
 from __future__ import annotations
 
@@ -30,8 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.models.layers import linear, rmsnorm, row_linear
 from repro_torch.serving.cache import MambaCache
+from repro_torch.sharding import comm
 
 CHUNK = 64
 
@@ -71,6 +88,27 @@ class Mamba2(nn.Module):
         self.dt_bias = w(nh, dtype=torch.float32)
         self.norm = w(di, dtype=torch.float32)
         self.out_proj = w(di, d)
+        self.d_inner, self.n_heads = di, nh     # the whole layer's
+        self.tp = None      # the model axis when this rank holds its heads
+
+    def place(self, ax: comm.Axis) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``: this rank's SSD heads, or all of them."""
+        di, nh = self.norm.shape[0], self.a_log.shape[0]
+        widths = {t.shape[-1] for t in (self.z_proj, self.x_proj,
+                                        self.conv_x_w, self.conv_x_b)}
+        heads = {t.shape[-1] for t in (self.dt_proj, self.d_skip,
+                                       self.dt_bias)}
+        if widths | {self.out_proj.shape[0]} != {di} or heads != {nh} or \
+                di * self.n_heads != nh * self.d_inner:
+            raise NotImplementedError(
+                "a Mamba2 placement that cuts its heads and channels "
+                "differently is not yet ported")
+        self.tp = ax if di < self.d_inner else None
+
+    def held(self):
+        """Every leaf as this rank holds it, by its name."""
+        return dict(self.named_parameters())
 
     @torch.no_grad()
     def init(self, normal_, uniform_) -> None:
@@ -144,26 +182,42 @@ def _ssd_chunked(x, dt, la, B, C, state):
     return y.reshape(b, t, h, p), state
 
 
-def mamba_apply(p: Mamba2, x, cache: MambaCache, cfg: ModelConfig):
-    """One Mamba2 mixer over the segment x (b, T, d) (already normed).
+def _gated_norm(g, y, z, ax, d_inner: int, eps: float = 1e-6):
+    """``rmsnorm(g, y * silu(z))`` over the whole ``d_inner``: with the
+    ``model`` axis ``ax`` this rank holds ``g``'s channels of it, and the
+    fp32 sum of squares of every rank's channels is summed over ``ax``
+    first (a (b, T) vector)."""
+    h = y * F.silu(z)
+    if ax is None:
+        return rmsnorm(g, h, eps)
+    hf = h.float()
+    ss = comm.all_reduce((hf * hf).sum(-1, keepdim=True), ax)
+    return (hf * torch.rsqrt(ss / d_inner + eps) * g).to(h.dtype)
+
+
+def mamba_apply(p: Mamba2, x, cache: MambaCache, cfg: ModelConfig, w=None):
+    """One Mamba2 mixer over the segment x (b, T, d) (already normed), on
+    this rank's heads (``p.tp``; all of them meshless) with the layer
+    call's weights ``w`` (default: ``p``'s own, ``Mamba2.held``).
     Returns (y (b, T, d), the new ``MambaCache``); ``cache`` is read, not
     written."""
     s = cfg.ssm
+    w = p.held() if w is None else w
     b, t, _ = x.shape
-    di, nh, _ = _dims(cfg)
-    z = linear(p.z_proj, x)
+    di, nh = w["norm"].shape[0], w["a_log"].shape[0]
+    z = linear(w["z_proj"], x)
     # the split convolution is depthwise, so its x and [B | C] channels
     # run as one pass over [x | B | C], the cache's channel order
     xbc, tail = _causal_conv(
-        torch.cat([linear(p.x_proj, x), linear(p.bc_proj, x)], dim=-1),
-        cache.conv, torch.cat([p.conv_x_w, p.conv_bc_w], dim=-1),
-        torch.cat([p.conv_x_b, p.conv_bc_b]))
+        torch.cat([linear(w["x_proj"], x), linear(w["bc_proj"], x)], dim=-1),
+        cache.conv, torch.cat([w["conv_x_w"], w["conv_bc_w"]], dim=-1),
+        torch.cat([w["conv_x_b"], w["conv_bc_b"]]))
     xbc = F.silu(xbc).float()
     x_ssm = xbc[..., :di].reshape(b, t, nh, s.head_dim)
     Bm = xbc[..., di:di + s.d_state]
     Cm = xbc[..., di + s.d_state:]
-    dt = F.softplus(linear(p.dt_proj, x).float() + p.dt_bias)   # (b, t, H)
-    la = -dt * torch.exp(p.a_log)                               # <= 0
+    dt = F.softplus(linear(w["dt_proj"], x).float() + w["dt_bias"])
+    la = -dt * torch.exp(w["a_log"])                            # <= 0
     # pad to the sub-chunk: la = 0 keeps the state, dt = 0 adds nothing
     pad = (-t) % min(CHUNK, max(t, 1))
     xs, Bs, Cs, dts, las = x_ssm, Bm, Cm, dt, la
@@ -172,7 +226,8 @@ def mamba_apply(p: Mamba2, x, cache: MambaCache, cfg: ModelConfig):
             return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
         xs, Bs, Cs, dts, las = (pf(a) for a in (x_ssm, Bm, Cm, dt, la))
     y, state = _ssd_chunked(xs, dts, las, Bs, Cs, cache.ssd)
-    y = y[:, :t] + p.d_skip[None, None, :, None] * x_ssm
+    y = y[:, :t] + w["d_skip"][None, None, :, None] * x_ssm
     y = y.reshape(b, t, di).to(x.dtype)
-    y = rmsnorm(p.norm, y * F.silu(z))
-    return linear(p.out_proj, y), MambaCache(conv=tail, ssd=state)
+    y = _gated_norm(w["norm"], y, z, p.tp, p.d_inner)
+    return row_linear(w["out_proj"], y, p.tp), MambaCache(conv=tail,
+                                                          ssd=state)

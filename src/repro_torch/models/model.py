@@ -49,7 +49,10 @@ in rank order: rows split over the FSDP ranks come back as the whole
 batch, rows every rank holds come back once per rank.  ``init_cache(...,
 seq=)`` splits a batch-1 cache's sequence over a mesh axis.  The
 attention-and-MoE and MLA families shard too (``attn_moe``, ``mla``,
-``mla_moe``: expert-parallel MoE, MLA's heads); deepseek's untied
+``mla_moe``: expert-parallel MoE, MLA's heads), and so do the
+sliding-window and recurrent kinds (``attn_local``, ``mamba``,
+``mamba_shared_attn``, ``rwkv``: their heads over ``model``; zamba2's
+``shared`` block is placed once); deepseek's untied
 ``lm_head`` is vocab-parallel and FSDP-cut like the embedding, and its
 ``mtp`` head is placed with the layers and never run at inference.
 """
@@ -309,8 +312,9 @@ class Model(nn.Module):
         ``CrossCache`` for whisper's decoder, or a recurrent state:
         ``MambaCache``, ``SharedAttnCache``, ``RWKVCache``), grouped by
         stack.  A VLM's ``cap`` counts its patch positions.  ``seq`` (a
-        mesh axis; attention layers only) splits each cache's capacity
-        axis over it, this rank holding its contiguous slice."""
+        mesh axis) splits each KV or latent cache's capacity axis over
+        it where it divides it, this rank holding its contiguous slice (a
+        recurrent state has no sequence axis and stays whole)."""
         return [s.init_cache(batch, cap, seq) for s in self.stacks]
 
     def _ctx(self, method: str) -> Dict:

@@ -22,6 +22,23 @@ computation.
 State per layer (``serving/cache.py::RWKVCache``): the last normed token
 entering each mix and the wkv state (b, H, D, D) in fp32.  QUOKA has
 nothing to select here: there is no KV cache.
+
+Tensor parallelism (``TimeMix.place`` / ``ChannelMix.place``, after
+``training/checkpoint.py::shard`` sliced the leaves by the reference's
+rules): in the time mix a rank holds ``wk``, ``wv``, ``wg``'s columns,
+``w0``, ``wb``'s columns and ``u``'s rows of its own wkv heads
+(contiguous, head-major), and ``wo``'s rows; ``wr`` matches no rule and
+stays whole, so the rank multiplies only its heads' columns of it.  The
+recurrence and the group norm (per head) run on its heads alone, and
+``wo`` is row-parallel (one fp32 all-reduce over ``model``).  The token
+shifts stay whole: their inputs are the whole residual stream.  In the
+channel mix ``wk`` holds the rank's columns of ``d_ff``, while ``wv``
+and ``wr`` (the reference's first matching rule for ``cm/wv/w`` is the
+attention projections', ``(F, M)``) hold the rank's columns of ``d``:
+the squared activations are gathered over ``model`` (b, T, d_ff), the
+rank's output columns ``sigmoid(r) * (k^2 @ wv)`` computed, and those
+gathered (b, T, d).  Under FSDP the caller passes the layer call's
+gathered weights (``w``).
 """
 from __future__ import annotations
 
@@ -32,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import groupnorm, linear
+from repro_torch.models.layers import groupnorm, linear, row_linear
+from repro_torch.sharding import comm
 
 CHUNK = 16  # intra-chunk width (a C * C * D working set per head)
 
@@ -61,6 +79,25 @@ class TimeMix(nn.Module):
         self.wa = f32(d, cfg.rwkv.decay_lora)
         self.wb = f32(cfg.rwkv.decay_lora, d)
         self.u = f32(d // hd, hd)                 # bonus
+        self.d = d
+        self.tp, self.c0 = None, 0   # the model axis, this rank's 1st col
+
+    def place(self, ax: comm.Axis) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``: this rank's wkv heads, or all of them."""
+        dl = self.wk.shape[1]
+        cols = {t.shape[-1] for t in (self.wk, self.wv, self.wg, self.w0,
+                                      self.wb)}
+        if cols | {self.wo.shape[0], self.u.numel()} != {dl}:
+            raise NotImplementedError(
+                "an RWKV6 time-mix placement that cuts its heads and "
+                "channels differently is not yet ported")
+        self.tp = ax if dl < self.d else None
+        self.c0 = ax.rank * dl if self.tp is not None else 0
+
+    def held(self):
+        """Every leaf as this rank holds it, by its name."""
+        return dict(self.named_parameters())
 
     @torch.no_grad()
     def init(self, normal_, cfg: ModelConfig) -> None:
@@ -86,6 +123,22 @@ class ChannelMix(nn.Module):
         self.wk = w(d, cfg.d_ff)
         self.wv = w(cfg.d_ff, d)
         self.wr = w(d, d)
+        self.d, self.d_ff = d, cfg.d_ff
+        self.tp = None          # the model axis when a weight is cut
+
+    def place(self, ax: comm.Axis) -> None:
+        """Adopt the layout of the (already sliced) weights on the
+        ``model`` axis ``ax``."""
+        if self.wv.shape[1] != self.wr.shape[1]:
+            raise NotImplementedError(
+                "an RWKV6 channel-mix placement that cuts wv and wr "
+                "differently is not yet ported")
+        cut = self.wk.shape[1] < self.d_ff or self.wr.shape[1] < self.d
+        self.tp = ax if cut else None
+
+    def held(self):
+        """Every leaf as this rank holds it, by its name."""
+        return dict(self.named_parameters())
 
     @torch.no_grad()
     def init(self, normal_, cfg: ModelConfig) -> None:
@@ -142,33 +195,47 @@ def _time_mix_chunked(r, k, v, lw, u, state):
     return out.transpose(2, 3).reshape(b, t, h, d), state
 
 
-def time_mix(p: TimeMix, x, shift_prev, wkv_state, cfg: ModelConfig):
-    """x (b, T, d) already normed.  Returns (y (b, T, d), the new shift
-    (the normed input's last token), the new wkv state)."""
+def time_mix(p: TimeMix, x, shift_prev, wkv_state, cfg: ModelConfig,
+             w=None):
+    """x (b, T, d) already normed; on this rank's wkv heads (``p.tp``;
+    all of them meshless) with the layer call's weights ``w`` (default
+    ``p``'s own).  Returns (y (b, T, d), the new shift (the normed
+    input's last token), the new wkv state)."""
+    w = p.held() if w is None else w
     b, t, d = x.shape
     hd = cfg.rwkv.head_dim
-    nh = d // hd
-    xr, xk, xv, xg, xw = _shift_mix(x, shift_prev, p.mu)
-    r = linear(p.wr, xr).float()
-    k = linear(p.wk, xk).float()
-    v = linear(p.wv, xv).float()
-    g = linear(p.wg, xg)
+    dl = w["wk"].shape[1]                      # this rank's channels
+    nh = dl // hd
+    xr, xk, xv, xg, xw = _shift_mix(x, shift_prev, w["mu"])
+    wr = w["wr"] if dl == d else w["wr"][:, p.c0:p.c0 + dl]
+    r = linear(wr, xr).float()
+    k = linear(w["wk"], xk).float()
+    v = linear(w["wv"], xv).float()
+    g = linear(w["wg"], xg)
     # the data-dependent decay (Finch's headline feature), fp32
-    ww = p.w0 + torch.tanh(xw.float() @ p.wa) @ p.wb
+    ww = w["w0"] + torch.tanh(xw.float() @ w["wa"]) @ w["wb"]
     lw = -torch.exp(ww)                                       # <= 0
     pad = (-t) % min(CHUNK, max(t, 1))
     if pad:    # zeros: lw = 0 is decay 1, k = v = 0 adds nothing
         r, k, v, lw = (F.pad(a, (0, 0, 0, pad)) for a in (r, k, v, lw))
     out, state = _time_mix_chunked(
-        *(a.reshape(b, -1, nh, hd) for a in (r, k, v, lw)), p.u,
+        *(a.reshape(b, -1, nh, hd) for a in (r, k, v, lw)), w["u"],
         wkv_state.float())
-    out = out[:, :t].reshape(b, t, d)
+    out = out[:, :t].reshape(b, t, dl)
     y = groupnorm(out, nh).to(x.dtype) * F.silu(g)
-    return linear(p.wo, y), x[:, -1], state
+    return row_linear(w["wo"], y, p.tp), x[:, -1], state
 
 
-def channel_mix(p: ChannelMix, x, shift_prev):
-    """x (b, T, d) already normed.  Returns (y, the new shift)."""
-    xk, xr = _shift_mix(x, shift_prev, p.mu)
-    k = F.relu(linear(p.wk, xk))
-    return torch.sigmoid(linear(p.wr, xr)) * linear(p.wv, k * k), x[:, -1]
+def channel_mix(p: ChannelMix, x, shift_prev, w=None):
+    """x (b, T, d) already normed; ``w`` as ``time_mix``'s.  Returns (y,
+    the new shift)."""
+    w = p.held() if w is None else w
+    xk, xr = _shift_mix(x, shift_prev, w["mu"])
+    k = F.relu(linear(w["wk"], xk))
+    kk = k * k
+    if kk.shape[-1] < p.d_ff:
+        kk = comm.all_gather(kk, p.tp, -1)
+    y = torch.sigmoid(linear(w["wr"], xr)) * linear(w["wv"], kk)
+    if y.shape[-1] < p.d:
+        y = comm.all_gather(y, p.tp, -1)
+    return y, x[:, -1]

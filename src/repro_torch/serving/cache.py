@@ -33,7 +33,10 @@ capacity axis (a ``SeqKVCache`` or ``SeqLatentCache``, whose ``seq`` is a
 holds slots ``[r * cap / D, (r + 1) * cap / D)``, as GSPMD lays out the
 reference's ``P(..., "data", ...)``.  ``kv_write`` writes only the part
 of a chunk that falls in the held slots (after the clamp, which keeps its
-meaning on the whole capacity; ``latent_write`` likewise), and
+meaning on the whole capacity; ``latent_write`` likewise);
+``kv_write_ring`` writes a sliding window's ring the same way, slot
+``(start + i) % cap`` on the rank that holds it (a chunk may straddle two
+ranks and wrap), with no clamp; and
 ``seq_full`` gathers the whole cache
 where an attention needs every key (dense attention; the ranks' bytes
 count under ``comm.scope("seq")``).  Selection reads the slices where
@@ -183,7 +186,8 @@ def kv_write_ring(cache: KVCache, k_new, v_new, start,
     chunk that wraps is one ``index_put`` per leaf.  ``start`` is an int
     only: windowed layers are not part of the paged / continuous path.
     The stored positions are ``start + [0, t)`` unless ``pos_new`` (b, t)
-    overrides them."""
+    overrides them.  A ``SeqKVCache`` ring takes the chunk's slots it
+    holds (``_seq_write_ring``)."""
     if isinstance(start, torch.Tensor) and start.ndim > 0:
         raise ValueError("kv_write_ring takes one int start: windowed "
                          "layers are not part of the paged/continuous path")
@@ -193,10 +197,34 @@ def kv_write_ring(cache: KVCache, k_new, v_new, start,
     if pos_new is None:
         pos_new = torch.arange(start, start + t, dtype=torch.int32,
                                device=dev).expand(b, t)
+    if cache.seq is not None:
+        return _seq_write_ring(cache, k_new, v_new, start, pos_new)
     slots = torch.arange(start, start + t, device=dev) % cache.capacity
     cache.k[:, slots] = k_new.to(cache.k.dtype)
     cache.v[:, slots] = v_new.to(cache.v.dtype)
     cache.pos[:, slots] = pos_new.to(torch.int32)
+    return cache
+
+
+def _seq_write_ring(cache: SeqKVCache, k_new, v_new, start: int,
+                    pos_new) -> SeqKVCache:
+    """``kv_write_ring`` into a sequence-sharded ring: token ``i`` goes to
+    slot ``(start + i) % cap`` of the whole ring when this rank holds it,
+    with no clamp.  The held slots a chunk reaches form at most two runs
+    (a chunk no longer than the ring wraps once), each one slice copy."""
+    cap, lo, held = cache.seq.cap, cache.seq.lo, cache.k.shape[1]
+    t = k_new.shape[1]
+    i = 0
+    while i < t:
+        slot = (start + i) % cap
+        n = min(t - i, cap - slot)          # up to the ring's end
+        a, e = max(slot, lo), min(slot + n, lo + held)
+        if a < e:
+            src = slice(i + a - slot, i + e - slot)
+            cache.k[:, a - lo:e - lo] = k_new[:, src]
+            cache.v[:, a - lo:e - lo] = v_new[:, src]
+            cache.pos[:, a - lo:e - lo] = pos_new[:, src]
+        i += n
     return cache
 
 

@@ -63,9 +63,13 @@ admits, packs and finishes alike.  The block kinds ``attn``,
 ``attn_moe``, ``mla`` and ``mla_moe`` serve on a mesh (expert-parallel
 MoE, MLA's heads over ``model``, the latent pool's blocks over the FSDP
 axes); a MoE's capacity ranking is global over rows split across the
-FSDP ranks (``rows=``; ``models/moe.py``).  Not yet ported on a mesh,
-and refused: ``registry=``, selection methods other than ``full`` and
-``quoka``, the other block kinds, and on a data axis a preempting
+FSDP ranks (``rows=``; ``models/moe.py``).  ``attn_local``, ``mamba``,
+``mamba_shared_attn`` and ``rwkv`` run ``generate`` on a mesh (their
+heads over ``model``; a sliding window's ring split over ``data`` at
+batch 1; a recurrent state whole on every ``data`` rank); the pool
+refuses them as meshless.  Not yet ported on a mesh, and refused:
+``registry=``, selection methods other than ``full`` and ``quoka``, the
+modality families (``dec_cross``), and on a data axis a preempting
 scheduling policy.
 """
 from __future__ import annotations
@@ -228,8 +232,10 @@ class Engine:
         """(this rank's rows of a (b, cap) ``generate``, the axis its
         caches' sequence splits over or None), as ``specs.batch_spec`` and
         ``cache_specs`` place them: rows over the FSDP axes when they
-        divide b; else every row, and the sequence over ``data`` when it
-        divides cap.  Meshless: every row, no split."""
+        divide b; else every row, and the sequence of each KV or latent
+        cache over ``data`` where it divides that cache's capacity (a
+        recurrent state has no sequence: every ``data`` rank holds it
+        whole and runs the whole scan).  Meshless: every row, no split."""
         fax = self.model.fsdp
         if fax is None:
             return slice(0, b), None
@@ -239,7 +245,7 @@ class Engine:
             return slice(fax.rank * n, (fax.rank + 1) * n), None
         place = specs.payload_specs(specs.cache_specs(
             cfg, specs.kv_cache_shapes(cfg, b, cap), mesh))
-        if place["stacks/0/0"][2] == "data":
+        if any(p[2] == "data" for p in place.values()):
             return slice(0, b), comm.axis(mesh, "data")
         return slice(0, b), None
 

@@ -17,11 +17,17 @@ mesh is a ``torch.distributed`` ``DeviceMesh`` or anything with a
 ``shape`` mapping of axis sizes (the reference tests' ``FakeMesh``).
 
 At run time ``training/checkpoint.py::shard`` applies every placement of
-a model of ``attn``, ``attn_moe``, ``mla`` and ``mla_moe`` layers: the
-``model`` entries, then the FSDP entries (the embed axis over ``(pod,
-data)``); the serving engine places batch rows, pool blocks and a
-batch-1 cache's sequence as ``batch_spec`` and ``cache_specs`` say (an
-MLA latent over the FSDP axes or ``data``, never ``model``).
+a model of ``attn``, ``attn_local``, ``attn_moe``, ``mla``, ``mla_moe``,
+``mamba``, ``mamba_shared_attn`` and ``rwkv`` layers: the ``model``
+entries, then the FSDP entries (the embed axis over ``(pod, data)``); the
+serving engine places batch rows, pool blocks and a batch-1 cache's
+sequence as ``batch_spec`` and ``cache_specs`` say (an MLA latent over
+the FSDP axes or ``data``, never ``model``; a sliding window's ring like
+any KV cache; a recurrent state, which has no sequence axis, whole on
+every ``data`` rank at batch 1).  One placement differs: ``cache_specs``
+cuts a Mamba2 convolution tail's concatenated ``[x | B | C]`` channels
+at their midpoint, while the port's tail holds the rank's x channels and
+the whole B and C channels (``models/mamba2.py``).
 """
 from __future__ import annotations
 
@@ -185,7 +191,7 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh,
                 paged: bool = False) -> Dict[str, Spec]:
     """KV / state cache placements, on the reference's cache leaves
     (``stacks/<s>/<j>/kv/k`` (R, b, cap, n_kv, hd), ``.../pos`` (R, b,
-    cap), ...; ``kv_cache_shapes`` gives an attention or MLA model's).
+    cap), ...; ``kv_cache_shapes`` gives them).
 
     batch >= |pod * data|: batch over the FSDP axes, heads over model.
     batch == 1 (long context): the sequence axis over ``data`` and heads
@@ -232,12 +238,17 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh,
 
 def kv_cache_shapes(cfg: ModelConfig, batch: int, cap: int,
                     n_kv: Optional[int] = None) -> Dict[str, Tuple]:
-    """The reference's cache leaves of a model of attention and MLA
-    layers (every stack's ``kv/{k,v,pos}``, or ``latent/{ckv,krope,pos}``
-    for an MLA kind, stacked over repeats) for a (batch, cap) cache: what
-    ``cache_specs`` reads to place the port's ``KVCache``s and
-    ``LatentCache``s."""
+    """The reference's cache leaves of a model (every stack's, stacked
+    over repeats) for a (batch, cap) cache: what ``cache_specs`` reads to
+    place the port's caches.  An attention layer's ``kv/{k,v,pos}`` (a
+    windowed layer's ring at ``min(cap, window)`` slots), an MLA layer's
+    ``latent/{ckv,krope,pos}``, a Mamba2 layer's ``mamba/conv`` (b, K - 1,
+    x + B + C channels) and ``mamba/ssd`` (b, H, P, N) (zamba2's shared
+    block adds its own ``kv/*``), an RWKV6 layer's ``rwkv/{shift_tm,
+    shift_cm}`` (b, d) and ``rwkv/wkv`` (b, H, D, D).  Whisper's
+    ``dec_cross`` raises."""
     n_kv = cfg.n_kv_heads if n_kv is None else n_kv
+    hd = cfg.resolved_head_dim
     out = {}
     for si, (period, reps) in enumerate(cfg.stacks()):
         for j, kind in enumerate(period):
@@ -248,13 +259,30 @@ def kv_cache_shapes(cfg: ModelConfig, batch: int, cap: int,
                 out[pre + "latent/krope"] = (reps, batch, cap, m.qk_rope_dim)
                 out[pre + "latent/pos"] = (reps, batch, cap)
                 continue
-            if kind not in ("attn", "attn_moe"):
+            if kind in ("mamba", "mamba_shared_attn"):
+                s = cfg.ssm
+                di = s.expand * cfg.d_model
+                out[pre + "mamba/conv"] = (reps, batch, s.d_conv - 1,
+                                           di + 2 * s.d_state)
+                out[pre + "mamba/ssd"] = (reps, batch, di // s.head_dim,
+                                          s.head_dim, s.d_state)
+                if kind == "mamba":
+                    continue
+            elif kind == "rwkv":
+                d, rd = cfg.d_model, cfg.rwkv.head_dim
+                out[pre + "rwkv/shift_tm"] = (reps, batch, d)
+                out[pre + "rwkv/shift_cm"] = (reps, batch, d)
+                out[pre + "rwkv/wkv"] = (reps, batch, d // rd, rd, rd)
+                continue
+            elif kind not in ("attn", "attn_moe", "attn_local"):
                 raise NotImplementedError(
                     f"cache placement of block kind {kind!r} on a mesh is "
                     f"not yet ported")
-            out[pre + "kv/k"] = out[pre + "kv/v"] = (reps, batch, cap, n_kv,
-                                                     cfg.resolved_head_dim)
-            out[pre + "kv/pos"] = (reps, batch, cap)
+            ring = min(cap, cfg.sliding_window) if kind == "attn_local" \
+                else cap
+            out[pre + "kv/k"] = out[pre + "kv/v"] = (reps, batch, ring, n_kv,
+                                                     hd)
+            out[pre + "kv/pos"] = (reps, batch, ring)
     return out
 
 

@@ -40,7 +40,8 @@ map also gives each parameter the rank of its reference leaf
 placement without its leading repeats entry) to this rank's share: its
 ``model`` entry by the rank's ``model`` coordinate, then its FSDP entry
 (the embed axis) by the rank's coordinate on the flattened ``(pod,
-data)`` group, and hands the blocks and the model their layout;
+data)`` group, and hands the blocks and the model their layout (zamba2's
+shared block once: its leaves are the top-level ``shared/*``);
 ``from_flat(..., mesh=)`` shards what it reads.  A model is drawn whole
 (``Model.init``) on every rank before it is sliced, so every rank and a
 meshless run hold the same weights.
@@ -168,12 +169,14 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
 
 
 #: the block kinds a mesh places
-MESH_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
+MESH_KINDS = ("attn", "attn_local", "attn_moe", "mla", "mla_moe", "mamba",
+              "mamba_shared_attn", "rwkv")
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise for what this port does not place on a mesh yet: a frontend
-    or encoder, any block kind but ``MESH_KINDS``."""
+    or encoder, any block kind but ``MESH_KINDS`` (whisper's
+    ``dec_cross`` / ``enc_attn``)."""
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: a mesh for the {cfg.family} family's "
@@ -210,8 +213,13 @@ def shard(model: Model, mesh) -> Model:
             for t in ts:
                 n = t.shape[dim] // a.size
                 t.data = t.data.narrow(dim, a.rank * n, n).clone()
+    if model.shared is not None:        # zamba2's one shared block, once
+        model.shared.place(ax, fax)
     for blk in model.layers() + ([model.mtp.block] if model.mtp else []):
-        blk.place(ax, fax)
+        if isinstance(blk, MambaBlock):
+            blk.place(ax, fax, shared=model.shared)
+        else:
+            blk.place(ax, fax)
     if model.embed.shape[0] < cfg.vocab:
         model.tp_vocab = ax
     if fax.size > 1:

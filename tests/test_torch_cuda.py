@@ -1206,6 +1206,23 @@ def test_ep_moe_call_on_the_card_matches_cpu(dev):
         assert r["ep_bytes"].get("all_reduce", 0) > 0, r
 
 
+def test_mamba_tp_call_on_the_card_matches_cpu(dev):
+    """One smoke zamba2 Mamba2 mixer call at ``model=2`` on the card, two
+    ranks sharing it over gloo (``torch_tp_cases.mamba_call_case``): each
+    rank's 8 of 16 SSD heads, the gated norm's sum of squares and
+    ``out_proj``'s partials summed over ``model``, agree with the
+    meshless CPU call within 1e-4 of the largest magnitude (output, the
+    rank's heads' new state, its convolution tail)."""
+    import torch_tp_cases as cases
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(cases.mamba_call_case, 2, "model=2", device="cuda",
+                      timeout=600)
+    for r in res:
+        assert max(r["rel"], r["ssd"], r["conv"]) <= 1e-4, r
+        assert (r["heads"], r["tail"]) == (8, 256 + 32), r
+        assert r["bytes"].get("all_reduce", 0) > 0, r
+
+
 DP_SMOKE_RUNS = (("bf16 b1", "bfloat16", 1, 256),
                  ("fp32 b2", "float32", 2, 128),
                  ("fp32 b1", "float32", 1, 256))

@@ -156,7 +156,7 @@ def dp():
     runs = _runs(flat, prompts, long)
     with ThreadPoolExecutor(len(runs)) as pool:
         futs = {w: pool.submit(lm.spawn_ranks, cases.dp_world, w, r,
-                               timeout=600) for w, r in runs.items()}
+                               timeout=310) for w, r in runs.items()}
         want = _meshless(flat, prompts, long)
         res = {w: f.result() for w, f in futs.items()}
     return res, want

@@ -146,7 +146,7 @@ def ep():
     runs = _runs(flats, inp)
     with ThreadPoolExecutor(len(runs)) as pool:
         futs = {w: pool.submit(lm.spawn_ranks, cases.dp_world, w, r,
-                               timeout=600) for w, r in runs.items()}
+                               timeout=400) for w, r in runs.items()}
         want = _meshless(flats, params, runs)
         res = {}
         for f in futs.values():
@@ -363,6 +363,6 @@ def test_check_mesh_admits_moe_and_mla():
     for arch in (MOE, MLA):
         ckpt.check_mesh(get_config(arch), mesh)
     with pytest.raises(NotImplementedError) as err:
-        ckpt.check_mesh(get_config("zamba2-7b"), mesh)
-    assert "block kinds ['mamba', 'mamba_shared_attn'] on a mesh are not " \
-        "yet ported" in str(err.value)
+        ckpt.check_mesh(get_config("whisper-small"), mesh)
+    assert "a mesh for the audio family's encoder is not yet ported" \
+        in str(err.value)

@@ -145,16 +145,39 @@ def test_mesh_spec_errors_match_reference():
 
 
 def test_refusals_without_ranks():
-    """What raises before any rank meets: the modality families and the
-    block kinds not yet placed, on a mesh, a data axis among them; a
-    dense ``attn`` model places on a data axis; and the MLA latent pool's
+    """What raises before any rank meets: the modality families, on a
+    mesh, a data axis among them; a dense ``attn`` model and the
+    sliding-window and recurrent kinds place on a data axis; a ring's and
+    a Mamba2 state's cache placements are the reference's
+    ``cache_specs`` on the reference's leaves; and the MLA latent pool's
     placement puts its blocks over the FSDP axes, never over ``model``."""
     from repro_torch.models.model import build_model
     pm = build_model(get_config("granite-3-2b").smoke(), "cpu")
     ckpt.check_mesh(pm.cfg, FakeMesh({"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ckpt.shard(Model(get_config("zamba2-7b").smoke(), device="meta"),
-                   FakeMesh({"data": 2, "model": 1}))
+    for arch in ("zamba2-7b", "gemma3-27b", "h2o-danube-3-4b",
+                 "rwkv6-1.6b"):
+        ckpt.check_mesh(get_config(arch), FakeMesh({"data": 2, "model": 2}))
+    for arch, leaves in (("gemma3-27b", ("kv/k", "kv/pos")),
+                         ("zamba2-7b", ("mamba/conv", "mamba/ssd",
+                                        "kv/k"))):
+        rcfg = ref_config(arch).smoke()
+        rmodel = ref_build(rcfg)
+        for b in (2, 1):
+            cache = jax.eval_shape(lambda: rmodel.init_cache(b, 128))
+            mesh = FakeMesh({"data": 2, "model": 2})
+            want = _ref_flat_specs(cache, ref_specs.cache_specs(rcfg, cache,
+                                                                mesh))
+            got = specs.cache_specs(get_config(arch).smoke(),
+                                    specs.kv_cache_shapes(
+                                        get_config(arch).smoke(), b, 128),
+                                    mesh)
+            assert set(got) == set(want) - {"enc_done"}
+            for key, spec in got.items():
+                assert spec == want[key], (arch, key)
+            assert any(k.endswith(leaves) for k in got)
+            if arch == "gemma3-27b":        # the ring: 64 slots, over data
+                ring = got["stacks/0/0/kv/k"]
+                assert ring[2] == ("data" if b == 1 else None)
     ds = get_config("deepseek-v3-671b").smoke()
     for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 2}):
         place = specs.cache_specs(ds, specs.kv_cache_shapes(ds, 8, 16),
@@ -165,11 +188,20 @@ def test_refusals_without_ranks():
         for key, spec in place.items():
             assert spec[1] == fsdp and "model" not in spec, (key, spec)
             assert spec[2] is None, (key, spec)      # slots never split
-    for arch in ("whisper-small", "internvl2-1b", "zamba2-7b",
-                 "gemma3-27b"):
+    for arch, msg in (("whisper-small", "a mesh for the audio family's "
+                       "encoder is not yet ported"),
+                      ("internvl2-1b", "a mesh for the vlm family's "
+                       "frontend is not yet ported")):
         m = Model(get_config(arch).smoke(), device="meta")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(NotImplementedError, match=re.escape(msg)):
             ckpt.shard(m, FakeMesh({"model": 2}))
+    cross = dataclasses.replace(get_config("whisper-small").smoke(),
+                                family="dense", encoder=None)
+    with pytest.raises(NotImplementedError) as err:
+        ckpt.check_mesh(cross, FakeMesh({"model": 2}))
+    assert "block kinds ['dec_cross'] on a mesh are not yet ported " \
+        "('attn', 'attn_local', 'attn_moe', 'mla', 'mla_moe', 'mamba', " \
+        "'mamba_shared_attn', 'rwkv' only)" in str(err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +289,7 @@ def world4(granite_ref):
     plans, want = _plan_cases()
     serve, plan, refuse, _ = lm.spawn_ranks(
         cases.world_case, 4, *GRANITE, prompts, flat, plans,
-        timeout=600)[0]
+        timeout=250)[0]
     return serve, plan, refuse, want
 
 
@@ -325,7 +357,7 @@ def test_mesh_refusals_on_ranks(world4):
 def test_model2_every_axis_shards(granite_ref):
     prompts, flat, want = granite_ref
     res = [r[0] for r in lm.spawn_ranks(cases.world_case, 2, *GRANITE,
-                                        prompts, flat, timeout=600)]
+                                        prompts, flat, timeout=250)]
     for r in res[1:]:            # every rank returns the same tokens
         np.testing.assert_array_equal(r["quoka/generate_mesh"],
                                       res[0]["quoka/generate_mesh"])
@@ -342,7 +374,7 @@ def test_model2_block_plans_take_the_max_across_ranks():
     prompts = _prompts(get_config("granite-3-2b").smoke().vocab)
     flat, want = _ref_run(*GRANITE, prompts, quoka=g16)
     res = lm.spawn_ranks(cases.world_case, 2, *GRANITE, prompts, flat,
-                         None, cases.GEN_NEW, (), g16, timeout=600)[0][0]
+                         None, cases.GEN_NEW, (), g16, timeout=250)[0][0]
     _check_tokens(res, want, prompts)
     assert res["quoka/routes"]["kv_heads"] > 0
     assert res["quoka/score_bytes"].get("all_reduce_max", 0) > 0
@@ -363,7 +395,7 @@ def test_model3_straddling_groups():
     q_valid[1, :5] = False
     subsel = [(q, 4, 2, None), (q, 4, 2, q_valid), (q[:, :1], 4, 2, None)]
     ranks = lm.spawn_ranks(cases.world_case, 3, *STRADDLE, prompts, flat,
-                           None, 6, subsel, timeout=600)
+                           None, 6, subsel, timeout=250)
     res = ranks[0][0]
     _check_tokens(res, want, prompts)
     routes = res["quoka/routes"]
@@ -383,5 +415,5 @@ def test_spawn_ranks_stops_when_a_rank_dies_without_a_result():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=r"exited without a result: "
                                            r"\{1: 3\}"):
-        lm.spawn_ranks(cases.dying_case, 2, timeout=600)
+        lm.spawn_ranks(cases.dying_case, 2, timeout=250)
     assert time.monotonic() - t0 < 120

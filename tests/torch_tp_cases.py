@@ -400,6 +400,69 @@ def ep_moe_call_case(rank, world, dev, spec):
             "ep_bytes": comm.bytes_by_kind("ep")}
 
 
+def mamba_call_case(rank, world, dev, spec="model=2"):
+    """One zamba2 Mamba2 mixer call on ``dev`` against the meshless call
+    on the CPU: smoke zamba2, batch 2, 24 tokens (a sub-chunk and a
+    padded tail) from a nonzero state; this rank's SSD heads (its slice of
+    every head-aligned leaf over ``model``, ``bc_proj`` and ``conv_bc_*``
+    whole, ``out_proj``'s rows) on a state of its heads: its x channels
+    and the whole B / C ones in the convolution tail.  Returns the largest
+    differences over the largest magnitudes of the output (summed over
+    ``model``), the new SSD state of this rank's heads and the new tail,
+    and the default scope's bytes (the gated norm's and ``out_proj``'s
+    fp32 sums)."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models import mamba2
+    from repro_torch.serving.cache import MambaCache
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(spec, dev)
+    ax = comm.axis(mesh, "model")
+    cfg = get_config("zamba2-7b").smoke()
+    s = cfg.ssm
+    di, nh, ch = mamba2._dims(cfg)
+    gen = torch.Generator().manual_seed(0)
+    cpu = mamba2.Mamba2(cfg, "cpu")
+    cpu.init(lambda p, std: p.copy_(torch.randn(p.shape, generator=gen)
+                                    * std),
+             lambda p, lo, hi: p.copy_(torch.rand(p.shape, generator=gen)
+                                       * (hi - lo) + lo))
+    x = torch.randn((2, 24, cfg.d_model), generator=gen)
+    conv = torch.randn((2, s.d_conv - 1, ch), generator=gen)
+    ssd = torch.randn((2, nh, s.head_dim, s.d_state), generator=gen) * 0.1
+    with torch.no_grad():
+        want, wnew = mamba2.mamba_apply(cpu, x, MambaCache(conv, ssd), cfg)
+    card = mamba2.Mamba2(cfg, dev)
+    card.load_state_dict(cpu.state_dict())
+    hl, cl = nh // ax.size, di // ax.size
+    h0, c0 = ax.rank * hl, ax.rank * cl
+    with torch.no_grad():
+        for name in ("z_proj", "x_proj", "conv_x_w", "conv_x_b", "norm"):
+            t = getattr(card, name)
+            t.data = t.data.narrow(-1, c0, cl).clone()
+        for name in ("dt_proj", "a_log", "d_skip", "dt_bias"):
+            t = getattr(card, name)
+            t.data = t.data.narrow(-1, h0, hl).clone()
+        card.out_proj.data = card.out_proj.data.narrow(0, c0, cl).clone()
+    card.place(ax)
+    tail = torch.cat([conv[..., c0:c0 + cl], conv[..., di:]], dim=-1)
+    comm.reset_counts()
+    with torch.no_grad():
+        got, new = mamba2.mamba_apply(
+            card, x.to(dev), MambaCache(tail.to(dev),
+                                        ssd[:, h0:h0 + hl].to(dev)), cfg)
+    wtail = torch.cat([wnew.conv[..., c0:c0 + cl], wnew.conv[..., di:]], -1)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    return {"rel": rel(got, want), "ssd": rel(new.ssd, wnew.ssd[:, h0:h0
+                                                                 + hl]),
+            "conv": rel(new.conv, wtail), "heads": card.a_log.shape[0],
+            "tail": new.conv.shape[-1], "bytes": comm.bytes_by_kind("")}
+
+
 def meshless_drops(arch, over, flat, toks, new=GEN_NEW):
     """The meshless port's ``generate`` tokens and its capacity calls'
     dropped-pair masks, for ``ep_case`` to be held to."""
@@ -417,14 +480,150 @@ def meshless_drops(arch, over, flat, toks, new=GEN_NEW):
         moe.DROPS = None
 
 
+def _cache_leaves(model, caches):
+    """{reference leaf suffix (``kv/k``, ``latent/ckv``, ``mamba/conv``,
+    ``rwkv/wkv``, ...): [(layer prefix, the tensor this rank holds),
+    ...]} of a port model's caches (``specs.kv_cache_shapes``'s names)."""
+    out = {}
+    names = {"kv": ("k", "v", "pos"), "latent": ("ckv", "krope", "pos"),
+             "mamba": ("conv", "ssd"),
+             "rwkv": ("shift_tm", "shift_cm", "wkv")}
+    for si, (stack, sc) in enumerate(zip(model.stacks, caches)):
+        for i, c in enumerate(sc):
+            pre = f"stacks/{si}/{i % len(stack.period)}"
+            if hasattr(c, "mamba"):
+                parts = {"mamba": c.mamba, "kv": c.kv}
+            else:
+                parts = {next(g for g, ns in names.items()
+                              if hasattr(c, ns[0])): c}
+            for group, leaf in parts.items():
+                for n in names[group]:
+                    out.setdefault(f"{group}/{n}", []).append(
+                        (pre, getattr(leaf, n)))
+    return out
+
+
+def cache_bytes(model, caches, b, cap, mesh):
+    """{leaf suffix: (bytes this rank's caches hold, the bytes
+    ``specs.cache_specs`` places on it: each leaf over the sizes of the
+    axes its placement names)}, summed over the layers."""
+    from repro_torch.sharding import specs
+    place = specs.cache_specs(model.cfg, specs.kv_cache_shapes(
+        model.cfg, b, cap), mesh)
+    shapes = specs.kv_cache_shapes(model.cfg, b, cap)
+    out = {}
+    for suffix, leaves in _cache_leaves(model, caches).items():
+        held = want = 0
+        for pre, t in leaves:
+            key = f"{pre}/{suffix}"
+            n = math.prod(shapes[key][1:]) * t.element_size()
+            for ax in place[key][1:]:
+                n //= specs._axes_size(mesh, ax)
+            held += t.numel() * t.element_size()
+            want += n
+        out[suffix] = (held, want)
+    return out
+
+
+def kinds_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
+               record=False):
+    """The mesh checks of the sliding-window and recurrent block kinds on
+    one mesh ``spec``: a QUOKA ``generate`` of the batch ``toks`` (``new``
+    new tokens) on the mesh, the scoring routes, the collectives' bytes by
+    scope and kind, each cache leaf's held bytes beside its placement's
+    (``cache_bytes``), the slots of each KV cache held here and its
+    capacity, whether the shards reassemble and the parameter bytes held
+    beside the placements'; with ``record``, every selecting layer call's
+    inputs (whole: gathered over ``data`` and ``model`` under a scope of
+    their own) and plan ids, from rank 0."""
+    torch.set_num_threads(1)
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import quoka as qk
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding import comm
+    from repro_torch.training.checkpoint import leaf_map
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, over)
+    full, shd = _models(cfg, flat, dev, mesh)
+    eng = Engine(shd, method="quoka", device=dev, mesh=mesh)
+    out = {"reassembled": _reassembled(full, shd, mesh, leaf_map),
+           "param_bytes": param_bytes(full, shd, mesh)}
+    del full
+    caches, records = [], []
+    init_cache, build = shd.init_cache, plan_mod.build
+
+    def init(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
+    def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
+            q_valid=None, heads=None, seq=None):
+        pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
+                    q_valid=q_valid, heads=heads, seq=seq)
+        if record:
+            with comm.scope("record"):
+                if heads.heads_sharded:
+                    q = comm.all_gather(q, heads.ax, 2)
+                idx = pln.idx
+                whole = [k, key_pos]
+                if seq is not None:
+                    whole = [comm.all_gather(x, seq.ax, 1) for x in whole]
+                if heads.kv_sharded:
+                    whole[0] = comm.all_gather(whole[0], heads.ax, 2)
+                    if idx.ndim == 3:
+                        idx = comm.all_gather(idx, heads.ax, 1)
+            if rank == 0:
+                records.append(dict(
+                    q=q.numpy(), k=whole[0].numpy(),
+                    key_pos=whole[1].numpy(), chunk_start=int(chunk_start),
+                    budget=budget,
+                    q_valid=None if q_valid is None else q_valid.numpy(),
+                    idx=idx.numpy()))
+        return pln
+
+    eng.generate(eng.pad_prompt(toks), new)          # warm the signature
+    shd.init_cache, plan_mod.build = init, rec
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    comm.reset_counts()
+    calls = _count_calls(shd)
+    try:
+        out["generate"] = eng.generate(eng.pad_prompt(toks), new).tokens
+    finally:
+        plan_mod.build = build
+        del shd.init_cache, shd._apply_stacks
+    cap = eng.pad_prompt(toks)["tokens"].shape[1] + new
+    out.update(
+        routes=dict(qk.ROUTES), records=records, stack_calls=calls[0],
+        bytes={sc: comm.bytes_by_kind(sc)
+               for sc in ("score", "seq", "fsdp", "")},
+        slots=[(kv.k.shape[1], kv.capacity)
+               for kv in _kv_caches(caches[-1])],
+        cache_bytes=cache_bytes(shd, caches[-1], len(toks), cap, mesh))
+    return out
+
+
+def _kv_caches(caches):
+    """Every KV cache (``KVCache`` / ``SeqKVCache``, zamba2's shared
+    block's among them) of a model's caches, in layer order."""
+    for sc in caches:
+        for c in sc:
+            kv = getattr(c, "kv", None) if hasattr(c, "mamba") else c
+            if kv is not None and hasattr(kv, "k"):
+                yield kv
+
+
 def dp_world(rank, world, dev, runs):
-    """One spawn of ``tests/test_torch_dp.py`` or ``test_torch_ep.py``:
-    each (name, case, args) of ``runs`` (``serve_case``, ``seq_case``,
-    ``gen_case`` or ``ep_case`` by name,
+    """One spawn of ``tests/test_torch_dp.py``, ``test_torch_ep.py`` or
+    ``test_torch_mesh_kinds.py``: each (name, case, args) of ``runs``
+    (``serve_case``, ``seq_case``, ``gen_case``, ``ep_case``,
+    ``kinds_case`` or ``mamba_call_case`` by name,
     with these positional arguments after the rank's own), in order.
     Returns {name: result}."""
     cases = {"serve": serve_case, "seq": seq_case, "gen": gen_case,
-             "ep": ep_case}
+             "ep": ep_case, "kinds": kinds_case,
+             "mamba_call": mamba_call_case}
     out = {}
     for name, case, args, kw in runs:
         out[name] = cases[case](rank, world, dev, *args, **kw)
@@ -734,8 +933,8 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
     from repro_torch.sharding import comm
     toks = np.random.default_rng(b).integers(
         3, model.cfg.vocab, (b, prompt)).astype(np.int32)
-    firsts, calls = [], _count_calls(model)
-    prefill = model.prefill
+    firsts, caches, calls = [], [], _count_calls(model)
+    prefill, init_cache = model.prefill, model.init_cache
     rec = {"score": [], "attention": []}
     kernels = {"score": ops.score, "attention": ops.attention}
 
@@ -753,7 +952,11 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
             return kernels[name](*a, **kw)
         return call
 
-    model.prefill = pre
+    def init(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
+    model.prefill, model.init_cache = pre, init
     ops.score = recording("score", lambda qbar, k, valid, **kw: valid.any())
     ops.attention = recording(
         "attention", lambda q, k, v, valid, boundary=0, **kw:
@@ -773,8 +976,10 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
     finally:
         moe.DROPS = None
         ops.score, ops.attention = kernels["score"], kernels["attention"]
-        del model.prefill, model._apply_stacks
+        del model.prefill, model.init_cache, model._apply_stacks
     experts = [blk.moe for blk in model.layers() if hasattr(blk, "moe")]
+    held = {leaf: sum(t.numel() * t.element_size() for _, t in ts)
+            for leaf, ts in _cache_leaves(model, caches[-1]).items()}
     return dict(
         tokens=r.tokens.tolist(), logits=firsts[-1], ttft_s=r.ttft_s,
         launches=launches, stack_calls=calls[0],
@@ -788,6 +993,7 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
         expert_bytes=sum(t.numel() * t.element_size() for m in experts
                          for t in (m.gate, m.up, m.down)),
         experts_held=experts[0].gate.shape[0] if experts else None,
+        cache_bytes=held,
         checked={k: _captured(v, k) for k, v in rec.items() if v})
 
 
@@ -806,7 +1012,8 @@ def ep_card_run(dev, arch, cut, runs, budget, new, mesh=None, serve=False,
     kernel launches, layer-stack passes, scoring routes, collective bytes
     by scope, each MoE call's dropped-pair mask of this rank's rows, peak
     GiB, held parameter and expert bytes, and the first scoring and flash
-    calls held to their plain versions on their own inputs; with
+    calls held to their plain versions on their own inputs, and each cache
+    leaf's bytes held here (``_cache_leaves``' names); with
     ``serve`` a 512-token request and then one sharing its first
     ``EP_HIT`` tokens over one pool (block 128, two decode rows): their
     tokens, the hit and the launches."""
@@ -869,6 +1076,23 @@ def ep_card_run(dev, arch, cut, runs, budget, new, mesh=None, serve=False,
             hit_tokens=float(eng.stats["hit_tokens"]),
             pool_blocks=(st.pool.local_blocks, st.pool.num_blocks),
             launches=_launches())
+    return out
+
+
+def kinds_card_case(rank, world, dev, spec, cases, budget):
+    """One rank of ``chip_smoke.py`` phase 36 on the mesh ``spec``: for
+    each (label, arch, config cut, runs, new, turns) of ``cases``
+    ``ep_card_run`` (its runs are (label, dtype, batch, prompt, {})), on
+    one mesh, the card freed between cases."""
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(spec, dev)
+    out = {"backend": comm.axis(mesh).backend}
+    for label, arch, cut, runs, new, turns in cases:
+        out[label] = ep_card_run(dev, arch, cut, runs, budget, new,
+                                 mesh=mesh, turns=turns)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 

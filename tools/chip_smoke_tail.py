@@ -6,6 +6,7 @@ kernel line, which reads them.  Phase 16 runs PASSES times (default 1).
 A development check on the card, not a substitute for the whole script:
 
     python3 tools/chip_smoke_tail.py ROOT [PASSES]
+    python3 tools/chip_smoke_tail.py ROOT --phase36   # the build, phase 36
 """
 import inspect, os, sys, textwrap
 
@@ -31,5 +32,24 @@ def main(root, passes=1):
     return ns["main"]()
 
 
+def phase36(root):
+    """The kernels' build, then phase 36 alone."""
+    sys.path.insert(0, root); sys.path.insert(0, os.path.join(root, "src"))
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    build.library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = cs.card_line()
+    out, errs = cs.phase_kinds(torch, np, None, card, dev)
+    cs.log(f"kernel errors {errs}; phase wall times (s): "
+           f"{cs.json.dumps(cs.phase_walls())}")
+    cs.log(card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[2:3] == ["--phase36"]:
+        sys.exit(phase36(sys.argv[1]))
     sys.exit(main(sys.argv[1], *(int(x) for x in sys.argv[2:3])))
