@@ -133,10 +133,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      launch of the flash kernel by its launch counter (the profiler does
      not record them reliably here);
  20. h2o-danube-3-4b (published 24 layers, d_model 3840, 32 / 8 heads, d
-     120, every layer windowed at 4096) at full width, cut in depth to 8
-     layers (room for phases 34 and 36): ``Engine.generate`` at prompt
-     8192 (every ring wraps), staged and g = 16, with exact launch counts
-     (scoring on every layer call, 8 x 95; no flash, no selected
+     120, every layer windowed at 4096) at full width, cut in depth to 4
+     layers (room for phases 34, 36 and 37): ``Engine.generate`` at
+     prompt 8192 (every ring wraps), staged and g = 16, with exact launch
+     counts (scoring on every layer call, 4 x 95; no flash, no selected
      attention: a windowed layer attends on the plain masked path), and a
      trace of its fused route as phase 7's;
  21. gemma3-27b's and h2o-danube-3-4b's smoke configs (window 64) at
@@ -151,11 +151,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      prompt 4096 (at 2048 every layer would take the dense bypass);
  23. zamba2-7b (published 81 layers: 13 x (5 Mamba2 + 1 Mamba2 followed
      by the ONE shared attention block, MHA 32 / 32 at d 112) + 3 Mamba2;
-     d_model 3584) at full width, cut in depth to 12 layers (2 periods,
-     to make room for phases 34 and 36 in the run's time limit: the 81
-     layers took 201 s): ``Engine.generate``
-     staged and fused (g = 16) with exact launch counts (2 shared-block
-     uses x 95 per kernel and route; the Mamba2 layers launch nothing),
+     d_model 3584) at full width, cut in depth to 6 layers (one period,
+     to make room for phases 34, 36 and 37 in the run's time limit: the
+     81 layers took 201 s): ``Engine.generate``
+     staged and fused (g = 16) with exact launch counts (1 shared-block
+     use x 95 per kernel and route; the Mamba2 layers launch nothing),
      and a trace of
      the fused route as phase 7's with the device time of the SSD scan,
      the causal convolution, the shared block (its kernels apart) and the
@@ -168,13 +168,15 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
  25. zamba2-7b's smoke config (staged and g = 16) and rwkv6-1.6b's in
      fp32 at prompt 160, card (kernels) vs CPU (plain versions): logits
      within 1e-4, greedy tokens equal;
- 26. whisper-small (12 decoder layers: causal self-attention, MHA 12 /
+ 26. whisper-small (decoder layers: causal self-attention, MHA 12 /
      12 at d 64 with budget 512, cross-attention and a gelu MLP, all with
      LayerNorm; a 12-layer encoder over 1500 frames drawn from a numpy
-     seed) at full width and depth: ``Engine.generate`` at prompt 8192
+     seed) at full width, its decoder cut to 6 of 12 layers (room for
+     phase 37, which runs it at full depth on the mesh):
+     ``Engine.generate`` at prompt 8192
      (beyond whisper's published 448-token context: at 448 + 32 every
      layer takes the dense bypass), staged and fused (g = 16), with exact
-     launch counts (12 x 95 per kernel and route; the encoder and
+     launch counts (6 x 95 per kernel and route; the encoder and
      cross-attention launch nothing), TTFT with the encoder, decode rate,
      peak memory, and a trace of the fused route with the device time of
      the encoder, the cross-KV build and the cross-attention;
@@ -231,14 +233,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
  33. tensor-parallel serving on the ``model`` mesh axis (after phase 31),
      ranks spawned as child processes sharing the card over gloo (a file
      rendezvous, no port; the kernels built once, in phase 1): qwen3-4b
-     at ``model=2`` (everything shards; ``generate`` with prompt 1152 and
+     at ``model=2`` (everything shards; ``generate`` with prompt 512 and
      8 new in bf16 at g 1 and in fp32 at g 1 and at g 16 with the fused
      route asked, which the mesh keeps staged; an fp32 serve with a
-     512-token prefix hit) and llama3-2-3b at ``model=3`` in fp32, prompt
-     1408 (KV
-     heads replicated, GQA groups straddling ranks, a 1416-slot cache: the
+     512-token prefix hit, then the same serve with a registry on the
+     ranks, held to a meshless registry-on serve of the trace: counters
+     equal, gauges and the histograms that are not times within 1e-6,
+     tokens and launches those of the registry-off serve) and
+     llama3-2-3b at ``model=3`` in fp32, prompt 1024 (KV heads
+     replicated, GQA groups straddling ranks, a 1032-slot cache: the
      T-local scoring route on every selecting call), each at full width
-     and depth from seed 0 against the same card's meshless run: the same
+     and half its depth (``MESH_LAYERS``, since PR 27) from seed 0
+     against the same card's meshless run: the same
      tokens on every rank, equal to the meshless run's in fp32; the first
      step's largest logit difference printed (in bf16 beside the meshless
      run's own bf16-to-fp32 difference, the tokens reported); launches
@@ -315,7 +321,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      are held to their plain versions; prints launches per rank,
      collective bytes per layer call by scope and kind beside each
      rank's and the meshless run's K or state bytes, per-rank peak and
-     the phase's wall time.
+     the phase's wall time;
+ 37. the modality families on the mesh (after phase 36), through the
+     same rank body and checks as phase 36 (``MOD_CASES``), budget 256:
+     whisper-small at full depth (12 encoder + 12 decoder layers over
+     1500 seeded stub frames, prompt 1024) and internvl2-1b at 8 of 24
+     layers (256 seeded patches, prompt 768) at ``model=2`` in fp32 and
+     bf16; whisper (its decoder cut to 6 layers) at ``data=2,model=2``
+     batch 1 in bf16 (each rank holds 750 of the frames in every cross
+     cache and merges the cross-attention over ``data``) and internvl2
+     there at batch 2 in fp32.  Besides phase 36's checks, each rank's cross keys and values
+     hold its 6 KV heads (and its half of the frames) of the meshless
+     run's bytes, and the batch-1 merge is the only ``cross`` traffic;
+     prints the cross bytes a layer a rank and the merge's bytes per
+     layer call.
 
 Every phase header line carries the script's elapsed time, and a line
 before the last three gives each phase's wall time.
@@ -2803,15 +2822,16 @@ class traced_spans:
 
 
 # phase 23's cut of zamba2-7b's 81 layers and phase 20's of
-# h2o-danube-3-4b's 24 (to make room for phases 34 and 36): 2 periods
-# of 5 Mamba2 + 1 shared-block layer; 8 windowed layers
-ZAMBA_LAYERS = 12
-DANUBE_LAYERS = 8
+# h2o-danube-3-4b's 24 (to make room for phases 34, 36 and 37): one
+# period of 5 Mamba2 + 1 shared-block layer; 4 windowed layers
+ZAMBA_LAYERS = 6
+DANUBE_LAYERS = 4
 # and of olmoe-1b-7b's 16 (phase 17), rwkv6-1.6b's 24 (phase 24) and
 # internvl2-1b's 24 (phase 27): a whole run took 1243 s on a slow
 # host with them whole
 OLMOE_LAYERS = 4
 RWKV_LAYERS = INTERNVL_LAYERS = 8
+WHISPER_LAYERS = 6       # phase 26's decoder cut (its encoder keeps 12)
 
 
 def phase_recurrent(torch, np, K):
@@ -2853,11 +2873,11 @@ def phase_recurrent(torch, np, K):
 
 
 def phase_modality(torch, np, K):
-    """Phases 26-28: whisper-small (12 decoder and 12 encoder layers over
-    1500 frames; full depth) and internvl2-1b (256 patches + 7936 tokens;
-    cut to ``INTERNVL_LAYERS``) one-shot at full width, staged and fused
-    (g = 16), with exact launch counts (whisper: its 12 decoder layers'
-    self-attention x 95; internvl2: 12 x 95), TTFT (whisper's encoder and cross-KV build included), decode
+    """Phases 26-28: whisper-small (``WHISPER_LAYERS`` of 12 decoder
+    layers and 12 encoder layers over 1500 frames) and internvl2-1b (256
+    patches + 7936 tokens; cut to ``INTERNVL_LAYERS``) one-shot at full
+    width, staged and fused (g = 16), with exact launch counts (whisper:
+    its decoder layers' self-attention x 95; internvl2: 8 x 95), TTFT (whisper's encoder and cross-KV build included), decode
     rate and peak memory, and a trace of each fused route with the device
     time of the encoder, the cross-KV build and the cross-attention
     (whisper) or the projector (internvl2; also timed by CUDA events
@@ -2866,8 +2886,9 @@ def phase_modality(torch, np, K):
     from repro_torch.models.blocks import DecCrossBlock
     from repro_torch.models.model import Model
     oneshot, traces = {}, {}
-    whisper, oneshot["whisper-small"] = phase_oneshot(
-        torch, np, K, "whisper-small", 26)
+    whisper, oneshot[f"whisper-small ({WHISPER_LAYERS} layers)"] = \
+        phase_oneshot(torch, np, K, "whisper-small", 26,
+                      layers=WHISPER_LAYERS)
     frames = prompt_batch(np, whisper.cfg, PROMPT, seed=26)["frames"]
     traces["whisper-small"] = phase_trace(
         torch, np, whisper, phase="  phase 26", spans={
@@ -3110,8 +3131,9 @@ def phase_train_retrieval(torch, np, K):
 
 
 # phase 33: tensor-parallel serving on the ``model`` mesh axis, the ranks
-# sharing the one card over gloo.  Widths and depths are the configs';
-# for the phase's time limit the selection budget is 256 (the configs'
+# sharing the one card over gloo.  Widths are the configs'; for the run's
+# time limit the depths are halved (``MESH_LAYERS``: qwen3-4b 18 of 36,
+# llama3-2-3b 14 of 28), the selection budget is 256 (the configs'
 # is 1024) and the prompts are the shortest on the chunk grid that keep
 # each case: 512 tokens for qwen3-4b (a cache of 520 slots with 8 new
 # tokens exceeds budget + chunk, 384, so every layer call selects, and
@@ -3121,6 +3143,7 @@ def phase_train_retrieval(torch, np, K):
 # exceeds the budget, so the local top-k truncates before the merge).
 MESH_NEW = 8
 MESH_SERVE_NEW = 4
+MESH_LAYERS = {"qwen3-4b": 18, "llama3-2-3b": 14}
 MESH_BUDGET = 256
 G16 = dict(granularity=16, fused_select_attn=True)
 # (arch, model axis size, prompt, runs: (label, dtype, quoka overrides)):
@@ -3140,6 +3163,13 @@ MESH_CASES = (
     ("llama3-2-3b", 3, 1024, (("fp32 g1", "float32", {}),)))
 MESH_BF16_DRIFT = 0.25
 MESH_HIT = 256                  # the serve's shared prefix (2 blocks)
+
+
+def mesh_config(arch):
+    """Phase 33's config of ``arch``: its published width at
+    ``MESH_LAYERS``' depth."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MESH_LAYERS[arch])
 
 
 def mesh_generate(torch, np, K, model, mesh, prompt):
@@ -3193,11 +3223,16 @@ def mesh_generate(torch, np, K, model, mesh, prompt):
                          (torch.topk(x, 2).values for x in logits)])
 
 
-def mesh_serve(torch, np, model, mesh):
+def mesh_serve(torch, np, K, model, mesh, registry=False):
     """Phase 33's serve at g 16 (staged): a 512-token request, then one
-    whose prompt shares its first 256 tokens, on one warm pool."""
+    whose prompt shares its first 256 tokens, on one warm pool; its
+    tokens, hit, kernel launches (the counts set to 0 before it) and
+    wall, and with ``registry`` the live ``obs.Registry``'s values
+    (``torch_tp_cases._snapshot``)."""
+    from repro_torch.obs import Registry
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import make_requests
+    from torch_tp_cases import _snapshot
     cfg0 = model.cfg
     model.cfg = dataclasses.replace(cfg0, quoka=dataclasses.replace(
         cfg0.quoka, granularity=16, budget=MESH_BUDGET))
@@ -3205,16 +3240,20 @@ def mesh_serve(torch, np, model, mesh):
     a = rng.integers(3, cfg0.vocab, (512,)).astype(np.int32)
     b = np.concatenate([a[:MESH_HIT], rng.integers(
         3, cfg0.vocab, (128,)).astype(np.int32)])
-    eng = Engine(model, method="quoka", mesh=mesh)
+    reg = Registry() if registry else None
+    eng = Engine(model, method="quoka", mesh=mesh, registry=reg)
     st = eng.make_serve_state(make_requests([a, b], MESH_SERVE_NEW),
                               block_size=128, max_decode_batch=2)
+    reset_counts(K)
     t0 = time.perf_counter()
     s1 = eng.serve(make_requests([a], MESH_SERVE_NEW), state=st)
     s2 = eng.serve(make_requests([b], MESH_SERVE_NEW), state=st)
+    wall = time.perf_counter() - t0
     model.cfg = cfg0
     return dict(tokens=[s1.tokens[0].tolist(), s2.tokens[0].tolist()],
                 hit_tokens=float(eng.stats["hit_tokens"]),
-                wall_s=time.perf_counter() - t0)
+                launches=read_counts(K), wall_s=wall,
+                registry=_snapshot(reg) if registry else None)
 
 
 def mesh_run(torch, np, K, arch, prompt, runs, mesh, dev):
@@ -3224,9 +3263,8 @@ def mesh_run(torch, np, K, arch, prompt, runs, mesh, dev):
     budget ``MESH_BUDGET`` (the meshless g16 run takes the staged route,
     the route a mesh takes whatever is asked), each dtype's model drawn
     once; qwen3-4b also ``mesh_serve`` in fp32."""
-    from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    base = get_config(arch)
+    base = mesh_config(arch)
     out, model, cfg = {}, None, None
     for label, dt, qover in runs:
         if cfg is None or cfg.dtype != getattr(torch, dt):
@@ -3242,7 +3280,9 @@ def mesh_run(torch, np, K, arch, prompt, runs, mesh, dev):
         out[label] = mesh_generate(torch, np, K, model, mesh, prompt)
         model.cfg = cfg
     if arch == "qwen3-4b":
-        out["fp32 serve"] = mesh_serve(torch, np, model, mesh)
+        out["fp32 serve"] = mesh_serve(torch, np, K, model, mesh)
+        out["fp32 serve registry"] = mesh_serve(torch, np, K, model, mesh,
+                                                registry=True)
     return out
 
 
@@ -3389,6 +3429,44 @@ def mesh_check(np, cfg, prompt, label, runs, ref, yard, want_route):
     return row
 
 
+def mesh_registry_check(arch, world, ranks, ref):
+    """Phase 33's registry-on serve of the same trace: on every rank the
+    tokens and launches of the registry-off serve, and a registry equal
+    to the meshless registry-on serve's (counters equal, gauges and the
+    histograms that are not times within 1e-6: ``torch_tp_cases.
+    snapshot_diff``).  Returns the row."""
+    from torch_tp_cases import snapshot_diff
+    want = ref["fp32 serve registry"]
+    for i, r in enumerate(ranks):
+        on, off = r["fp32 serve registry"], r["fp32 serve"]
+        tag = f"phase 33 {arch} registry serve rank {i}"
+        if on["tokens"] != off["tokens"] or on["tokens"] != want["tokens"]:
+            raise AssertionError(f"{tag}: tokens {on['tokens']}, off "
+                                 f"{off['tokens']}, meshless "
+                                 f"{want['tokens']}")
+        if on["launches"] != off["launches"]:
+            raise AssertionError(f"{tag}: launches {on['launches']} with "
+                                 f"the registry, {off['launches']} without")
+        bad = snapshot_diff(on["registry"], want["registry"])
+        if bad:
+            raise AssertionError(f"{tag}: registry differs from the "
+                                 f"meshless one: {bad[:8]}")
+    snap = ranks[0]["fp32 serve registry"]["registry"]
+    g = snap["gauges"]
+    frac = {k: g[k] for k in sorted(g) if k.endswith("/kv_fraction")}
+    log(f"  {arch} model={world} fp32 serve with a registry: tokens and "
+        f"launches {ranks[0]['fp32 serve']['launches']} equal to the "
+        f"registry-off serve's; registry == meshless registry-on serve's "
+        f"({len(snap['counters'])} counters, {len(g)} gauges, "
+        f"{len(snap['hists'])} histograms); layer kv_fraction "
+        f"{min(frac.values()):.4f}..{max(frac.values()):.4f}")
+    return dict(registry_equal=True,
+                launches_per_rank=ranks[0]["fp32 serve registry"]["launches"],
+                counters=snap["counters"],
+                wall_s=[r["fp32 serve registry"]["wall_s"] for r in ranks],
+                meshless_wall_s=want["wall_s"])
+
+
 def phase_mesh(torch, np, K, card, dev):
     """Phase 33: tensor-parallel serving over the ``model`` axis, ranks
     sharing the card over gloo (``launch/mesh.py::spawn_ranks``; the
@@ -3397,11 +3475,12 @@ def phase_mesh(torch, np, K, card, dev):
     meanwhile (the ranks wait on the host at every collective, so the
     card has room; neither run's times are figures), then ``mesh_check``
     holds the ranks to them; qwen3-4b's fp32 serve with a prefix hit must
-    give the meshless tokens; at ``model=2`` the smoke-width check and
+    give the meshless tokens, and served again with a registry on the
+    ranks, the meshless registry-on serve's registry
+    (``mesh_registry_check``); at ``model=2`` the smoke-width check and
     the gloo probe."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_ranks
     log(f"== phase 33: tensor-parallel serving on the model axis, ranks "
         f"sharing the card over gloo, {MESH_NEW} new tokens "
@@ -3410,7 +3489,7 @@ def phase_mesh(torch, np, K, card, dev):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     out = {}
     for arch, world, prompt, runs in MESH_CASES:
-        cfg = get_config(arch)
+        cfg = mesh_config(arch)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(1) as pool:
             fut = pool.submit(spawn_ranks, mesh_rank, world, arch, prompt,
@@ -3443,9 +3522,12 @@ def phase_mesh(torch, np, K, card, dev):
             res["fp32 serve"] = dict(
                 tokens_equal=True, hit_tokens=MESH_HIT,
                 wall_s=[r["fp32 serve"]["wall_s"] for r in ranks],
-                meshless_wall_s=ref["fp32 serve"]["wall_s"])
+                meshless_wall_s=ref["fp32 serve"]["wall_s"],
+                launches_per_rank=ranks[0]["fp32 serve"]["launches"])
             log(f"  {arch} model={world} fp32 serve: tokens equal, "
                 f"{MESH_HIT}-token prefix hit")
+            res["fp32 serve registry"] = mesh_registry_check(
+                arch, world, ranks, ref)
         if world == 2:
             smoke = ranks[0]["smoke"]
             if not smoke["equal"]:
@@ -3874,26 +3956,28 @@ KIND_CASES = (("model=2", KIND_M2), ("data=2,model=2", KIND_B1))
 def kind_launches(cfg, passes):
     """Per rank, the launches of ``passes`` layer-stack passes when every
     KV cache selects (capacity past budget + chunk): scoring on every
-    attention layer and shared-block use, flash on the ones without a
-    window, selected and paged none."""
+    attention layer, shared-block use and whisper decoder layer, flash on
+    the ones without a window, selected and paged none (whisper's encoder
+    and cross-attention launch none)."""
     kinds = cfg.layer_kinds()
-    attn = sum(k in ("attn", "mamba_shared_attn") for k in kinds)
+    attn = sum(k in ("attn", "mamba_shared_attn", "dec_cross")
+               for k in kinds)
     local = sum(k == "attn_local" for k in kinds)
     return {"quoka_score": passes * (attn + local),
             "flash_attention": passes * attn,
             "selected_attention": 0, "selected_attention_paged": 0}
 
 
-def kind_check(np, cfg, spec, case, label, dt, b, runs, want):
-    """Phase 36's checks of one run on every rank against the meshless
-    ``want`` (module docstring).  Returns its row."""
+def kind_check(np, cfg, spec, case, label, dt, b, runs, want, phase=36):
+    """Phase 36's (or 37's) checks of one run on every rank against the
+    meshless ``want`` (module docstring).  Returns its row."""
     r0 = runs[0]
     calls = r0["stack_calls"]
     launches = kind_launches(cfg, calls)
     n_sel = launches["quoka_score"]
     route = "seq" if b == 1 and "data" in spec else "kv_heads"
     for i, run in enumerate(runs):
-        tag = f"phase 36 {case} {label} rank {i}"
+        tag = f"phase {phase} {case} {label} rank {i}"
         if run["tokens"] != r0["tokens"]:
             raise AssertionError(f"{tag}: tokens differ from rank 0's")
         if run["launches"] != launches:
@@ -3917,10 +4001,11 @@ def kind_check(np, cfg, spec, case, label, dt, b, runs, want):
     scale = float(np.abs(want["logits"]).max())
     equal = r0["tokens"] == want["tokens"]
     if dt == "float32" and not equal:
-        raise AssertionError(f"phase 36 {case} {label}: tokens "
+        raise AssertionError(f"phase {phase} {case} {label}: tokens "
                              f"{r0['tokens']} != meshless {want['tokens']}")
     if dt == "bfloat16" and dlog > MESH_BF16_DRIFT * scale:
-        raise AssertionError(f"phase 36 {case} {label}: first-step logits "
+        raise AssertionError(f"phase {phase} {case} {label}: first-step "
+                             f"logits "
                              f"{dlog:.4g} from meshless, over "
                              f"{MESH_BF16_DRIFT} x {scale:.4g}")
     n_calls = calls * cfg.n_layers
@@ -4004,6 +4089,133 @@ def phase_kinds(torch, np, K, card, dev):
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 36 took {out['phase_s']:.1f} s")
+    return out, errs
+
+
+# phase 37: the modality families on the mesh, ranks sharing the card
+# over gloo, budget 256 (phase 33's): whisper-small at full depth (12
+# encoder + 12 decoder layers over 1500 seeded stub frames, prompt 1024)
+# and internvl2-1b at phase 27's cut of 8 of 24 layers (256 seeded
+# patches ahead of a 768-token prompt).  (label, arch, config cut, runs:
+# (label, dtype, batch, prompt, {}), new, ranks draw in turns)
+MOD_BUDGET = MESH_BUDGET
+MOD_NEW = 8
+MOD_M2 = (
+    ("whisper-small", "whisper-small", {},
+     (("fp32", "float32", 1, 1024, {}), ("bf16", "bfloat16", 1, 1024, {})),
+     MOD_NEW, False),
+    ("internvl2-1b", "internvl2-1b", {"n_layers": 8},
+     (("fp32", "float32", 1, 768, {}), ("bf16", "bfloat16", 1, 768, {})),
+     MOD_NEW, False))
+# at data=2,model=2 every layer call gathers its FSDP shards through host
+# memory: whisper's decoder is cut to 6 of 12 layers (the encoder keeps
+# its 12) for the phase's time
+MOD_DM = (
+    ("whisper-small b1", "whisper-small", {"n_layers": 6},
+     (("bf16 b1", "bfloat16", 1, 1024, {}),), MOD_NEW, False),
+    ("internvl2-1b b2", "internvl2-1b", {"n_layers": 8},
+     (("fp32 b2", "float32", 2, 768, {}),), MOD_NEW, False))
+MOD_CASES = (("model=2", MOD_M2), ("data=2,model=2", MOD_DM))
+
+
+def cross_check(cfg, spec, label, dt, b, runs, want):
+    """Phase 37's whisper checks beyond ``kind_check``: each rank's cross
+    keys and values hold its KV heads (and at batch 1 on ``data`` its
+    half of the frames) of the meshless run's, and at batch 1 each layer
+    call's cross-attention all-gathers its fp32 (b, t, h_local, hd + 2)
+    partials over ``data`` once.  Returns (cross bytes a layer a rank,
+    meshless, merge bytes per layer call or None)."""
+    split = 2 if b == 1 and "data" in spec else 1
+    esize = 4 if dt == "float32" else 2
+    per_layer = 2 * b * (cfg.encoder.n_ctx // split) * \
+        (cfg.n_kv_heads // 2) * cfg.resolved_head_dim * esize
+    whole = 2 * b * cfg.encoder.n_ctx * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * esize
+    merge = None
+    for i, run in enumerate(runs):
+        held = sum(run["cache_bytes"][f"cross/{x}"] for x in "kv") \
+            / cfg.n_layers
+        if held != per_layer or sum(want["cache_bytes"][f"cross/{x}"]
+                                    for x in "kv") / cfg.n_layers != whole:
+            raise AssertionError(f"phase 37 {label} rank {i}: cross K/V "
+                                 f"{held} B a layer, want {per_layer} "
+                                 f"(meshless {whole})")
+        got = run["bytes"].get("cross", {})
+        if split == 1 and got:
+            raise AssertionError(f"phase 37 {label} rank {i}: cross bytes "
+                                 f"{got} with whole frames")
+        if split == 2:
+            merge = got.get("all_gather", 0)
+            if merge <= 0 or set(got) != {"all_gather"}:
+                raise AssertionError(f"phase 37 {label} rank {i}: cross "
+                                     f"bytes {got}")
+    return per_layer, whole, merge
+
+
+def phase_modality_mesh(torch, np, K, card, dev):
+    """Phase 37: whisper-small and internvl2-1b on the mesh
+    (``MOD_CASES``), ranks sharing the card over gloo, one spawn a mesh
+    through ``tests/torch_tp_cases.py::kinds_card_case`` beside the
+    card's meshless runs of the same body (``ep_card_run``, its inputs'
+    frames or patches from ``modality_inputs``).  Holds every rank to
+    them (``kind_check``, and for whisper ``cross_check``) and returns
+    the phase's numbers and the largest kernel-vs-plain error per
+    kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_tp_cases as cases
+    log(f"== phase 37: whisper-small and internvl2-1b on the mesh, ranks "
+        f"sharing the card over gloo, budget {MOD_BUDGET} [{card}]")
+    t0 = time.perf_counter()
+    out, errs = {}, {"quoka_score": 0.0, "flash_attention": 0.0}
+    for spec, mcases in MOD_CASES:
+        world = math.prod(int(x.split("=")[1]) for x in spec.split(","))
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(spawn_ranks, cases.kinds_card_case, world,
+                              spec, mcases, MOD_BUDGET, device="cuda",
+                              timeout=600)
+            refs = {}
+            for label, arch, cut, runs, new, _ in mcases:
+                refs[label] = cases.ep_card_run(dev, arch, cut, runs,
+                                                MOD_BUDGET, new)
+                torch.cuda.empty_cache()
+            ranks = fut.result()
+        for label, arch, cut, runs, new, _ in mcases:
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            res = {"spec": spec, "layers": cfg.n_layers, "new": new,
+                   "backend": ranks[0]["backend"]}
+            for rl, dt, b, prompt, _ in runs:
+                got = [r[label][rl] for r in ranks]
+                res[rl] = kind_check(np, cfg, spec, label, rl, dt, b, got,
+                                     refs[label][rl], phase=37)
+                if cfg.encoder is not None:
+                    per, whole, merge = cross_check(cfg, spec, label, dt, b,
+                                                    got, refs[label][rl])
+                    calls = got[0]["stack_calls"] * cfg.n_layers
+                    res[rl].update(cross_kv_bytes_per_layer=per,
+                                   meshless_cross_kv_bytes_per_layer=whole,
+                                   cross_merge_bytes_per_layer_call=None
+                                   if merge is None else merge / calls)
+                    log(f"    cross K/V {per} B a layer a rank (meshless "
+                        f"{whole} B)" + ("" if merge is None else
+                                         f", merge {merge / calls:.0f} B a "
+                                         f"layer call over data"))
+                for r in got:
+                    for name, c in r["checked"].items():
+                        key = "quoka_score" if name == "score" else \
+                            "flash_attention"
+                        errs[key] = max(errs[key], c["err"])
+            out[label] = res
+        out[spec] = dict(spawn_s=time.perf_counter() - t1)
+        log(f"  {spec}: backend {ranks[0]['backend']}, "
+            f"{out[spec]['spawn_s']:.1f} s with the meshless runs beside")
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 37 took {out['phase_s']:.1f} s")
     return out, errs
 
 
@@ -4724,6 +4936,10 @@ def main() -> int:
     kinds, kind_errs = phase_kinds(torch, np, K, card, dev)
     for name, err in kind_errs.items():
         errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    modality_mesh, mod_errs = phase_modality_mesh(torch, np, K, card, dev)
+    for name, err in mod_errs.items():
+        errs[name] = max(errs[name], err)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -4753,7 +4969,8 @@ def main() -> int:
             ds_serve["launches"][name]
         for arch, world, _, runs in MESH_CASES:
             for label, _, _ in runs:
-                paths[name][f"{arch} model={world} {label} per rank"] = \
+                paths[name][f"{arch} ({MESH_LAYERS[arch]} layers) "
+                            f"model={world} {label} per rank"] = \
                     mesh[arch][label]["launches_per_rank"][name]
         for label in [r[0] for r in DP_RUNS] + ["fp32 serve"]:
             paths[name][f"qwen3-4b ({DP_LAYERS} layers) {dp['spec']} "
@@ -4767,12 +4984,18 @@ def main() -> int:
             if "serve" in ep[case]:
                 paths[name][f"{head} serve per rank"] = \
                     ep[case]["serve"]["launches_per_rank"][name]
-        for spec, kcases in KIND_CASES:
-            for label, arch, cut, runs, *_ in kcases:
-                head = f"{arch} ({kinds[label]['layers']} layers) {spec}"
-                for rl, *_ in runs:
-                    paths[name][f"{head} {rl} per rank"] = \
-                        kinds[label][rl]["launches_per_rank"][name]
+        for done, cases in ((kinds, KIND_CASES), (modality_mesh,
+                                                  MOD_CASES)):
+            for spec, kcases in cases:
+                for label, arch, cut, runs, *_ in kcases:
+                    head = f"{arch} ({done[label]['layers']} layers) {spec}"
+                    for rl, *_ in runs:
+                        paths[name][f"{head} {rl} per rank"] = \
+                            done[label][rl]["launches_per_rank"][name]
+        paths[name][f"qwen3-4b ({MESH_LAYERS['qwen3-4b']} layers) model=2 "
+                    f"fp32 serve registry per rank"] = \
+            mesh["qwen3-4b"]["fp32 serve registry"]["launches_per_rank"][
+                name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -4794,6 +5017,7 @@ def main() -> int:
                     "modality_traces": modality_traces,
                     "training": training, "telemetry": telemetry,
                     "mesh": mesh, "dp": dp, "ep": ep, "kinds": kinds,
+                    "modality_mesh": modality_mesh,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(f"phase wall times (s): {json.dumps(phase_walls())}")
     log(card)

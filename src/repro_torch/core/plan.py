@@ -21,7 +21,11 @@ costs no device sync.
 Telemetry: with ``ctx["obs"]`` set, a selecting layer leaves its
 ``LayerObs`` (seven fp32 0-d tensors on the model's device) in
 ``ctx["_obs"]`` for ``models/stack.py`` to collect; with it unset the path
-runs exactly the ops it runs without telemetry.  Stages 1 and 3 run under
+runs exactly the ops it runs without telemetry.  On a mesh
+(``ctx["obs"]`` a ``MeshObs``) each layer leaves its raw partials
+instead, and the model reduces the step's stacked partials over the
+mesh once (``MeshObs.reduce``), so every rank returns the meshless
+``LayerObs``.  Stages 1 and 3 run under
 ``record_function`` ranges named as the reference's ``jax.named_scope``
 labels (``plan_scores``, ``plan_materialize``), so a ``torch.profiler``
 trace attributes their ops (``analysis/trace_ops.py``).
@@ -285,13 +289,16 @@ def _materialize(plan: SelectionPlan, k, v, key_pos, chunk_start,
 
 def build(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
           budget: Optional[int] = None, q_valid=None,
-          heads: Optional[comm.HeadShard] = None, seq=None) -> SelectionPlan:
+          heads: Optional[comm.HeadShard] = None, seq=None,
+          sketch: Optional[list] = None) -> SelectionPlan:
     """Stages 1+2.  Under tensor parallelism (``heads``) QUOKA scores as
     the module docstring says, on the T-local route where it applies;
     every rank returns the same plan (its own KV heads' rows of it at
     granularity 1 when the KV heads shard).  ``seq``: ``k`` / ``key_pos``
     are this rank's slice of a sequence-sharded cache, which must pass
-    ``quoka.seq_route``."""
+    ``quoka.seq_route``.  ``sketch`` (a list, on a mesh) receives this
+    rank's ``score_partial`` of the scores it computed and the mesh axes
+    over which the route partitions them (``MeshObs``)."""
     if heads is not None:
         if method != "quoka":
             raise NotImplementedError(
@@ -301,14 +308,29 @@ def build(method: str, q, k, key_pos, chunk_start, cfg: QuokaConfig,
                 comm.scope("score"):
             return _build_tp(q, k, key_pos, chunk_start, cfg,
                              _plan_budget(cfg, t, budget), q_valid, heads,
-                             seq)
+                             seq, sketch)
     scores = plan_scores(method, q, k, key_pos, chunk_start, cfg,
                          q_valid=q_valid)
     return plan_from_scores(scores, key_pos, cfg, budget=budget)
 
 
+def _keep(sketch: Optional[list], scores, parts) -> None:
+    """With telemetry on a mesh (``sketch`` a list), note this rank's
+    ``score_partial`` of ``scores`` and the mesh axes ``parts`` over
+    which the route partitions them."""
+    if sketch is not None:
+        sketch.append((score_partial(scores), parts))
+
+
+def _keeper(sketch: Optional[list], parts):
+    """``_keep`` as a scoring hook (``on_scores``); None without
+    telemetry."""
+    return None if sketch is None else (lambda s: _keep(sketch, s, parts))
+
+
 def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
-              q_valid, heads: comm.HeadShard, seq=None) -> SelectionPlan:
+              q_valid, heads: comm.HeadShard, seq=None,
+              sketch: Optional[list] = None) -> SelectionPlan:
     """QUOKA's stages 1+2 on a mesh (``build``)."""
     q = qk.sanitize_queries(q, q_valid)
     valid = prior_context_valid(key_pos, chunk_start)
@@ -318,8 +340,10 @@ def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
                                   q_valid=q_valid)
         if seq is None:
             qk.ROUTES["kv_heads"] += 1
-            return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg),
-                                    key_pos, cfg, budget=budget, heads=heads)
+            scores = qk.quoka_scores(qs, k, valid, cfg)
+            _keep(sketch, scores, ("model",))
+            return plan_from_scores(scores, key_pos, cfg, budget=budget,
+                                    heads=heads)
     elif heads.heads_sharded:
         qs = qk.subselect_queries_tp(q, cfg.n_queries, heads,
                                      q_valid=q_valid)
@@ -328,18 +352,21 @@ def _build_tp(q, k, key_pos, chunk_start, cfg: QuokaConfig, budget: int,
                                   q_valid=q_valid)
     if seq is not None:
         return SelectionPlan(idx=_seq_candidates(qs, k, key_pos, valid, cfg,
-                                                 budget, heads, seq))
+                                                 budget, heads, seq, sketch))
     if qk._tp_route(k, cfg, heads):
         qk.ROUTES["t_local"] += 1
         return SelectionPlan(idx=qk.tp_plan_candidates(
-            qs, k, key_pos, valid, cfg, budget, heads.ax))
+            qs, k, key_pos, valid, cfg, budget, heads.ax,
+            on_scores=_keeper(sketch, ("model",))))
     qk.ROUTES["replicated"] += 1
-    return plan_from_scores(qk.quoka_scores(qs, k, valid, cfg), key_pos, cfg,
-                            budget=budget)
+    scores = qk.quoka_scores(qs, k, valid, cfg)
+    _keep(sketch, scores, ())
+    return plan_from_scores(scores, key_pos, cfg, budget=budget)
 
 
 def _seq_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
-                    heads: comm.HeadShard, seq) -> torch.Tensor:
+                    heads: comm.HeadShard, seq,
+                    sketch: Optional[list] = None) -> torch.Tensor:
     """The plan of a sequence-sharded cache: this rank's slots scored,
     the candidates merged over ``seq.ax``; where the KV heads are
     replicated and the T-local conditions hold on the slice, each
@@ -352,11 +379,14 @@ def _seq_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
         a = ax.rank * tl
         return qk.plan_candidates(
             qs, k[:, a:a + tl], key_pos[:, a:a + tl], valid[:, a:a + tl],
-            cfg, budget, seq.lo + a, (ax, seq.ax))
+            cfg, budget, seq.lo + a, (ax, seq.ax),
+            on_scores=_keeper(sketch, ("data", "model")))
     qk.ROUTES["seq"] += 1
-    return qk.plan_candidates(qs, k, key_pos, valid, cfg, budget, seq.lo,
-                              (seq.ax,),
-                              head_ax=ax if heads.kv_sharded else None)
+    return qk.plan_candidates(
+        qs, k, key_pos, valid, cfg, budget, seq.lo, (seq.ax,),
+        head_ax=ax if heads.kv_sharded else None,
+        on_scores=_keeper(sketch, ("data",) + (("model",)
+                                               if heads.kv_sharded else ())))
 
 
 def select(method: str, q, k, v, key_pos, chunk_start, cfg: QuokaConfig,
@@ -405,17 +435,16 @@ def _layer_plan(ctx, plan: Optional[PlanCarry], method: str, q, k, key_pos,
     """Refresh-or-build this layer's plan: (plan, updated carry, stage-1
     scores).  The scores are None where the layer reused the carried plan
     (no scores were computed); they feed only the ``LayerObs`` sketch.
-    A sharded layer (``heads``) builds through ``build``."""
-    if heads is not None and ctx.get("obs"):
-        raise NotImplementedError(
-            "per-layer selection telemetry on a mesh is not yet ported")
+    A sharded layer (``heads``) builds through ``build``, and with
+    telemetry on returns its ``(score_partial, axes)`` instead of the
+    scores."""
     built = []
 
     def build_fn():
         if heads is not None:
             return build(method, q, k, key_pos, chunk_start, cfg,
                          budget=budget, q_valid=q_valid, heads=heads,
-                         seq=seq)
+                         seq=seq, sketch=built if ctx.get("obs") else None)
         built.append(plan_scores(method, q, k, key_pos, chunk_start, cfg,
                                  q_valid=q_valid))
         return plan_from_scores(built[0], key_pos, cfg, budget=budget)
@@ -440,7 +469,13 @@ def select_with_ctx(ctx, plan: Optional[PlanCarry], method: str, q, k, v,
                                     seq)
     _note_block_counts(ctx, pln, cfg)
     sel = materialize(pln, k, v, key_pos, chunk_start, cfg, seq=seq)
-    if ctx.get("obs"):
+    ob = ctx.get("obs")
+    if isinstance(ob, MeshObs):
+        ctx["_obs"] = ob.selected(
+            sel.pos, key_pos, chunk_start,
+            _plan_budget(cfg, seq.cap if seq is not None else k.shape[1],
+                         budget), scores, heads, seq)
+    elif ob:
         ctx["_obs"] = selected_obs(sel.pos, key_pos, chunk_start,
                                    _plan_budget(cfg, k.shape[1], budget),
                                    scores)
@@ -616,6 +651,139 @@ def selected_obs(sel_pos, key_pos, chunk_start, budget: int,
         budget_tokens=_const(float(budget), dev),
         refreshed=_const(0.0 if scores is None else 1.0, dev),
         score_lo=lo, score_mean=mean, score_hi=hi)
+
+
+def note_dense_obs(ctx, key_pos, chunk_start) -> None:
+    """With telemetry on, leave a dense (no-selection) layer's
+    ``LayerObs`` in ``ctx["_obs"]``, or on a mesh its partials
+    (``MeshObs.dense``; ``key_pos`` the whole cache's)."""
+    ob = ctx.get("obs")
+    if isinstance(ob, MeshObs):
+        ctx["_obs"] = ob.dense(key_pos, chunk_start)
+    elif ob:
+        ctx["_obs"] = dense_obs(key_pos, chunk_start)
+
+
+def missing_obs(ctx, device):
+    """What a layer that left no ``LayerObs`` contributes: ``nan_obs``,
+    or on a mesh ``MeshObs.nan``."""
+    ob = ctx.get("obs")
+    return ob.nan(device) if isinstance(ob, MeshObs) else nan_obs(device)
+
+
+def score_partial(scores) -> torch.Tensor:
+    """(4,) fp32 partial of ``score_sketch`` over this rank's stage-1
+    scores: [sum, count] of the valid slots' scores (summed over the
+    mesh), then their max and minus their min (maxed over it); a rank
+    with no valid slot gives -inf for both."""
+    ok = scores > NEG_INF / 2
+    hi = torch.where(ok, scores, -math.inf).amax()
+    lo = torch.where(ok, scores, math.inf).amin()
+    return torch.stack([(scores * ok).sum(), ok.sum(dtype=torch.float32),
+                        hi, -lo])
+
+
+class MeshObs:
+    """``ctx["obs"]`` on a mesh: each layer leaves, instead of a
+    ``LayerObs``, its raw partials (12,) fp32 on the model's device
+
+        [sel sum, sel rows, ctx sum, ctx rows, budget, budget count,
+         refreshed, refreshed count, score sum, score count,
+         score max, -score min]
+
+    and ``reduce`` turns a step's stacked (n_layers, 12) partials into
+    the meshless ``LayerObs`` with two collectives over the whole mesh:
+    one sum of the first ten columns, one max of the last two.  Each
+    quantity is counted once: the mesh partitions it over some axes (the
+    step's rows over the FSDP axes when they are split, KV heads or key
+    slices over ``model`` by QUOKA's route, a batch-1 cache's slots over
+    ``data``) and replicates it over the others, and only the rank at
+    coordinate 0 of every axis that replicates it contributes its share
+    (``_owns``); a max or a min is the same either way.  Counts of
+    selected and prior-context tokens are integers, so their sums and
+    hence the means are the meshless ones exactly; the score mean differs
+    from the meshless one only by the order of its fp32 sum."""
+
+    def __init__(self, mesh, rows: bool):
+        from repro_torch.sharding.specs import mesh_shape
+        shape = mesh_shape(mesh)
+        self.world = comm.world(mesh)
+        self.coord = {n: comm.axis(mesh, n).rank for n in shape}
+        self.rows = {"pod", "data"} & set(shape) if rows else set()
+
+    def _owns(self, parts=()) -> bool:
+        keep = self.rows | set(parts)
+        return all(c == 0 for n, c in self.coord.items() if n not in keep)
+
+    def _vec(self, device, sel=None, ctx=None, budget=None, refreshed=None,
+             sketch=None) -> torch.Tensor:
+        """A layer's partials: ``sel`` / ``ctx`` (mask (..., T), the axes
+        that partition it) count the mask's True entries per row; the
+        once-counted ``budget`` and ``refreshed``; ``sketch`` a
+        (``score_partial``, axes) pair."""
+        zero, ninf = _const(0.0, device), _const(-math.inf, device)
+        out = [zero] * 10 + [ninf] * 2
+        for i, part in ((0, sel), (2, ctx)):
+            if part is not None and self._owns(part[1]):
+                c = part[0].sum(-1, dtype=torch.float32)
+                out[i] = c.sum()
+                out[i + 1] = _const(float(c.numel()), device)
+        once = self._owns()
+        for i, v in ((4, budget), (6, refreshed)):
+            if v is not None and once:
+                out[i], out[i + 1] = _const(float(v), device), \
+                    _const(1.0, device)
+        if sketch is not None and self._owns(sketch[1]):
+            out[8:12] = sketch[0].unbind()
+        return torch.stack(out)
+
+    def selected(self, sel_pos, key_pos, chunk_start, budget: int, built,
+                 heads: comm.HeadShard, seq) -> torch.Tensor:
+        """A selecting layer's partials (``selected_obs``'s quantities):
+        its selected positions (this rank's KV heads when they shard;
+        every ``data`` rank holds the whole budget of a sequence-sharded
+        cache), its keys' positions (this rank's slots when ``seq``), and
+        ``built``, the scoring route's (``score_partial``, axes), None
+        where the layer reused a plan."""
+        return self._vec(
+            key_pos.device,
+            sel=(sel_pos >= 0, ("model",) if heads.kv_sharded else ()),
+            ctx=(prior_context_valid(key_pos, chunk_start),
+                 ("data",) if seq is not None else ()),
+            budget=budget, refreshed=0.0 if built is None else 1.0,
+            sketch=built)
+
+    def dense(self, key_pos, chunk_start) -> torch.Tensor:
+        """A dense layer's partials (``dense_obs``'s quantities) over its
+        whole cache's positions."""
+        valid = prior_context_valid(key_pos, chunk_start)
+        return self._vec(key_pos.device, sel=(valid, ()), ctx=(valid, ()),
+                         refreshed=0.0)
+
+    def nan(self, device) -> torch.Tensor:
+        """The partials of a layer that never selects: all NaN once
+        reduced."""
+        return self._vec(device)
+
+    def reduce(self, parts) -> LayerObs:
+        """The step's per-layer partials (a list of (12,) tensors, in
+        layer order) reduced over the mesh into the ``LayerObs`` with
+        (n_layers,) leaves every rank returns."""
+        p = torch.stack(parts)
+        with comm.scope("obs"):
+            s = comm.all_reduce(p[:, :10].contiguous(), self.world)
+            m = comm.all_reduce_max(p[:, 10:].contiguous(), self.world)
+        nan = _const(math.nan, p.device)
+
+        def mean(i):
+            return torch.where(s[:, i + 1] > 0, s[:, i] / s[:, i + 1], nan)
+
+        seen = s[:, 9] > 0
+        return LayerObs(sel_tokens=mean(0), ctx_tokens=mean(2),
+                        budget_tokens=mean(4), refreshed=mean(6),
+                        score_lo=torch.where(seen, -m[:, 1], nan),
+                        score_mean=mean(8),
+                        score_hi=torch.where(seen, m[:, 0], nan))
 
 
 def _plan_budget(cfg: QuokaConfig, t: int, budget: Optional[int]) -> int:

@@ -216,25 +216,26 @@ def _tp_route(k, cfg: QuokaConfig, heads: comm.HeadShard) -> bool:
 
 
 def tp_plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig,
-                       budget: int, ax: comm.Axis) -> torch.Tensor:
+                       budget: int, ax: comm.Axis,
+                       on_scores=None) -> torch.Tensor:
     """T-local scoring and candidate merge: each rank scores its
     contiguous ``T / M`` slice of the keys and the ranks merge their
     candidates (``plan_candidates``).  qs: (b, N_Q, h, d) every head's
     sub-selected queries; k: (b, T, n_kv, d) the replicated cache.
     Returns the plan's ``idx``: (b, n_kv, budget) token slots at
     granularity 1, (b, budget // g) block ids at g > 1; -1 marks padding.
-    ``ax``: the model axis."""
+    ``ax``: the model axis; ``on_scores`` as ``plan_candidates``'."""
     t = k.shape[1]
     tl = t // ax.size
     lo = ax.rank * tl
     return plan_candidates(qs, k[:, lo:lo + tl], key_pos[:, lo:lo + tl],
                            valid[:, lo:lo + tl], cfg, min(budget, t), lo,
-                           (ax,))
+                           (ax,), on_scores=on_scores)
 
 
 def plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
-                    lo: int, axes, head_ax: Optional[comm.Axis] = None
-                    ) -> torch.Tensor:
+                    lo: int, axes, head_ax: Optional[comm.Axis] = None,
+                    on_scores=None) -> torch.Tensor:
     """Score the contiguous slice of keys ``k`` (b, tl, n_kv, d), which
     starts at slot ``lo`` of the whole cache, through the same
     ``ops.score`` as the meshless path, stamp the sinks, keep the slice's
@@ -248,8 +249,10 @@ def plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
     on ties; the top-k of a union is the top-k of its parts' top-ks under
     that total order).  ``budget`` is the whole cache's, on the grid.
     ``head_ax``: when ``k`` holds this rank's own KV heads of a block
-    plan, the axis over which the max over KV heads is taken.  Returns
-    the plan's ``idx`` as ``tp_plan_candidates``."""
+    plan, the axis over which the max over KV heads is taken.
+    ``on_scores``, if given, is called with the slice's raw scores (b,
+    n_kv, tl) before the sinks are stamped (the telemetry's sketch).
+    Returns the plan's ``idx`` as ``tp_plan_candidates``."""
     b, nq, h, d = qs.shape
     tl, n_kv = k.shape[1], k.shape[2]
     g = max(1, cfg.granularity)
@@ -258,6 +261,8 @@ def plan_candidates(qs, k, key_pos, valid, cfg: QuokaConfig, budget: int,
     qbar = qn.reshape(b, nq, n_kv, h // n_kv, d).mean(3)
     s = kops.score(qbar, k, valid,
                    proj=score_proj(cfg, d, device=k.device))  # (b, n_kv, tl)
+    if on_scores is not None:
+        on_scores(s)
     if cfg.keep_first:
         sink = (key_pos >= 0) & (key_pos < cfg.keep_first)
         s = torch.where(sink[:, None, :] & (s > NEG_INF / 2),

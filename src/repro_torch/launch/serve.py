@@ -112,9 +112,13 @@ zamba2-7b, rwkv6-1.6b) run one-shot on a mesh, their heads over
 ``--batch 1`` splits each KV cache's sequence over ``data`` where
 ``data`` divides its capacity (a sliding window's ring too); a
 recurrent state stays whole on every ``data`` rank.  ``--metrics`` /
-``--trace-dir``, methods other than ``full`` and ``quoka`` and, on a
-data axis, ``--policy slo`` (it preempts) raise "not yet ported" on a
-mesh.
+``--trace-dir`` serve on a mesh with every rank's registry holding the
+meshless run's per-layer selected-KV fractions (rank 0 prints and
+writes the files).  Whisper-small and internvl2-1b run on a mesh through
+``Engine.generate`` (their frames or patches in the batch), not this
+launcher.  Still "not yet ported" on a mesh: methods other than
+``full`` and ``quoka``, and on a data axis ``--policy slo`` (it
+preempts).
 """
 from __future__ import annotations
 
@@ -381,9 +385,18 @@ def run_continuous(model, args, device, mesh=None):
               f"{s['host_blocks']:.0f} blocks resident")
     if reg is not None:
         _print_telemetry(reg)
-        if args.trace_dir:
+        if args.trace_dir and _writes(mesh):
             _export_telemetry(reg, args.trace_dir, f"serve_{args.method}")
     return res
+
+
+def _writes(mesh) -> bool:
+    """Does this process write the run's files: meshless, or rank 0 of
+    the mesh (every rank holds the same registry)."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
 
 
 def main(argv=None):
@@ -441,10 +454,12 @@ def _main(args, device, mesh=None):
                      mesh=mesh)
         if args.trace_dir:
             # warm the signature off the trace, then profile the measured
-            # run (the record_function ranges label its regions)
+            # run (the record_function ranges label its regions; on a
+            # mesh rank 0's, the others run it unprofiled)
             eng.generate({"tokens": toks}, args.max_new)
             r = _profiled_generate(eng, {"tokens": toks}, args.max_new,
-                                   args.trace_dir, m)
+                                   args.trace_dir, m) if _writes(mesh) \
+                else eng.generate({"tokens": toks}, args.max_new)
         else:
             r = eng.generate({"tokens": toks}, args.max_new)
         print(f"{m:18s} TTFT {r.ttft_s * 1e3:9.1f} ms   "

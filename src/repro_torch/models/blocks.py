@@ -63,10 +63,10 @@ layer index ``core/plan.py::refresh`` decides on).  With ``obs`` set, an
 attention layer leaves its ``LayerObs`` in ``_obs``: ``dense_obs`` at a
 dense bypass, the selecting routes through ``core/plan.py``.
 
-Tensor parallelism (``training/checkpoint.py::shard``; every kind but
-``"dec_cross"`` / ``"enc_attn"``): ``AttnBlock.place``,
-``MLABlock.place``, ``MambaBlock.place`` and ``RWKVBlock.place`` read
-the block's shards off its weights' shapes (the recurrent mixers:
+Tensor parallelism (``training/checkpoint.py::shard``; every kind):
+``AttnBlock.place`` (``enc_attn`` too), ``MLABlock.place``,
+``MambaBlock.place``, ``RWKVBlock.place`` and ``DecCrossBlock.place``
+read the block's shards off its weights' shapes (the recurrent mixers:
 ``models/mamba2.py``, ``models/rwkv6.py``).
 ``n_heads`` / ``n_kv`` are then this rank's query heads and the KV heads
 its cache holds (MLA: one, the latent), ``heads`` its ``HeadShard``
@@ -186,6 +186,7 @@ def _ffn_aux(blk, x, w):
 #: ``cm/wv``'s ``d_ff`` rows) of each weight of a layer, by its name in
 #: ``_held``
 _EMBED_DIM = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "wq_a": 0, "wkv_a": 0,
+              "xq": 0, "xk": 0, "xv": 0, "xo": 1,
               "mlp/gate": 0, "mlp/up": 0, "mlp/down": 1,
               "moe/router": 0, "moe/gate": 1, "moe/up": 1, "moe/down": 2,
               "moe/shared/gate": 0, "moe/shared/up": 0,
@@ -273,7 +274,8 @@ class AttnBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device, kind: str = "attn"):
         super().__init__()
         if kind not in ("attn", "attn_local", "attn_moe", "enc_attn"):
-            raise NotImplementedError(f"block kind {kind!r} is not yet ported")
+            raise ValueError(f"block kind {kind!r} is not an attention "
+                             f"block")
         self.cfg = cfg
         self.kind = kind
         self.window = cfg.sliding_window if kind == "attn_local" else None
@@ -351,16 +353,17 @@ class AttnBlock(nn.Module):
         att = attention_with_positions(q, self._kv(k), self._kv(v), pos,
                                        pos, causal=self.kind != "enc_attn",
                                        window=self.window)
-        return x + self._out(att.reshape(b, t, -1), w)
+        return x + self._out(att.reshape(b, t, -1), w["wo"])
 
     def _kv(self, x):
         """The KV heads (axis 2) this rank's query heads read."""
         return x if self.heads is None else self.heads.take(x, 2)
 
-    def _out(self, att, w):
-        """The output projection: row-parallel when the heads shard."""
+    def _out(self, att, wo):
+        """The output projection ``wo`` (or whisper's ``xo``): row-parallel
+        when the heads shard."""
         h = self.heads
-        return row_linear(w["wo"], att,
+        return row_linear(wo, att,
                           h.ax if h is not None and h.heads_sharded else None)
 
     def full_forward(self, x, pos, ctx=None):
@@ -401,8 +404,7 @@ class AttnBlock(nn.Module):
             att = attention_with_positions(q, self._kv(kv.k), self._kv(kv.v),
                                            pos, kv.pos, causal=True,
                                            window=self.window)
-            if ctx.get("obs"):
-                ctx["_obs"] = plan_mod.dense_obs(kv.pos, start)
+            plan_mod.note_dense_obs(ctx, kv.pos, start)
         elif plan_mod.fused_route(qcfg, method, kv.k, window=self.window,
                                   heads=self.heads):
             # the chunk's KV was just written into the cache, so the kernel
@@ -421,7 +423,7 @@ class AttnBlock(nn.Module):
                                    pos=tk(sel.pos, 1), idx=tk(sel.idx, 1))
             att = self._selected_attention(q, self._kv(k), self._kv(v), pos,
                                            sel)
-        return x + self._out(att.reshape(b, t, -1), w), plan
+        return x + self._out(att.reshape(b, t, -1), w["wo"]), plan
 
     def _selected_attention(self, q, k_chunk, v_chunk, pos, sel):
         """Attention over [selected budget | current chunk]: the budget is
@@ -471,7 +473,7 @@ class MLABlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device, kind: str = "mla"):
         super().__init__()
         if kind not in ("mla", "mla_moe"):
-            raise NotImplementedError(f"block kind {kind!r} is not yet ported")
+            raise ValueError(f"block kind {kind!r} is not an MLA block")
         self.cfg = cfg
         self.kind = kind
         m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
@@ -635,8 +637,7 @@ class MLABlock(nn.Module):
         if dense:
             att = self._absorbed_full(q_abs, q_rope, lat.ckv, lat.krope,
                                       pos, lat.pos)
-            if ctx.get("obs"):
-                ctx["_obs"] = plan_mod.dense_obs(lat.pos, start)
+            plan_mod.note_dense_obs(ctx, lat.pos, start)
         else:
             att, plan = self._selected_attention(q_abs, q_rope, ckv, kr, pos,
                                                  lat, start, ctx, plan)
@@ -835,12 +836,25 @@ class DecCrossBlock(nn.Module):
     (queries from ``ln_x``; ``xq``, ``xk``, ``xv``, ``xo`` carry no bias;
     plain dense attention over the encoder's keys with no mask, as the
     reference's ``_cross``), then ``self_attn``'s MLP on ``self_attn``'s
-    ``ln2`` of the post-cross stream."""
+    ``ln2`` of the post-cross stream.
+
+    On a mesh (``place``) the self-attention is placed as any attention
+    block (QUOKA takes its routes); the cross-attention runs the same
+    local query heads (``xq``'s columns) over the KV heads its
+    ``CrossKV`` holds (``xk`` / ``xv``'s columns, read through the
+    self-attention's ``HeadShard``), and ``xo`` is row-parallel.  Under
+    FSDP one all-gather a layer call brings the self-attention's and the
+    cross weights whole.  A batch-1 ``CrossKV`` whose encoder frames are
+    split over ``data`` (``SeqCrossKV``) is attended where it lies: each
+    rank's unnormalised output over its frames, with its row max and
+    sum, travel in one fp32 all-gather and merge exactly
+    (``_cross_merge``)."""
 
     def __init__(self, cfg: ModelConfig, device, kind: str = "dec_cross"):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
+        self.fsdp = None           # (FSDP axis, {weight: its cut dim})
         d, hd = cfg.d_model, cfg.resolved_head_dim
         w = _weight(cfg.compute_dtype, device)
         self.self_attn = AttnBlock(cfg, device, "attn")
@@ -850,35 +864,75 @@ class DecCrossBlock(nn.Module):
         self.xv = w(d, cfg.n_kv_heads * hd)
         self.xo = w(cfg.n_heads * hd, d)
 
-    def init_cache(self, batch: int, cap: int) -> CrossCache:
+    def place(self, ax: comm.Axis, fax: comm.Axis = None) -> None:
+        """Place the self-attention (``AttnBlock.place``), check that the
+        cross weights hold its heads, and record which of the layer's
+        weights the FSDP axis ``fax`` cut (``fsdp``: gathered together
+        per layer call)."""
+        sa, hd = self.self_attn, self.cfg.resolved_head_dim
+        sa.place(ax, fax)
+        if (self.xq.shape[1] != sa.n_heads * hd
+                or self.xo.shape[0] != sa.n_heads * hd
+                or self.xk.shape[1] != sa.n_kv * hd):
+            raise ValueError("the cross weights are sliced differently "
+                             "from the self-attention's")
+        _place_fsdp(self, fax)
+
+    def _held(self):
+        """The self-attention's and the cross-attention's linear weights
+        as this rank holds them, by name."""
+        return {**self.self_attn._held(), "xq": self.xq, "xk": self.xk,
+                "xv": self.xv, "xo": self.xo}
+
+    _weights = _layer_weights
+
+    def init_cache(self, batch: int, cap: int, seq=None) -> CrossCache:
         """The self-attention's ``cap``-slot KV cache and an empty
-        ``CrossKV`` of ``encoder.n_ctx`` rows (``Model._build_cross``
-        fills it)."""
-        cfg = self.cfg
+        ``CrossKV`` of ``encoder.n_ctx`` frames of the held KV heads
+        (``Model._build_cross`` fills it); ``seq`` (a mesh axis) holds this
+        rank's slice of each one's sequence where it divides it."""
+        cfg, sa = self.cfg, self.self_attn
+        n_ctx = cfg.encoder.n_ctx
         return CrossCache(
-            kv=self.self_attn.init_cache(batch, cap),
-            cross=cross_init(batch, cfg.encoder.n_ctx, cfg.n_kv_heads,
-                             cfg.resolved_head_dim, cfg.compute_dtype,
-                             self.xq.device))
+            kv=sa.init_cache(batch, cap, seq),
+            cross=cross_init(batch, n_ctx, sa.n_kv, cfg.resolved_head_dim,
+                             cfg.compute_dtype, self.xq.device,
+                             seq_ax=_divides(seq, n_ctx)))
 
-    def build_cross(self, enc_out) -> CrossKV:
+    def build_cross(self, enc_out, w=None) -> CrossKV:
         """The cross-attention keys and values of the encoder's output
-        (b, n_ctx, d)."""
-        cfg = self.cfg
+        (b, s, d): the held KV heads; ``w`` the layer call's weights."""
+        w = self._held() if w is None else w
         b, s, _ = enc_out.shape
-        hd = cfg.resolved_head_dim
-        return CrossKV(
-            k=linear(self.xk, enc_out).reshape(b, s, cfg.n_kv_heads, hd),
-            v=linear(self.xv, enc_out).reshape(b, s, cfg.n_kv_heads, hd))
+        hd = self.cfg.resolved_head_dim
+        return CrossKV(k=linear(w["xk"], enc_out).reshape(b, s, -1, hd),
+                       v=linear(w["xv"], enc_out).reshape(b, s, -1, hd))
 
-    def _cross(self, x, cross: CrossKV):
-        cfg = self.cfg
+    def write_cross(self, cross, enc_out) -> None:
+        """Fill ``cross`` in place with the keys and values of the
+        encoder's output (b, n_ctx, d): its KV heads and, split over
+        ``data``, its frames."""
+        if cross.seq is not None:
+            n = cross.k.shape[1]
+            enc_out = enc_out[:, cross.seq.lo:cross.seq.lo + n]
+        new = self.build_cross(enc_out, self._weights())
+        cross.k.copy_(new.k)
+        cross.v.copy_(new.v)
+
+    def _cross(self, x, cross, w):
+        """x plus cross-attention over ``cross`` (non-causal, no mask),
+        on this rank's query heads; ``w`` the layer call's weights."""
+        sa = self.self_attn
         b, t, _ = x.shape
         h = _block_norm(self, "ln_x", x)
-        q = linear(self.xq, h).reshape(b, t, cfg.n_heads,
-                                       cfg.resolved_head_dim)
-        att = dense_attention(q, cross.k, cross.v)          # non-causal
-        return x + linear(self.xo, att.reshape(b, t, -1))
+        q = linear(w["xq"], h).reshape(b, t, sa.n_heads,
+                                       self.cfg.resolved_head_dim)
+        k, v = sa._kv(cross.k), sa._kv(cross.v)
+        if cross.seq is None:
+            att = dense_attention(q, k, v)
+        else:
+            att = _cross_merge(q, k, v, cross.seq.ax)
+        return x + sa._out(att.reshape(b, t, -1), w["xo"])
 
     def plan_carry_shape(self, cache: CrossCache, t: int, method: str,
                          qcfg):
@@ -888,16 +942,44 @@ class DecCrossBlock(nn.Module):
         """The full-sequence pass: causal self-attention over the sequence,
         cross-attention over the keys and values of ``ctx["enc_out"]``,
         then the MLP.  Returns (x, 0.0)."""
-        w = self.self_attn._weights()
+        w = self._weights()
         x = self.self_attn._self_attend(x, pos, w)
-        x = self._cross(x, self.build_cross(ctx["enc_out"]))
+        x = self._cross(x, self.build_cross(ctx["enc_out"], w), w)
         return _ffn(self.self_attn, x, w), 0.0
 
     def apply(self, x, pos, cache: CrossCache, ctx, plan=None):
-        w = self.self_attn._weights()
+        w = self._weights()
         x, plan = self.self_attn._attend(x, pos, cache.kv, ctx, plan, w)
-        x = self._cross(x, cache.cross)
+        x = self._cross(x, cache.cross, w)
         return _ffn(self.self_attn, x, w, ctx.get("rows")), plan
+
+
+def _cross_merge(q, k, v, ax: comm.Axis):
+    """``dense_attention(q, k, v)`` (no mask) over keys and values whose
+    sequence is split over ``ax``: each rank's fp32 unnormalised output
+    over its keys, its row max ``m`` and its row sum ``l`` (b, t, h, d +
+    2) cross in one all-gather; every rank then rescales each part by
+    ``exp(m_r - max_r m_r)`` and divides the summed outputs by the summed
+    sums, in fp32, and casts once to q's dtype."""
+    b, t, n_q, d = q.shape
+    group = n_q // k.shape[2]
+    kr = k.repeat_interleave(group, dim=2) if group > 1 else k
+    vr = v.repeat_interleave(group, dim=2) if group > 1 else v
+    logits = torch.einsum("bthd,bshd->bths", q.float(),
+                          kr.float()) * d ** -0.5
+    m = logits.amax(-1, keepdim=True)                        # (b, t, h, 1)
+    p = torch.exp(logits - m)
+    o = torch.einsum("bths,bshd->bthd", p, vr.float())
+    with comm.scope("cross"):
+        parts = comm.all_gather_parts(
+            torch.cat([o, m, p.sum(-1, keepdim=True)], dim=-1), ax)
+    top = torch.stack([pt[..., d] for pt in parts]).amax(0)[..., None]
+    o = l = 0
+    for pt in parts:
+        a = torch.exp(pt[..., d:d + 1] - top)
+        o = o + pt[..., :d] * a
+        l = l + pt[..., d + 1:] * a
+    return (o / l).to(q.dtype)
 
 
 def make_block(cfg: ModelConfig, kind: str, device):

@@ -52,9 +52,16 @@ attention-and-MoE and MLA families shard too (``attn_moe``, ``mla``,
 ``mla_moe``: expert-parallel MoE, MLA's heads), and so do the
 sliding-window and recurrent kinds (``attn_local``, ``mamba``,
 ``mamba_shared_attn``, ``rwkv``: their heads over ``model``; zamba2's
-``shared`` block is placed once); deepseek's untied
+``shared`` block is placed once), and the modality families: whisper's
+encoder layers and ``dec_cross`` layers (heads over ``model``; at batch
+1 every ``data`` rank runs the whole encoder over the whole frames and
+keeps its slice of them in each ``CrossKV``) and internvl2's projector
+(its rows FSDP-cut, gathered per call); deepseek's untied
 ``lm_head`` is vocab-parallel and FSDP-cut like the embedding, and its
 ``mtp`` head is placed with the layers and never run at inference.
+With ``with_obs`` on a mesh each selecting layer leaves its raw partials
+and the step reduces them over the mesh once (``core/plan.py::
+MeshObs``), so every rank returns the meshless ``LayerObs``.
 """
 from __future__ import annotations
 
@@ -67,12 +74,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import LayerObs
+from repro_torch.core.plan import LayerObs, MeshObs
 from repro_torch.models.blocks import (AttnBlock, DecCrossBlock,
                                       MambaBlock, RWKVBlock, _weight,
                                       make_block)
-from repro_torch.models.layers import (_act, embed, linear, readout,
-                                       rmsnorm, sinusoidal)
+from repro_torch.models.layers import (_act, embed, gather_weights,
+                                       linear, readout, rmsnorm,
+                                       sinusoidal)
 from repro_torch.models.stack import Cache, Stack
 
 
@@ -124,8 +132,7 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in ("dense", "moe", "hybrid", "ssm", "audio",
                               "vlm"):
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not yet ported")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         if (cfg.encoder is not None) != (cfg.family == "audio") or \
                 (cfg.frontend is not None) != (cfg.family == "vlm"):
             raise ValueError(f"{cfg.name}: an encoder belongs to family "
@@ -269,8 +276,14 @@ class Model(nn.Module):
 
     def project(self, patches):
         """The VLM projector: patch embeddings (b, n, d_in) -> (b, n, d):
-        gelu(tanh) of ``fc1``, then ``fc2``, in the compute dtype."""
-        p = self.proj
+        gelu(tanh) of ``fc1``, then ``fc2``, in the compute dtype.  The
+        weights' rows that FSDP cut are gathered whole for the call, in
+        one all-gather."""
+        p = dict(self.proj.items())
+        rows = {"fc1_w": self.cfg.frontend.d_in, "fc2_w": self.cfg.d_model}
+        cut = {k: (p[k], 0) for k, n in rows.items() if p[k].shape[0] < n}
+        if cut:
+            p.update(gather_weights(cut, self.fsdp))
         pe = _on(patches, self.device, self.cfg.compute_dtype)
         h = _act("gelu", linear(p["fc1_w"], pe, p["fc1_b"]))
         return linear(p["fc2_w"], h, p["fc2_b"])
@@ -291,13 +304,12 @@ class Model(nn.Module):
     def _build_cross(self, cache, enc_out) -> None:
         """Write every ``dec_cross`` layer's cross-attention keys and
         values of ``enc_out`` into its cache's ``CrossKV``, in place, in
-        the compute dtype."""
+        the compute dtype (on a mesh its KV heads and, split over
+        ``data``, its frames: ``DecCrossBlock.write_cross``)."""
         for s, sc in zip(self.stacks, cache):
             for blk, c in zip(s.layers, sc):
                 if isinstance(blk, DecCrossBlock):
-                    new = blk.build_cross(enc_out)
-                    c.cross.k.copy_(new.k)
-                    c.cross.v.copy_(new.v)
+                    blk.write_cross(c.cross, enc_out)
 
     def _positional(self, x, pos):
         """x plus the sinusoidal embedding of ``pos`` when the model has
@@ -328,7 +340,8 @@ class Model(nn.Module):
         the global layer offset (the reuse schedule spans stacks).
         Returns (x, obs, sel): ``obs`` is the per-layer ``LayerObs`` with
         (n_layers,) fp32 leaves in global layer order when ``ctx["obs"]``
-        is set (``core/plan.py``), else None; ``sel`` sums the stacks'
+        is set (``core/plan.py``; on a mesh the layers' partials reduced
+        over it once, ``MeshObs.reduce``), else None; ``sel`` sums the stacks'
         prefetch-oracle counts when ``ctx["selblk"]`` is set, else None."""
         plan, layer0, sel = None, 0, None
         obs = [] if ctx.get("obs") else None
@@ -340,7 +353,9 @@ class Model(nn.Module):
             if ss is not None:
                 sel = ss if sel is None else sel + ss
             layer0 += len(s.layers)
-        if obs is not None:
+        if isinstance(ctx.get("obs"), MeshObs):
+            obs = ctx["obs"].reduce(obs)
+        elif obs is not None:
             obs = LayerObs(*(torch.stack(f) for f in zip(*obs)))
         return x, obs, sel
 
@@ -519,7 +534,8 @@ class Model(nn.Module):
                   rows=None):
         ctx = dict(self._ctx(method), slot=slot, rows=rows)
         if with_obs:
-            ctx["obs"] = True
+            ctx["obs"] = True if self.mesh is None else \
+                MeshObs(self.mesh, rows is not None)
         if sel_blocks is not None:
             ctx["selblk"] = (int(sel_blocks[0]), int(sel_blocks[1]))
         return ctx

@@ -98,8 +98,8 @@ class Stack(nn.Module):
         layer index.  Returns (x, plan carry, obs, sel): the carry passes
         through untouched when reuse is off here.  ``obs``, with
         ``ctx["obs"]`` set, is one ``LayerObs`` per layer in global layer
-        order (``nan_obs`` for a layer that leaves none: mamba, rwkv),
-        else None.  ``sel`` is the prefetch oracle's side channel: with
+        order (``nan_obs`` for a layer that leaves none: mamba, rwkv; on
+        a mesh each layer's ``MeshObs`` partials instead), else None.  ``sel`` is the prefetch oracle's side channel: with
         ``ctx["selblk"] = (block_size, n_blocks)`` set, the (b, n_blocks)
         int32 sum over this stack's layers of each plan's
         ``pool_block_counts`` (a layer that selected nothing adds zero),
@@ -117,7 +117,8 @@ class Stack(nn.Module):
             x, carry = blk.apply(x, pos, kv, cj, plan=carry)
             if obs_on:
                 ob = cj.pop("_obs", None)
-                obs.append(plan_mod.nan_obs(x.device) if ob is None else ob)
+                obs.append(plan_mod.missing_obs(cj, x.device)
+                           if ob is None else ob)
             if sel_on:
                 sb = cj.pop("_selblk", None)
                 if sel is None:

@@ -25,7 +25,8 @@ list stays valid across steps as it does for the KV caches.
 Whisper's ``dec_cross`` layers keep a ``CrossCache``: the self-attention's
 ``KVCache`` beside a ``CrossKV``, the cross-attention's keys and values of
 the encoder's output, written once per prompt (``Model._build_cross``)
-and only read after.
+and only read after; at batch 1 on a mesh a ``SeqCrossKV`` holds a
+contiguous slice of the encoder frames, as a ``SeqKVCache`` its slots.
 
 On a mesh a batch-1 cache may hold only a contiguous slice of its
 capacity axis (a ``SeqKVCache`` or ``SeqLatentCache``, whose ``seq`` is a
@@ -351,6 +352,20 @@ class CrossKV(NamedTuple):
     k: torch.Tensor      # (b, n_ctx, n_kv, hd)
     v: torch.Tensor      # (b, n_ctx, n_kv, hd)
 
+    @property
+    def seq(self) -> Optional[SeqShard]:
+        """Every frame: no ``SeqShard``."""
+        return None
+
+
+class SeqCrossKV(NamedTuple):
+    """A ``CrossKV`` of which this rank holds the encoder frames ``seq``
+    says (batch 1, the frames over ``data``, as the reference's
+    ``cache_specs`` places ``cross/{k,v}``)."""
+    k: torch.Tensor      # (b, held, n_kv, hd)
+    v: torch.Tensor      # (b, held, n_kv, hd)
+    seq: SeqShard
+
 
 class CrossCache(NamedTuple):
     """A ``dec_cross`` layer's cache: the self-attention's KV cache and
@@ -360,10 +375,18 @@ class CrossCache(NamedTuple):
 
 
 def cross_init(batch: int, n_ctx: int, n_kv: int, hd: int, dtype,
-               device) -> CrossKV:
-    return CrossKV(
-        k=torch.zeros((batch, n_ctx, n_kv, hd), dtype=dtype, device=device),
-        v=torch.zeros((batch, n_ctx, n_kv, hd), dtype=dtype, device=device))
+               device, seq_ax: Optional[comm.Axis] = None):
+    """A ``CrossKV`` of ``n_ctx`` frames; with ``seq_ax`` (size D > 1,
+    dividing n_ctx) a ``SeqCrossKV`` of this rank's ``n_ctx / D``."""
+    held = n_ctx if seq_ax is None or seq_ax.size == 1 \
+        else n_ctx // seq_ax.size
+    leaves = dict(
+        k=torch.zeros((batch, held, n_kv, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, held, n_kv, hd), dtype=dtype, device=device))
+    if held == n_ctx:
+        return CrossKV(**leaves)
+    return SeqCrossKV(**leaves, seq=SeqShard(seq_ax, seq_ax.rank * held,
+                                             n_ctx))
 
 
 def mamba_cache_init(batch: int, d_conv: int, channels: int, n_heads: int,

@@ -64,13 +64,18 @@ admits, packs and finishes alike.  The block kinds ``attn``,
 MoE, MLA's heads over ``model``, the latent pool's blocks over the FSDP
 axes); a MoE's capacity ranking is global over rows split across the
 FSDP ranks (``rows=``; ``models/moe.py``).  ``attn_local``, ``mamba``,
-``mamba_shared_attn`` and ``rwkv`` run ``generate`` on a mesh (their
-heads over ``model``; a sliding window's ring split over ``data`` at
-batch 1; a recurrent state whole on every ``data`` rank); the pool
-refuses them as meshless.  Not yet ported on a mesh, and refused:
-``registry=``, selection methods other than ``full`` and ``quoka``, the
-modality families (``dec_cross``), and on a data axis a preempting
-scheduling policy.
+``mamba_shared_attn``, ``rwkv`` and the modality families (whisper's
+encoder and ``dec_cross`` layers, internvl2's projector) run
+``generate`` on a mesh (their heads over ``model``; a sliding window's
+ring split over ``data`` at batch 1, and whisper's cross keys and
+values their frames; a recurrent state whole on every ``data`` rank);
+the pool refuses them as meshless.  ``registry=`` on a mesh gives every
+rank's registry the meshless values: the step functions' per-layer
+``LayerObs`` are reduced over the mesh once a step
+(``core/plan.py::MeshObs``), and the scheduler, which every rank runs
+alike, counts each request once.  Not yet ported on a mesh, and
+refused: selection methods other than ``full`` and ``quoka``, and on a
+data axis a preempting scheduling policy.
 """
 from __future__ import annotations
 
@@ -180,10 +185,6 @@ class Engine:
         if self.method not in METHODS:
             raise ValueError(f"unknown selection method {self.method!r}")
         if mesh is not None:
-            if registry is not None:
-                raise NotImplementedError(
-                    "serve-path telemetry (registry=) on a mesh is not yet "
-                    "ported")
             if self.method not in ("full", "quoka"):
                 raise NotImplementedError(
                     f"selection method {self.method!r} on a mesh is not "
@@ -235,7 +236,9 @@ class Engine:
         divide b; else every row, and the sequence of each KV or latent
         cache over ``data`` where it divides that cache's capacity (a
         recurrent state has no sequence: every ``data`` rank holds it
-        whole and runs the whole scan).  Meshless: every row, no split."""
+        whole and runs the whole scan; whisper's cross-attention keys
+        and values split their encoder frames as a KV cache its slots).
+        Meshless: every row, no split."""
         fax = self.model.fsdp
         if fax is None:
             return slice(0, b), None
@@ -243,9 +246,10 @@ class Engine:
         if specs.batch_spec(cfg, {"tokens": (b, 1)}, mesh)["tokens"][0]:
             n = b // fax.size
             return slice(fax.rank * n, (fax.rank + 1) * n), None
-        place = specs.payload_specs(specs.cache_specs(
-            cfg, specs.kv_cache_shapes(cfg, b, cap), mesh))
-        if any(p[2] == "data" for p in place.values()):
+        place = specs.cache_specs(cfg, specs.kv_cache_shapes(cfg, b, cap),
+                                  mesh)
+        if any(p[2] == "data" for k, p in place.items()
+               if k.endswith(("/kv/k", "/latent/ckv", "/cross/k"))):
             return slice(0, b), comm.axis(mesh, "data")
         return slice(0, b), None
 

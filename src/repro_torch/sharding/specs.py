@@ -17,14 +17,17 @@ mesh is a ``torch.distributed`` ``DeviceMesh`` or anything with a
 ``shape`` mapping of axis sizes (the reference tests' ``FakeMesh``).
 
 At run time ``training/checkpoint.py::shard`` applies every placement of
-a model of ``attn``, ``attn_local``, ``attn_moe``, ``mla``, ``mla_moe``,
-``mamba``, ``mamba_shared_attn`` and ``rwkv`` layers: the ``model``
-entries, then the FSDP entries (the embed axis over ``(pod, data)``); the
-serving engine places batch rows, pool blocks and a batch-1 cache's
-sequence as ``batch_spec`` and ``cache_specs`` say (an MLA latent over
-the FSDP axes or ``data``, never ``model``; a sliding window's ring like
-any KV cache; a recurrent state, which has no sequence axis, whole on
-every ``data`` rank at batch 1).  One placement differs: ``cache_specs``
+a model of any of the reference's block kinds, whisper's encoder and
+internvl2's projector among them: the ``model`` entries, then the FSDP
+entries (the embed axis over ``(pod, data)``); the serving engine places
+batch rows, pool blocks and a batch-1 cache's sequence as ``batch_spec``
+and ``cache_specs`` say (an MLA latent over the FSDP axes or ``data``,
+never ``model``; a sliding window's ring like any KV cache; a recurrent
+state, which has no sequence axis, whole on every ``data`` rank at batch
+1; whisper's cross-attention keys and values ``cross/{k,v}`` (R, b,
+n_ctx, n_kv, hd) by the ``/(k|v)$`` rule they meet first, so at batch 1
+their encoder frames split over ``data``).  One placement differs:
+``cache_specs``
 cuts a Mamba2 convolution tail's concatenated ``[x | B | C]`` channels
 at their midpoint, while the port's tail holds the rank's x channels and
 the whole B and C channels (``models/mamba2.py``).
@@ -227,8 +230,9 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh,
             return (None, batch_ax, _maybe(mesh, shp[2], M), None, None)
         if re.search(r"/(shift_tm|shift_cm)$", s) and nd == 3:
             return (None, batch_ax, None)
-        if re.search(r"cross", s) and nd == 5:          # (R, b, n_ctx, kv, hd)
-            return (None, batch_ax, None, _maybe(mesh, shp[3], M), None)
+        # (whisper's ``cross/{k,v}`` (R, b, n_ctx, kv, hd) meet the
+        # ``/(k|v)$`` rule first, as in the reference, whose cross rule
+        # comes after it)
         if nd >= 2:
             return (None, batch_ax) + (None,) * (nd - 2)
         return ()
@@ -245,8 +249,9 @@ def kv_cache_shapes(cfg: ModelConfig, batch: int, cap: int,
     ``latent/{ckv,krope,pos}``, a Mamba2 layer's ``mamba/conv`` (b, K - 1,
     x + B + C channels) and ``mamba/ssd`` (b, H, P, N) (zamba2's shared
     block adds its own ``kv/*``), an RWKV6 layer's ``rwkv/{shift_tm,
-    shift_cm}`` (b, d) and ``rwkv/wkv`` (b, H, D, D).  Whisper's
-    ``dec_cross`` raises."""
+    shift_cm}`` (b, d) and ``rwkv/wkv`` (b, H, D, D), a whisper
+    ``dec_cross`` layer's self-attention ``kv/*`` beside its
+    ``cross/{k,v}`` (b, ``encoder.n_ctx``, n_kv, hd)."""
     n_kv = cfg.n_kv_heads if n_kv is None else n_kv
     hd = cfg.resolved_head_dim
     out = {}
@@ -274,10 +279,11 @@ def kv_cache_shapes(cfg: ModelConfig, batch: int, cap: int,
                 out[pre + "rwkv/shift_cm"] = (reps, batch, d)
                 out[pre + "rwkv/wkv"] = (reps, batch, d // rd, rd, rd)
                 continue
+            elif kind == "dec_cross":
+                out[pre + "cross/k"] = out[pre + "cross/v"] = (
+                    reps, batch, cfg.encoder.n_ctx, n_kv, hd)
             elif kind not in ("attn", "attn_moe", "attn_local"):
-                raise NotImplementedError(
-                    f"cache placement of block kind {kind!r} on a mesh is "
-                    f"not yet ported")
+                raise ValueError(f"block kind {kind!r} has no cache")
             ring = min(cap, cfg.sliding_window) if kind == "attn_local" \
                 else cap
             out[pre + "kv/k"] = out[pre + "kv/v"] = (reps, batch, ring, n_kv,

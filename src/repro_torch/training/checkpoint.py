@@ -41,7 +41,9 @@ placement without its leading repeats entry) to this rank's share: its
 ``model`` entry by the rank's ``model`` coordinate, then its FSDP entry
 (the embed axis) by the rank's coordinate on the flattened ``(pod,
 data)`` group, and hands the blocks and the model their layout (zamba2's
-shared block once: its leaves are the top-level ``shared/*``);
+shared block once: its leaves are the top-level ``shared/*``; whisper's
+encoder layers as any attention block; internvl2's projector, whose
+weights only FSDP cuts, gathers them per call, ``Model.project``);
 ``from_flat(..., mesh=)`` shards what it reads.  A model is drawn whole
 (``Model.init``) on every rank before it is sliced, so every rank and a
 meshless run hold the same weights.
@@ -168,24 +170,20 @@ def _copy(param: torch.Tensor, arr: np.ndarray, key: str) -> None:
     param.copy_(torch.from_numpy(np.array(arr)))
 
 
-#: the block kinds a mesh places
+#: the block kinds a mesh places (whisper's encoder layers are
+#: ``enc_attn``)
 MESH_KINDS = ("attn", "attn_local", "attn_moe", "mla", "mla_moe", "mamba",
-              "mamba_shared_attn", "rwkv")
+              "mamba_shared_attn", "rwkv", "dec_cross", "enc_attn")
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for what this port does not place on a mesh yet: a frontend
-    or encoder, any block kind but ``MESH_KINDS`` (whisper's
-    ``dec_cross`` / ``enc_attn``)."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: a mesh for the {cfg.family} family's "
-            f"{'frontend' if cfg.family == 'vlm' else 'encoder'} is not "
-            f"yet ported")
-    bad = sorted(set(cfg.layer_kinds()) - set(MESH_KINDS))
+    """Raise for a block kind ``shard`` does not place (one outside
+    ``MESH_KINDS``)."""
+    kinds = set(cfg.layer_kinds()) | ({"enc_attn"} if cfg.encoder else set())
+    bad = sorted(kinds - set(MESH_KINDS))
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} on a mesh are not yet ported "
+            f"{cfg.name}: block kinds {bad} are not placed on a mesh "
             f"({', '.join(map(repr, MESH_KINDS))} only)")
 
 
@@ -215,7 +213,9 @@ def shard(model: Model, mesh) -> Model:
                 t.data = t.data.narrow(dim, a.rank * n, n).clone()
     if model.shared is not None:        # zamba2's one shared block, once
         model.shared.place(ax, fax)
-    for blk in model.layers() + ([model.mtp.block] if model.mtp else []):
+    enc = list(model.enc.layers) if model.enc is not None else []
+    for blk in model.layers() + enc + ([model.mtp.block] if model.mtp
+                                       else []):
         if isinstance(blk, MambaBlock):
             blk.place(ax, fax, shared=model.shared)
         else:

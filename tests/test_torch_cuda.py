@@ -1223,6 +1223,24 @@ def test_mamba_tp_call_on_the_card_matches_cpu(dev):
         assert r["bytes"].get("all_reduce", 0) > 0, r
 
 
+def test_whisper_tp_call_on_the_card_matches_cpu(dev):
+    """One smoke whisper-small prefill (encoder, cross keys and values,
+    two ``dec_cross`` layers with QUOKA) and one decode step at
+    ``model=2`` on the card, two ranks sharing it over gloo
+    (``torch_tp_cases.whisper_call_case``): each rank's 2 of 4 query and
+    KV heads, ``wo``, ``xo`` and the MLP's ``down`` summed over
+    ``model``, agree with the meshless CPU calls within 1e-4 of the
+    largest logit."""
+    import torch_tp_cases as cases
+    from repro_torch.launch.mesh import spawn_ranks
+    res = spawn_ranks(cases.whisper_call_case, 2, "model=2", device="cuda",
+                      timeout=600)
+    for r in res:
+        assert r["rel"] <= 1e-4, r
+        assert (r["heads"], r["cross_kv"]) == (2, 2), r
+        assert r["bytes"].get("all_reduce", 0) > 0, r
+
+
 DP_SMOKE_RUNS = (("bf16 b1", "bfloat16", 1, 256),
                  ("fp32 b2", "float32", 2, 128),
                  ("fp32 b1", "float32", 1, 256))

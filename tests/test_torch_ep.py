@@ -360,9 +360,11 @@ def test_latent_cache_shapes_equal_reference():
 
 def test_check_mesh_admits_moe_and_mla():
     mesh = type("M", (), {"shape": {"data": 2, "model": 2}})()
-    for arch in (MOE, MLA):
+    for arch in (MOE, MLA, "whisper-small", "internvl2-1b"):
         ckpt.check_mesh(get_config(arch), mesh)
+    odd = dataclasses.replace(get_config(MOE),
+                              layer_pattern=("attn_moe", "xattn"))
     with pytest.raises(NotImplementedError) as err:
-        ckpt.check_mesh(get_config("whisper-small"), mesh)
-    assert "a mesh for the audio family's encoder is not yet ported" \
+        ckpt.check_mesh(odd, mesh)
+    assert "block kinds ['xattn'] are not placed on a mesh" \
         in str(err.value)

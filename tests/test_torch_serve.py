@@ -359,11 +359,11 @@ def test_serve_state_guards(granite):
 
 def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
     """What mesh serving still refuses raises (a method other than full /
-    quoka on a ``data`` axis, which now places a dense model, and
-    ``registry=`` with a mesh; ``test_torch_sharding.py`` and
-    ``test_torch_dp.py`` serve on the axes); the telemetry options once
-    refused (``registry=``, ``with_obs``) run meshless
-    (``test_torch_obs.py`` holds them to the reference)."""
+    quoka on a ``data`` axis, which now places a dense model;
+    ``test_torch_sharding.py`` and ``test_torch_dp.py`` serve on the
+    axes, ``test_torch_mesh_modality.py`` with ``registry=``); the
+    telemetry options once refused (``registry=``, ``with_obs``) run
+    meshless (``test_torch_obs.py`` holds them to the reference)."""
     from repro_torch.obs import Registry
     from repro_torch.training import checkpoint as ckpt
     rm, params, pm = granite
@@ -371,9 +371,6 @@ def test_unported_options_raise_and_cpu_serve_launches_no_kernel(granite):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         Engine(pm, device="cpu", method="sparq",
                mesh=_Mesh({"data": 2, "model": 1}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Engine(pm, device="cpu", mesh=_Mesh({"model": 2}),
-               registry=Registry())
     assert Engine(pm, device="cpu", registry=Registry())._obs_on
     eng = Engine(pm, method="quoka", device="cpu")
     pr = make_requests(_prompts(1, (16,), pm.cfg.vocab), 2)

@@ -145,21 +145,24 @@ def test_mesh_spec_errors_match_reference():
 
 
 def test_refusals_without_ranks():
-    """What raises before any rank meets: the modality families, on a
-    mesh, a data axis among them; a dense ``attn`` model and the
-    sliding-window and recurrent kinds place on a data axis; a ring's and
-    a Mamba2 state's cache placements are the reference's
-    ``cache_specs`` on the reference's leaves; and the MLA latent pool's
-    placement puts its blocks over the FSDP axes, never over ``model``."""
+    """What the checks admit before any rank meets: a dense ``attn``
+    model, the sliding-window and recurrent kinds and the modality
+    families place on a data axis; a ring's, a Mamba2 state's and
+    whisper's cross-attention cache placements are the reference's
+    ``cache_specs`` on the reference's leaves; the MLA latent pool's
+    placement puts its blocks over the FSDP axes, never over ``model``;
+    and a block kind no mesh places still raises."""
     from repro_torch.models.model import build_model
     pm = build_model(get_config("granite-3-2b").smoke(), "cpu")
     ckpt.check_mesh(pm.cfg, FakeMesh({"data": 2, "model": 1}))
     for arch in ("zamba2-7b", "gemma3-27b", "h2o-danube-3-4b",
-                 "rwkv6-1.6b"):
+                 "rwkv6-1.6b", "whisper-small", "internvl2-1b"):
         ckpt.check_mesh(get_config(arch), FakeMesh({"data": 2, "model": 2}))
     for arch, leaves in (("gemma3-27b", ("kv/k", "kv/pos")),
                          ("zamba2-7b", ("mamba/conv", "mamba/ssd",
-                                        "kv/k"))):
+                                        "kv/k")),
+                         ("whisper-small", ("cross/k", "cross/v", "kv/k")),
+                         ("internvl2-1b", ("kv/k", "kv/pos"))):
         rcfg = ref_config(arch).smoke()
         rmodel = ref_build(rcfg)
         for b in (2, 1):
@@ -188,20 +191,17 @@ def test_refusals_without_ranks():
         for key, spec in place.items():
             assert spec[1] == fsdp and "model" not in spec, (key, spec)
             assert spec[2] is None, (key, spec)      # slots never split
-    for arch, msg in (("whisper-small", "a mesh for the audio family's "
-                       "encoder is not yet ported"),
-                      ("internvl2-1b", "a mesh for the vlm family's "
-                       "frontend is not yet ported")):
+    for arch in ("whisper-small", "internvl2-1b"):
         m = Model(get_config(arch).smoke(), device="meta")
-        with pytest.raises(NotImplementedError, match=re.escape(msg)):
-            ckpt.shard(m, FakeMesh({"model": 2}))
-    cross = dataclasses.replace(get_config("whisper-small").smoke(),
-                                family="dense", encoder=None)
+        assert ckpt.check_mesh(m.cfg, FakeMesh({"model": 2})) is None
+    odd = dataclasses.replace(get_config("granite-3-2b").smoke(),
+                              layer_pattern=("attn", "xattn"))
     with pytest.raises(NotImplementedError) as err:
-        ckpt.check_mesh(cross, FakeMesh({"model": 2}))
-    assert "block kinds ['dec_cross'] on a mesh are not yet ported " \
+        ckpt.check_mesh(odd, FakeMesh({"model": 2}))
+    assert "block kinds ['xattn'] are not placed on a mesh " \
         "('attn', 'attn_local', 'attn_moe', 'mla', 'mla_moe', 'mamba', " \
-        "'mamba_shared_attn', 'rwkv' only)" in str(err.value)
+        "'mamba_shared_attn', 'rwkv', 'dec_cross', 'enc_attn' only)" \
+        in str(err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -345,8 +345,6 @@ def test_mesh_refusals_on_ranks(world4):
     assert msgs["data2"][0] == "NotImplementedError"
     assert "not yet ported" in msgs["data2"][1]
     assert "preempting scheduling policy (slo)" in msgs["data2"][1]
-    assert msgs["registry"] == ("NotImplementedError", msgs["registry"][1])
-    assert "registry" in msgs["registry"][1]
     assert "not yet ported" in msgs["method"][1]
     assert msgs["host_tier"] == (
         "ValueError", "host tier + mesh is not supported yet: demotion "

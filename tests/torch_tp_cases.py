@@ -195,9 +195,9 @@ def seq_case(rank, world, dev, spec, arch, over, flat, prompt, method,
         return prefill(*a, **kw)
 
     def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
-            q_valid=None, heads=None, seq=None):
+            q_valid=None, heads=None, seq=None, sketch=None):
         pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                    q_valid=q_valid, heads=heads, seq=seq)
+                    q_valid=q_valid, heads=heads, seq=seq, sketch=sketch)
         if record and runs[0] == 2 and seq is not None:
             with comm.scope("record"):
                 if heads.heads_sharded:
@@ -303,9 +303,9 @@ def ep_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
         return caches[-1]
 
     def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
-            q_valid=None, heads=None, seq=None):
+            q_valid=None, heads=None, seq=None, sketch=None):
         pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                    q_valid=q_valid, heads=heads, seq=seq)
+                    q_valid=q_valid, heads=heads, seq=seq, sketch=sketch)
         if record and seq is None:
             with comm.scope("record"):
                 if heads.heads_sharded:
@@ -482,17 +482,20 @@ def meshless_drops(arch, over, flat, toks, new=GEN_NEW):
 
 def _cache_leaves(model, caches):
     """{reference leaf suffix (``kv/k``, ``latent/ckv``, ``mamba/conv``,
-    ``rwkv/wkv``, ...): [(layer prefix, the tensor this rank holds),
+    ``rwkv/wkv``, ``cross/k``, ...): [(layer prefix, the tensor this rank
+    holds),
     ...]} of a port model's caches (``specs.kv_cache_shapes``'s names)."""
     out = {}
     names = {"kv": ("k", "v", "pos"), "latent": ("ckv", "krope", "pos"),
              "mamba": ("conv", "ssd"),
-             "rwkv": ("shift_tm", "shift_cm", "wkv")}
+             "rwkv": ("shift_tm", "shift_cm", "wkv"), "cross": ("k", "v")}
     for si, (stack, sc) in enumerate(zip(model.stacks, caches)):
         for i, c in enumerate(sc):
             pre = f"stacks/{si}/{i % len(stack.period)}"
             if hasattr(c, "mamba"):
                 parts = {"mamba": c.mamba, "kv": c.kv}
+            elif hasattr(c, "cross"):
+                parts = {"kv": c.kv, "cross": c.cross}
             else:
                 parts = {next(g for g, ns in names.items()
                               if hasattr(c, ns[0])): c}
@@ -558,9 +561,9 @@ def kinds_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
         return caches[-1]
 
     def rec(method, q, k, key_pos, chunk_start, cfg, budget=None,
-            q_valid=None, heads=None, seq=None):
+            q_valid=None, heads=None, seq=None, sketch=None):
         pln = build(method, q, k, key_pos, chunk_start, cfg, budget=budget,
-                    q_valid=q_valid, heads=heads, seq=seq)
+                    q_valid=q_valid, heads=heads, seq=seq, sketch=sketch)
         if record:
             with comm.scope("record"):
                 if heads.heads_sharded:
@@ -606,24 +609,256 @@ def kinds_case(rank, world, dev, spec, arch, over, flat, toks, new=GEN_NEW,
 
 def _kv_caches(caches):
     """Every KV cache (``KVCache`` / ``SeqKVCache``, zamba2's shared
-    block's among them) of a model's caches, in layer order."""
+    block's and whisper's self-attention's among them) of a model's
+    caches, in layer order."""
     for sc in caches:
         for c in sc:
-            kv = getattr(c, "kv", None) if hasattr(c, "mamba") else c
+            kv = getattr(c, "kv", None) if hasattr(c, "mamba") or \
+                hasattr(c, "cross") else c
             if kv is not None and hasattr(kv, "k"):
                 yield kv
 
 
+def _count_ops():
+    """Start counting the calls of the kernel wrappers ``ops.score`` and
+    ``ops.attention`` (on the CPU their plain versions run, so the launch
+    counters stay 0): returns (the counts, a function that stops)."""
+    from repro_torch.kernels import ops
+    counts = {"score": 0, "attention": 0}
+    inner = {k: getattr(ops, k) for k in counts}
+
+    def counting(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return inner[name](*a, **kw)
+        return call
+
+    for k in counts:
+        setattr(ops, k, counting(k))
+
+    def stop():
+        for k, f in inner.items():
+            setattr(ops, k, f)
+
+    return counts, stop
+
+
+def modality_case(rank, world, dev, spec, arch, over, flat, batch,
+                  new=GEN_NEW, mutant=None):
+    """The mesh checks of whisper-small or internvl2-1b on one mesh
+    ``spec``: a QUOKA ``generate`` of ``batch`` (tokens, and whisper's
+    ``frames`` or the VLM's ``patches``; ``new`` new tokens) on the mesh,
+    its first-step logits, the scoring routes, the collectives' bytes by
+    scope and kind, the layer-stack passes, each cache leaf's held bytes
+    beside its placement's (``cache_bytes``, the cross-attention's
+    ``cross/{k,v}`` among them), the frames each ``CrossKV`` holds,
+    whether the shards reassemble and the parameter bytes held beside the
+    placements'.  ``mutant`` ("heads" or "frames") then runs the same
+    prefill once more with the cross keys and values written under a
+    wrong mapping (the KV heads reversed, or on every rank the first
+    rank's frames) and returns its first-step logits."""
+    torch.set_num_threads(1)
+    from repro_torch.core import quoka as qk
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models import blocks
+    from repro_torch.serving.engine import Engine
+    from repro_torch.sharding import comm
+    from repro_torch.training.checkpoint import leaf_map
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, over)
+    full, shd = _models(cfg, flat, dev, mesh)
+    eng = Engine(shd, method="quoka", device=dev, mesh=mesh)
+    out = {"reassembled": _reassembled(full, shd, mesh, leaf_map),
+           "param_bytes": param_bytes(full, shd, mesh)}
+    del full
+    caches, firsts = [], []
+    init_cache, prefill = shd.init_cache, shd.prefill
+    b = len(batch["tokens"])
+
+    def init(*a, **kw):
+        caches.append(init_cache(*a, **kw))
+        return caches[-1]
+
+    def pre(*a, **kw):
+        r = prefill(*a, **kw)
+        firsts.append(r[0][:b].float().cpu().numpy())
+        return r
+
+    eng.generate(batch, new)                     # warm the signature
+    shd.init_cache, shd.prefill = init, pre
+    for key in qk.ROUTES:
+        qk.ROUTES[key] = 0
+    comm.reset_counts()
+    calls = _count_calls(shd)
+    try:
+        out["generate"] = eng.generate(batch, new).tokens
+    finally:
+        del shd._apply_stacks
+    cap = caches[-1][0][0].kv.capacity if hasattr(caches[-1][0][0], "kv") \
+        else caches[-1][0][0].capacity
+    out.update(
+        routes=dict(qk.ROUTES), stack_calls=calls[0], logits=firsts[-1],
+        bytes={sc: comm.bytes_by_kind(sc)
+               for sc in ("score", "seq", "fsdp", "cross", "")},
+        slots=[(kv.k.shape[1], kv.capacity)
+               for kv in _kv_caches(caches[-1])],
+        frames=[c.cross.k.shape[1] for st in caches[-1] for c in st
+                if hasattr(c, "cross")],
+        cache_bytes=cache_bytes(shd, caches[-1], b, cap, mesh))
+    if mutant is not None:
+        write = blocks.DecCrossBlock.write_cross
+
+        def wrong(self, cross, enc_out):
+            write(self, cross, enc_out)
+            if mutant == "heads":
+                cross.k.copy_(cross.k.flip(2).clone())
+                cross.v.copy_(cross.v.flip(2).clone())
+            else:               # every rank writes the first frames
+                write(self, cross._replace(seq=cross.seq._replace(lo=0)),
+                      enc_out)
+
+        blocks.DecCrossBlock.write_cross = wrong
+        try:
+            eng.generate(batch, 1)
+        finally:
+            blocks.DecCrossBlock.write_cross = write
+        out["mutant_logits"] = firsts[-1]
+    del shd.init_cache, shd.prefill
+    return out
+
+
+def _snapshot(reg):
+    """A registry's values as plain dicts (they cross the process
+    boundary): counters and gauges by name, each histogram's count and
+    summary."""
+    return {"counters": {k: c.value for k, c in reg.counters.items()},
+            "gauges": {k: g.value for k, g in reg.gauges.items()},
+            "hists": {k: (h.count, h.summary())
+                      for k, h in reg.histograms.items()}}
+
+
+def snapshot_diff(got, want, tol=1e-6):
+    """Where two registry ``_snapshot``s differ, as the port's telemetry
+    tests compare registries: counters equal, the same gauges within
+    ``tol`` (NaN where NaN), the same histograms with equal counts and,
+    for those that are not times, summaries within ``tol``.  Returns the
+    differences (empty: the same)."""
+    import re
+    times = re.compile(r"(_s$|^engine/|^sched/(suspend|resume)$|"
+                       r"^pool/h2d_stage$)")
+    bad = []
+    if got["counters"] != want["counters"]:
+        bad.append(("counters", got["counters"], want["counters"]))
+    if sorted(got["gauges"]) != sorted(want["gauges"]):
+        bad.append(("gauge names", sorted(got["gauges"]),
+                    sorted(want["gauges"])))
+    for k, w in want["gauges"].items():
+        g = got["gauges"].get(k, math.inf)
+        if not ((math.isnan(g) and math.isnan(w)) or abs(g - w) <= tol):
+            bad.append((k, g, w))
+    if sorted(got["hists"]) != sorted(want["hists"]):
+        bad.append(("histogram names", sorted(got["hists"]),
+                    sorted(want["hists"])))
+    for k, (n, summ) in want["hists"].items():
+        gn, gs = got["hists"].get(k, (None, {}))
+        if gn != n:
+            bad.append((k, gn, n))
+        elif not times.search(k):
+            for q, v in summ.items():
+                if abs(gs[q] - v) > tol:
+                    bad.append((f"{k}/{q}", gs[q], v))
+    return bad
+
+
+def whisper_call_case(rank, world, dev, spec="model=2"):
+    """One smoke whisper-small prefill (its encoder over 64 stub frames,
+    the cross keys and values, two ``dec_cross`` layers over four chunks
+    with QUOKA) and one decode step on ``dev``, sharded on the mesh
+    ``spec``, against the meshless calls on the CPU, fp32, batch 2.
+    Returns the largest difference over the largest magnitude of the
+    prefill's and the decode step's logits, the query heads and the cross
+    cache's KV heads a rank holds, and the default scope's bytes."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import comm
+    from repro_torch.training import checkpoint as ckpt
+    mesh = mesh_from_spec(spec, dev)
+    cfg = get_config("whisper-small").smoke()
+    cpu = build_model(cfg, "cpu", seed=0)
+    card = ckpt.from_flat(ckpt.to_flat(cpu), cfg, dev, mesh=mesh)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(3, cfg.vocab, (2, 64)).astype(np.int32),
+             **modality_inputs(cfg, 2)}
+    want, wc = cpu.prefill(batch, cpu.init_cache(2, 72), "quoka")
+    comm.reset_counts()
+    got, gc = card.prefill(batch, card.init_cache(2, 72), "quoka")
+    tok = want.argmax(-1)
+    wd, _ = cpu.decode_step(tok, 64, wc, "quoka")
+    gd, _ = card.decode_step(tok.to(dev), 64, gc, "quoka")
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    return {"rel": max(rel(got, want), rel(gd, wd)),
+            "heads": card.layers()[0].self_attn.n_heads,
+            "cross_kv": gc[0][0].cross.k.shape[2],
+            "bytes": comm.bytes_by_kind("")}
+
+
+def registry_case(rank, world, dev, spec, arch, flat, prompts, new=5):
+    """``Engine(mesh=, registry=).serve`` on the mesh ``spec`` for
+    ``full`` and ``quoka``: a cold then a warm (prefix-hit) serve of
+    ``prompts`` over one state, with a registry, and the same with none.
+    Returns per method both runs' tokens, the registry's ``_snapshot``,
+    ``Engine.stats``, the kernel wrappers' calls and the ``obs`` scope's
+    bytes with the registry on and off."""
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import mesh_from_spec
+    from repro_torch.obs import Registry
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import make_requests
+    from repro_torch.sharding import comm
+    mesh = mesh_from_spec(spec, dev)
+    cfg = port_cfg(arch, {})
+    _, shd = _models(cfg, flat, dev, mesh)
+    kw = dict(block_size=16, max_decode_batch=4)
+    out = {}
+    for method in ("full", "quoka"):
+        for on in (True, False):
+            reg = Registry() if on else None
+            eng = Engine(shd, method=method, device=dev, mesh=mesh,
+                         registry=reg)
+            st = eng.make_serve_state(make_requests(prompts, new), **kw)
+            counts, stop = _count_ops()
+            comm.reset_counts()
+            try:
+                res = [eng.serve(make_requests(prompts, new), state=st)
+                       for _ in range(2)]
+            finally:
+                stop()
+            out[(method, on)] = dict(
+                tokens=[{r: t.tolist() for r, t in x.tokens.items()}
+                        for x in res],
+                registry=_snapshot(reg) if on else None,
+                stats=dict(eng.stats), calls=counts,
+                obs_bytes=comm.bytes_by_kind("obs"))
+    return out
+
+
 def dp_world(rank, world, dev, runs):
-    """One spawn of ``tests/test_torch_dp.py``, ``test_torch_ep.py`` or
-    ``test_torch_mesh_kinds.py``: each (name, case, args) of ``runs``
-    (``serve_case``, ``seq_case``, ``gen_case``, ``ep_case``,
-    ``kinds_case`` or ``mamba_call_case`` by name,
-    with these positional arguments after the rank's own), in order.
-    Returns {name: result}."""
+    """One spawn of ``tests/test_torch_dp.py``, ``test_torch_ep.py``,
+    ``test_torch_mesh_kinds.py`` or ``test_torch_mesh_modality.py``: each
+    (name, case, args) of ``runs`` (``serve_case``, ``seq_case``,
+    ``gen_case``, ``ep_case``, ``kinds_case``, ``mamba_call_case``,
+    ``modality_case``, ``registry_case`` or ``whisper_call_case`` by name,
+    with these positional
+    arguments after the rank's own), in order.  Returns {name: result}."""
     cases = {"serve": serve_case, "seq": seq_case, "gen": gen_case,
              "ep": ep_case, "kinds": kinds_case,
-             "mamba_call": mamba_call_case}
+             "mamba_call": mamba_call_case, "modality": modality_case,
+             "registry": registry_case, "whisper_call": whisper_call_case}
     out = {}
     for name, case, args, kw in runs:
         out[name] = cases[case](rank, world, dev, *args, **kw)
@@ -660,13 +895,11 @@ def plan_case(rank, world, dev, cases):
 
 def refusal_case(rank, world, dev, arch):
     """What a real mesh still refuses: on a ``data=2`` mesh (world 4),
-    which now serves, a preempting scheduling policy; ``registry=`` with a
-    mesh, a method other than full / quoka, and the host tier on a mesh.
-    Returns the messages."""
+    which now serves, a preempting scheduling policy; a method other than
+    full / quoka, and the host tier on a mesh.  Returns the messages."""
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
-    from repro_torch.obs import Registry
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.pool import PagedKVCache
     cfg = port_cfg(arch, {})
@@ -685,8 +918,6 @@ def refusal_case(rank, world, dev, arch):
         make_requests([np.arange(3, 19, dtype=np.int32)], 2),
         policy="slo", **SERVE_KW))
     mp = make_host_mesh(model=4)
-    grab("registry", lambda: Engine(build_model(cfg, dev), device=dev,
-                                    mesh=mp, registry=Registry()))
     grab("method", lambda: Engine(build_model(cfg, dev), device=dev,
                                   mesh=mp, method="sparq"))
     eng = Engine(build_model(cfg, dev), device=dev, mesh=mp)
@@ -924,6 +1155,21 @@ def _captured(calls, kind):
     return dict(shapes=shapes, err=err, tol=tol)
 
 
+def modality_inputs(cfg, b, seed=0):
+    """Seeded stub inputs of a modality family's ``b`` rows: whisper's
+    encoder frames (b, n_ctx, d) or a VLM's patches (b, n, d_in), fp32
+    (the model casts them); none for the other families."""
+    rng = np.random.default_rng(100 + seed)
+    if cfg.encoder is not None:
+        return {"frames": rng.standard_normal(
+            (b, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend is not None:
+        return {"patches": rng.standard_normal(
+            (b, cfg.frontend.n_tokens, cfg.frontend.d_in)).astype(
+                np.float32)}
+    return {}
+
+
 def _ep_generate(model, eng, b, prompt, new, cuda):
     """One ``ep_card_run`` run (its docstring), on its own frame so that
     nothing of it holds the model when the next one is drawn."""
@@ -933,6 +1179,7 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
     from repro_torch.sharding import comm
     toks = np.random.default_rng(b).integers(
         3, model.cfg.vocab, (b, prompt)).astype(np.int32)
+    batch = {"tokens": toks, **modality_inputs(model.cfg, b)}
     firsts, caches, calls = [], [], _count_calls(model)
     prefill, init_cache = model.prefill, model.init_cache
     rec = {"score": [], "attention": []}
@@ -970,7 +1217,7 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
         qk.ROUTES[key] = 0
     moe.DROPS = []
     try:
-        r = eng.generate({"tokens": toks}, new)
+        r = eng.generate(batch, new)
         launches = _launches()
         drops = [d.numpy() for d in moe.DROPS]
     finally:
@@ -985,7 +1232,7 @@ def _ep_generate(model, eng, b, prompt, new, cuda):
         launches=launches, stack_calls=calls[0],
         routes=dict(qk.ROUTES), drops=drops,
         bytes={s or "other": comm.bytes_by_kind(s)
-               for s in ("ep", "fsdp", "seq", "score", "")},
+               for s in ("ep", "fsdp", "seq", "score", "cross", "")},
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30
         if cuda else None,
         param_bytes=sum(p.numel() * p.element_size()
@@ -1080,7 +1327,8 @@ def ep_card_run(dev, arch, cut, runs, budget, new, mesh=None, serve=False,
 
 
 def kinds_card_case(rank, world, dev, spec, cases, budget):
-    """One rank of ``chip_smoke.py`` phase 36 on the mesh ``spec``: for
+    """One rank of ``chip_smoke.py`` phase 36 or 37 on the mesh ``spec``:
+    for
     each (label, arch, config cut, runs, new, turns) of ``cases``
     ``ep_card_run`` (its runs are (label, dtype, batch, prompt, {})), on
     one mesh, the card freed between cases."""

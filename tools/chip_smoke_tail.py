@@ -7,6 +7,10 @@ A development check on the card, not a substitute for the whole script:
 
     python3 tools/chip_smoke_tail.py ROOT [PASSES]
     python3 tools/chip_smoke_tail.py ROOT --phase36   # the build, phase 36
+    python3 tools/chip_smoke_tail.py ROOT --phase37   # the build, phase 37
+
+(``--phase33``, ``--phase36`` and ``--phase37`` may be given together:
+the build, then each phase in the order given.)
 """
 import inspect, os, sys, textwrap
 
@@ -32,24 +36,37 @@ def main(root, passes=1):
     return ns["main"]()
 
 
-def phase36(root):
-    """The kernels' build, then phase 36 alone."""
+def mesh_phases(root, names):
+    """The kernels' build, then mesh phases alone, in order: each a
+    function of ``chip_smoke.py`` (``phase_mesh``, ``phase_kinds``,
+    ``phase_modality_mesh``)."""
     sys.path.insert(0, root); sys.path.insert(0, os.path.join(root, "src"))
     import chip_smoke as cs
     import numpy as np
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quoka_score as qs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selected_attention as sa
+    K = {"flash": fa, "score": qs, "selected": sa, "ref": ref}
     build.library()
     dev = torch.device("cuda", torch.cuda.current_device())
     card = cs.card_line()
-    out, errs = cs.phase_kinds(torch, np, None, card, dev)
-    cs.log(f"kernel errors {errs}; phase wall times (s): "
-           f"{cs.json.dumps(cs.phase_walls())}")
+    for name in names:
+        out = getattr(cs, name)(torch, np, K, card, dev)
+        if isinstance(out, tuple):
+            cs.log(f"kernel errors {out[1]}")
+        torch.cuda.empty_cache()
+    cs.log(f"phase wall times (s): {cs.json.dumps(cs.phase_walls())}")
     cs.log(card)
     return 0
 
 
+PHASES = {"--phase33": "phase_mesh", "--phase36": "phase_kinds",
+          "--phase37": "phase_modality_mesh"}
+
 if __name__ == "__main__":
-    if sys.argv[2:3] == ["--phase36"]:
-        sys.exit(phase36(sys.argv[1]))
+    if sys.argv[2:3] and sys.argv[2] in PHASES:
+        sys.exit(mesh_phases(sys.argv[1], [PHASES[a] for a in sys.argv[2:]]))
     sys.exit(main(sys.argv[1], *(int(x) for x in sys.argv[2:3])))
