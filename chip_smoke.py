@@ -243,7 +243,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      llama3-2-3b at ``model=3`` in fp32, prompt 1024 (KV heads
      replicated, GQA groups straddling ranks, a 1032-slot cache: the
      T-local scoring route on every selecting call), each at full width
-     and half its depth (``MESH_LAYERS``, since PR 27) from seed 0
+     and a quarter of its depth (``MESH_LAYERS``) from seed 0
      against the same card's meshless run: the same
      tokens on every rank, equal to the meshless run's in fp32; the first
      step's largest logit difference printed (in bf16 beside the meshless
@@ -308,9 +308,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      at one period (5 local + 1 global layers) at ``model=2`` in fp32
      and bf16, prompt 1280 (the 1024-slot ring wraps); zamba2-7b at 6
      layers (5 ``mamba`` + 1 ``mamba_shared_attn``) at ``model=2`` in
-     fp32 and bf16; rwkv6-1.6b at 4 layers and h2o-danube-3-4b at 4
-     layers (d 120, prompt 1024) at ``model=2`` in fp32; gemma3 at 2 local
-     layers at ``data=2,model=2``, batch 1, bf16, prompt 1152: each rank
+     fp32 and bf16; rwkv6-1.6b at 2 layers and h2o-danube-3-4b at 2
+     layers (d 120, prompt 1024) at ``model=2`` in fp32; gemma3 at 1
+     local layer at ``data=2,model=2``, batch 1, bf16, prompt 1152: each
+     rank
      holds half of each ring's slots and the ring wraps.  Every rank
      returns the same tokens; fp32 tokens equal the meshless run's and
      bf16 first-step logits stay within 0.25 of their largest magnitude;
@@ -334,7 +335,31 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      hold its 6 KV heads (and its half of the frames) of the meshless
      run's bytes, and the batch-1 merge is the only ``cross`` traffic;
      prints the cross bytes a layer a rank and the merge's bytes per
-     layer call.
+     layer call;
+ 38. sharded training on the mesh (after phase 37), ranks sharing the
+     card over gloo through ``tests/torch_train_cases.py::train_world``
+     (``TRAIN_MESH_CASES``; fp32, remat, AdamW, a clip norm that binds
+     on step 1, seed-0 weights and batches): granite-3-2b at full width
+     cut to ``TRAIN_MESH_LAYERS`` (4 of 40) at ``data=2,model=2``, batch
+     4 x 256, 2 steps, and olmoe-1b-7b cut to 2 of 16 at ``model=2`` (32
+     experts a rank), batch 2 x 256, one step at the config's capacity
+     factor 1.25 (its aux loss and dropped pairs held too), then 2 steps
+     on its no-drop twin (capacity factor E / k: at 1.25 an fp32 router
+     near-tie at step 2 moves a dropped pair), the two archs side by
+     side; each run's first rank then runs the same steps meshless on
+     the card: each step's loss and grad norm within 1e-5, step 1's
+     gradients within 1e-4 of each leaf's largest magnitude (granite,
+     olmoe at 1.25), each leaf's update within 1e-3 relative in L2
+     (granite, the twin), olmoe's aux loss within 1e-5 and its dropped
+     pairs equal, no kernel launched; granite's sharded state, saved by
+     rank 0 and read back meshless by ``restore_state``, within the
+     same bounds of the meshless state; first, in this process, a
+     row-parallel layer's bf16 partial product (the forward's one
+     card-only route) and its gradients within 2e-2 of fp32's; prints the
+     steps, step ms on the ranks beside meshless (not a scaling figure),
+     the last step's collective bytes by scope and kind (forward
+     ``fsdp``, ``remat``, ``grad``) and each rank's peak GiB beside
+     meshless.
 
 Every phase header line carries the script's elapsed time, and a line
 before the last three gives each phase's wall time.
@@ -3132,8 +3157,8 @@ def phase_train_retrieval(torch, np, K):
 
 # phase 33: tensor-parallel serving on the ``model`` mesh axis, the ranks
 # sharing the one card over gloo.  Widths are the configs'; for the run's
-# time limit the depths are halved (``MESH_LAYERS``: qwen3-4b 18 of 36,
-# llama3-2-3b 14 of 28), the selection budget is 256 (the configs'
+# time limit the depths are cut to a quarter (``MESH_LAYERS``: qwen3-4b 9
+# of 36, llama3-2-3b 7 of 28), the selection budget is 256 (the configs'
 # is 1024) and the prompts are the shortest on the chunk grid that keep
 # each case: 512 tokens for qwen3-4b (a cache of 520 slots with 8 new
 # tokens exceeds budget + chunk, 384, so every layer call selects, and
@@ -3143,7 +3168,7 @@ def phase_train_retrieval(torch, np, K):
 # exceeds the budget, so the local top-k truncates before the merge).
 MESH_NEW = 8
 MESH_SERVE_NEW = 4
-MESH_LAYERS = {"qwen3-4b": 18, "llama3-2-3b": 14}
+MESH_LAYERS = {"qwen3-4b": 9, "llama3-2-3b": 7}
 MESH_BUDGET = 256
 G16 = dict(granularity=16, fused_select_attn=True)
 # (arch, model axis size, prompt, runs: (label, dtype, quoka overrides)):
@@ -3309,10 +3334,17 @@ def gloo_probe(torch, dev, ax):
         dist.all_gather(parts, x, group=ax.group)
         return [float(p[0]) for p in parts]
 
+    def scatter():
+        y = torch.empty_like(x)
+        dist.reduce_scatter(y, [x.clone() for _ in range(ax.size)],
+                            group=ax.group)
+        return [float(y[0])]
+
     calls = {"all_reduce": (lambda: reduce(dist.ReduceOp.SUM), [sum(ranks)]),
              "all_reduce_max": (lambda: reduce(dist.ReduceOp.MAX),
                                 [max(ranks)]),
-             "broadcast": (bcast, [1.0]), "all_gather": (gather, ranks)}
+             "broadcast": (bcast, [1.0]), "all_gather": (gather, ranks),
+             "reduce_scatter": (scatter, [sum(ranks)])}
     out = {}
     for name, (call, want) in calls.items():
         try:
@@ -3546,12 +3578,12 @@ def phase_mesh(torch, np, K, card, dev):
     return out
 
 
-# phase 34: qwen3-4b cut in depth to DP_LAYERS of 36 for the phase's
-# 120 s (each layer call all-gathers its FSDP shards through host memory:
+# phase 34: qwen3-4b cut in depth to DP_LAYERS of 36 for the run's time
+# limit (each layer call all-gathers its FSDP shards through host memory:
 # an fp32 layer's 202 MB);
 # (label, dtype, batch, prompt): batch 2 puts rows over data, batch 1 the
 # cache's sequence (1028 slots, 514 a rank)
-DP_LAYERS = 2
+DP_LAYERS = 1
 DP_NEW = 4
 DP_RUNS = (("bf16 b1", "bfloat16", 1, 1024), ("fp32 b2", "float32", 2, 512),
            ("fp32 b1", "float32", 1, 1024))
@@ -3700,16 +3732,16 @@ def phase_dp(torch, np, K, card, dev):
 # phase 35: expert-parallel MoE and MLA on the mesh, ranks sharing the one
 # card over gloo, budget 256 (phase 33's).  Widths are the configs'; depth
 # is cut for the phase's 150 s: olmoe-1b-7b to EP_MOE_LAYERS of 16 at
-# ``model=2`` and to EP_DP_LAYERS at ``data=2,model=2`` (every layer call
-# all-gathers its rank's 32 experts' FSDP shards through host memory: an
-# fp32 layer's 805 MB); deepseek-v3 at phase 18's cut (3 mla + 1 mla_moe)
+# ``model=2`` and to EP_DP_LAYERS at ``data=2,model=2`` (there every
+# layer call all-gathers its rank's 32 experts' FSDP shards through host
+# memory: an fp32 layer's 805 MB); deepseek-v3 at phase 18's cut (3 mla + 1 mla_moe)
 # in bf16 only: two ranks' fp32 shards of even a 2-layer cut (~29 GB
 # each) beside one rank's whole fp32 draw (~58 GB) do not fit the card,
 # so deepseek's fp32 tokens are held on the CPU (tests/test_torch_ep.py)
 EP_BUDGET = MESH_BUDGET
 EP_NEW = 8
-EP_MOE_LAYERS = 2
-EP_DP_LAYERS = 2
+EP_MOE_LAYERS = 1
+EP_DP_LAYERS = 1
 EP_DP_NEW = 4
 # (label, arch, spec, config cut, runs: (label, dtype, batch, prompt), new,
 # serve, ranks draw in turns, meshless beside the ranks)
@@ -3927,8 +3959,8 @@ def phase_ep(torch, np, K, card, dev):
 # sharing the one card over gloo, budget 256 (phase 33's).  Widths are the
 # configs'; depth is cut for the phase's 120 s: gemma3-27b to one period
 # (its 1024-slot rings wrap at prompt 1280; a layer is 1.65 GB in fp32),
-# zamba2-7b to one period of 6, rwkv6-1.6b and h2o-danube-3-4b to 4
-# layers, and the batch-1 gemma3 run to 2 local layers in bf16 (every
+# zamba2-7b to one period of 6, rwkv6-1.6b and h2o-danube-3-4b to 2
+# layers, and the batch-1 gemma3 run to 1 local layer in bf16 (every
 # layer call all-gathers its FSDP shards, 413 MB in bf16, through host
 # memory).  (label, arch, config cut, runs: (label, dtype, batch, prompt,
 # {}), new, ranks draw in turns)
@@ -3942,13 +3974,13 @@ KIND_M2 = (
     ("zamba2-7b", "zamba2-7b", {"n_layers": 6},
      (("fp32", "float32", 1, 1024, {}), ("bf16", "bfloat16", 1, 1024, {})),
      KIND_NEW, False),
-    ("rwkv6-1.6b", "rwkv6-1.6b", {"n_layers": 4},
+    ("rwkv6-1.6b", "rwkv6-1.6b", {"n_layers": 2},
      (("fp32", "float32", 1, 1024, {}),), KIND_NEW, False),
-    ("h2o-danube-3-4b", "h2o-danube-3-4b", {"n_layers": 4},
+    ("h2o-danube-3-4b", "h2o-danube-3-4b", {"n_layers": 2},
      (("fp32", "float32", 1, 1024, {}),), KIND_NEW, False))
 KIND_B1 = (
     ("gemma3-27b b1", "gemma3-27b",
-     {"n_layers": 2, "layer_pattern": ("attn_local",)},
+     {"n_layers": 1, "layer_pattern": ("attn_local",)},
      (("bf16 b1", "bfloat16", 1, 1152, {}),), 4, False),)
 KIND_CASES = (("model=2", KIND_M2), ("data=2,model=2", KIND_B1))
 
@@ -4217,6 +4249,152 @@ def phase_modality_mesh(torch, np, K, card, dev):
     out["phase_s"] = time.perf_counter() - t0
     log(f"  phase 37 took {out['phase_s']:.1f} s")
     return out, errs
+
+
+# phase 38: sharded training on the mesh (after phase 37), ranks sharing
+# the one card over gloo, fp32, remat on, AdamW steps with clipping that
+# binds, each run beside the same card's meshless run of the same cut,
+# seed-0 weights and batches (``tests/torch_train_cases.py``)
+TRAIN_MESH_LAYERS = 4            # granite-3-2b's 40 layers cut to 4
+TRAIN_MESH_MOE_LAYERS = 2        # olmoe-1b-7b's 16 cut to 2
+TRAIN_MESH_CLIP = 0.05           # binds: the first gradient norm is larger
+# bf16 rounding of the inputs and of the backward's GEMMs, relative to the
+# fp32 product's and gradients' largest magnitude
+TRAIN_MESH_BF16_ROW = 2e-2
+# olmoe trains at the config's capacity factor 1.25 for one step (its
+# loss, grad norm, gradients, aux loss and dropped pairs held to the
+# meshless run's), then two steps on its no-drop twin (EP_NODROP, as
+# phase 35 holds its bf16 drift), where the updates are held: at 1.25
+# the second step's router in layer 1 meets an fp32 near-tie (a top-8
+# margin of 1.04e-07, one row of 512) that the ranks' summation order
+# decides the other way, which moves one dropped pair and so the step's
+# gradient norm by 9.5e-05 (tools/moe_route_ties.py)
+#: (label, arch, mesh, layers, batch, tokens, steps, MoE overrides,
+#: train_case options); the runs of one arch share a spawn, in order
+TRAIN_MESH_CASES = (
+    ("granite", "granite-3-2b", "data=2,model=2", TRAIN_MESH_LAYERS, 4, 256,
+     2, {}, {"save": True}),
+    ("olmoe", "olmoe-1b-7b", "model=2", TRAIN_MESH_MOE_LAYERS, 2, 256, 1,
+     {}, {"drops": True, "gather": ("grads",)}),
+    ("olmoe no-drop", "olmoe-1b-7b", "model=2", TRAIN_MESH_MOE_LAYERS, 2,
+     256, 2, EP_NODROP["olmoe-1b-7b"], {"gather": ("updates",)}),
+)
+
+
+def phase_train_mesh(torch, np, K, card, dev):
+    """Phase 38: granite-3-2b and olmoe-1b-7b trained on the mesh at full
+    width (``TRAIN_MESH_CASES``), one spawn an arch, side by side, through
+    ``tests/torch_train_cases.py::train_world``; each run's first rank
+    then runs the same steps meshless on the card and compares
+    (``torch_train_cases.check``: each step's loss and grad norm within
+    1e-5, step 1's gradients within 1e-4 of each leaf's largest
+    magnitude, each leaf's update within 1e-3 in L2, olmoe's aux loss
+    within 1e-5 and its dropped pairs equal), and granite's sharded
+    state, saved by rank 0 and read back meshless, is held to the
+    meshless state.  Returns the phase's numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_train_cases as tc
+    log(f"== phase 38: sharded training on the mesh, ranks sharing the "
+        f"card over gloo, fp32, remat, AdamW, clip {TRAIN_MESH_CLIP} "
+        f"[{card}]")
+    t0 = time.perf_counter()
+    # the one card-only route of the training forward: a row-parallel
+    # layer's bf16 partial product with an fp32 result, differentiated
+    rp = tc.row_partial_grad_errors(dev)
+    log(f"  row-parallel bf16 partial product under autograd vs fp32: "
+        f"{rp} (bound {TRAIN_MESH_BF16_ROW})")
+    if max(rp.values()) > TRAIN_MESH_BF16_ROW:
+        raise AssertionError(f"phase 38: row_partial's bf16 backward {rp}")
+    tmp = tempfile.TemporaryDirectory()
+    save = os.path.join(tmp.name, "state.npz")
+    spawns, out = {}, {}
+    for label, arch, spec, layers, b, t, steps, moe, opts in \
+            TRAIN_MESH_CASES:
+        over = {"moe": dataclasses.replace(get_config(arch).moe, **moe)} \
+            if moe else {}
+        cfgkw = dict(arch=arch, over=over, layers=layers, dtype="float32",
+                     remat=True, smoke=False)
+        batches = tc.train_batches(tc.train_cfg(**cfgkw), b, t, n=steps,
+                                   seed=0)
+        kw = dict(opts, meshless=True,
+                  save=save if opts.get("save") else None)
+        world = math.prod(int(x.split("=")[1]) for x in spec.split(","))
+        spawns.setdefault(arch, (world, []))[1].append(
+            (label, (spec, cfgkw, None, batches, TRAIN_MESH_CLIP), kw))
+    with tmp, ThreadPoolExecutor(len(spawns)) as pool:
+        futs = {arch: pool.submit(spawn_ranks, tc.train_world, world, runs,
+                                  device="cuda", timeout=600)
+                for arch, (world, runs) in spawns.items()}
+        done = {arch: f.result() for arch, f in futs.items()}
+    for label, arch, spec, layers, b, t, steps, moe, opts in \
+            TRAIN_MESH_CASES:
+        ranks = [r[label] for r in done[arch]]
+        r0 = ranks[0]
+        what = f"phase 38 {label} ({layers} layers) {spec}"
+        tc.check(r0["cmp"], what=what)
+        if not r0["steps"][0][1] > TRAIN_MESH_CLIP:
+            raise AssertionError(f"{what}: clipping did not bind "
+                                 f"{r0['steps']}")
+        for i, r in enumerate(ranks):
+            if any(r["launches"].values()):
+                raise AssertionError(f"{what} rank {i}: the training "
+                                     f"forward launched {r['launches']}")
+        last = r0["bytes"][-1]
+        res = {"spec": spec, "layers": layers, "batch": [b, t],
+               "moe": moe, "backend": r0["backend"],
+               "steps": r0["steps"], "meshless_steps":
+               r0["meshless_steps"], "cmp": r0["cmp"],
+               "step_ms": [[round(x * 1e3, 1) for x in r["step_s"]]
+                           for r in ranks],
+               "meshless_step_ms": [round(x * 1e3, 1)
+                                    for x in r0["meshless_step_s"]],
+               f"bytes_step{steps}": {f"{sc or '-'} {k}": n for (sc, k), n
+                                      in sorted(last.items())},
+               "peak_gib": [round(r["peak_gib"], 2) for r in ranks],
+               "meshless_peak_gib": round(r0["meshless_peak_gib"], 2),
+               "launches_per_rank": r0["launches"]}
+        if opts.get("save"):
+            sv = r0["saved"]
+            if not (sv["keys"] and sv["step"]
+                    and sv["worst"][1] <= tc.UPDATE_TOL):
+                raise AssertionError(f"{what}: the saved sharded state "
+                                     f"read back meshless {sv}")
+            res["saved_worst"] = sv["worst"]
+        out[label] = res
+        scopes = {}
+        for (sc, k), n in last.items():
+            scopes[sc or "-"] = scopes.get(sc or "-", 0) + n
+        cmp = r0["cmp"]
+        log(f"  {label}: {arch} ({layers} layers"
+            f"{', ' if moe else ''}"
+            f"{', '.join(f'{k} {v}' for k, v in moe.items())}) {spec} "
+            f"batch {b} x {t}, {steps} step(s): backend {r0['backend']}; "
+            f"steps (loss, gnorm) {r0['steps']} vs meshless "
+            f"{r0['meshless_steps']}")
+        log(f"    worst: loss {max(cmp['steps']):.2e}"
+            + (f", gradient {cmp['grad']}" if "grad" in cmp else "")
+            + (f", update {cmp['update']}" if "update" in cmp else "")
+            + (f", aux loss {cmp['aux']:.2e}, dropped pairs "
+               f"{cmp['drops']}" if "drops" in cmp else "")
+            + (f", saved state {res['saved_worst']}"
+               if opts.get("save") else ""))
+        log(f"    step ms per rank {res['step_ms']} vs meshless "
+            f"{res['meshless_step_ms']} (ranks share one card over gloo: "
+            f"not a scaling figure)")
+        log(f"    bytes in step {steps} on rank 0 by scope {scopes}; by "
+            f"scope and kind {res[f'bytes_step{steps}']}")
+        log(f"    peak GiB per rank {res['peak_gib']} vs meshless "
+            f"{res['meshless_peak_gib']}; kernel launches per rank "
+            f"{r0['launches']}")
+        res["walls_s"] = {k: round(v, 1) for k, v in r0["walls"].items()}
+        log(f"    rank 0 walls (s) {res['walls_s']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 38 took {out['phase_s']:.1f} s")
+    return out
 
 
 def time_ms(torch, fn, flush, iters=20):
@@ -4940,6 +5118,8 @@ def main() -> int:
     modality_mesh, mod_errs = phase_modality_mesh(torch, np, K, card, dev)
     for name, err in mod_errs.items():
         errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    train_mesh = phase_train_mesh(torch, np, K, card, dev)
 
     launches = {"quoka_score": c_st["quoka_score"],
                 "flash_attention": c_st["flash_attention"],
@@ -4996,6 +5176,10 @@ def main() -> int:
                     f"fp32 serve registry per rank"] = \
             mesh["qwen3-4b"]["fp32 serve registry"]["launches_per_rank"][
                 name]
+        for label, arch, spec, layers, *_ in TRAIN_MESH_CASES:
+            paths[name][f"{label} {arch} ({layers} layers) {spec} train "
+                        f"per rank"] = \
+                train_mesh[label]["launches_per_rank"][name]
     kernels = []
     for name, (src, repl) in meta.items():
         kernels.append(dict(name=name, route="cuda", source=src,
@@ -5018,6 +5202,7 @@ def main() -> int:
                     "training": training, "telemetry": telemetry,
                     "mesh": mesh, "dp": dp, "ep": ep, "kinds": kinds,
                     "modality_mesh": modality_mesh,
+                    "train_mesh": train_mesh,
                     "elapsed_s": time.perf_counter() - t_start}))
     log(f"phase wall times (s): {json.dumps(phase_walls())}")
     log(card)

@@ -62,7 +62,7 @@ def init_distributed(device=None, *, init_method: Optional[str] = None,
     dev = resolve_device(device)
     if not dist.is_initialized():
         rank = int(os.environ.get("RANK", 0)) if rank is None else rank
-        world_size = _world() if world_size is None else world_size
+        world_size = n_ranks() if world_size is None else world_size
         if init_method is None:
             # one rank outside torchrun: a private file rendezvous
             init_method = "env://" if "MASTER_ADDR" in os.environ else \
@@ -83,7 +83,7 @@ def _device_mesh(device_type: str, shape, names):
                             mesh_dim_names=tuple(names))
 
 
-def _world() -> int:
+def n_ranks() -> int:
     """The world size: the joined group's, else ``torchrun``'s, else 1."""
     if dist.is_initialized():
         return dist.get_world_size()
@@ -91,7 +91,7 @@ def _world() -> int:
 
 
 def _need(n: int, spec: str) -> None:
-    have = _world()
+    have = n_ranks()
     if n != have:
         raise ValueError(
             f"mesh {spec!r} needs {n} devices but {have} are visible "

@@ -17,8 +17,10 @@ one full-sequence pass with no cache on the plain attention path (no
 kernel; the reference's ``train`` reaches no Pallas kernel either),
 returning ``(x, aux)`` with the MoE load-balance loss as a value (0.0 for
 the other kinds).  A recurrent block starts from a fresh zero state and
-writes no cache.  ``ctx`` holds ``shared`` (zamba2's shared block) and
-``enc_out`` (whisper's encoder output, for ``dec_cross``).  The name keeps
+writes no cache.  ``ctx`` holds ``shared`` (zamba2's shared block),
+``enc_out`` (whisper's encoder output, for ``dec_cross``) and ``rows``
+(the FSDP axis when the step's rows are split over it: a MoE's capacity
+ranking and load-balance loss then count every rank's rows).  The name keeps
 clear of ``nn.Module.train(mode)``.
 
 ``AttnBlock.apply`` runs a prefill chunk or a decode step (t == 1) against
@@ -170,15 +172,16 @@ def _ffn(blk, x, w, rows=None):
     return x + mlp(w["mlp"], h, cfg.act, blk.tp_ffn)
 
 
-def _ffn_aux(blk, x, w):
+def _ffn_aux(blk, x, w, rows=None):
     """``(_ffn(blk, x, w), aux)``: a MoE FFN's ``router_aux_coef``
     times its load-balance loss, accumulated into a dict of this call's
-    own (so a recomputed forward cannot count it twice), else 0.0."""
+    own (so a recomputed forward cannot count it twice), else 0.0;
+    ``rows`` as ``_ffn``'s (the loss then counts every rank's rows)."""
     if not blk.kind.endswith("_moe"):
         return _ffn(blk, x, w), 0.0
     c = {}
     y = moe.moe_apply(blk.moe, _block_norm(blk, "ln2", x), blk.cfg, c,
-                      w=w["moe"])
+                      w=w["moe"], rows=rows)
     return x + y, c["aux_loss"]
 
 
@@ -370,7 +373,8 @@ class AttnBlock(nn.Module):
         """The full-sequence pass: attention over the sequence, then the
         MLP or the MoE.  Returns (x, aux)."""
         w = self._weights()
-        return _ffn_aux(self, self._self_attend(x, pos, w), w)
+        return _ffn_aux(self, self._self_attend(x, pos, w), w,
+                        (ctx or {}).get("rows"))
 
     def apply(self, x, pos, kv: KVCache, ctx, plan=None):
         """x (b, t, d), pos (b, t) (-1 = pad); writes the chunk's K/V into
@@ -592,7 +596,8 @@ class MLABlock(nn.Module):
         q_abs, q_rope = self._queries(h, pos, w)
         ckv, kr = self._latent_kv(h, pos, w)
         att = self._absorbed_full(q_abs, q_rope, ckv, kr, pos, pos)
-        return _ffn_aux(self, x + self._out(att, w), w)
+        return _ffn_aux(self, x + self._out(att, w), w,
+                        (ctx or {}).get("rows"))
 
     def _absorbed_attention(self, q_abs, q_rope, ckv, krope, mask):
         """Attention entirely in latent space (the MLA deployment trick);
@@ -731,15 +736,16 @@ class MambaBlock(nn.Module):
         return _kv_plan_shape(cache.kv, t, method, qcfg)
 
     def full_forward(self, x, pos, ctx):
-        """The full-sequence pass from a zero state (written nowhere), then
-        the shared block's full-sequence pass.  Returns (x, aux)."""
-        cfg, s = self.cfg, self.cfg.ssm
-        _, nh, ch = mamba2._dims(cfg)
-        zero = mamba_cache_init(x.shape[0], s.d_conv, ch, nh, s.head_dim,
-                                s.d_state, x.dtype, x.device)
-        y, _ = mamba2.mamba_apply(self.mamba, rmsnorm(self.ln, x,
-                                                      cfg.norm_eps),
-                                  zero, cfg)
+        """The full-sequence pass from a zero state of this rank's heads
+        (written nowhere) with the layer call's weights, then the shared
+        block's full-sequence pass.  Returns (x, aux)."""
+        cfg, s, m = self.cfg, self.cfg.ssm, self.mamba
+        zero = mamba_cache_init(x.shape[0], s.d_conv,
+                                m.norm.shape[0] + 2 * s.d_state,
+                                m.a_log.shape[0], s.head_dim, s.d_state,
+                                x.dtype, x.device)
+        y, _ = mamba2.mamba_apply(m, rmsnorm(self.ln, x, cfg.norm_eps),
+                                  zero, cfg, w=self._weights()["mamba"])
         x = x + y
         if self.with_shared:
             return ctx["shared"].full_forward(x, pos, ctx)
@@ -815,13 +821,14 @@ class RWKVBlock(nn.Module):
         return x + y, RWKVCache(shift_tm=sh_tm, shift_cm=sh_cm, wkv=wkv)
 
     def full_forward(self, x, pos, ctx=None):
-        """The full-sequence pass from a zero state (written nowhere).
-        Returns (x, 0.0)."""
-        cfg = self.cfg
-        hd = cfg.rwkv.head_dim
-        zero = rwkv_cache_init(x.shape[0], cfg.d_model, cfg.d_model // hd,
-                               hd, x.dtype, x.device)
-        return self._run(x, zero)[0], 0.0
+        """The full-sequence pass from a zero state of this rank's heads
+        (written nowhere) with the layer call's weights.  Returns (x,
+        0.0)."""
+        hd = self.cfg.rwkv.head_dim
+        zero = rwkv_cache_init(x.shape[0], self.cfg.d_model,
+                               self.tm.wk.shape[1] // hd, hd, x.dtype,
+                               x.device)
+        return self._run(x, zero, self._weights())[0], 0.0
 
     def apply(self, x, pos, cache: RWKVCache, ctx, plan=None):
         x, new = self._run(x, cache, self._weights())

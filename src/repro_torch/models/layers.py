@@ -21,6 +21,12 @@ FSDP ranks' tokens read (each rank looks them up in its columns), and
 ``readout`` sums each rank's columns' partial logits of every FSDP
 rank's rows, so it returns the logits of every FSDP rank's rows, in
 rank order.
+
+In training every collective here carries its backward
+(``sharding/comm.py``): the row-parallel and vocab-parallel sums
+all-reduce their gradients, ``gather_weights`` reduce-scatters the
+whole weights' gradients into the FSDP shards, and the embedding's and
+read-out's gathers return each rank its rows' and columns' share.
 """
 from __future__ import annotations
 
@@ -50,6 +56,24 @@ def row_linear(w, x, ax=None):
     return comm.all_reduce(row_partial(w, x), ax).to(x.dtype)
 
 
+class _MmFp32Out(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=torch.float32)`` (which has no
+    derivative) with a backward: the two GEMMs in x's dtype, as
+    ``linear``'s backward runs them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w.t() if ctx.needs_input_grad[0] else None,
+                x.t() @ g if ctx.needs_input_grad[1] else None)
+
+
 def row_partial(w, x):
     """This rank's fp32 partial product ``x @ w`` of a row-parallel
     ``w``, before the sum over the ranks.  On the card a bf16 product
@@ -57,8 +81,8 @@ def row_partial(w, x):
     GEMM and upcasts."""
     if x.is_cuda and x.dtype != torch.float32:
         # one half-precision GEMM with an fp32 result (fp32 accumulation)
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        return _MmFp32Out.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], -1)
     return x.float() @ w.float()
 
 

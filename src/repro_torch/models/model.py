@@ -61,7 +61,11 @@ keeps its slice of them in each ``CrossKV``) and internvl2's projector
 ``mtp`` head is placed with the layers and never run at inference.
 With ``with_obs`` on a mesh each selecting layer leaves its raw partials
 and the step reduces them over the mesh once (``core/plan.py::
-MeshObs``), so every rank returns the meshless ``LayerObs``.
+MeshObs``), so every rank returns the meshless ``LayerObs``.  Training
+on a mesh (``training/loop.py``): ``train_logits`` and ``loss`` take
+``rows``, the FSDP axis when the batch is this rank's share of the
+step's rows; the logits are this rank's rows, and the loss (MTP's and
+the MoE's aux loss too) is the whole step's, the same on every rank.
 """
 from __future__ import annotations
 
@@ -82,6 +86,7 @@ from repro_torch.models.layers import (_act, embed, gather_weights,
                                        linear, readout, rmsnorm,
                                        sinusoidal)
 from repro_torch.models.stack import Cache, Stack
+from repro_torch.sharding import comm
 
 
 def _on(x, dev, dtype=None) -> torch.Tensor:
@@ -142,6 +147,7 @@ class Model(nn.Module):
         self.mesh = None           # the mesh a ``shard`` placed this on
         self.tp_vocab = None       # the model axis when the vocab shards
         self.fsdp = None           # the FSDP axis (``shard``, pod x data)
+        self.cuts = {}             # parameter -> (model dim, FSDP dim) cut
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
                         device=dev), requires_grad=False)
@@ -380,54 +386,83 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def train_logits(self, batch: Dict):
-        """Full-sequence logits (b, T, V) fp32 and the aux loss (fp32
-        scalar: MoE load balance plus MTP).  Whisper first runs its
-        encoder over ``batch["frames"]``; a VLM's T counts its patches."""
+    def train_logits(self, batch: Dict, rows=None):
+        """Full-sequence logits (b, T, V) fp32 of the batch's rows and the
+        aux loss (fp32 scalar: MoE load balance plus MTP).  Whisper first
+        runs its encoder over ``batch["frames"]``; a VLM's T counts its
+        patches.  ``rows``: the FSDP axis when the batch is this rank's
+        share of the step's rows (rank-major), else None; the aux loss is
+        then the whole step's (a MoE's routed fractions and its MTP mean
+        count every rank's rows)."""
         enc_out = self.encode(batch["frames"]) if self.enc is not None \
             else None
         x, pos = self.embed_inputs(batch)
-        ctx = {"shared": self.shared, "enc_out": enc_out}
+        ctx = {"shared": self.shared, "enc_out": enc_out, "rows": rows}
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for s in self.stacks:
             x, a = s.full_forward(x, pos, ctx)
             aux = aux + a
-        logits = self._readout(x)
+        logits = self._own_rows(self._readout(x), x.shape[0])
         if self.mtp is not None:
             aux = aux + self._mtp_loss(x, pos, batch, ctx)
         return logits, aux
+
+    def _own_rows(self, logits, b: int):
+        """This rank's ``b`` rows of ``_readout``'s logits, which under
+        FSDP are every FSDP rank's rows in rank order."""
+        if self.fsdp is None:
+            return logits
+        return logits[self.fsdp.rank * b:(self.fsdp.rank + 1) * b]
 
     def _mtp_loss(self, hidden, pos, batch: Dict, ctx: Dict):
         """DeepSeek-V3 multi-token prediction: the ``mtp`` block predicts
         token t+2 from ``mix([norm(h_t); emb(tok_t+1)])``; weight 0.3, the
         mean over every position with the last two masked (as the
-        reference, which divides by all b * T)."""
+        reference, which divides by all b * T; over every rank's rows
+        when ``ctx["rows"]`` splits them)."""
         cfg = self.cfg
         tok = _on(batch["tokens"], self.device).long()
         emb_n = self._embed(torch.roll(tok, -1, dims=1), hidden.dtype)
         h = rmsnorm(self.mtp.ln, hidden, cfg.norm_eps)
-        h = linear(self.mtp.mix, torch.cat([h, emb_n], dim=-1))
+        mix = self.mtp.mix
+        if mix.shape[0] < 2 * cfg.d_model:       # FSDP cut its rows
+            mix = gather_weights({"mix": (mix, 0)}, self.fsdp)["mix"]
+        h = linear(mix, torch.cat([h, emb_n], dim=-1))
         h, _ = self.mtp.block.full_forward(h, pos, ctx)
-        logits = self._readout(h)
+        logits = self._own_rows(self._readout(h), h.shape[0])
         t = tok.shape[1]
         nll = F.cross_entropy(logits.flatten(0, 1),
                               torch.roll(tok, -2, dims=1).flatten(),
                               reduction="none").view(tok.shape)
         mask = torch.arange(t, device=self.device) < t - 2
-        return 0.3 * (nll * mask[None]).mean()
+        rows = ctx.get("rows")
+        if rows is None or rows.size == 1:
+            return 0.3 * (nll * mask[None]).mean()
+        with comm.scope("loss"):
+            total = comm.all_reduce((nll * mask[None]).sum(), rows)
+        return 0.3 * total / (nll.numel() * rows.size)
 
-    def loss(self, batch: Dict):
+    def loss(self, batch: Dict, rows=None):
         """Next-token cross entropy plus the aux loss, a fp32 scalar.  A
         VLM's patch positions are dropped from the logits; whisper's loss
         is over its decoder tokens; ``batch["loss_mask"]`` (b, T) weights
-        the positions (averaged over its sum, at least 1)."""
-        logits, aux = self.train_logits(batch)
+        the positions (averaged over its sum, at least 1).  ``rows`` as
+        ``train_logits``': the mean is then the whole step's, the sums of
+        ``nll * mask`` and of the mask over ``rows``, on every rank."""
+        logits, aux = self.train_logits(batch, rows)
         tok = _on(batch["tokens"], self.device).long()
         t = tok.shape[1]
         lg = logits[:, -t:-1] if self.proj is not None else logits[:, :-1]
         nll = F.cross_entropy(lg.flatten(0, 1), tok[:, 1:].flatten(),
                               reduction="none").view(tok.shape[0], t - 1)
         mask = batch.get("loss_mask")
+        if rows is not None and rows.size > 1:
+            m = torch.ones_like(nll) if mask is None else \
+                _on(mask, self.device, torch.float32)[:, 1:]
+            with comm.scope("loss"):
+                sums = comm.all_reduce(torch.stack([(nll * m).sum(),
+                                                    m.sum()]), rows)
+            return sums[0] / sums[1].clamp(min=1.0) + aux
         if mask is None:
             return nll.mean() + aux
         m = _on(mask, self.device, torch.float32)[:, 1:]

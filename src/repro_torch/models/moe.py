@@ -123,18 +123,29 @@ class MoE(nn.Module):
             normal_(p, 1.0 / math.sqrt(p.shape[0]))
 
 
-def route(p: MoE, x, e: MoEConfig, with_aux: bool = False, router=None):
+def route(p: MoE, x, e: MoEConfig, with_aux: bool = False, router=None,
+          rows=None):
     """x (N, d) -> (weights (N, k) in x's dtype, expert ids (N, k) int64,
     the load-balance loss or None); ``router``: the call's (d, E) router
-    weight (default ``p``'s)."""
+    weight (default ``p``'s).  ``rows``: the axis this rank's rows are
+    its share of: the loss's routed fractions and mean probabilities are
+    then the whole batch's, their sums over ``rows`` (one fp32
+    all-reduce of the (E,) counts and probability sums, scope ``ep``)."""
     router = p.router if router is None else router
     probs = torch.softmax(linear(router, x).float(), dim=-1)     # (N, E)
     w, ids = topk_stable(probs, e.top_k)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     aux = None
-    if with_aux:
+    if with_aux and (rows is None or rows.size == 1):
         f = F.one_hot(ids, e.n_experts).float().mean(dim=(0, 1)) * e.top_k
         aux = e.n_experts * torch.sum(f * probs.mean(0))
+    elif with_aux:
+        n = x.shape[0] * rows.size
+        counts = F.one_hot(ids, e.n_experts).float().sum(dim=(0, 1))
+        with comm.scope("ep"):
+            sums = comm.all_reduce(torch.cat([counts, probs.sum(0)]), rows)
+        f = sums[:e.n_experts] / (n * e.top_k) * e.top_k
+        aux = e.n_experts * torch.sum(f * (sums[e.n_experts:] / n))
     return w.to(x.dtype), ids, aux
 
 
@@ -180,14 +191,15 @@ def moe_apply(p: MoE, x, cfg: ModelConfig, ctx: Optional[dict] = None,
     ``ctx["aux_loss"]``, as the reference does.  ``w``: the layer call's
     weights by ``MoE.held``'s names (default the held ones); ``rows``:
     the FSDP axis when this rank's rows are its share of the step's
-    (module docstring)."""
+    (module docstring): the capacity ranking and, in training, the
+    load-balance loss count every rank's tokens."""
     e = cfg.moe
     w = p.held() if w is None else w
     b, t, d = x.shape
     xf = x.reshape(-1, d)                                       # (N, d)
     n = xf.shape[0]
     wt, ids, aux = route(p, xf, e, with_aux=ctx is not None,
-                         router=w["router"])
+                         router=w["router"], rows=rows)
     if ctx is not None:
         ctx["aux_loss"] = ctx.get("aux_loss", 0.0) + e.router_aux_coef * aux
     ep = p.ep

@@ -15,7 +15,9 @@ cross-attention's keys and values of the encoder's output), all updated
 in place.  ``full_forward`` is the full-sequence pass with no cache (the
 reference's ``Stack.train``: training, and whisper's encoder), each layer
 recomputed in the backward under ``cfg.remat`` as the reference's
-``jax.checkpoint`` does.  The plan carry engages only where every layer
+``jax.checkpoint`` does (on a mesh every rank re-runs the layer's
+forward collectives in the backward, in one order, counted under the
+byte label ``remat``).  The plan carry engages only where every layer
 would build a plan of one shape, as in the reference: a plain ``mamba`` or
 ``rwkv`` layer builds none, which turns it off for its stack.
 """
@@ -30,11 +32,26 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.models.blocks import make_block
+from repro_torch.sharding import comm
 from repro_torch.serving.cache import (CrossCache, KVCache, LatentCache,
                                        MambaCache, RWKVCache, SharedAttnCache)
 
 Cache = Union[KVCache, LatentCache, MambaCache, SharedAttnCache, RWKVCache,
               CrossCache]
+
+
+def _recomputed(fn):
+    """``fn`` whose second and later calls (the checkpoint's recompute in
+    the backward) count their collectives under ``remat``."""
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        with comm.label("remat"):
+            return fn(*args)
+    return run
 
 
 class Stack(nn.Module):
@@ -53,14 +70,15 @@ class Stack(nn.Module):
         """Every layer's full-sequence pass with no cache and no plan
         carry.  Returns (x, aux): the layers' aux losses summed in fp32.
         Under ``cfg.remat`` (with autograd recording) each layer keeps only
-        its input and runs again in the backward."""
+        its input and runs again in the backward, where its collectives
+        count under the byte label ``remat``."""
         ctx = {} if ctx is None else ctx
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if remat:
                 # the blocks draw no random numbers: no RNG state to keep
-                x, a = checkpoint(blk.full_forward, x, pos, ctx,
+                x, a = checkpoint(_recomputed(blk.full_forward), x, pos, ctx,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:

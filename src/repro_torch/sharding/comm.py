@@ -47,7 +47,40 @@ the collectives of a stretch of code: ``score`` the scoring pass,
 that stand in for gathering the embedding), ``seq`` a sequence-sharded
 cache's row and slice moves, ``ep`` the expert-parallel MoE's sum over
 ``model`` and its capacity ranking's (E,) int32 counts gathered over the
-FSDP group (``models/moe.py``); the rest count under ``""``.
+FSDP group (``models/moe.py``), ``loss`` a training loss's sums over the
+FSDP group (``models/model.py``); the rest count under ``""``.
+
+Gradients (training).  ``all_reduce``, ``all_gather`` /
+``all_gather_parts`` (and so ``layers.gather_weights``, the FSDP
+gather) are ``torch.autograd.Function``s; under ``torch.no_grad``
+(serving) autograd records nothing and they move what they moved
+before.  The convention: a tensor that the ranks of an axis hold alike
+(replicated: the residual stream over ``model``, a weight gathered over
+the FSDP group, the loss on every rank) has on each rank the PARTIAL
+gradient of that rank's own uses of it, and its whole gradient is the
+sum over the ranks; a tensor a rank holds alone (a shard, a partial
+product, its own rows) has its whole gradient.  Every op keeps to it:
+
+  * ``all_reduce``'s backward is an all-reduce of the output's partials;
+  * an all-gather's backward reduce-scatters them: each rank receives
+    the sum of every rank's gradient of its part (an FSDP gather's
+    reduces the whole weight's gradient into the rank's shard);
+  * the entry of a tensor-parallel region (a replicated input that each
+    rank multiplies by its own heads', experts' or channels' weights, or
+    reads a subset of, as ``HeadShard.take``) is the identity forward
+    and backward: each rank's gradient of it is the partial of its own
+    heads, and the sum it needs is made where the partials meet, in the
+    backward of the region's exit (the row-parallel all-reduce, the
+    gathers) and, for a leaf replicated over an axis, in the sum of its
+    gradient over that axis (``training/loop.py``);
+  * the loss, replicated on every rank, seeds the backward once: 1 on
+    the mesh's first rank, 0 on the others (``seed``).
+
+Backward bytes count under the scope ``grad`` (by kind: ``all_reduce``,
+``reduce_scatter``), whatever scope the forward ran in; a layer's
+forward re-run in the backward under ``remat`` (``models/stack.py``)
+counts under ``remat``.  A reduce-scatter counts its result bytes, as an
+all-gather does; a backend that refuses one raises.
 """
 from __future__ import annotations
 
@@ -63,6 +96,7 @@ from repro_torch.sharding.specs import mesh_shape
 
 BYTES: Dict[Tuple[str, str], int] = defaultdict(int)
 _SCOPE = [""]
+_LABEL: List[str] = []     # a label that overrides every scope (``label``)
 
 
 def reset_counts() -> None:
@@ -87,8 +121,20 @@ def scope(name: str):
         _SCOPE.pop()
 
 
+@contextlib.contextmanager
+def label(name: str):
+    """Count every collective of a stretch of code under ``name``,
+    whatever ``scope`` its own code names (the backward's ``grad``, the
+    recompute's ``remat``)."""
+    _LABEL.append(name)
+    try:
+        yield
+    finally:
+        _LABEL.pop()
+
+
 def _note(kind: str, nbytes: int) -> None:
-    BYTES[(_SCOPE[-1], kind)] += int(nbytes)
+    BYTES[(_LABEL[-1] if _LABEL else _SCOPE[-1], kind)] += int(nbytes)
 
 
 class Axis:
@@ -164,25 +210,73 @@ def _reduce(x: torch.Tensor, ax: Axis, op, kind: str) -> torch.Tensor:
     return y
 
 
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``ax``; its backward sums the output's partial
+    gradients over ``ax`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _reduce(x, ax, dist.ReduceOp.SUM, "all_reduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        with label("grad"):
+            return _reduce(g, ctx.ax, dist.ReduceOp.SUM, "all_reduce"), None
+
+
 def all_reduce(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """The sum of every rank's ``x`` (a new tensor, ``x``'s dtype)."""
-    return _reduce(x, ax, dist.ReduceOp.SUM, "all_reduce")
+    return _AllReduce.apply(x, ax)
 
 
 def all_reduce_max(x: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """The elementwise max over the ranks (exact in any order)."""
+    """The elementwise max over the ranks (exact in any order); no
+    backward (serving only)."""
     return _reduce(x, ax, dist.ReduceOp.MAX, "all_reduce_max")
+
+
+def _gather(x: torch.Tensor, ax: Axis) -> List[torch.Tensor]:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ax.size)]
+    dist.all_gather(parts, x, group=ax.group)
+    _note("all_gather", ax.size * x.numel() * x.element_size())
+    return parts
+
+
+def reduce_scatter(parts: List[torch.Tensor], ax: Axis) -> torch.Tensor:
+    """The sum over the ranks of ``parts[c]`` (one tensor per coordinate
+    of ``ax``, one shape), on coordinate ``c``."""
+    if ax.size == 1:
+        return parts[0]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, [p.contiguous() for p in parts],
+                        group=ax.group)
+    _note("reduce_scatter", out.numel() * out.element_size())
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` in rank order; its backward reduce-scatters the
+    parts' partial gradients, so each rank receives the whole gradient
+    of its own part (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return tuple(_gather(x, ax))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        with label("grad"):
+            return reduce_scatter(list(gs), ctx.ax), None
 
 
 def all_gather_parts(x: torch.Tensor, ax: Axis) -> List[torch.Tensor]:
     """Every rank's ``x`` (one shape on every rank), in rank order."""
     if ax.size == 1:
         return [x]
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(ax.size)]
-    dist.all_gather(parts, x, group=ax.group)
-    _note("all_gather", ax.size * x.numel() * x.element_size())
-    return parts
+    return list(_AllGather.apply(x, ax))
 
 
 def all_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
@@ -194,7 +288,7 @@ def all_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
 def broadcast(x: torch.Tensor, ax: Axis, src: int) -> torch.Tensor:
     """Coordinate ``src``'s ``x`` on every rank of ``ax``: every rank
     passes a contiguous tensor of one shape and dtype, which the others'
-    receive into."""
+    receive into (no backward: serving only)."""
     if ax.size == 1:
         return x
     dist.broadcast(x, src=ax.ranks[src], group=ax.group)
@@ -212,6 +306,14 @@ def broadcast_float(v: float, ax: Axis, device) -> float:
     dist.broadcast(t, src=ax.root, group=ax.group)
     _note("broadcast", t.numel() * t.element_size())
     return float(t.item())
+
+
+def seed(mesh) -> float:
+    """The gradient a rank seeds the replicated loss's backward with: 1
+    on the mesh's first rank, 0 on the others, so the ranks' partials sum
+    to the loss's one seed (module docstring); 1 meshless."""
+    return 1.0 if mesh is None or dist.get_rank() == world(mesh).root \
+        else 0.0
 
 
 class HeadShard:

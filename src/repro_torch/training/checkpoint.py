@@ -46,7 +46,17 @@ encoder layers as any attention block; internvl2's projector, whose
 weights only FSDP cuts, gathers them per call, ``Model.project``);
 ``from_flat(..., mesh=)`` shards what it reads.  A model is drawn whole
 (``Model.init``) on every rank before it is sliced, so every rank and a
-meshless run hold the same weights.
+meshless run hold the same weights.  ``shard`` records each parameter's
+cut dimensions (``Model.cuts``), which the trainer reads (a leaf the
+mesh replicates over an axis has its gradient summed over it, and the
+gradient norm counts each element once: ``leaf_axes``), and slices an
+optimizer state's moments with their parameters (``state=``): so
+``restore_state`` followed by ``shard`` resumes training on a mesh.  On
+a sharded model ``to_flat``, ``state_flat`` and ``save`` gather every
+leaf back to the reference's whole shape (every rank calls them: the
+gathers are collectives); only the mesh's first rank copies each whole
+leaf to host memory, the others drop it as it arrives, and the first
+rank writes the file, the one a meshless run writes.
 """
 from __future__ import annotations
 
@@ -188,9 +198,11 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
 
 
 @torch.no_grad()
-def shard(model: Model, mesh) -> Model:
+def shard(model: Model, mesh, state: opt.OptState = None) -> Model:
     """Slice ``model``'s weights, in place, to this rank's share of the
-    mesh's ``model`` axis (module docstring) and place its blocks.  A
+    mesh's ``model`` axis (module docstring) and place its blocks; the
+    moments of an optimizer ``state`` of the meshless model (its lists,
+    in ``model.parameters()`` order) are sliced with their parameters.  A
     model already sharded on ``mesh`` is returned as it is."""
     if model.mesh is mesh:
         return model
@@ -202,15 +214,25 @@ def shard(model: Model, mesh) -> Model:
     fax = comm.axis(mesh, specs.fsdp_axes(mesh) or ())
     leaves = leaf_map(model)
     placements = specs.param_specs(cfg, specs.tree_shapes(model), mesh)
+    index = {p: i for i, p in enumerate(model.parameters())}
+    moments = [] if state is None else [state.mu, state.nu]
+    model.cuts = {}
     for key, (ts, stacked) in leaves.items():
         spec = placements[key][int(stacked):]
-        for dim, a in ((specs.model_axis_entry(spec), ax),
-                       (specs.fsdp_axis_entry(spec), fax)):
-            if dim is None or a.size == 1:
+        cut = [dim if dim is not None and a.size > 1 else None
+               for dim, a in ((specs.model_axis_entry(spec), ax),
+                              (specs.fsdp_axis_entry(spec), fax))]
+        for t in ts:
+            model.cuts[t] = tuple(cut)
+        for dim, a in zip(cut, (ax, fax)):
+            if dim is None:
                 continue
             for t in ts:
                 n = t.shape[dim] // a.size
                 t.data = t.data.narrow(dim, a.rank * n, n).clone()
+                for ms in moments:
+                    i = index[t]
+                    ms[i] = ms[i].narrow(dim, a.rank * n, n).clone()
     if model.shared is not None:        # zamba2's one shared block, once
         model.shared.place(ax, fax)
     enc = list(model.enc.layers) if model.enc is not None else []
@@ -256,23 +278,65 @@ def from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` (on the CPU ``numpy()`` alone would share
+    the tensor's memory, which a training step then updates)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+
+def leaf_axes(model: Model) -> List[Tuple[str, ...]]:
+    """For each parameter, in ``model.parameters()`` order, the mesh axes
+    that cut it (``"model"``, ``"fsdp"``: the flattened ``(pod, data)``
+    group); () for a leaf every rank holds whole, and for every leaf of a
+    meshless model."""
+    cuts = getattr(model, "cuts", None) or {}
+    return [tuple(name for name, dim in zip(("model", "fsdp"),
+                                            cuts.get(p, (None, None)))
+                  if dim is not None) for p in model.parameters()]
+
+
+def _whole(model: Model, param, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (``param``'s shard, or a tensor cut as it is) gathered to the
+    whole leaf over the axes that cut ``param``: the FSDP axis first,
+    then ``model`` (the reverse of ``shard``'s slicing)."""
+    cuts = getattr(model, "cuts", None)
+    if not cuts:
+        return t
+    mdim, fdim = cuts[param]
+    if fdim is not None:
+        t = comm.all_gather(t.contiguous(), model.fsdp, fdim)
+    if mdim is not None:
+        t = comm.all_gather(t.contiguous(), comm.axis(model.mesh), mdim)
+    return t
 
 
 @torch.no_grad()
 def to_flat(model: Model, pick: Callable = None) -> Dict[str, np.ndarray]:
     """The inverse of ``from_flat``: the reference's flat dict of numpy
     arrays.  ``pick(param)`` chooses the tensor saved for each parameter
-    (default the parameter itself; e.g. its gradient or its moment)."""
+    (default the parameter itself; e.g. its gradient or its moment).  On
+    a sharded model every rank calls it: each leaf is gathered whole, and
+    only the mesh's first rank keeps it (the others return {})."""
     pick = pick or (lambda p: p)
+    keep = _first(model)
     out = {}
     for key, (ts, stacked) in leaf_map(model).items():
-        arrs = [_numpy(pick(t)) for t in ts]
-        out[key] = np.stack(arrs) if stacked else arrs[0]
+        arrs = []
+        for t in ts:
+            w = _whole(model, t, pick(t))
+            if keep:
+                arrs.append(_numpy(w))
+            del w
+        if keep:
+            out[key] = np.stack(arrs) if stacked else arrs[0]
     return out
+
+
+def _first(model: Model) -> bool:
+    """Whether this process is the mesh's first rank (or meshless)."""
+    return model.mesh is None or comm.seed(model.mesh) == 1.0
 
 
 def _flat_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -289,13 +353,15 @@ def _flat_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def state_flat(model: Model, ostate: opt.OptState) -> Dict[str, np.ndarray]:
-    """A training state under the reference's ``TrainState`` keys."""
+    """A training state under the reference's ``TrainState`` keys ({} on
+    a mesh's other ranks, as ``to_flat``)."""
     index = {p: i for i, p in enumerate(model.parameters())}
     out = {f"params/{k}": v for k, v in to_flat(model).items()}
-    out["opt/step"] = _numpy(ostate.step)
     for name, moments in (("mu", ostate.mu), ("nu", ostate.nu)):
         out.update({f"opt/{name}/{k}": v for k, v in to_flat(
             model, lambda p: moments[index[p]]).items()})
+    if _first(model):
+        out["opt/step"] = _numpy(ostate.step)
     return out
 
 
@@ -304,13 +370,17 @@ def save(path: str, tree, meta: Dict = None) -> None:
     ``meta`` (if given) as JSON to ``path + ".meta.json"``.  ``tree`` is a
     ``Model`` (its parameters), a ``TrainState`` (``training/loop.py``:
     its model's parameters and optimizer state) or a nested dict of
-    arrays."""
+    arrays.  A sharded model's or state's leaves are gathered whole (each
+    rank must call ``save``); the mesh's first rank alone keeps them and
+    writes."""
     if isinstance(tree, Model):
-        flat = to_flat(tree)
+        flat, first = to_flat(tree), _first(tree)
     elif isinstance(tree, dict):
-        flat = _flat_tree(tree)
+        flat, first = _flat_tree(tree), True
     else:
-        flat = state_flat(tree.model, tree.opt)
+        flat, first = state_flat(tree.model, tree.opt), _first(tree.model)
+    if not first:
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **flat)
     if meta is not None:
@@ -348,9 +418,10 @@ def restore(path: str, cfg: ModelConfig, device=None) -> Model:
 @torch.no_grad()
 def restore_state(path: str, cfg: ModelConfig, device=None
                   ) -> Tuple[Model, opt.OptState]:
-    """A model and its optimizer state from a saved training state (the
-    port's or the reference's ``TrainState``), each moment in its
-    parameter's dtype.  ``TrainState(*restore_state(...))`` resumes."""
+    """A model (trainable) and its optimizer state from a saved training
+    state (the port's or the reference's ``TrainState``), each moment in
+    its parameter's dtype.  ``TrainState(*restore_state(...))`` resumes;
+    on a mesh, ``shard(model, mesh, state=ostate)`` first."""
     flat = _load(path)
     model = from_flat({k[len("params/"):]: v for k, v in flat.items()
                        if k.startswith("params/")}, cfg, device)
@@ -364,5 +435,6 @@ def restore_state(path: str, cfg: ModelConfig, device=None
                                              device=t.device)
     step = torch.as_tensor(flat["opt/step"], dtype=torch.int32,
                            device=model.device)
+    model.requires_grad_(True)
     return model, opt.OptState(step=step, mu=moments["mu"],
                                nu=moments["nu"])

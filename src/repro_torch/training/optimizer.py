@@ -17,6 +17,11 @@ LayerNorm biases and Mamba2's ``a_log`` / ``d_skip`` / ``dt_bias`` /
 ``norm`` inside a stack ARE decayed, while ``ln_f``, the shared block's,
 the MTP head's and the encoder's final gains and the projector's biases
 are not.
+
+On a mesh (``training/loop.py``) the lists are this rank's shards: the
+moments sit on their parameters' shards, and the clipping norm sums each
+shard's squares over the axis whose ranks hold the leaf's other pieces
+(``global_norm(axes=)``), a leaf every rank holds whole counted once.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+
+from repro_torch.sharding import comm
 
 
 @dataclass(frozen=True)
@@ -58,10 +65,25 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], axes=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, in fp32.  ``axes`` (on
+    a mesh): for each tensor the ``comm.Axis`` whose ranks hold its other
+    pieces, or None for a tensor every rank holds whole; each piece's
+    squares are summed over its axis (one fp32 all-reduce per axis), so
+    every element of the whole model counts once."""
+    if axes is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tensors))
+    sums = {}
+    for t, ax in zip(tensors, axes):
+        sq = torch.sum(torch.square(t.float()))
+        key = None if ax is None else id(ax)
+        sums[key] = (ax, sq if key not in sums else sums[key][1] + sq)
+    total = 0.0
+    with comm.label("grad"):
+        for ax, sq in sums.values():
+            total = total + (sq if ax is None else comm.all_reduce(sq, ax))
+    return torch.sqrt(total)
 
 
 def init(params: Sequence[torch.Tensor]) -> OptState:
@@ -82,15 +104,17 @@ def _decay_mask(rank: int) -> bool:
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor],
                   grads: Sequence[Optional[torch.Tensor]], state: OptState,
-                  cfg: OptimizerConfig, ranks: Sequence[int]):
+                  cfg: OptimizerConfig, ranks: Sequence[int], axes=None):
     """One AdamW step: ``params`` and the moments are updated in place
     (a missing gradient counts as zeros, as the reference's gradient of an
-    unused leaf).  Returns (the new ``OptState``, metrics ``{"lr",
-    "grad_norm"}`` as fp32 tensors; the norm is taken before
+    unused leaf).  On a mesh the parameters, gradients and moments are
+    this rank's shards and ``axes`` gives each one's axis for the global
+    norm (``global_norm``).  Returns (the new ``OptState``, metrics
+    ``{"lr", "grad_norm"}`` as fp32 tensors; the norm is taken before
     clipping)."""
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, axes)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)

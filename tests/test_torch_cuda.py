@@ -1346,3 +1346,35 @@ def test_mesh_bf16_bound_catches_a_wrong_head_mapping(dev):
               f"logits' largest magnitude {scale:.4g} (bound "
               f"{cs.MESH_BF16_DRIFT})")
         assert ratio > cs.MESH_BF16_DRIFT
+
+
+def test_sharded_training_on_the_card_matches_meshless(dev):
+    """Smoke granite trained at ``data=2,model=2`` on the card, four ranks
+    sharing it over gloo (``torch_train_cases.train_case``, fp32, remat,
+    two AdamW steps with clipping that binds): the first rank's loss,
+    gradient norms, reassembled gradients and updates equal the card's
+    meshless run of the same steps (``torch_train_cases.check``: 1e-5,
+    1e-4 of each leaf's largest magnitude, 1e-3 in L2), and no kernel is
+    launched (the training forward is plain attention)."""
+    import torch_train_cases as tc
+    from repro_torch.launch.mesh import spawn_ranks
+    cfgkw = dict(arch="granite-3-2b", remat=True)
+    batches = tc.train_batches(tc.train_cfg(**cfgkw), 4, 64, seed=0)
+    res = spawn_ranks(tc.train_world, 4,
+                      [("granite", ("data=2,model=2", cfgkw, None, batches,
+                                    0.05), dict(meshless=True))],
+                      device="cuda", timeout=600)
+    r0 = res[0]["granite"]
+    tc.check(r0["cmp"], what="smoke granite data=2,model=2 on the card")
+    assert r0["steps"][0][1] > 0.05
+    for r in res:
+        assert not any(r["granite"]["launches"].values())
+
+
+def test_row_partial_backward_on_the_card(dev):
+    """A row-parallel layer's bf16 partial product (one GEMM with an fp32
+    result, ``layers.row_partial``) differentiates on the card: its
+    product and gradients within bf16 rounding of the fp32 product's."""
+    import torch_train_cases as tc
+    errs = tc.row_partial_grad_errors(dev)
+    assert max(errs.values()) <= 2e-2, errs

@@ -171,7 +171,7 @@ def test_train_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         train.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_retrieval.main(["--steps", "1"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="needs 2 devices but 1 are"):
         train.main(["--smoke", "--host-mesh", "2x1", "--device", "cpu"])
     run = train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
                       "32", "--device", "cpu"])

@@ -8,9 +8,10 @@ A development check on the card, not a substitute for the whole script:
     python3 tools/chip_smoke_tail.py ROOT [PASSES]
     python3 tools/chip_smoke_tail.py ROOT --phase36   # the build, phase 36
     python3 tools/chip_smoke_tail.py ROOT --phase37   # the build, phase 37
+    python3 tools/chip_smoke_tail.py ROOT --phase38   # the build, phase 38
 
-(``--phase33``, ``--phase36`` and ``--phase37`` may be given together:
-the build, then each phase in the order given.)
+(``--phase33``, ``--phase36``, ``--phase37`` and ``--phase38`` may be
+given together: the build, then each phase in the order given.)
 """
 import inspect, os, sys, textwrap
 
@@ -39,7 +40,7 @@ def main(root, passes=1):
 def mesh_phases(root, names):
     """The kernels' build, then mesh phases alone, in order: each a
     function of ``chip_smoke.py`` (``phase_mesh``, ``phase_kinds``,
-    ``phase_modality_mesh``)."""
+    ``phase_modality_mesh``, ``phase_train_mesh``)."""
     sys.path.insert(0, root); sys.path.insert(0, os.path.join(root, "src"))
     import chip_smoke as cs
     import numpy as np
@@ -64,7 +65,7 @@ def mesh_phases(root, names):
 
 
 PHASES = {"--phase33": "phase_mesh", "--phase36": "phase_kinds",
-          "--phase37": "phase_modality_mesh"}
+          "--phase37": "phase_modality_mesh", "--phase38": "phase_train_mesh"}
 
 if __name__ == "__main__":
     if sys.argv[2:3] and sys.argv[2] in PHASES:
